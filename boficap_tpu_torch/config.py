@@ -18,10 +18,8 @@ BASE_KEY = "_BASE_"
 
 # the defaults of the fields build_model reads (the JAX package's
 # config/opts.py DEFAULTS, the transformer-dims fallbacks of its finalize()),
-# with one deliberate difference: the compute dtype defaults to float32, not
-# bfloat16, because the kernels' products run on float32 FFMA either way
-# (bf16 gains nothing until they use the tensor cores); set
-# ``dtype: bfloat16`` to run the kernels in bf16
+# compute dtype included: a file that names no dtype builds a bfloat16 model,
+# as the JAX package does; set ``dtype: float32`` for float32
 DEFAULTS: Dict[str, Any] = dict(
     train_mode="AIC",
     decoder_input_mode="add",
@@ -38,7 +36,7 @@ DEFAULTS: Dict[str, Any] = dict(
     use_box=0,
     max_boxes=100,
     max_length=20,
-    dtype="float32",
+    dtype="bfloat16",
 )
 
 

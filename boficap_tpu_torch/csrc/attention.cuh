@@ -14,6 +14,12 @@
 // bool [B, Lq, Lk] addressed as b * mask_sb + i * mask_sq + j, so a
 // [B, Lk] padding mask is passed with mask_sq = 0.
 //
+// The keys come from up to two sources, read in order: key j < a.rows is
+// row j of source a, the rest are source c's rows.  The windowed decoder
+// layers (pallas_decoder_layer.py::_win_kernel :283) attend over a K/V cache
+// followed by the window's fresh K/V; reading both in place saves copying
+// them into one [B, L + W, D] buffer per layer.
+//
 // Bound on the H100: bytes.  At BoFiCap's sizes (L <= 36, Dh = 64) the
 // score and context work is ~4 * L * L * Dh flops per (sample, head), a few
 // flops per byte of Q/K/V read; the kernel reads each slice once.
@@ -26,16 +32,24 @@ namespace bfc {
 constexpr int ATT_WARPS = 4;
 constexpr float MASK_FILL = -1e9f;
 
+// keys and values of one source: row (b, j) at (b * rows + j) * ld
+template <typename T>
+struct KeySrc {
+  const T* k;
+  const T* v;
+  int ldk, ldv, rows;
+};
+
 template <typename T>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
-    attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                     T* __restrict__ out, int H, int Lq, int Lk, int Dh,
-                     int ldq, int ldk, int ldv, int ldo, long long mask_sb,
-                     long long mask_sq) {
+    attention_kernel(const T* __restrict__ q, int ldq, KeySrc<T> a,
+                     KeySrc<T> c, const uint8_t* __restrict__ mask,
+                     T* __restrict__ out, int ldo, int H, int Lq, int Dh,
+                     long long mask_sb, long long mask_sq) {
   extern __shared__ float smem[];
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
+  const int Lk = a.rows + c.rows;
   const float sqrt_dh = sqrtf(static_cast<float>(Dh));
   const int ks_ld = Dh + 1;  // odd stride: lanes reading key rows j hit distinct banks
   float* Ks = smem;                      // [Lk][Dh + 1]
@@ -46,9 +60,15 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
   const int nthr = blockDim.x;
   for (int e = threadIdx.x; e < Lk * Dh; e += nthr) {
     const int j = e / Dh, d = e % Dh;
-    const size_t row = (size_t)b * Lk + j;
-    Ks[j * ks_ld + d] = Cvt<T>::to_f(k[row * ldk + h * Dh + d]);
-    Vs[j * Dh + d] = Cvt<T>::to_f(v[row * ldv + h * Dh + d]);
+    const bool first = j < a.rows;
+    const T* ks = first ? a.k : c.k;
+    const T* vs = first ? a.v : c.v;
+    const size_t row = first ? (size_t)b * a.rows + j
+                             : (size_t)b * c.rows + (j - a.rows);
+    const size_t ldk = first ? a.ldk : c.ldk;
+    const size_t ldv = first ? a.ldv : c.ldv;
+    Ks[j * ks_ld + d] = Cvt<T>::to_f(ks[row * ldk + h * Dh + d]);
+    Vs[j * Dh + d] = Cvt<T>::to_f(vs[row * ldv + h * Dh + d]);
   }
   for (int e = threadIdx.x; e < Lq * Dh; e += nthr) {
     const int i = e / Dh, d = e % Dh;
@@ -95,12 +115,13 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
   }
 }
 
-// q/k/v point at head 0's column of row-major [B*Lq | B*Lk, ld*] buffers
+// keys a ++ c; q points at head 0's column of a row-major [B*Lq, ldq] buffer
 template <typename T>
-cudaError_t attention(const T* q, int ldq, const T* k, int ldk, const T* v,
-                      int ldv, const uint8_t* mask, long long mask_sb,
-                      long long mask_sq, T* out, int ldo, int B, int H,
-                      int Lq, int Lk, int Dh, cudaStream_t stream) {
+cudaError_t attention2(const T* q, int ldq, KeySrc<T> a, KeySrc<T> c,
+                       const uint8_t* mask, long long mask_sb,
+                       long long mask_sq, T* out, int ldo, int B, int H,
+                       int Lq, int Dh, cudaStream_t stream) {
+  const int Lk = a.rows + c.rows;
   const size_t smem = sizeof(float) * ((size_t)Lk * (Dh + 1) +
                                        (size_t)Lk * Dh + (size_t)Lq * Dh +
                                        (size_t)ATT_WARPS * Lk);
@@ -111,9 +132,20 @@ cudaError_t attention(const T* q, int ldq, const T* k, int ldk, const T* v,
     if (err != cudaSuccess) return err;
   }
   attention_kernel<T><<<B * H, ATT_WARPS * 32, smem, stream>>>(
-      q, k, v, mask, out, H, Lq, Lk, Dh, ldq, ldk, ldv, ldo, mask_sb,
-      mask_sq);
+      q, ldq, a, c, mask, out, ldo, H, Lq, Dh, mask_sb, mask_sq);
   return cudaGetLastError();
+}
+
+// one key source: q/k/v point at head 0's column of row-major
+// [B*Lq | B*Lk, ld*] buffers
+template <typename T>
+cudaError_t attention(const T* q, int ldq, const T* k, int ldk, const T* v,
+                      int ldv, const uint8_t* mask, long long mask_sb,
+                      long long mask_sq, T* out, int ldo, int B, int H,
+                      int Lq, int Lk, int Dh, cudaStream_t stream) {
+  return attention2<T>(q, ldq, KeySrc<T>{k, v, ldk, ldv, Lk},
+                       KeySrc<T>{nullptr, nullptr, 0, 0, 0}, mask, mask_sb,
+                       mask_sq, out, ldo, B, H, Lq, Dh, stream);
 }
 
 }  // namespace bfc

@@ -1,6 +1,10 @@
-// Decoder layer: the port of the TPU kernel
-// boficap_tpu/ops/pallas_decoder_layer.py::_kernel (:124, entered through
-// fused_decoder_layer, pallas_call :638).
+// Decoder layer and decoder stack: the ports of the TPU kernels
+//
+//   bfc_decoder_layer  <- boficap_tpu/ops/pallas_decoder_layer.py::_kernel
+//                         (:124, entered through fused_decoder_layer,
+//                         pallas_call :638)
+//   bfc_decoder_stack  <- boficap_tpu/ops/pallas_stack.py::
+//                         _dec_stack_kernel (:258; pallas_call :362)
 //
 //   n0 = refnorm(x);   q|k|v = n0 @ Wqkv + bqkv           ([D, 3D])
 //   x1 = x + (attention(q, k, v, tgt_mask) @ Wo + bo)
@@ -15,9 +19,15 @@
 // fill on cross-sample blocks are a VMEM layout trick: attention here is
 // per (sample, head) with per-sample masks.
 //
-// Bound on the H100: operations, ~12.0 GFLOP a launch at B = 64, L = 20,
-// R = 36, D = 512, d_ff = 2048, against ~27 MB to move in float32.  As for
-// the encoder layer, the products run on float32 FFMA tiles (gemm.cuh).
+// The stack entry runs that body once per layer in one call, as
+// encoder_layer.cu's does: weights stacked over the layers ([NL, ...]),
+// activations through two ping-pong buffers behind the layer's scratch, the
+// memory and the masks shared by every layer.
+//
+// Bound on the H100: operations, ~12.0 GFLOP a layer at B = 64, L = 20,
+// R = 36, D = 512, d_ff = 2048, against ~27 MB to move in float32 (the
+// stack: six times the work, ~0.1 GB of weights).  As for the encoder,
+// the products run on float32 FFMA tiles (gemm.cuh).
 #include "attention.cuh"
 #include "gemm.cuh"
 #include "refnorm.cuh"
@@ -85,6 +95,55 @@ cudaError_t decoder_layer(const BfcDecoderLayerArgs& a, cudaStream_t s) {
                  false, s);
 }
 
+// a: the layer's arguments with every weight pointer at layer 0 of its
+// [NL, ...] stack, scratch of bfc_decoder_stack_scratch() elements
+template <typename T>
+cudaError_t decoder_stack(const BfcDecoderLayerArgs& a, int NL,
+                          cudaStream_t s) {
+  const size_t D = a.D, F = a.F, M = (size_t)a.B * a.L;
+  auto at = [](const void* p, int l, size_t n) {
+    return static_cast<const void*>(static_cast<const T*>(p) + l * n);
+  };
+  T* xbuf = static_cast<T*>(a.scratch) + M * (8 * D + F)
+            + (size_t)a.B * a.R * 2 * D;
+  const void* cur = a.x;
+  for (int l = 0; l < NL; ++l) {
+    BfcDecoderLayerArgs w = a;
+    w.x = cur;
+    w.s0 = a.s0 + l * D; w.b0 = a.b0 + l * D;
+    w.s1 = a.s1 + l * D; w.b1 = a.b1 + l * D;
+    w.s2 = a.s2 + l * D; w.b2 = a.b2 + l * D;
+    w.wqkv = at(a.wqkv, l, D * 3 * D); w.bqkv = at(a.bqkv, l, 3 * D);
+    w.wo = at(a.wo, l, D * D);         w.bo = at(a.bo, l, D);
+    w.wq2 = at(a.wq2, l, D * D);       w.bq2 = at(a.bq2, l, D);
+    w.wkv2 = at(a.wkv2, l, D * 2 * D); w.bkv2 = at(a.bkv2, l, 2 * D);
+    w.wo2 = at(a.wo2, l, D * D);       w.bo2 = at(a.bo2, l, D);
+    w.w1 = at(a.w1, l, D * F);         w.bf1 = at(a.bf1, l, F);
+    w.w2 = at(a.w2, l, F * D);         w.bf2 = at(a.bf2, l, D);
+    w.out = (l == NL - 1) ? a.out : xbuf + (l % 2) * M * D;
+    BFC_TRY(decoder_layer<T>(w, s));
+    cur = w.out;
+  }
+  return cudaSuccess;
+}
+
+int run(int dtype, int device, const BfcDecoderLayerArgs* a, int NL,
+        bool stack, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a->H <= 0 || a->D % a->H != 0 || a->R <= 0 || NL <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a->B <= 0 || a->L <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == BFC_DTYPE_F32)
+    return static_cast<int>(stack ? decoder_stack<float>(*a, NL, s)
+                                  : decoder_layer<float>(*a, s));
+  if (dtype == BFC_DTYPE_BF16)
+    return static_cast<int>(stack ? decoder_stack<__nv_bfloat16>(*a, NL, s)
+                                  : decoder_layer<__nv_bfloat16>(*a, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace bfc
 
 extern "C" int bfc_decoder_layer_args_size() {
@@ -97,17 +156,21 @@ extern "C" long long bfc_decoder_layer_scratch(int B, int L, int R, int D,
   return (long long)B * L * (8LL * D + F) + (long long)B * R * 2 * D;
 }
 
+// scratch elements (compute dtype) for one stack launch: the layer's, and
+// two [B, L, D] ping-pong buffers
+extern "C" long long bfc_decoder_stack_scratch(int B, int L, int R, int D,
+                                               int F) {
+  return bfc_decoder_layer_scratch(B, L, R, D, F) + 2LL * B * L * D;
+}
+
 extern "C" int bfc_decoder_layer(int dtype, int device,
                                  const BfcDecoderLayerArgs* a, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (a->H <= 0 || a->D % a->H != 0 || a->R <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (a->B <= 0 || a->L <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == BFC_DTYPE_F32)
-    return static_cast<int>(bfc::decoder_layer<float>(*a, s));
-  if (dtype == BFC_DTYPE_BF16)
-    return static_cast<int>(bfc::decoder_layer<__nv_bfloat16>(*a, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bfc::run(dtype, device, a, 1, false, stream);
+}
+
+// every layer of the stack in one call; a's weights are [NL, ...] stacks
+extern "C" int bfc_decoder_stack(int dtype, int device,
+                                 const BfcDecoderLayerArgs* a, int NL,
+                                 void* stream) {
+  return bfc::run(dtype, device, a, NL, true, stream);
 }

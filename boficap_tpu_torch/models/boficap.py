@@ -1,11 +1,14 @@
-"""BoFiCap, inference half for the NA role: the port of the JAX package's
-``models/boficap.py`` (reference TransformerModel.py:97-175, 386-587).
+"""BoFiCap, inference half for the NA and SA roles: the port of the JAX
+package's ``models/boficap.py`` (reference TransformerModel.py:97-175,
+386-587).
 
-Covers what the NA "bound then fill" decode needs: the parameters every
-train_mode's setup creates, ``encode``, the cached bounding step (the N_len
-== 1 path every shipped config uses) and the general ``bound_step``, the
-add | single | gate decoder-input mix, ``decode_na`` and the generator.
-Training paths, SA/AR decoding and PB_pad come in later slices.
+Covers what the NA "bound then fill" and the SA per-phrase decodes need:
+the parameters every train_mode's setup creates, ``encode``, the cached
+bounding step (the N_len == 1 path every shipped config uses) and the
+general ``bound_step``, the add | single | gate decoder-input mix (over the
+whole frame, or over a window of slots for the SA fill), ``decode_na``,
+``decode_sa`` and the generator.  Training paths, AR decoding and PB_pad
+come in later slices.
 """
 
 from __future__ import annotations
@@ -143,21 +146,35 @@ class BoFiCap(nn.Module):
         return [getattr(self, f"lp{i}") for i in range(self.n_lp)]
 
     def packed_encoder(self):
-        from ..ops.decoder_layer import pack_encoder_weights
+        """The encoder's weights for the kernels (``ops.stack.StackPack``)."""
+        from ..ops.stack import pack_encoder_stack
         key = ("enc",)
         if key not in self._packed:
             with torch.no_grad():
-                self._packed[key] = pack_encoder_weights(self.encoder,
-                                                         self.dtype)
+                self._packed[key] = pack_encoder_stack(self.encoder,
+                                                       self.dtype)
         return self._packed[key]
 
     def packed_decoder(self, role: str):
-        from ..ops.decoder_layer import pack_decoder_weights
+        """``role``'s decoder stack's weights for the kernels
+        (``ops.stack.StackPack``)."""
+        from ..ops.stack import pack_decoder_stack
         key = ("dec", role)
         if key not in self._packed:
             with torch.no_grad():
-                self._packed[key] = pack_decoder_weights(self._decoder(role),
-                                                         self.dtype)
+                self._packed[key] = pack_decoder_stack(self._decoder(role),
+                                                       self.dtype)
+        return self._packed[key]
+
+    def packed_window(self, role: str):
+        """The windowed SA fill's weights of ``role``'s decoder stack
+        (``ops.stack.WindowPack``)."""
+        from ..ops.stack import pack_window_weights
+        key = ("win", role)
+        if key not in self._packed:
+            with torch.no_grad():
+                self._packed[key] = pack_window_weights(self._decoder(role),
+                                                        self.dtype)
         return self._packed[key]
 
     def packed_head(self):
@@ -291,6 +308,21 @@ class BoFiCap(nn.Module):
     def _mix_inputs(self, word_seq, syn_seq, gate: str):
         return self.posenc(self._mix_embed(word_seq, syn_seq, gate))
 
+    def mix_inputs_window(self, word_seq, syn_seq, pos, gate: str):
+        """``_mix_inputs`` for a window of decoder slots: embeds only the
+        [B, W] window's tokens and adds the positional rows of their
+        absolute positions ``pos`` [B, W].  The JAX package selects those
+        rows with a one-hot product (a TPU gather workaround); indexing
+        ``pe`` gives the same values exactly."""
+        x = self._mix_embed(word_seq, syn_seq, gate)
+        return x + self.posenc.pe[pos].to(x.dtype)
+
+    def decode_sa(self, word_seq, syn_seq, memory, src_mask, tgt_mask):
+        """SA fill: copied-word + syn input, blockwise mask. [B, L] ->
+        [B, L, d]."""
+        return self._decoder("SA")(self._mix_inputs(word_seq, syn_seq, "sa"),
+                                   memory, src_mask, tgt_mask)
+
     def na_inputs(self, syn_seq):
         """Embedded NA fill inputs: BOS words + the planned syn ids."""
         word_seq = torch.full_like(syn_seq, BOS)
@@ -322,6 +354,6 @@ def build_model(cfg, vocab_size: int, device=None) -> BoFiCap:
         max_length=cfg.get("max_length", 20) or 20,
         train_mode=cfg.get("train_mode", "AIC"),
         decoder_input_mode=cfg.get("decoder_input_mode", "add"),
-        dtype=DTYPES[cfg.get("dtype", "float32")],
+        dtype=DTYPES[cfg.get("dtype", "bfloat16")],
         device=resolve_device(device),
     )

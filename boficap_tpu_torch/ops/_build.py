@@ -32,18 +32,23 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # the entry points of each kernel library (one per csrc/*.cu): argument
-# types and return type; the layer entries take a pointer to their argument
-# struct (ops/decoder_layer.py mirrors it)
+# types and return type; the layer and stack entries take a pointer to
+# their argument struct (ops/decoder_layer.py and ops/stack.py mirror it),
+# the encoder and decoder stacks also the layer count
 SIGNATURES = {
     "encoder_layer": {
         "bfc_encoder_layer": ([_I, _I, _P, _P], _I),
         "bfc_encoder_layer_scratch": ([_I, _I, _I, _I], _L),
+        "bfc_encoder_stack": ([_I, _I, _P, _I, _P], _I),
+        "bfc_encoder_stack_scratch": ([_I, _I, _I, _I], _L),
         "bfc_encoder_layer_args_size": ([], _I),
         "bfc_error_string": ([_I], ctypes.c_char_p),
     },
     "decoder_layer": {
         "bfc_decoder_layer": ([_I, _I, _P, _P], _I),
         "bfc_decoder_layer_scratch": ([_I, _I, _I, _I, _I], _L),
+        "bfc_decoder_stack": ([_I, _I, _P, _I, _P], _I),
+        "bfc_decoder_stack_scratch": ([_I, _I, _I, _I, _I], _L),
         "bfc_decoder_layer_args_size": ([], _I),
         "bfc_error_string": ([_I], ctypes.c_char_p),
     },
@@ -51,6 +56,19 @@ SIGNATURES = {
         "bfc_greedy_head": ([_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                              _P, _P, _P], _I),
         "bfc_greedy_head_scratch": ([_I, _I], _L),
+        "bfc_error_string": ([_I], ctypes.c_char_p),
+    },
+    "window_layer": {
+        "bfc_window_layer": ([_I, _I, _P, _P], _I),
+        "bfc_window_layer_scratch": ([_I, _I, _I, _I], _L),
+        "bfc_window_layer_args_size": ([], _I),
+        "bfc_error_string": ([_I], ctypes.c_char_p),
+    },
+    "window_stack": {
+        "bfc_window_stack": ([_I, _I, _P, _P], _I),
+        "bfc_window_wide_stack": ([_I, _I, _P, _P], _I),
+        "bfc_window_stack_scratch": ([_I, _I, _I, _I], _L),
+        "bfc_window_stack_args_size": ([], _I),
         "bfc_error_string": ([_I], ctypes.c_char_p),
     },
 }

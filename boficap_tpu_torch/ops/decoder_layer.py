@@ -1,20 +1,25 @@
-"""Fused inference layers of the NA path, on hand-written CUDA kernels: the
-port of the JAX package's ``ops/pallas_decoder_layer.py``.
+"""Fused inference layers on hand-written CUDA kernels: the port of the JAX
+package's ``ops/pallas_decoder_layer.py``.
 
-Three wrappers replace the three TPU kernels on the NA serving path:
+Four wrappers replace the four TPU kernels of that file:
 
-  ``fused_encoder_layer``  <- ``_enc_kernel``  (pallas_decoder_layer.py:500)
-  ``fused_decoder_layer``  <- ``_kernel``      (pallas_decoder_layer.py:124)
-  ``fused_greedy_head``    <- ``_head_kernel`` (pallas_decoder_layer.py:671)
+  ``fused_encoder_layer``        <- ``_enc_kernel``  (pallas_decoder_layer.py:500)
+  ``fused_decoder_layer``        <- ``_kernel``      (pallas_decoder_layer.py:124)
+  ``fused_greedy_head``          <- ``_head_kernel`` (pallas_decoder_layer.py:671)
+  ``fused_window_decoder_layer`` <- ``_win_kernel``  (pallas_decoder_layer.py:283)
 
 On a CUDA tensor a wrapper makes one call into its kernel library
 (``csrc/encoder_layer.cu``, ``csrc/decoder_layer.cu``,
-``csrc/greedy_head.cu``), which launches the port's own kernels, built
-from the building blocks ``csrc/{refnorm,gemm,attention}.cuh``, on the
-current stream; around it the wrapper runs nothing but ``torch.empty`` for
-outputs and scratch, and it raises on the call's CUDA error code.  On a CPU tensor it runs its plain PyTorch twin (``*_plain``,
-same module), which repeats the kernel's arithmetic and rounding.  Any
-other device raises.  Each wrapper counts its CUDA calls in ``.launches``.
+``csrc/greedy_head.cu``, ``csrc/window_layer.cu``), which launches the
+port's own kernels, built from the building blocks
+``csrc/{refnorm,gemm,attention,window}.cuh``, on the current stream; around
+it the wrapper runs nothing but ``torch.empty`` for outputs and scratch,
+and it raises on the call's CUDA error code.  On a CPU tensor it runs its
+plain PyTorch twin (``*_plain``, same module), which repeats the kernel's
+arithmetic and rounding.  Any other device raises.  Each wrapper counts
+its CUDA calls in ``.launches`` (``COUNTED`` lists them; ``ops``
+gathers every module's).  The whole-stack kernels, which loop these layer
+bodies over all layers in one call, live in ``ops/stack.py``.
 
 Layouts are the JAX package's: activations [B, L, D] with heads as column
 slices ``h*Dh:(h+1)*Dh``; weights [in, out]; bool masks, True = attend.
@@ -110,20 +115,6 @@ def pack_layer_weights(layer, dtype) -> Dict[str, torch.Tensor]:
     return out
 
 
-def pack_encoder_weights(encoder, dtype):
-    """Encoder -> (per-layer packed weights, final-norm (scale, bias))."""
-    fn = encoder.RefLayerNorm_0
-    return ([pack_encoder_layer(layer, dtype) for layer in encoder.layers()],
-            (fn.scale.detach().float(), fn.bias.detach().float()))
-
-
-def pack_decoder_weights(decoder, dtype):
-    """Decoder -> (per-layer packed weights, final-norm (scale, bias))."""
-    fn = decoder.norm
-    return ([pack_layer_weights(layer, dtype) for layer in decoder.layers()],
-            (fn.scale.detach().float(), fn.bias.detach().float()))
-
-
 def pack_head_weights(proj, dtype):
     """Generator projection -> (W [D, V], b [V]) in the compute dtype."""
     return (_kernel_of(proj, dtype),
@@ -213,6 +204,44 @@ def greedy_head_plain(h, w, b, pad_id: int = 0):
     return ids, tok, ent, lp[..., pad_id]
 
 
+def window_layer_plain(x, k_cache, v_cache, k2, v2, tgt_mask, src_mask, w,
+                       num_heads: int):
+    """One windowed decoder layer: x [B,W,D]; self-attention keys are the
+    cache [B,L,D] followed by the window's fresh K/V (``k_cache=None``: the
+    window's alone, as the wide stack round); cross K/V k2/v2 [B,R,D]
+    pre-projected; bool tgt_mask [B,W,L+W] (cache columns, then window
+    columns), src_mask [B,R] or [B,W,R].  Returns (x, k_new, v_new), the
+    last two [B,W,D]."""
+    D = x.shape[-1]
+    n0 = refnorm_plain(x, w["s0"], w["b0"])
+    q, k, v = linear_plain(n0, w["wqkv"], w["bqkv"]).split(D, dim=-1)
+    if k_cache is None:
+        keys, vals = k, v
+    else:
+        keys, vals = torch.cat([k_cache, k], 1), torch.cat([v_cache, v], 1)
+    x = linear_plain(attention_plain(q, keys, vals, tgt_mask, num_heads),
+                     w["wo"], w["bo"], res=x)
+    n1 = refnorm_plain(x, w["s1"], w["b1"])
+    q2 = linear_plain(n1, w["wq2"], w["bq2"])
+    x = linear_plain(attention_plain(q2, k2, v2, src_mask, num_heads),
+                     w["wo2"], w["bo2"], res=x)
+    n2 = refnorm_plain(x, w["s2"], w["b2"])
+    f = linear_plain(n2, w["w1"], w["bf1"], relu=True)
+    return (linear_plain(f, w["w2"], w["bf2"], res=x), k.contiguous(),
+            v.contiguous())
+
+
+def scatter_window(cache, new, w_start) -> None:
+    """In place: rows w_start[b] .. w_start[b] + W - 1 of cache [B,L,D]
+    take new [B,W,D]; every other row is left as it was."""
+    B, L, D = cache.shape
+    W = new.shape[1]
+    rows = (torch.arange(B, device=cache.device)[:, None] * L
+            + w_start.long()[:, None]
+            + torch.arange(W, device=cache.device)[None, :]).reshape(-1)
+    cache.view(B * L, D).index_copy_(0, rows, new.reshape(B * W, D))
+
+
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
@@ -289,19 +318,32 @@ class _DecoderLayerArgs(ctypes.Structure):
                 + _fields("B L R D F H", _I))
 
 
-def _launch_layer(entry: str, args: ctypes.Structure, x: torch.Tensor):
-    """Run one layer entry of the kernel libraries on x's device and current
+class _WindowLayerArgs(ctypes.Structure):
+    """Mirror of csrc/window_layer.cu ``BfcWindowLayerArgs``."""
+    _fields_ = (_fields("x k_cache v_cache k2 v2 tgt_mask", _P)
+                + _fields("tgt_sb tgt_sq", _LL) + _fields("src_mask", _P)
+                + _fields("src_sb src_sq", _LL)
+                + _fields("s0 b0 s1 b1 s2 b2 wqkv bqkv wo bo wq2 bq2 wo2 bo2 "
+                          "w1 bf1 w2 bf2 scratch out k_new v_new", _P)
+                + _fields("B W L R D F H", _I))
+
+
+def _launch_layer(entry: str, args: ctypes.Structure, x: torch.Tensor,
+                  lib_name: Optional[str] = None, extra=()):
+    """Run one layer or stack entry of the kernel libraries (``extra``: the
+    arguments between its struct and its stream) on x's device and current
     stream; raises on a struct-layout mismatch or a CUDA error."""
     k = _kernels()
-    lib = getattr(k, entry)
-    size = getattr(lib, f"bfc_{entry}_args_size")()
+    lib = getattr(k, lib_name or entry)
+    size = getattr(lib, f"bfc_{lib_name or entry}_args_size")()
     if size != ctypes.sizeof(args):
         raise RuntimeError(f"{entry}: argument struct is {size} bytes in C, "
                            f"{ctypes.sizeof(args)} in Python")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     k.check(getattr(lib, f"bfc_{entry}")(_DTYPE_CODE[x.dtype],
                                          x.device.index,
-                                         ctypes.byref(args), stream), entry)
+                                         ctypes.byref(args), *extra, stream),
+            entry)
 
 
 def _pointers(w: Dict[str, torch.Tensor], keys) -> Dict[str, int]:
@@ -312,6 +354,73 @@ _ENC_KEYS = ("s0", "b0", "s1", "b1", "wqkv", "bqkv", "wo", "bo", "w1", "bf1",
              "w2", "bf2")
 _DEC_KEYS = _ENC_KEYS + ("s2", "b2", "wq2", "bq2", "wkv2", "bkv2", "wo2",
                          "bo2")
+_WIN_KEYS = _ENC_KEYS + ("s2", "b2", "wq2", "bq2", "wo2", "bo2")
+
+
+def weight_shapes(keys, D: int, F: int, lead=()) -> Dict[str, tuple]:
+    """The shapes of the packed weights ``keys``, each behind ``lead``
+    (``(NL,)`` for a stacked pack)."""
+    lead = tuple(lead)
+    shapes = {"s0": (D,), "b0": (D,), "wqkv": (D, 3 * D), "bqkv": (3 * D,),
+              "wo": (D, D), "bo": (D,), "s1": (D,), "b1": (D,),
+              "wq2": (D, D), "bq2": (D,), "wkv2": (D, 2 * D),
+              "bkv2": (2 * D,), "wo2": (D, D), "bo2": (D,), "s2": (D,),
+              "b2": (D,), "w1": (D, F), "bf1": (F,), "w2": (F, D),
+              "bf2": (D,)}
+    return {k: lead + shapes[k] for k in keys}
+
+
+def encoder_call(entry: str, x, mask, w, num_heads: int,
+                 NL: Optional[int] = None):
+    """Check an encoder layer's operands and run ``entry`` of
+    csrc/encoder_layer.cu: the layer (w per layer) or, with ``NL``, the
+    whole stack (w stacked, [NL, ...]).  Returns the output [B,R,D]."""
+    B, R, D = x.shape
+    F = w["w1"].shape[-1]
+    dev, dt = x.device, x.dtype
+    _require(x, "x", dt, (B, R, D), dev)
+    msb, msq = _mask_strides(mask, B, R, R, dev, "mask")
+    lead = () if NL is None else (NL,)
+    _check_weights(w, weight_shapes(_ENC_KEYS, D, F, lead), dt, dev)
+    lib = _kernels().encoder_layer
+    n_scratch = getattr(lib, f"bfc_{entry}_scratch")(B, R, D, F)
+    scratch = torch.empty(n_scratch, dtype=dt, device=dev)
+    out = torch.empty_like(x)
+    args = _EncoderLayerArgs(
+        x=x.data_ptr(), mask=mask.data_ptr(), mask_sb=msb, mask_sq=msq,
+        scratch=scratch.data_ptr(), out=out.data_ptr(),
+        B=B, R=R, D=D, F=F, H=num_heads, **_pointers(w, _ENC_KEYS))
+    _launch_layer(entry, args, x, "encoder_layer", lead)
+    return out
+
+
+def decoder_call(entry: str, x, memory, tgt_mask, src_mask, w,
+                 num_heads: int, NL: Optional[int] = None):
+    """Check a decoder layer's operands and run ``entry`` of
+    csrc/decoder_layer.cu: the layer (w per layer) or, with ``NL``, the
+    whole stack (w stacked, [NL, ...]).  Returns the output [B,L,D]."""
+    B, L, D = x.shape
+    R = memory.shape[1]
+    F = w["w1"].shape[-1]
+    dev, dt = x.device, x.dtype
+    _require(x, "x", dt, (B, L, D), dev)
+    _require(memory, "memory", dt, (B, R, D), dev)
+    tsb, tsq = _mask_strides(tgt_mask, B, L, L, dev, "tgt_mask")
+    ssb, ssq = _mask_strides(src_mask, B, L, R, dev, "src_mask")
+    lead = () if NL is None else (NL,)
+    _check_weights(w, weight_shapes(_DEC_KEYS, D, F, lead), dt, dev)
+    lib = _kernels().decoder_layer
+    n_scratch = getattr(lib, f"bfc_{entry}_scratch")(B, L, R, D, F)
+    scratch = torch.empty(n_scratch, dtype=dt, device=dev)
+    out = torch.empty_like(x)
+    args = _DecoderLayerArgs(
+        x=x.data_ptr(), memory=memory.data_ptr(),
+        tgt_mask=tgt_mask.data_ptr(), tgt_sb=tsb, tgt_sq=tsq,
+        src_mask=src_mask.data_ptr(), src_sb=ssb, src_sq=ssq,
+        scratch=scratch.data_ptr(), out=out.data_ptr(),
+        B=B, L=L, R=R, D=D, F=F, H=num_heads, **_pointers(w, _DEC_KEYS))
+    _launch_layer(entry, args, x, "decoder_layer", lead)
+    return out
 
 
 def fused_encoder_layer(x, mask, w, num_heads: int):
@@ -320,23 +429,7 @@ def fused_encoder_layer(x, mask, w, num_heads: int):
     of csrc/encoder_layer.cu (2 refnorm, 4 gemm, 1 attention launches)."""
     if not _route(x):
         return encoder_layer_plain(x, mask, w, num_heads)
-    B, R, D = x.shape
-    F = w["w1"].shape[1]
-    dev, dt = x.device, x.dtype
-    _require(x, "x", dt, (B, R, D), dev)
-    msb, msq = _mask_strides(mask, B, R, R, dev, "mask")
-    _check_weights(w, {"s0": (D,), "b0": (D,), "wqkv": (D, 3 * D),
-                       "bqkv": (3 * D,), "wo": (D, D), "bo": (D,),
-                       "s1": (D,), "b1": (D,), "w1": (D, F), "bf1": (F,),
-                       "w2": (F, D), "bf2": (D,)}, dt, dev)
-    n_scratch = _kernels().encoder_layer.bfc_encoder_layer_scratch(B, R, D, F)
-    scratch = torch.empty(n_scratch, dtype=dt, device=dev)
-    out = torch.empty_like(x)
-    args = _EncoderLayerArgs(
-        x=x.data_ptr(), mask=mask.data_ptr(), mask_sb=msb, mask_sq=msq,
-        scratch=scratch.data_ptr(), out=out.data_ptr(),
-        B=B, R=R, D=D, F=F, H=num_heads, **_pointers(w, _ENC_KEYS))
-    _launch_layer("encoder_layer", args, x)
+    out = encoder_call("encoder_layer", x, mask, w, num_heads)
     fused_encoder_layer.launches += 1
     return out
 
@@ -349,31 +442,8 @@ def fused_decoder_layer(x, memory, tgt_mask, src_mask, w, num_heads: int):
     if not _route(x):
         return decoder_layer_plain(x, memory, tgt_mask, src_mask, w,
                                    num_heads)
-    B, L, D = x.shape
-    R = memory.shape[1]
-    F = w["w1"].shape[1]
-    dev, dt = x.device, x.dtype
-    _require(x, "x", dt, (B, L, D), dev)
-    _require(memory, "memory", dt, (B, R, D), dev)
-    tsb, tsq = _mask_strides(tgt_mask, B, L, L, dev, "tgt_mask")
-    ssb, ssq = _mask_strides(src_mask, B, L, R, dev, "src_mask")
-    _check_weights(w, {"s0": (D,), "b0": (D,), "wqkv": (D, 3 * D),
-                       "bqkv": (3 * D,), "wo": (D, D), "bo": (D,),
-                       "s1": (D,), "b1": (D,), "wq2": (D, D), "bq2": (D,),
-                       "wkv2": (D, 2 * D), "bkv2": (2 * D,), "wo2": (D, D),
-                       "bo2": (D,), "s2": (D,), "b2": (D,), "w1": (D, F),
-                       "bf1": (F,), "w2": (F, D), "bf2": (D,)}, dt, dev)
-    n_scratch = _kernels().decoder_layer.bfc_decoder_layer_scratch(
-        B, L, R, D, F)
-    scratch = torch.empty(n_scratch, dtype=dt, device=dev)
-    out = torch.empty_like(x)
-    args = _DecoderLayerArgs(
-        x=x.data_ptr(), memory=memory.data_ptr(),
-        tgt_mask=tgt_mask.data_ptr(), tgt_sb=tsb, tgt_sq=tsq,
-        src_mask=src_mask.data_ptr(), src_sb=ssb, src_sq=ssq,
-        scratch=scratch.data_ptr(), out=out.data_ptr(),
-        B=B, L=L, R=R, D=D, F=F, H=num_heads, **_pointers(w, _DEC_KEYS))
-    _launch_layer("decoder_layer", args, x)
+    out = decoder_call("decoder_layer", x, memory, tgt_mask, src_mask, w,
+                       num_heads)
     fused_decoder_layer.launches += 1
     return out
 
@@ -410,34 +480,72 @@ def fused_greedy_head(h, w, b, pad_id: int = 0):
     return ids, tok, ent, lpp
 
 
+def fused_window_decoder_layer(x_win, k_cache, v_cache, k2, v2, tgt_mask,
+                               src_mask, w, num_heads: int):
+    """One windowed decoder layer, inference: x_win [B,W,D], the layer's
+    caches k_cache/v_cache [B,L,D], pre-projected cross K/V k2/v2 [B,R,D],
+    bool tgt_mask [B,W,L+W] (cache columns, then window columns), bool
+    src_mask [B,R] or [B,W,R], w one of ``pack_window_weights(...).layers``
+    (ops/stack.py).  Returns
+    (x [B,W,D], k_new, v_new [B,W,D]); the caller scatters the fresh K/V
+    into the caches.  On CUDA: one call of csrc/window_layer.cu (3 refnorm,
+    6 gemm, 2 attention, 2 row-copy launches)."""
+    if not _route(x_win):
+        return window_layer_plain(x_win, k_cache, v_cache, k2, v2, tgt_mask,
+                                  src_mask, w, num_heads)
+    B, W, D = x_win.shape
+    L = k_cache.shape[1]
+    R = k2.shape[1]
+    F = w["w1"].shape[1]
+    dev, dt = x_win.device, x_win.dtype
+    _require(x_win, "x_win", dt, (B, W, D), dev)
+    for name, t, rows in (("k_cache", k_cache, L), ("v_cache", v_cache, L),
+                          ("k2", k2, R), ("v2", v2, R)):
+        _require(t, name, dt, (B, rows, D), dev)
+    tsb, tsq = _mask_strides(tgt_mask, B, W, L + W, dev, "tgt_mask")
+    ssb, ssq = _mask_strides(src_mask, B, W, R, dev, "src_mask")
+    _check_weights(w, weight_shapes(_WIN_KEYS, D, F), dt, dev)
+    n_scratch = _kernels().window_layer.bfc_window_layer_scratch(B, W, D, F)
+    scratch = torch.empty(n_scratch, dtype=dt, device=dev)
+    out = torch.empty_like(x_win)
+    k_new = torch.empty_like(x_win)
+    v_new = torch.empty_like(x_win)
+    args = _WindowLayerArgs(
+        x=x_win.data_ptr(), k_cache=k_cache.data_ptr(),
+        v_cache=v_cache.data_ptr(), k2=k2.data_ptr(), v2=v2.data_ptr(),
+        tgt_mask=tgt_mask.data_ptr(), tgt_sb=tsb, tgt_sq=tsq,
+        src_mask=src_mask.data_ptr(), src_sb=ssb, src_sq=ssq,
+        scratch=scratch.data_ptr(), out=out.data_ptr(),
+        k_new=k_new.data_ptr(), v_new=v_new.data_ptr(),
+        B=B, W=W, L=L, R=R, D=D, F=F, H=num_heads, **_pointers(w, _WIN_KEYS))
+    _launch_layer("window_layer", args, x_win)
+    fused_window_decoder_layer.launches += 1
+    return out, k_new, v_new
+
+
 fused_encoder_layer.launches = 0
 fused_decoder_layer.launches = 0
 fused_greedy_head.launches = 0
+fused_window_decoder_layer.launches = 0
 
-# the counted wrappers, by kernel name (chip_smoke.py reads and resets them)
+# this module's counted wrappers, by kernel name (``ops.launch_counts``)
 COUNTED = {"encoder_layer": fused_encoder_layer,
            "decoder_layer": fused_decoder_layer,
-           "greedy_head": fused_greedy_head}
-
-
-def reset_launch_counts() -> None:
-    for fn in COUNTED.values():
-        fn.launches = 0
-
-
-def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in COUNTED.items()}
+           "greedy_head": fused_greedy_head,
+           "window_layer": fused_window_decoder_layer}
 
 
 # ---------------------------------------------------------------------------
-# stacks (the JAX package's fused_encoder_forward / fused_decoder_forward)
+# stacks of layer launches (the JAX package's fused_encoder_forward /
+# fused_decoder_forward; the one-call stacks are in ops/stack.py)
 # ---------------------------------------------------------------------------
 
 def fused_encoder_forward(x, src_mask: Optional[torch.Tensor],
                           packed: List[Dict[str, torch.Tensor]], final_norm,
                           num_heads: int):
-    """Encoder stack: one ``fused_encoder_layer`` per layer, then the final
-    RefLayerNorm (plain torch; it lies outside the TPU kernel too)."""
+    """Encoder stack: one ``fused_encoder_layer`` per layer (``packed``: the
+    per-layer weights), then the final RefLayerNorm (plain torch; it lies
+    outside the TPU kernel too)."""
     B, R, _ = x.shape
     if src_mask is None:
         src_mask = torch.ones((B, R), dtype=torch.bool, device=x.device)
@@ -458,3 +566,39 @@ def fused_decoder_forward(x, memory, tgt_mask, src_mask, packed, final_norm,
     for w in packed:
         x = fused_decoder_layer(x, memory, tgt_mask, src_mask, w, num_heads)
     return refnorm_plain(x, *final_norm)
+
+
+# ---------------------------------------------------------------------------
+# windowed SA fill (the JAX package's project_cross_kv /
+# fused_window_decoder_forward)
+# ---------------------------------------------------------------------------
+
+def project_cross_kv(wkv2, bkv2, memory):
+    """Every layer's cross-attention K/V of the memory, once per decode (they
+    do not change across the SA rounds): wkv2 [NL,D,2D], bkv2 [NL,2D],
+    memory [B,R,D] -> (k2s, v2s) [NL,B,R,D].  The product sums in float32
+    and rounds to the compute dtype, then the bias adds, as the JAX einsum
+    outside the kernels does."""
+    D = memory.shape[-1]
+    kv = torch.matmul(memory.float()[None], wkv2.float()[:, None])
+    kv = kv.to(memory.dtype) + bkv2[:, None, None, :]
+    return kv[..., :D].contiguous(), kv[..., D:].contiguous()
+
+
+def fused_window_decoder_forward(x_win, w_start, k_caches, v_caches, k2s,
+                                 v2s, tgt_mask, src_mask, packed, final_norm,
+                                 num_heads: int):
+    """Windowed decoder stack, one ``fused_window_decoder_layer`` per layer,
+    then the final RefLayerNorm on the window.  k_caches/v_caches
+    [NL,B,L,D] are updated in place: after each layer its fresh K/V are
+    written at rows w_start[b] .. w_start[b] + W - 1 (a torch index write,
+    as the JAX package scatters in XLA between launches).  Returns
+    (h_win, k_caches, v_caches)."""
+    tgt_mask, src_mask = tgt_mask.contiguous(), src_mask.contiguous()
+    for i, w in enumerate(packed):
+        x_win, kn, vn = fused_window_decoder_layer(
+            x_win, k_caches[i], v_caches[i], k2s[i], v2s[i], tgt_mask,
+            src_mask, w, num_heads)
+        scatter_window(k_caches[i], kn, w_start)
+        scatter_window(v_caches[i], vn, w_start)
+    return refnorm_plain(x_win, *final_norm), k_caches, v_caches

@@ -1,5 +1,6 @@
-"""Serving layer: request batching over the NA bound-then-fill decode (the
-port of the JAX package's ``serve.py::CaptionServer``).
+"""Serving layer: request batching over the NA bound-then-fill decode and
+the SA per-phrase decode (the port of the JAX package's
+``serve.py::CaptionServer``).
 
 Requests (precomputed region features, the reference's input contract) are
 queued, coalesced into batches and padded up to a power-of-two SIZE BUCKET.
@@ -10,15 +11,18 @@ its batchmates.  Padding rows keep one live region (``am[n:, 0] = 1``) so
 their masks stay sane.
 
 The weights are resident on the device once (the model is moved at
-construction, never per request).  The decode runs ``fused_encode`` and
-``na_decode(fused_fill=True)``: on the card through the hand-written
-kernels, on the CPU through their plain twins.  With ``pipeline=True`` the
+construction, never per request).  The decode runs ``fused_encode``, then
+``na_decode(fused_fill=True)`` for mode 'NAIC' or
+``sa_decode(fused_fill=True)`` for mode 'SAIC': on the card through the
+hand-written kernels, routed as the JAX package routes them (the
+whole-stack kernels for a bf16 model at B <= 128), on the CPU through
+their plain twins.  With ``pipeline=True`` the
 worker thread uploads and launches a batch while a completion thread waits
 for the previous batch's result, so the next upload overlaps the decode in
 flight.
 
-Only the 'NAIC' mode is ported; 'SAIC' and 'AIC' come with their decoders.
-The JAX server's ``route='auto'`` (timing plain against fused programs)
+Modes 'NAIC' and 'SAIC' are served; 'AIC' comes with the AR decoder.  The
+JAX server's ``route='auto'`` (timing plain against fused programs)
 and ``mesh`` (data-parallel serving) are not ported.
 """
 
@@ -80,8 +84,9 @@ class CaptionServer:
             raise ValueError(
                 f"mode={mode} needs a '{role}' decoder role; train_mode="
                 f"{model.train_mode} has {sorted(roles)}")
-        if mode != "NAIC":
-            raise NotImplementedError(f"mode={mode}: only NAIC is ported")
+        if mode == "AIC":
+            raise NotImplementedError("mode=AIC: the AR decoder is not "
+                                      "ported yet (NAIC and SAIC are)")
         if feature_dtype not in DTYPES:
             raise ValueError(f"feature_dtype must be one of "
                              f"{sorted(DTYPES)}")
@@ -132,8 +137,9 @@ class CaptionServer:
     @torch.no_grad()
     def _decode(self, att: torch.Tensor, am: torch.Tensor):
         memory = bf.fused_encode(self.model, att, am)
-        return bf.na_decode(self.model, memory, am.bool(),
-                            max_steps=self.max_steps, fused_fill=True)
+        decode = bf.sa_decode if self.mode == "SAIC" else bf.na_decode
+        return decode(self.model, memory, am.bool(), max_steps=self.max_steps,
+                      fused_fill=True)
 
     def _bind_thread(self):
         if self.device.type == "cuda":

@@ -4,7 +4,7 @@
     python -m boficap_tpu_torch.serve_http --checkpoint model.pt \
         --vocab vocab.json --port 8787
     python -m boficap_tpu_torch.serve_http --random_init --seed 0 \
-        --cfg configs/uic_sd.yml --port 8787
+        --cfg configs/uic_sd.yml --port 8787 --mode SAIC
 
 POST /caption with a JSON body {"features": [[...2048 floats...] x R]}
 returns {"caption": "...", "seq": [...], "batch": n}.  POST /caption_bin
@@ -15,7 +15,8 @@ returns latency percentiles; POST /shutdown stops the server.
 ``--checkpoint`` is a file written by ``convert.save_checkpoint``;
 ``--vocab`` a JSON object {id: word}.  ``--random_init`` builds random
 weights from ``--seed`` (and, without ``--vocab``, a synthetic vocabulary
-of ``--vocab_size`` words ``w4 ...``).
+of ``--vocab_size`` words ``w4 ...``).  ``--mode`` picks the decode:
+NAIC (bound then fill, the default) or SAIC (per-phrase).
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ def parse_args(argv=None):
                    help="JSON {id: word}; required with --checkpoint")
     p.add_argument("--vocab_size", type=int, default=9487,
                    help="synthetic vocabulary size for --random_init")
+    p.add_argument("--mode", type=str, default="NAIC",
+                   choices=["NAIC", "SAIC"])
     p.add_argument("--port", type=int, default=8787)
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--max_batch", type=int, default=64)
@@ -83,7 +86,7 @@ def build_server(args):
     else:
         ix_to_word = {str(i): f"w{i}" for i in range(4, model.tgt_vocab)}
     return CaptionServer(
-        model, ix_to_word, max_batch=args.max_batch,
+        model, ix_to_word, mode=args.mode, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, max_regions=args.max_regions or None,
         max_steps=args.max_steps or None, warm=bool(args.warm),
         feature_dtype=args.feature_dtype, pipeline=bool(args.pipeline),
@@ -159,7 +162,7 @@ def main(argv=None):
     args = parse_args(argv)
     srv = build_server(args)
     httpd = make_http_server(srv, args.host, args.port)
-    print(f"serving NAIC captions on http://{args.host}:"
+    print(f"serving {args.mode} captions on http://{args.host}:"
           f"{httpd.server_address[1]} (POST /caption, POST /caption_bin, "
           f"GET /stats, POST /shutdown)", flush=True)
     try:

@@ -7,17 +7,29 @@ Phases, each printing one JSON line:
   1. probe    the card (nvidia-smi name and power limit, capability), nvcc;
               builds the kernels from boficap_tpu_torch/csrc and times it.
   2. kernels  each kernel against its plain PyTorch version at the serving
-              shapes (B = 64, full uic_sd width), float32 and bfloat16, with
-              fully masked rows, padded regions, a ragged vocab edge and a
-              planted argmax tie.
-  3. decode   na_decode on the kernels against the plain path, float32,
-              uic_sd at full width with random weights from a seed.
-  4. serve    the main path: a CaptionServer on the card answers single
-              requests, a burst of 64 and short-region requests; each
-              kernel's launch count is read around this run.
-  5. times    each kernel's time beside its plain version's, one PyTorch
+              shapes (B = 64, full uic_sd width, all six layers for the
+              stacks), float32 and bfloat16, with fully masked rows, padded
+              regions, a ragged vocab edge and a planted argmax tie.
+  3. decode   fused_encode + na_decode on both kernel routes (whole-stack
+              encoder and decoder kernels, per-layer kernels) against the
+              plain path, float32, uic_sd at full width with random
+              weights from a seed.
+  4. serve    the NA main path: a CaptionServer on the card (the default
+              compute dtype, bfloat16: the whole-stack kernels) answers
+              single requests, a burst of 64 and short-region requests;
+              each kernel's launch count is read around this run.
+  5. sa_decode  sa_decode on both kernel routes (whole-stack window
+              kernels, per-layer window kernel) against the plain path,
+              float32, with narrow and wide rounds.
+  6. bf16_decode  na_decode and sa_decode at the default dtype (bfloat16,
+              the whole-stack route) against the plain path at bfloat16.
+  7. sa_serve the SA main path: CaptionServer(mode="SAIC") at the default
+              dtype (bfloat16: the whole-stack kernels), the same
+              requests, launch counts read around this run.
+  8. times    each kernel's time beside its plain version's, one PyTorch
               library call's (a yardstick the port never calls) and the
-              least time the card could take (bound).
+              least time the card could take (bound); decode times,
+              launches and host syncs per decode.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed phase raises: the script exits
@@ -38,6 +50,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 B, R, L = 64, 36, 20          # serving batch, regions, max_length
+D = 512                       # uic_sd width
+DEV = "cuda"
 VOCAB = 9487                  # words; + 4 control ids = 9491 classes
 SEED = 0
 
@@ -55,13 +69,34 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # logprob margin is below this (float32 kernel vs cuBLAS noise is ~1e-5)
 MARGIN_NOISE = 1e-3
 LOGPROB_TOL = 1e-3
+# the same rule in bfloat16 (tests/test_torch_port_sa.py BF16_MARGIN_NOISE:
+# two bf16 roundings apart, ~2**-7 relative on logits of size ~1,
+# compounded over the layers); at most a quarter of the samples excused
+BF16_MARGIN_NOISE = 0.1
 
 REPLACES = {
     "encoder_layer": "boficap_tpu/ops/pallas_decoder_layer.py:500",
     "decoder_layer": "boficap_tpu/ops/pallas_decoder_layer.py:124",
     "greedy_head": "boficap_tpu/ops/pallas_decoder_layer.py:671",
+    "encoder_stack": "boficap_tpu/ops/pallas_stack.py:415",
+    "decoder_stack": "boficap_tpu/ops/pallas_stack.py:258",
+    "window_layer": "boficap_tpu/ops/pallas_decoder_layer.py:283",
+    "window_stack": "boficap_tpu/ops/pallas_stack.py:551",
+    "window_wide_stack": "boficap_tpu/ops/pallas_stack.py:712",
 }
 SOURCES = {name: f"boficap_tpu_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES["encoder_stack"] = "boficap_tpu_torch/csrc/encoder_layer.cu"
+SOURCES["decoder_stack"] = "boficap_tpu_torch/csrc/decoder_layer.cu"
+SOURCES["window_wide_stack"] = "boficap_tpu_torch/csrc/window_stack.cu"
+# the kernels each main path (bfloat16, B <= 128: the whole-stack route)
+# must launch
+NA_KERNELS = ("encoder_stack", "decoder_stack", "greedy_head")
+SA_KERNELS = ("encoder_stack", "window_stack", "window_wide_stack",
+              "greedy_head")
+W_NARROW = 8                  # sa_decode's default window
+LONG = 10                     # a phrase longer than the window: a wide round
+STOP_SHIFT = 6.0              # against random weights' early "stop" (shape_plans)
+NL = 6                        # uic_sd encoder and decoder layers
 
 
 def emit(obj) -> None:
@@ -98,11 +133,15 @@ def bf16_ulp(x):
 # model and inputs
 # ---------------------------------------------------------------------------
 
-def build():
+def build(dtype=None):
+    """uic_sd at full width, random weights from SEED; ``dtype`` overrides
+    the config's compute dtype (None: the default, bfloat16)."""
     from boficap_tpu_torch.config import load_config
     from boficap_tpu_torch.convert import init_params
     cfg = load_config(os.path.join(HERE, "configs", "uic_sd.yml"))
-    model = init_params(cfg, VOCAB, seed=SEED, device="cuda").eval()
+    if dtype is not None:
+        cfg.dtype = dtype
+    model = init_params(cfg, VOCAB, seed=SEED, device=DEV).eval()
     # Random weights plan empty captions (the length head's argmax is
     # "stop" for every image), which would leave the fill and the head
     # nothing to decide.  Nudge the length head toward 1-3 word phrases and
@@ -112,11 +151,56 @@ def build():
     with torch.no_grad():
         nudge = torch.tensor([-1.0] + [1.5] * 3 + [0.0] * 16)
         model.len_head2.bias += (nudge + 0.3 * torch.randn(20, generator=g)
-                                 ).cuda()
+                                 ).to(DEV)
         model.syn_head2.bias += torch.tensor(
-            [0.0] * 4 + [2.0] * 3 + [0.0] * 3).cuda()
+            [0.0] * 4 + [2.0] * 3 + [0.0] * 3).to(DEV)
     model.invalidate_packed()
     return model
+
+
+@torch.no_grad()
+def shape_plans(models, share: float = 0.2):
+    """Random weights plan SA captions that mostly stop at once, and never
+    a phrase wider than the narrow window.  Shift the length head's "stop"
+    bias down and the syntax head's VP/NP/CP biases up by STOP_SHIFT, so
+    plans run to several phrases; then raise the bias of LONG-word phrases
+    until about ``share`` of the images open their SA plan with one (read
+    on the first model's first SA round): such a round is wider than the
+    window, so SA decodes run both the narrow and the wide kernels.  The
+    same shifts go to every model.  Returns the LONG shift."""
+    from boficap_tpu_torch.constants import LEN, PAD
+    for m in models:
+        m.len_head2.bias[0] -= STOP_SHIFT
+        m.syn_head2.bias[4:7] += STOP_SHIFT
+        m.invalidate_packed()
+    model = models[0]
+    att, am = features(B, seed=9)
+    att, am = att.to(DEV), am.to(DEV)
+    mem = model.encode(att, am)
+    ids = torch.full((B, L + 2), PAD, dtype=torch.long, device=DEV)
+    ids[:, 0] = LEN
+    len_lp, _ = model.bound_step_cached(
+        model.bound_cache(mem, False), ids,
+        torch.ones(B, dtype=torch.long, device=DEV), am.bool(),
+        use_syn=False)
+    others = len_lp.clone()
+    others[:, LONG] = -math.inf
+    gap = others.max(-1).values - len_lp[:, LONG]
+    long_shift = torch.quantile(gap.float(), 1.0 - share).item() + 1e-3
+    for m in models:
+        m.len_head2.bias[LONG] += long_shift
+        m.invalidate_packed()
+    return long_shift
+
+
+@torch.no_grad()
+def unforce_long(models, long_shift: float) -> None:
+    """Take back shape_plans' raise of the LONG-word phrases (the stop
+    shift stays), so timed SA decodes run the rounds an unforced plan
+    gives."""
+    for m in models:
+        m.len_head2.bias[LONG] -= long_shift
+        m.invalidate_packed()
 
 
 def features(n: int, seed: int):
@@ -134,23 +218,24 @@ def features(n: int, seed: int):
 
 def layer_inputs(dtype, seed: int):
     g = torch.Generator().manual_seed(seed)
-    dev = "cuda"
-    x_enc = torch.randn((B, R, 512), generator=g).to(dev, dtype)
+    dev = DEV
+    x_enc = torch.randn((B, R, D), generator=g).to(dev, dtype)
     n_live = torch.randint(1, R + 1, (B,), generator=g)
     n_live[0] = 0                                      # fully masked sample
     src = (torch.arange(R)[None, :] < n_live[:, None]).to(dev)
-    x_dec = torch.randn((B, L, 512), generator=g).to(dev, dtype)
-    mem = torch.randn((B, R, 512), generator=g).to(dev, dtype)
+    x_dec = torch.randn((B, L, D), generator=g).to(dev, dtype)
+    mem = torch.randn((B, R, D), generator=g).to(dev, dtype)
     total = torch.randint(0, L + 1, (B,), generator=g)
     total[1] = 0                                       # empty plan
     tgt = (torch.arange(L)[None, None, :] < total[:, None, None]).expand(
         B, L, L).contiguous().to(dev)
-    h = torch.randn((B, L, 512), generator=g).to(dev, dtype)
+    h = torch.randn((B, L, D), generator=g).to(dev, dtype)
     return x_enc, src, x_dec, mem, tgt, h
 
 
 def check_kernels(model):
     from boficap_tpu_torch.ops import decoder_layer as dl
+    from boficap_tpu_torch.ops import stack as st
     res = {}
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
@@ -176,6 +261,28 @@ def check_kernels(model):
         a_dec = (got.float() - want.float()).abs().max().item()
         if not torch.isfinite(got.float()).all() or e_dec > tol:
             fail(f"decoder_layer {dtype_name}: rel err {e_dec} > {tol}")
+
+        # the whole stacks, every layer of the model
+        stacks = {}
+        enc = st.pack_encoder_stack(model.encoder, dtype)
+        dec = st.pack_decoder_stack(model._decoder("NA"), dtype)
+        for name, got, want in (
+                ("encoder_stack",
+                 st.fused_encoder_stack_forward(x_enc, src, enc.stack,
+                                                enc.final_norm, H),
+                 st.encoder_stack_plain(x_enc, src, enc.stack,
+                                        enc.final_norm, H)),
+                ("decoder_stack",
+                 st.fused_decoder_stack_forward(x_dec, mem, tgt, src,
+                                                dec.stack, dec.final_norm, H),
+                 st.decoder_stack_plain(x_dec, mem, tgt, src, dec.stack,
+                                        dec.final_norm, H))):
+            torch.cuda.synchronize()
+            e = rel_err(got, want)
+            if not torch.isfinite(got.float()).all() or e > tol:
+                fail(f"{name} {dtype_name}: rel err {e} > {tol}")
+            stacks[name] = {"rel_err": e, "max_abs_err":
+                            (got.float() - want.float()).abs().max().item()}
 
         ids, tok, ent, lpp = dl.fused_greedy_head(h, hw, hb, pad_id=0)
         pids, ptok, pent, plpp = dl.greedy_head_plain(h, hw, hb, pad_id=0)
@@ -217,7 +324,102 @@ def check_kernels(model):
             "decoder_layer": {"rel_err": e_dec, "max_abs_err": a_dec},
             "greedy_head": {"max_abs_err": a_head,
                             "ids_differ": int(diff.sum())},
+            **stacks,
         }
+    return res
+
+
+def window_inputs(dtype, W: int, seed: int, wide: bool = False):
+    """Operands of the window kernels at the serving shapes: x_win
+    [B, W, D], caches [NL, B, L, D], cross K/V [NL, B, R, D], window starts
+    (eight clipped at L - W), tgt [B, W, L + W] (narrow) or [B, L, L]
+    (wide) with an empty plan (sample 1: every row masked) and rows past
+    the slot (masked), src [B, R] with padded regions."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(DEV, dtype)
+
+    x = rnd(B, W, D)
+    kc, vc = rnd(NL, B, L, D), rnd(NL, B, L, D)
+    k2, v2 = rnd(NL, B, R, D), rnd(NL, B, R, D)
+    w_start = torch.randint(0, L - W + 1, (B,), generator=g)
+    w_start[:8] = L - W
+    n_keys = W if wide else L + W
+    tgt = torch.rand((B, W, n_keys), generator=g) < 0.6
+    live = torch.randint(0, W + 1, (B,), generator=g)
+    tgt &= (torch.arange(W)[None, :] < live[:, None])[:, :, None]
+    tgt[1] = False
+    n_live = torch.randint(1, R + 1, (B,), generator=g)
+    src = torch.arange(R)[None, :] < n_live[:, None]
+    return (x, kc, vc, k2, v2, w_start.to(DEV, torch.int32),
+            tgt.to(DEV), src.to(DEV))
+
+
+def check_window_kernels(model):
+    """#8, #6 and #7 against their plain twins, float32 and bfloat16: a
+    narrow window (W = 8) and the wide round (W = L)."""
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    from boficap_tpu_torch.ops import stack as st
+    H = model.num_heads
+    res = {}
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        tol = TOL[dtype_name]
+        pack = st.pack_window_weights(model._decoder("SA"), dtype)
+        errs = {}
+
+        def agree(name, got, want):
+            for gt, wt in zip(got, want):
+                e = rel_err(gt, wt)
+                if not torch.isfinite(gt.float()).all() or e > tol:
+                    fail(f"{name} {dtype_name}: rel err {e} > {tol}")
+            errs[name] = {
+                "rel_err": max(rel_err(gt, wt) for gt, wt in zip(got, want)),
+                "max_abs_err": max((gt.float() - wt.float()).abs().max().item()
+                                   for gt, wt in zip(got, want))}
+
+        for W in (W_NARROW, L):
+            x, kc, vc, k2, v2, ws, tgt, src = window_inputs(dtype, W, 11)
+            args = (x, kc[0], vc[0], k2[0], v2[0], tgt, src, pack.layers[0],
+                    H)
+            got = dl.fused_window_decoder_layer(*args)
+            want = dl.window_layer_plain(*args)
+            torch.cuda.synchronize()
+            agree(f"window_layer_w{W}", got, want)
+
+        # narrow round: caches updated in place; rows outside each window
+        # bit-identical, in-window rows the fresh K/V
+        x, kc, vc, k2, v2, ws, tgt, src = window_inputs(dtype, W_NARROW, 12)
+        kc_k, vc_k, kc_p, vc_p = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        h, _, _ = st.fused_window_decoder_stack(
+            x, ws, kc_k, vc_k, k2, v2, tgt, src, pack.stack, pack.final_norm,
+            H)
+        hp, _, _ = st.window_stack_plain(
+            x, ws, kc_p, vc_p, k2, v2, tgt, src, pack.stack, pack.final_norm,
+            H)
+        torch.cuda.synchronize()
+        pos = torch.arange(L, device=DEV)[None, :]
+        inside = ((pos >= ws.long()[:, None])
+                  & (pos < ws.long()[:, None] + W_NARROW))
+        for got, old in ((kc_k, kc), (vc_k, vc)):
+            if not torch.equal(got[:, ~inside], old[:, ~inside]):
+                fail(f"window_stack {dtype_name}: a cache row outside the "
+                     f"window changed")
+        agree("window_stack", (h, kc_k[:, inside], vc_k[:, inside]),
+              (hp, kc_p[:, inside], vc_p[:, inside]))
+
+        x, _, _, k2, v2, _, tgt, src = window_inputs(dtype, L, 13, wide=True)
+        got = st.fused_window_wide_stack(x, k2, v2, tgt, src, pack.stack,
+                                         pack.final_norm, H)
+        want = st.window_wide_stack_plain(x, k2, v2, tgt, src, pack.stack,
+                                          pack.final_norm, H)
+        torch.cuda.synchronize()
+        agree("window_wide_stack", got, want)
+        errs["window_layer"] = max(
+            (errs.pop(f"window_layer_w{W}") for W in (W_NARROW, L)),
+            key=lambda e: e["max_abs_err"])
+        res[dtype_name] = errs
     return res
 
 
@@ -225,6 +427,7 @@ def check_kernels(model):
 # phase 3: na_decode on the kernels against the plain path
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def plain_margins(model, memory, src):
     """Top-2 logprob margin of the plain path's fill, [B, L]."""
     from boficap_tpu_torch.decode.bound_fill import bound_plan
@@ -238,61 +441,266 @@ def plain_margins(model, memory, src):
     return top2[..., 0] - top2[..., 1]
 
 
-@torch.no_grad()
-def check_decode(model):
-    from boficap_tpu_torch.decode.bound_fill import fused_encode, na_decode
-    att, am = features(B, seed=2)
-    att, am = att.cuda(), am.cuda()
-    src = am.bool()
-    mem_p = model.encode(att, am)
-    out_p = na_decode(model, mem_p, src, fused_fill=False)
-    mem_k = fused_encode(model, att, am)
-    out_k = na_decode(model, mem_k, src, fused_fill=True)
-    torch.cuda.synchronize()
+def na_agree(got, want, margin, what: str, noise: float = MARGIN_NOISE,
+             lp_tol=LOGPROB_TOL) -> dict:
+    """The NA rule: phrase plan identical; seq identical except where the
+    plain path's top-2 margin is below ``noise``; tok_logprobs (where seq
+    agrees) and entropy within ``lp_tol`` (None: reported only)."""
     for k in ("phrase_num", "phrase_length", "phrase_syn"):
-        if not torch.equal(out_p[k], out_k[k]):
-            fail(f"na_decode: {k} differs between kernel and plain path")
-    diff = out_p["seq"] != out_k["seq"]
-    n_loose = 0
-    if diff.any():
-        margin = plain_margins(model, mem_p, src)
-        if (diff & (margin >= MARGIN_NOISE)).any():
-            fail("na_decode: seq differs above the noise margin")
-        n_loose = int(diff.sum())
-    keep = ~diff
-    e_tok = (out_p["tok_logprobs"] - out_k["tok_logprobs"])[keep].abs().max()
-    e_ent = (out_p["entropy"] - out_k["entropy"]).abs().max()
-    if max(e_tok.item(), e_ent.item()) > LOGPROB_TOL:
-        fail(f"na_decode: tok/entropy err {e_tok.item()} {e_ent.item()}")
-    return {"memory_rel_err": rel_err(mem_k, mem_p),
-            "tokens": int((out_p["seq"] > 3).sum()),
-            "planned_words": int(out_p["phrase_length"].sum()),
-            "seq_differs_below_margin": n_loose,
-            "margin_noise": MARGIN_NOISE,
+        if not torch.equal(got[k], want[k]):
+            fail(f"{what}: {k} differs")
+    diff = got["seq"] != want["seq"]
+    if (diff & (margin >= noise)).any():
+        fail(f"{what}: seq differs above the noise margin {noise}")
+    e_tok = (got["tok_logprobs"] - want["tok_logprobs"])[~diff].abs().max()
+    e_ent = (got["entropy"] - want["entropy"]).abs().max()
+    if lp_tol is not None and max(e_tok.item(), e_ent.item()) > lp_tol:
+        fail(f"{what}: tok/entropy err {e_tok.item()} {e_ent.item()}")
+    return {"seq_differs_below_margin": int(diff.sum()),
             "tok_logprob_err": e_tok.item(), "entropy_err": e_ent.item()}
 
 
+@torch.no_grad()
+def check_decode(model):
+    """float32: the whole-stack route (#4/#5) and the per-layer route
+    (#1/#2) each against the plain path and against each other.  Returns
+    the result and the per-layer route's launch counts (the run that reads
+    #1 and #2)."""
+    from boficap_tpu_torch.decode.bound_fill import fused_encode, na_decode
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    att, am = features(B, seed=2)
+    att, am = att.to(DEV), am.to(DEV)
+    src = am.bool()
+    mem_p = model.encode(att, am)
+    out_p = na_decode(model, mem_p, src, fused_fill=False)
+    margin = plain_margins(model, mem_p, src)
+    res = {"tokens": int((out_p["seq"] > 3).sum()),
+           "planned_words": int(out_p["phrase_length"].sum()),
+           "margin_noise": MARGIN_NOISE}
+    outs = {}
+    for stacked in (True, False):
+        route = "stacked" if stacked else "per_layer"
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        mem_k = fused_encode(model, att, am, stacked=stacked)
+        out_k = na_decode(model, mem_k, src, fused_fill=True,
+                          stacked=stacked)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        kinds = ("stack",) if stacked else ("layer",)
+        if any(counts[f"{part}_{k}"] == 0 for part in ("encoder", "decoder")
+               for k in kinds):
+            fail(f"na_decode {route}: its kernels never launched: {counts}")
+        res[route] = {"memory_rel_err": rel_err(mem_k, mem_p),
+                      **na_agree(out_k, out_p, margin, f"na_decode {route}")}
+        outs[route] = out_k
+    res["routes"] = na_agree(outs["stacked"], outs["per_layer"], margin,
+                             "na_decode routes")
+    return res, counts
+
+
 # ---------------------------------------------------------------------------
-# phase 4: serving (the main path)
+# phase 5: sa_decode on both kernel routes against the plain path
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def direct_seqs(model, att, am):
-    """Each request decoded alone (batch 1) on the kernel path."""
-    from boficap_tpu_torch.decode.bound_fill import fused_encode, na_decode
-    out = []
-    for i in range(att.shape[0]):
-        a = att[i:i + 1].cuda()
-        m = am[i:i + 1].cuda()
-        mem = fused_encode(model, a, m)
-        out.append(na_decode(model, mem, m.bool(), fused_fill=True)["seq"][0])
-    return torch.stack(out).cpu()
+def plain_sa(model, memory, src, **kw):
+    """The plain sa_decode and each position's top-2 logprob margin [B, L].
+    The margins come from the last round's logprob: a decoded position's
+    logits never change after its round (its keys are final and its mask
+    stays), so the last round holds every position's as decoded."""
+    from boficap_tpu_torch.decode.bound_fill import sa_decode
+    last = {}
+    generate = model.generate
+
+    def record(h):
+        last["lp"] = generate(h)
+        return last["lp"]
+
+    model.generate = record
+    try:
+        out = sa_decode(model, memory, src, fused_fill=False, **kw)
+    finally:
+        del model.generate
+    top2 = last["lp"].topk(2, dim=-1).values
+    return out, top2[..., 0] - top2[..., 1]
 
 
-def check_serve(model):
-    from boficap_tpu_torch.ops.decoder_layer import (launch_counts,
-                                                     reset_launch_counts)
-    from boficap_tpu_torch.serve import CaptionServer
+def sa_agree(got, want, margin, what: str, noise: float = MARGIN_NOISE,
+             lp_tol=LOGPROB_TOL) -> int:
+    """The SA rule: phrase plan and seq identical, except in a sample whose
+    first differing word lies where the plain path's top-2 margin is below
+    ``noise`` (the words and plan after it follow the other word, so they
+    are excused); tok_logprobs and entropy within ``lp_tol`` in every other
+    sample (None: not compared).  Returns the count of excused samples."""
+    diff = got["seq"] != want["seq"]
+    has = diff.any(-1)
+    first = diff.int().argmax(-1)
+    loose = has & (margin.gather(1, first[:, None])[:, 0] < noise)
+    if (has & ~loose).any():
+        fail(f"{what}: seq differs above the noise margin {noise}")
+    same = ~has
+    for k in ("phrase_num", "phrase_length", "phrase_syn"):
+        if not torch.equal(got[k][same], want[k][same]):
+            fail(f"{what}: {k} differs")
+    for k in ("tok_logprobs", "entropy"):
+        e = (got[k][same] - want[k][same]).abs().max().item()
+        if lp_tol is not None and e > lp_tol:
+            fail(f"{what}: {k} err {e} > {lp_tol}")
+    return int(loose.sum())
+
+
+@torch.no_grad()
+def check_sa_decode(model):
+    """float32: the whole-stack route (#6/#7) and the per-layer route (#8)
+    each against the plain path and against each other.  Returns the
+    result and the per-layer route's launch counts (the run that reads
+    #8)."""
+    from boficap_tpu_torch.decode.bound_fill import fused_encode, sa_decode
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    att, am = features(B, seed=6)
+    att, am = att.to(DEV), am.to(DEV)
+    src = am.bool()
+    plain_stats = {}
+    want, margin = plain_sa(model, model.encode(att, am), src,
+                            stats=plain_stats)
+    mem = fused_encode(model, att, am)
+    # each round's longest new phrase; a round is narrow if it fits the
+    # window.  The default window if both kinds of round occur there; else
+    # the narrowest round's width (the wider rounds go wide); if every
+    # round is as wide, that width (all narrow) and one less (all wide)
+    widest = want["phrase_length"][:, :plain_stats["rounds"]].max(0).values
+    lo, hi = int(widest.min()), int(widest.max())
+    if lo <= W_NARROW < hi:
+        windows = [W_NARROW]
+    elif lo < hi:
+        windows = [max(lo, 1)]
+    elif lo > 1:
+        windows = [lo, lo - 1]
+    else:
+        fail(f"sa_decode: every round's phrases are {lo} wide; no window "
+             f"splits narrow from wide rounds")
+    res = {"windows": windows, "round_widths": widest.tolist(),
+           "tokens": int((want["seq"] > 3).sum()),
+           "planned_words": int(want["phrase_length"].sum()),
+           "margin_noise": MARGIN_NOISE}
+    outs, counts = {}, None
+    for stacked in (True, False):
+        route = "stacked" if stacked else "per_layer"
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        rounds = {"rounds": 0, "narrow": 0, "wide": 0, "host_syncs": 0}
+        excused = 0
+        for window in windows:
+            stats = {}
+            out = sa_decode(model, mem, src, fused_fill=True, stacked=stacked,
+                            window=window, stats=stats)
+            excused += sa_agree(out, want, margin,
+                                f"sa_decode {route} window {window}")
+            rounds = {k: rounds[k] + stats[k] for k in rounds}
+            outs[route, window] = out
+        torch.cuda.synchronize()
+        if not stacked:
+            counts = launch_counts()
+        if rounds["narrow"] == 0 or rounds["wide"] == 0:
+            fail(f"sa_decode {route}: rounds {rounds} at windows {windows} "
+                 f"(round widths {widest.tolist()}); narrow and wide must "
+                 f"both occur")
+        res[route] = {**rounds, "excused_samples": excused}
+    res["routes_excused_samples"] = sum(
+        sa_agree(outs["stacked", w], outs["per_layer", w], margin,
+                 "sa_decode routes") for w in windows)
+    if counts["window_layer"] == 0:
+        fail("sa_decode: the per-layer route never launched window_layer")
+    return res, counts
+
+
+@torch.no_grad()
+def check_bf16_decodes(model):
+    """bfloat16, the default dtype: na_decode and sa_decode on the route
+    the server takes (the whole-stack kernels) against the plain path in
+    bfloat16, by the margin rule at BF16_MARGIN_NOISE: the phrase plan
+    identical, seq identical except below the margin, and differing words
+    at no more than a quarter of the positions decoded in the same context
+    (NA: every position; SA: a sample's positions up to its first differing
+    word, after which its context differs); logprobs reported."""
+    from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
+                                                     sa_decode)
+    att, am = features(B, seed=7)
+    att, am = att.to(DEV), am.to(DEV)
+    src = am.bool()
+    mem_p = model.encode(att, am)
+    mem_k = fused_encode(model, att, am)
+    out_p = na_decode(model, mem_p, src)
+    out_k = na_decode(model, mem_k, src, fused_fill=True)
+    na = na_agree(out_k, out_p, plain_margins(model, mem_p, src),
+                  "bf16 na_decode", BF16_MARGIN_NOISE, None)
+    if na["seq_differs_below_margin"] > out_p["seq"].numel() // 4:
+        fail(f"bf16 na_decode: {na} differs at over a quarter of positions")
+    want, margin = plain_sa(model, mem_p, src)
+    stats = {}
+    got = sa_decode(model, mem_k, src, fused_fill=True, stats=stats)
+    excused = sa_agree(got, want, margin, "bf16 sa_decode", BF16_MARGIN_NOISE,
+                       None)
+    diff = got["seq"] != want["seq"]
+    same = ~diff.any(-1)
+    shared = int(torch.where(same, L, diff.int().argmax(-1) + 1).sum())
+    if excused > shared // 4:
+        fail(f"bf16 sa_decode: {excused} words differ in {shared} positions "
+             f"of a shared context")
+    return {"memory_rel_err": rel_err(mem_k, mem_p),
+            "margin_noise": BF16_MARGIN_NOISE, "na_decode": na,
+            "sa_decode": {**stats, "excused_samples": excused,
+                          "shared_context_positions": shared,
+                          "tokens": int((want["seq"] > 3).sum()),
+                          "tok_logprob_err": (got["tok_logprobs"][same]
+                                              - want["tok_logprobs"][same]
+                                              ).abs().max().item()}}
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 6: serving (the main paths)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def replay_batches(model, mode: str, att, am, outs):
+    """Each request's seq from a direct decode of the same features in the
+    batch the server formed: one worker takes requests in order, so the
+    batches are consecutive runs whose sizes the results report; each batch
+    is padded as the server pads it.  (A batch's rows are decoded
+    independently, but the SA rounds' narrow/wide choice is the batch's.)"""
+    from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
+                                                     sa_decode)
+    from boficap_tpu_torch.serve import _buckets
+    decode = sa_decode if mode == "SAIC" else na_decode
+    buckets = _buckets(B)
+    want, i = [], 0
+    for n in batch_sizes(outs):
+        bucket = next(b for b in buckets if b >= n)
+        a = torch.zeros((bucket, R, att.shape[-1]))
+        m = torch.zeros((bucket, R))
+        a[:n], m[:n] = att[i:i + n], am[i:i + n]
+        m[n:, 0] = 1.0
+        a, m = a.to(DEV), m.to(DEV)
+        out = decode(model, fused_encode(model, a, m), m.bool(),
+                     fused_fill=True)
+        want.append(out["seq"][:n].cpu())
+        i += n
+    return torch.cat(want)
+
+
+def batch_sizes(outs):
+    """The server's batches, in order, from the sizes its results report."""
+    sizes, i = [], 0
+    while i < len(outs):
+        sizes.append(outs[i]["batch"])
+        i += sizes[-1]
+    return sizes
+
+
+def serve_requests():
+    """Eight single requests, a burst of 64 and eight short-region ones
+    (features with their padding as the server pads them)."""
     n_single, n_burst, n_short = 8, 64, 8
     n = n_single + n_burst + n_short
     att, am = features(n, seed=3)
@@ -301,11 +709,17 @@ def check_serve(model):
         i = n_single + n_burst + j
         att[i, k:] = 0.0
         am[i] = (torch.arange(R) < k).float()
-    want = direct_seqs(model, att, am)
+    return att, am, n_single, n_burst, short
 
+
+def check_serve(model, mode: str, kernels):
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    from boficap_tpu_torch.serve import CaptionServer
+    att, am, n_single, n_burst, short = serve_requests()
+    n = att.shape[0]
     ix_to_word = {str(i): f"w{i}" for i in range(4, VOCAB + 4)}
-    srv = CaptionServer(model, ix_to_word, max_batch=B, max_wait_ms=5.0,
-                        max_regions=R, device="cuda")
+    srv = CaptionServer(model, ix_to_word, mode=mode, max_batch=B,
+                        max_wait_ms=5.0, max_regions=R, device=DEV)
     try:
         torch.cuda.synchronize()
         reset_launch_counts()                       # the main path starts
@@ -326,15 +740,19 @@ def check_serve(model):
     finally:
         srv.close()
     if not all(isinstance(o["caption"], str) for o in outs):
-        fail("serve: a request got no string caption")
+        fail(f"serve {mode}: a request got no string caption")
     got = torch.stack([torch.as_tensor(o["seq"]) for o in outs])
-    mism = (got != want).any(-1)
+    mism = (got != replay_batches(model, mode, att, am, outs)).any(-1)
     if mism.any():
-        fail(f"serve: {int(mism.sum())} requests' seq differ from a direct "
-             f"decode of the same features")
-    if not all(v > 0 for v in counts.values()):
-        fail(f"serve: a kernel was never launched on the main path: {counts}")
-    return {"requests": n, "launches": counts,
+        fail(f"serve {mode}: {int(mism.sum())} requests' seq differ from a "
+             f"direct decode of the same features")
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        fail(f"serve {mode}: {missing} never launched on the main path: "
+             f"{counts}")
+    return {"mode": mode, "dtype": str(model.dtype).split(".")[-1],
+            "requests": n, "launches": counts,
+            "batch_sizes": batch_sizes(outs),
             "requests_per_s": n / wall, "burst64_requests_per_s":
                 n_burst / burst_s,
             "p50_ms": stats["p50_ms"], "p95_ms": stats["p95_ms"],
@@ -343,7 +761,7 @@ def check_serve(model):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times
+# phase 7: times
 # ---------------------------------------------------------------------------
 
 def timed(fn, reps: int = 20, warm: int = 3) -> float:
@@ -360,40 +778,97 @@ def timed(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def library_layer(x, mask, w, H, cross=None):
-    """Yardstick only: an eager layer with torch.matmul and
-    F.scaled_dot_product_attention (masks as a -1e9 bias, as the port)."""
+def sdpa(q, k, v, m, H):
+    """F.scaled_dot_product_attention on [B, L, D] activations, a bool
+    mask ([B, Lk] or [B, Lq, Lk]) as a -1e9 bias, as the port masks."""
     import torch.nn.functional as F
-    from boficap_tpu_torch.ops.decoder_layer import refnorm_plain
-    Bn, Lq, D = x.shape
+    Bn, Lq, D = q.shape
     Dh = D // H
 
     def heads(t):
         return t.reshape(Bn, t.shape[1], H, Dh).transpose(1, 2)
 
-    def attend(q, k, v, m):
-        bias = torch.zeros(m.shape, dtype=q.dtype, device=q.device)
-        bias = bias.masked_fill(~m, -1e9)
-        bias = bias[:, None, None, :] if m.dim() == 2 else bias[:, None]
-        o = F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
-                                           attn_mask=bias)
-        return o.transpose(1, 2).reshape(Bn, q.shape[1], D)
+    bias = torch.zeros(m.shape, dtype=q.dtype, device=q.device)
+    bias = bias.masked_fill(~m, -1e9)
+    bias = bias[:, None, None, :] if m.dim() == 2 else bias[:, None]
+    o = F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                       attn_mask=bias)
+    return o.transpose(1, 2).reshape(Bn, Lq, D)
 
+
+def library_layer(x, mask, w, H, cross=None):
+    """Yardstick only: an eager layer with torch.matmul and
+    F.scaled_dot_product_attention (masks as a -1e9 bias, as the port)."""
+    from boficap_tpu_torch.ops.decoder_layer import refnorm_plain
+    D = x.shape[-1]
     n0 = refnorm_plain(x, w["s0"], w["b0"])
     q, k, v = (torch.matmul(n0, w["wqkv"]) + w["bqkv"]).split(D, -1)
-    x = x + torch.matmul(attend(q, k, v, mask), w["wo"]) + w["bo"]
+    x = x + torch.matmul(sdpa(q, k, v, mask, H), w["wo"]) + w["bo"]
     if cross is not None:
         mem, src = cross
         n1 = refnorm_plain(x, w["s1"], w["b1"])
         q2 = torch.matmul(n1, w["wq2"]) + w["bq2"]
         k2, v2 = (torch.matmul(mem, w["wkv2"]) + w["bkv2"]).split(D, -1)
-        x = x + torch.matmul(attend(q2, k2, v2, src), w["wo2"]) + w["bo2"]
+        x = x + torch.matmul(sdpa(q2, k2, v2, src, H), w["wo2"]) + w["bo2"]
         s, b = w["s2"], w["b2"]
     else:
         s, b = w["s1"], w["b1"]
     n = refnorm_plain(x, s, b)
     f = torch.relu(torch.matmul(n, w["w1"]) + w["bf1"])
     return x + torch.matmul(f, w["w2"]) + w["bf2"]
+
+
+def library_stack(x, mask, pack, H, cross=None):
+    """Yardstick only: library_layer over a stack's layers, then the final
+    norm."""
+    from boficap_tpu_torch.ops.decoder_layer import refnorm_plain
+    for w in pack.layers:
+        x = library_layer(x, mask, w, H, cross)
+    return refnorm_plain(x, *pack.final_norm)
+
+
+def library_window_layer(x, kc, vc, k2, v2, tgt, src, w, H):
+    """Yardstick only: an eager window layer, torch.matmul products and
+    SDPA over the cache ++ window keys (kc None: the window's alone)."""
+    from boficap_tpu_torch.ops.decoder_layer import refnorm_plain
+    D = x.shape[-1]
+    n0 = refnorm_plain(x, w["s0"], w["b0"])
+    q, k, v = (torch.matmul(n0, w["wqkv"]) + w["bqkv"]).split(D, -1)
+    keys, vals = ((k, v) if kc is None else
+                  (torch.cat([kc, k], 1), torch.cat([vc, v], 1)))
+    x = x + torch.matmul(sdpa(q, keys, vals, tgt, H), w["wo"]) + w["bo"]
+    n1 = refnorm_plain(x, w["s1"], w["b1"])
+    q2 = torch.matmul(n1, w["wq2"]) + w["bq2"]
+    x = x + torch.matmul(sdpa(q2, k2, v2, src, H), w["wo2"]) + w["bo2"]
+    n2 = refnorm_plain(x, w["s2"], w["b2"])
+    f = torch.relu(torch.matmul(n2, w["w1"]) + w["bf1"])
+    return x + torch.matmul(f, w["w2"]) + w["bf2"], k, v
+
+
+def library_window_stack(x, ws, kc, vc, k2, v2, tgt, src, stacked, norm, H):
+    """Yardstick only: library_window_layer over the layers, each layer's
+    fresh K/V written into its cache with index_copy_ (ws None: the wide
+    round, the fresh K/V returned as the caches)."""
+    from boficap_tpu_torch.ops.decoder_layer import refnorm_plain
+    Bn, W, D = x.shape
+    if ws is not None:
+        rows = ((torch.arange(Bn, device=x.device) * L + ws.long())[:, None]
+                + torch.arange(W, device=x.device)[None, :]).reshape(-1)
+    ks, vs = [], []
+    for i in range(k2.shape[0]):
+        w = {k: t[i] for k, t in stacked.items()}
+        x, k, v = library_window_layer(
+            x, None if ws is None else kc[i], None if ws is None else vc[i],
+            k2[i], v2[i], tgt, src, w, H)
+        if ws is None:
+            ks.append(k)
+            vs.append(v)
+        else:
+            kc[i].view(-1, D).index_copy_(0, rows, k.reshape(-1, D))
+            vc[i].view(-1, D).index_copy_(0, rows, v.reshape(-1, D))
+    h = refnorm_plain(x, *norm)
+    return (h, torch.stack(ks), torch.stack(vs)) if ws is None else (h, kc,
+                                                                      vc)
 
 
 def library_head(h, weight_vd, b):
@@ -408,7 +883,7 @@ def library_head(h, weight_vd, b):
 def bounds(dtype_name: str, esize: int):
     """Least time (ms) for each kernel's work at the serving shapes, and
     which of bytes or operations bounds it."""
-    D, F, H, V = 512, 2048, 8, VOCAB + 4
+    F, H, V = 4 * D, 8, VOCAB + 4
     Dh = D // H
     peak = PEAK_FLOPS[dtype_name]
     norm_b = 4 * 2 * D
@@ -424,10 +899,47 @@ def bounds(dtype_name: str, esize: int):
              + 3 * norm_b + B * L * L + B * R)
     head_f = 2 * ml * D * V
     head_b = esize * (ml * D + D * V + V) + ml * (8 + 3 * 4)
+    # the stacks: NL layers' work; x in and out once, every layer's weights
+    # and the final norm's read once, the memory and the masks read once
+    enc_w = esize * (4 * D * D + 2 * D * F + 4 * D + F) + 2 * norm_b
+    encs_b = esize * 2 * me * D + NL * enc_w + norm_b + B * R
+    dec_w = esize * (8 * D * D + 2 * D * F + 8 * D + F) + 3 * norm_b
+    decs_b = (esize * (2 * ml * D + me * D) + NL * dec_w + norm_b
+              + B * L * L + B * R)
+
+    def window(W, n_cache):
+        """One window layer on B * W rows with n_cache cache keys: its
+        operations, and the bytes of its weights."""
+        m = B * W
+        f = (2 * m * D * 3 * D + 3 * 2 * m * D * D + 4 * m * D * F
+             + 4 * B * H * W * (n_cache + W) * Dh + 4 * B * H * W * R * Dh)
+        return f, esize * (6 * D * D + 2 * D * F + 7 * D + F) + 3 * norm_b
+
+    mw, ml_ = B * W_NARROW, B * L
+    masks_n = B * W_NARROW * (L + W_NARROW) + B * R
+    # #8, narrow: x in; out, k_new, v_new out; cache and cross K/V read
+    wl_f, wl_w = window(W_NARROW, L)
+    wl_b = wl_w + esize * (4 * mw * D + 2 * B * L * D + 2 * B * R * D) + masks_n
+    # #6: x in, h out, per layer the caches read and only the window's rows
+    # written (the rest stay in place), the cross K/V read; w_start int32
+    ws_b = (NL * wl_w + esize * (2 * mw * D + NL * (2 * B * L * D + 2 * mw * D
+                                                    + 2 * B * R * D))
+            + masks_n + 4 * B)
+    # #7: x in, h out, per layer the fresh K/V written as the caches and
+    # the cross K/V read; no cache keys
+    ww_f, ww_w = window(L, 0)
+    ww_b = (NL * ww_w + esize * (2 * ml_ * D + NL * (2 * ml_ * D
+                                                     + 2 * B * R * D))
+            + B * L * L + B * R)
     out = {}
     for name, f, b in (("encoder_layer", enc_f, enc_b),
                        ("decoder_layer", dec_f, dec_b),
-                       ("greedy_head", head_f, head_b)):
+                       ("greedy_head", head_f, head_b),
+                       ("encoder_stack", NL * enc_f, encs_b),
+                       ("decoder_stack", NL * dec_f, decs_b),
+                       ("window_layer", wl_f, wl_b),
+                       ("window_stack", NL * wl_f, ws_b),
+                       ("window_wide_stack", NL * ww_f, ww_b)):
         t_ops, t_bytes = f / peak * 1e3, b / HBM_BYTES_S * 1e3
         out[name] = {"bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -436,9 +948,14 @@ def bounds(dtype_name: str, esize: int):
 
 
 @torch.no_grad()
-def measure(model):
-    from boficap_tpu_torch.decode.bound_fill import fused_encode, na_decode
+def measure(model, model16):
+    """Times at B = 64; ``model`` is float32, ``model16`` the default
+    (bfloat16) model of the main paths."""
+    from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
+                                                     use_stacked)
     from boficap_tpu_torch.ops import decoder_layer as dl
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    from boficap_tpu_torch.ops import stack as st
     res = {}
     H = model.num_heads
     for dtype_name, dtype in (("float32", torch.float32),
@@ -448,6 +965,12 @@ def measure(model):
         hw, hb = dl.pack_head_weights(model.generator.proj, dtype)
         wvd = model.generator.proj.weight.detach().to(dtype)
         x_enc, src, x_dec, mem, tgt, h = layer_inputs(dtype, 4)
+        enc = st.pack_encoder_stack(model.encoder, dtype)
+        dec = st.pack_decoder_stack(model._decoder("NA"), dtype)
+        pack = st.pack_window_weights(model._decoder("SA"), dtype)
+        w0, ws_, fn = pack.layers[0], pack.stack, pack.final_norm
+        xn, wkc, wvc, wk2, wv2, wst, tgn, srn = window_inputs(dtype, W_NARROW, 14)
+        xw, _, _, _, _, _, tgw, srw = window_inputs(dtype, L, 15, wide=True)
         t = {
             "encoder_layer": (
                 lambda: dl.fused_encoder_layer(x_enc, src, enc_w, H),
@@ -464,6 +987,39 @@ def measure(model):
                 lambda: dl.fused_greedy_head(h, hw, hb),
                 lambda: dl.greedy_head_plain(h, hw, hb),
                 lambda: library_head(h, wvd, hb)),
+            "encoder_stack": (
+                lambda: st.fused_encoder_stack_forward(
+                    x_enc, src, enc.stack, enc.final_norm, H),
+                lambda: st.encoder_stack_plain(
+                    x_enc, src, enc.stack, enc.final_norm, H),
+                lambda: library_stack(x_enc, src, enc, H)),
+            "decoder_stack": (
+                lambda: st.fused_decoder_stack_forward(
+                    x_dec, mem, tgt, src, dec.stack, dec.final_norm, H),
+                lambda: st.decoder_stack_plain(
+                    x_dec, mem, tgt, src, dec.stack, dec.final_norm, H),
+                lambda: library_stack(x_dec, tgt, dec, H, cross=(mem, src))),
+            "window_layer": (
+                lambda: dl.fused_window_decoder_layer(
+                    xn, wkc[0], wvc[0], wk2[0], wv2[0], tgn, srn, w0, H),
+                lambda: dl.window_layer_plain(
+                    xn, wkc[0], wvc[0], wk2[0], wv2[0], tgn, srn, w0, H),
+                lambda: library_window_layer(
+                    xn, wkc[0], wvc[0], wk2[0], wv2[0], tgn, srn, w0, H)),
+            "window_stack": (
+                lambda: st.fused_window_decoder_stack(
+                    xn, wst, wkc, wvc, wk2, wv2, tgn, srn, ws_, fn, H),
+                lambda: st.window_stack_plain(
+                    xn, wst, wkc, wvc, wk2, wv2, tgn, srn, ws_, fn, H),
+                lambda: library_window_stack(
+                    xn, wst, wkc, wvc, wk2, wv2, tgn, srn, ws_, fn, H)),
+            "window_wide_stack": (
+                lambda: st.fused_window_wide_stack(
+                    xw, wk2, wv2, tgw, srw, ws_, fn, H),
+                lambda: st.window_wide_stack_plain(
+                    xw, wk2, wv2, tgw, srw, ws_, fn, H),
+                lambda: library_window_stack(
+                    xw, None, None, None, wk2, wv2, tgw, srw, ws_, fn, H)),
         }
         bnd = bounds(dtype_name, 4 if dtype_name == "float32" else 2)
         res[dtype_name] = {}
@@ -477,39 +1033,150 @@ def measure(model):
             res[dtype_name][name] = {"ms": min(k1, k2), "ms_first": k1,
                                      "ms_last": k2, "plain_ms": p,
                                      "library_ms": lb, **bnd[name]}
-    # launches of one full NA decode at B = 64 (float32)
+    # one full NA decode at B = 64 in each dtype, on the route each takes
+    # (bfloat16: the whole-stack kernels; float32: the per-layer ones)
     att, am = features(B, seed=5)
-    att, am = att.cuda(), am.cuda()
-    dl.reset_launch_counts()
-    na_decode(model, fused_encode(model, att, am), am.bool(), fused_fill=True)
-    torch.cuda.synchronize()
-    per_decode = dl.launch_counts()
+    att, am = att.to(DEV), am.to(DEV)
+    res["na"] = {}
+    for name, m in (("bfloat16", model16), ("float32", model)):
+        def once(fused, m=m):
+            mem_ = fused_encode(m, att, am) if fused else m.encode(att, am)
+            return na_decode(m, mem_, am.bool(), fused_fill=fused)["seq"]
 
-    def decode_once(fused):
-        if fused:
-            mem_ = fused_encode(model, att, am)
-        else:
-            mem_ = model.encode(att, am)
-        return na_decode(model, mem_, am.bool(), fused_fill=fused)["seq"]
-
-    dk1 = timed(lambda: decode_once(True), reps=5, warm=1)
-    dp = timed(lambda: decode_once(False), reps=5, warm=1)
-    dk2 = timed(lambda: decode_once(True), reps=5, warm=1)
-    res["na_decode_b64_ms"] = {"kernel_path": min(dk1, dk2),
-                               "plain_path": dp}
-    res["launches_per_decode"] = per_decode
-    res["breakdown_b64"] = breakdown(model, att, am)
-    res["profile_b64"] = profile_decode(lambda: decode_once(True))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        once(True)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        dk1 = timed(lambda: once(True), reps=5, warm=1)
+        dp = timed(lambda: once(False), reps=5, warm=1)
+        dk2 = timed(lambda: once(True), reps=5, warm=1)
+        res["na"][name] = {
+            "route": "stacked" if use_stacked(m, B) else "per_layer",
+            "na_decode_b64_ms": {"kernel_path": min(dk1, dk2),
+                                 "plain_path": dp},
+            "launches_per_decode": counts,
+            "breakdown_b64": breakdown(m, att, am)}
+    res["na"]["profile_b64_bf16"] = profile_decode(
+        lambda: na_decode(model16, fused_encode(model16, att, am), am.bool(),
+                          fused_fill=True)["seq"])
+    res["sa"] = measure_sa(model, model16, att, am)
     return res
+
+
+@torch.no_grad()
+def measure_sa(model, model16, att, am):
+    """SA decode at B = 64: launches, rounds and host syncs of one decode,
+    and its time on the kernel path and the plain path, for the default
+    bfloat16 model (whole-stack route) and the float32 one (per-layer
+    route); the bfloat16 decode's breakdown and device busy share.  Run on
+    plans without the forced long phrases (``unforce_long``), so the
+    rounds are mostly the narrow ones."""
+    from boficap_tpu_torch.decode.bound_fill import fused_encode, sa_decode
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    res = {}
+    for name, m in (("bfloat16", model16), ("float32", model)):
+        def once(fused, m=m, stats=None):
+            mem = fused_encode(m, att, am) if fused else m.encode(att, am)
+            return sa_decode(m, mem, am.bool(), fused_fill=fused,
+                             stats=stats)["seq"]
+
+        stats = {}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        once(True, stats=stats)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        k1 = timed(lambda: once(True), reps=5, warm=1)
+        p = timed(lambda: once(False), reps=5, warm=1)
+        k2 = timed(lambda: once(True), reps=5, warm=1)
+        res[name] = {"sa_decode_b64_ms": {"kernel_path": min(k1, k2),
+                                          "plain_path": p},
+                     "launches_per_decode": counts, "rounds": stats}
+    res["breakdown_b64_bf16"] = sa_breakdown(model16, att, am)
+    res["profile_b64_bf16"] = profile_decode(
+        lambda: sa_decode(model16, fused_encode(model16, att, am), am.bool(),
+                          fused_fill=True)["seq"])
+    return res
+
+
+def sa_breakdown(model, att, am, reps: int = 3):
+    """Where one kernel-path SA decode's time goes: CUDA events around the
+    calls it makes (encode, predictor, cross K/V projection, fill by round
+    kind, head); 'other' is the device timeline between them (the round's
+    bookkeeping, and idling while the host reads the round's sync).  Host
+    time to enqueue is not separable here: every round syncs.  The fill of
+    a narrow and of a wide round is also given per round."""
+    from boficap_tpu_torch.decode import bound_fill as bf
+    segs = {"predict": [], "cross_kv": [], "fill_narrow": [],
+            "fill_wide": [], "fill_per_layer": [], "head": []}
+    targets = {"cross_kv": ("project_cross_kv",),
+               "fill_narrow": ("fused_window_decoder_stack",),
+               "fill_wide": ("fused_window_wide_stack",),
+               "fill_per_layer": ("fused_window_decoder_forward",),
+               "head": ("fused_greedy_head",)}
+
+    def timed_call(seg, fn):
+        def run(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            segs[seg].append(ev)
+            return out
+        return run
+
+    saved = {n: getattr(bf, n) for names in targets.values() for n in names}
+    for seg, names in targets.items():
+        for n in names:
+            setattr(bf, n, timed_call(seg, saved[n]))
+    model.bound_step_cached = timed_call("predict", model.bound_step_cached)
+    acc = {k: 0.0 for k in ("encode", *segs, "other", "total")}
+    calls = {}
+    try:
+        for rep in range(reps + 1):
+            for v in segs.values():
+                v.clear()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            mem = bf.fused_encode(model, att, am)
+            ev[1].record()
+            bf.sa_decode(model, mem, am.bool(), fused_fill=True)
+            ev[2].record()
+            torch.cuda.synchronize()
+            if rep == 0:
+                continue                               # warm-up
+            parts = {k: sum(a.elapsed_time(b) for a, b in v)
+                     for k, v in segs.items()}
+            calls = {k: len(v) for k, v in segs.items()}
+            enc = ev[0].elapsed_time(ev[1])
+            total = ev[0].elapsed_time(ev[2])
+            parts.update(encode=enc, total=total,
+                         other=total - enc - sum(parts.values()))
+            for k, v in parts.items():
+                acc[k] += v / reps
+    finally:
+        for n, fn in saved.items():
+            setattr(bf, n, fn)
+        del model.bound_step_cached
+    per_round = {f"{k}_per_round_ms": acc[k] / calls[k]
+                 for k in ("fill_narrow", "fill_wide") if calls[k]}
+    return {**{f"{k}_ms": v for k, v in acc.items()}, **per_round,
+            "calls": calls}
 
 
 def breakdown(model, att, am, reps: int = 5):
     """Where one kernel-path NA decode's time goes at B = 64: device time
-    between events around encode, bound, fill (decoder stack) and head,
-    and the host's time to enqueue all of it (when that is close to the
-    wall time the decode is bound by launches, not by the card)."""
-    from boficap_tpu_torch.decode.bound_fill import bound_plan, fused_encode
+    between events around encode, bound, fill (decoder stack, on the route
+    ``use_stacked`` names) and head, and the host's time to enqueue all of
+    it (when that is close to the wall time the decode is bound by
+    launches, not by the card)."""
+    from boficap_tpu_torch.decode.bound_fill import (bound_plan, fused_encode,
+                                                     use_stacked)
     from boficap_tpu_torch.ops import decoder_layer as dl
+    from boficap_tpu_torch.ops import stack as st
     src = am.bool()
     segs = ("encode", "bound", "fill", "head")
     acc = {k: 0.0 for k in segs}
@@ -527,9 +1194,14 @@ def breakdown(model, att, am, reps: int = 5):
         ar = torch.arange(L, device=att.device)
         na_mask = (ar[None, None, :] < total[:, None, None]).expand(-1, L, L)
         x = model.na_inputs(s["extend_syn"][:, 1:-1])
-        packed, fnorm = model.packed_decoder("NA")
-        h = dl.fused_decoder_forward(x, mem, na_mask, src, packed, fnorm,
-                                     model.num_heads)
+        pack = model.packed_decoder("NA")
+        if use_stacked(model, B):
+            h = st.fused_decoder_stack_forward(
+                x, mem, na_mask, src, pack.stack, pack.final_norm,
+                model.num_heads)
+        else:
+            h = dl.fused_decoder_forward(x, mem, na_mask, src, pack.layers,
+                                         pack.final_norm, model.num_heads)
         ev[3].record()
         dl.fused_greedy_head(h, *model.packed_head())
         ev[4].record()
@@ -604,22 +1276,62 @@ def main():
     if tuple(cap) != (9, 0):
         fail(f"capability {cap}: the kernels are built for sm_90a")
     _build.kernels()
+    emit({"kernels": run_phases(smi)})
+    print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
 
-    model = build()
+
+def run_phases(smi: str):
+    """Phases 2-7; returns the {"kernels": [...]} list."""
+    # the same random weights at both compute dtypes: float32 for the
+    # decode comparisons, the default (bfloat16) for the main paths
+    model = build("float32")
+    model16 = build()
+    long_shift = shape_plans([model, model16])
     errs = check_kernels(model)
+    werrs = check_window_kernels(model)
+    for dtype_name in errs:
+        errs[dtype_name].update(werrs[dtype_name])
     emit({"phase": "kernels", "tolerance_rel": TOL, **errs})
-    emit({"phase": "decode", **check_decode(model)})
-    served = check_serve(model)
+    na_dec, na_counts = check_decode(model)
+    emit({"phase": "decode", **na_dec})
+    served = check_serve(model16, "NAIC", NA_KERNELS)
     emit({"phase": "serve", "card": smi, **served})
-    times = measure(model)
-    emit({"phase": "times", "card": smi, **times})
+    sa_dec, sa_counts = check_sa_decode(model)
+    emit({"phase": "sa_decode", "stop_bias_shift": -STOP_SHIFT,
+          "long_bias_shift": long_shift, **sa_dec})
+    emit({"phase": "bf16_decode", **check_bf16_decodes(model16)})
+    sa_served = check_serve(model16, "SAIC", SA_KERNELS)
+    emit({"phase": "sa_serve", "card": smi, **sa_served})
+    unforce_long([model, model16], long_shift)
+    times = measure(model, model16)
+    emit({"phase": "times", "card": smi, "long_bias_shift": 0.0, **times})
 
+    # launches: each kernel on the main path that runs it (the per-layer
+    # kernels on the float32 decodes, their route)
+    paths = {"encoder_layer": ("na_decode_float32_per_layer",
+                               {"launches": na_counts}),
+             "decoder_layer": ("na_decode_float32_per_layer",
+                               {"launches": na_counts}),
+             "greedy_head": ("na_serve", served),
+             "encoder_stack": ("na_serve", served),
+             "decoder_stack": ("na_serve", served),
+             "window_layer": ("sa_decode_float32_per_layer",
+                              {"launches": sa_counts}),
+             "window_stack": ("sa_serve", sa_served),
+             "window_wide_stack": ("sa_serve", sa_served)}
     kernels = []
-    for name in ("encoder_layer", "decoder_layer", "greedy_head"):
+    for name in REPLACES:
         t32, t16 = times["float32"][name], times["bfloat16"][name]
+        path, run = paths[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": served["launches"][name],
+            "replaces": REPLACES[name], "launches": run["launches"][name],
+            "path": path,
             "max_abs_err": errs["float32"][name]["max_abs_err"],
             **{key: t32[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -627,13 +1339,7 @@ def main():
             "bf16": {key: t16[key] for key in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")},
             "bf16_max_abs_err": errs["bfloat16"][name]["max_abs_err"]})
-    emit({"kernels": kernels})
-    print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
-    print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -26,14 +26,15 @@ def to_numpy_tree(tree):
 
 
 def make_pair(train_mode: str = "UIC", input_mode: str = "add",
-              seed: int = 0, n_len: int = 1):
-    """(jax_model, jax_params, torch_model) on shared weights.  The length
-    and syntax heads' biases are nudged (in numpy, before both models get
-    them) so the random model plans non-empty captions of varied length."""
+              seed: int = 0, n_len: int = 1, dtype: str = "float32"):
+    """(jax_model, jax_params, torch_model) on shared weights, both built
+    for the compute ``dtype``.  The length and syntax heads' biases are
+    nudged (in numpy, before both models get them) so the random model
+    plans non-empty captions of varied length."""
     cfg = tiny_cfg(train_mode, N_len=n_len)
     cfg.max_length = L
     cfg.decoder_input_mode = input_mode
-    cfg.dtype = "float32"
+    cfg.dtype = dtype
     jm = jax_build_model(cfg, VOCAB)
     Lp = L + 2
     z = jnp.zeros((2, Lp), jnp.int32)
@@ -55,7 +56,7 @@ def make_pair(train_mode: str = "UIC", input_mode: str = "add",
     tcfg = make_config(**{k: cfg[k] for k in (
         "train_mode", "N_enc", "N_dec", "N_len", "d_model", "d_ff",
         "num_att_heads", "max_length", "decoder_input_mode",
-        "att_feat_size", "max_boxes")})
+        "att_feat_size", "max_boxes", "dtype")})
     tm = torch_build_model(tcfg, VOCAB, device="cpu")
     load_jax_params(tm, tree)
     return jm, params, tm

@@ -18,13 +18,13 @@ from boficap_tpu_torch.models import layers as tl
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 MODEL_FIELDS = ("train_mode", "d_model", "d_ff", "N_enc", "N_dec", "N_len",
                 "num_att_heads", "max_length", "decoder_input_mode",
-                "max_boxes", "att_feat_size")
+                "max_boxes", "att_feat_size", "dtype")
 
 
 def test_reader_matches_jax_loader_on_every_config():
     """Every shipped config gives build_model the same fields as the JAX
-    package's loader (defaults, _BASE_ chain, finalize).  The compute dtype
-    is the one deliberate difference: float32 unless the file says."""
+    package's loader (defaults, _BASE_ chain, finalize), the compute dtype
+    included."""
     paths = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yml")))
     assert len(paths) > 20
     for path in paths:
@@ -34,7 +34,6 @@ def test_reader_matches_jax_loader_on_every_config():
         want = finalize(want)
         for k in MODEL_FIELDS:
             assert got[k] == want[k], (os.path.basename(path), k)
-        assert got.dtype == "float32"
 
 
 @pytest.mark.parametrize("text", ["a:\n  b: 1\n", "a: [1, 2]\n",

@@ -113,3 +113,124 @@ def test_wrapper_raises_on_bad_input(cuda):
     with pytest.raises(TypeError):
         dl.fused_encoder_layer(x.half(), torch.ones(
             2, 3, dtype=torch.bool, device=cuda), w, H)
+
+
+def _window_operands(cuda, dtype, NL, B, W, L, R, D, F, H):
+    """Per-layer and stacked window weights, activations, caches, cross
+    K/V, window starts (one clipped at L - W) and masks with a fully masked
+    sample and padded regions."""
+    from boficap_tpu_torch.ops import stack as st
+    dec = _layer(tl.Decoder, NL, D, F, H).to(cuda)
+    pack = st.pack_window_weights(dec, dtype)
+    layers, stacked = pack.layers, pack.stack
+    g = torch.Generator().manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(cuda, dtype)
+
+    x = rnd(B, W, D)
+    kc, vc = rnd(NL, B, L, D), rnd(NL, B, L, D)
+    k2, v2 = rnd(NL, B, R, D), rnd(NL, B, R, D)
+    w_start = torch.tensor([0, L - W, 2, 1, L - W][:B], dtype=torch.int32,
+                           device=cuda)
+    tgt = (torch.rand((B, W, L + W), generator=g) < 0.6).to(cuda)
+    tgt[1] = False
+    src = torch.arange(R, device=cuda)[None, :] < torch.tensor(
+        [7, 2, 7, 5, 3][:B], device=cuda)[:, None]
+    norm = (torch.rand(D, generator=g).to(cuda) + 0.5,
+            torch.randn(D, generator=g).to(cuda) * 0.1)
+    return layers, stacked, x, kc, vc, k2, v2, w_start, tgt, src, norm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_layer_kernel(cuda, dtype):
+    D, F, H, B, W, L, R = 96, 200, 3, 5, 3, 9, 7
+    layers, _, x, kc, vc, k2, v2, _, tgt, src, _ = _window_operands(
+        cuda, dtype, 1, B, W, L, R, D, F, H)
+    args = (x, kc[0], vc[0], k2[0], v2[0], tgt, src, layers[0], H)
+    got = dl.fused_window_decoder_layer(*args)
+    want = dl.window_layer_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        assert _rel(g, w) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_stack_kernel(cuda, dtype):
+    """A narrow round: caches updated in place, rows outside each window
+    bit-identical, in-window rows the fresh K/V."""
+    from boficap_tpu_torch.ops import stack as st
+    D, F, H, B, W, L, R, NL = 96, 200, 3, 5, 3, 9, 7, 2
+    _, stacked, x, kc, vc, k2, v2, ws, tgt, src, norm = _window_operands(
+        cuda, dtype, NL, B, W, L, R, D, F, H)
+    kc_k, vc_k = kc.clone(), vc.clone()
+    kc_p, vc_p = kc.clone(), vc.clone()
+    h, kc_out, _ = st.fused_window_decoder_stack(
+        x, ws, kc_k, vc_k, k2, v2, tgt, src, stacked, norm, H)
+    hp, _, _ = st.window_stack_plain(x, ws, kc_p, vc_p, k2, v2, tgt, src,
+                                     stacked, norm, H)
+    torch.cuda.synchronize()
+    assert kc_out is kc_k
+    assert _rel(h, hp) < TOL[dtype]
+    pos = torch.arange(L, device=cuda)[None, :]
+    inside = (pos >= ws.long()[:, None]) & (pos < ws.long()[:, None] + W)
+    for got, want, old in ((kc_k, kc_p, kc), (vc_k, vc_p, vc)):
+        assert torch.equal(got[:, ~inside], old[:, ~inside])
+        assert _rel(got[:, inside], want[:, inside]) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_wide_stack_kernel(cuda, dtype):
+    from boficap_tpu_torch.ops import stack as st
+    D, F, H, B, L, R, NL = 96, 200, 3, 5, 9, 7, 2
+    _, stacked, x, _, _, k2, v2, _, tgt, src, norm = _window_operands(
+        cuda, dtype, NL, B, L, L, R, D, F, H)
+    tgt = tgt[:, :, L:].contiguous()
+    got = st.fused_window_wide_stack(x, k2, v2, tgt, src, stacked, norm, H)
+    want = st.window_wide_stack_plain(x, k2, v2, tgt, src, stacked, norm, H)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        assert _rel(g, w) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_stack_kernel(cuda, dtype):
+    """#4: every encoder layer in one call, a fully masked sample."""
+    from boficap_tpu_torch.ops import stack as st
+    D, F, H, B, R, NL = 96, 200, 3, 5, 7, 3
+    pack = st.pack_encoder_stack(_layer(tl.Encoder, NL, D, F, H).to(cuda),
+                                 dtype)
+    x = torch.randn(B, R, D, device=cuda).to(dtype)
+    mask = torch.arange(R, device=cuda)[None, :] < torch.tensor(
+        [0, 7, 3, 5, 1], device=cuda)[:, None]
+    got = st.fused_encoder_stack_forward(x, mask, pack.stack,
+                                         pack.final_norm, H)
+    want = st.encoder_stack_plain(x, mask, pack.stack, pack.final_norm, H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoder_stack_kernel(cuda, dtype):
+    """#5: every decoder layer in one call, an empty plan, padded regions."""
+    from boficap_tpu_torch.ops import stack as st
+    D, F, H, B, L, R, NL = 96, 200, 3, 5, 9, 7, 3
+    pack = st.pack_decoder_stack(_layer(tl.Decoder, NL, D, F, H).to(cuda),
+                                 dtype)
+    x = torch.randn(B, L, D, device=cuda).to(dtype)
+    mem = torch.randn(B, R, D, device=cuda).to(dtype)
+    total = torch.tensor([0, 9, 4, 1, 6], device=cuda)
+    tgt = (torch.arange(L, device=cuda)[None, None, :]
+           < total[:, None, None]).expand(B, L, L).contiguous()
+    src = torch.arange(R, device=cuda)[None, :] < torch.tensor(
+        [7, 2, 7, 5, 3], device=cuda)[:, None]
+    got = st.fused_decoder_stack_forward(x, mem, tgt, src, pack.stack,
+                                         pack.final_norm, H)
+    want = st.decoder_stack_plain(x, mem, tgt, src, pack.stack,
+                                  pack.final_norm, H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) < TOL[dtype]

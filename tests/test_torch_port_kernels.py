@@ -1,5 +1,5 @@
-"""Port parity, kernels: the plain PyTorch versions of the port's three
-CUDA kernels (what the wrappers run on CPU tensors) against the JAX
+"""Port parity, kernels: the plain PyTorch versions of the port's layer
+and head kernels (what the wrappers run on CPU tensors) against the JAX
 package's Pallas kernels run in interpret mode, as tests/test_pallas.py
 runs them (float32, CPU).  The CUDA kernels themselves are held against
 these plain versions on the card (chip_smoke.py, test_torch_port_cuda.py).
@@ -21,6 +21,7 @@ from boficap_tpu.ops import pallas_decoder_layer as pdl
 from boficap_tpu_torch.convert import load_jax_params
 from boficap_tpu_torch.models import layers as tl
 from boficap_tpu_torch.ops import decoder_layer as dl
+from boficap_tpu_torch.ops import stack as st
 from tests._torch_port_util import to_numpy_tree
 
 CSRC = Path(dl.__file__).resolve().parent.parent / "csrc"
@@ -127,16 +128,21 @@ def test_wrappers_reject_other_devices():
 
 
 def test_launch_counts_untouched_on_cpu():
-    dl.reset_launch_counts()
+    from boficap_tpu_torch import ops
+    ops.reset_launch_counts()
     h = torch.randn(1, 2, D)
     dl.fused_greedy_head(h, torch.randn(D, 9), torch.randn(9))
-    assert dl.launch_counts() == {"encoder_layer": 0, "decoder_layer": 0,
-                                  "greedy_head": 0}
+    assert ops.launch_counts() == {
+        "encoder_layer": 0, "decoder_layer": 0, "greedy_head": 0,
+        "window_layer": 0, "encoder_stack": 0, "decoder_stack": 0,
+        "window_stack": 0, "window_wide_stack": 0}
 
 
 @pytest.mark.parametrize("entry,mirror", [
     ("encoder_layer", dl._EncoderLayerArgs),
-    ("decoder_layer", dl._DecoderLayerArgs)])
+    ("decoder_layer", dl._DecoderLayerArgs),
+    ("window_layer", dl._WindowLayerArgs),
+    ("window_stack", st._WindowStackArgs)])
 def test_args_struct_mirrors_c(entry, mirror):
     """The wrapper's ctypes struct lists the C entry's argument struct
     fields in order, each a pointer, long long or int as in C (the card

@@ -6,6 +6,7 @@ the same weights."""
 import json
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -153,8 +154,10 @@ def test_serve_close_drains_and_validates(pair):
     finally:
         srv2.close()
 
+    CaptionServer(tm, IX_TO_WORD, mode="SAIC", device="cpu").close()
     with pytest.raises(NotImplementedError):
-        CaptionServer(tm, IX_TO_WORD, mode="SAIC", device="cpu")
+        CaptionServer(types.SimpleNamespace(train_mode="AIC"), IX_TO_WORD,
+                      mode="AIC", device="cpu")
     with pytest.raises(ValueError):
         CaptionServer(tm, IX_TO_WORD, mode="AIC", device="cpu")
 
