@@ -19,7 +19,9 @@ BASE_KEY = "_BASE_"
 # the defaults of the fields build_model reads (the JAX package's
 # config/opts.py DEFAULTS, the transformer-dims fallbacks of its finalize()),
 # compute dtype included: a file that names no dtype builds a bfloat16 model,
-# as the JAX package does; set ``dtype: float32`` for float32
+# as the JAX package does; set ``dtype: float32`` for float32.  ``use_pallas``
+# keeps the JAX package's key; in the port it routes the eligible attention
+# calls through the attention-core kernel (ops/attention.py)
 DEFAULTS: Dict[str, Any] = dict(
     train_mode="AIC",
     decoder_input_mode="add",
@@ -37,6 +39,7 @@ DEFAULTS: Dict[str, Any] = dict(
     max_boxes=100,
     max_length=20,
     dtype="bfloat16",
+    use_pallas=False,
 )
 
 

@@ -7,7 +7,9 @@
 //   ctx = T(sum_j p_j v_j)
 //
 // One block per (sample, head).  The head's Q, K and V slices (columns
-// h*Dh .. h*Dh+Dh-1 of row-major [rows, ld] activations) are staged in
+// h*Dh .. h*Dh+Dh-1 of row-major [rows, ld] activations for the layer
+// kernels; any strided [B, H, rows, Dh] view, HeadView, for the attention
+// core of attention_core.cu) are staged in
 // shared memory as float32; one warp per query row computes its scores,
 // softmax and context.  A fully masked row has every score at -1e9 and so
 // comes out uniform over its own sample's keys, as on the TPU.  The mask is
@@ -40,17 +42,45 @@ struct KeySrc {
   int ldk, ldv, rows;
 };
 
+// A strided [B, H, rows, Dh] operand: element (b, h, j, d) at
+// p[b * sb + h * sh + j * sl + d].  Row-major [B * rows, ld] activations
+// with heads as column slices are the view {p, rows * ld, Dh, ld}; the
+// attention-core kernel (attention_core.cu) takes any strides, a stride of
+// 0 included (a query broadcast over the batch).
 template <typename T>
+struct HeadView {
+  T* p;
+  long long sb, sh, sl;
+  __device__ __forceinline__ T& at(int b, int h, int j, int d) const {
+    return p[b * sb + h * sh + j * sl + d];
+  }
+};
+
+template <typename T>
+HeadView<T> rows_view(T* p, int ld, int rows, int Dh) {
+  return HeadView<T>{p, (long long)rows * ld, Dh, ld};
+}
+
+// How the scores are scaled: the layer kernels divide by sqrt(Dh)
+// (pallas_decoder_layer.py:86); the attention core multiplies by the float32
+// 1/sqrt(Dh) (pallas_attention.py:38,47).  The two agree exactly when
+// sqrt(Dh) is a power of two (Dh = 64: 0.125).
+enum class Scale { kDivSqrt, kMulInvSqrt };
+
+template <typename T, Scale S>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
-    attention_kernel(const T* __restrict__ q, int ldq, KeySrc<T> a,
-                     KeySrc<T> c, const uint8_t* __restrict__ mask,
-                     T* __restrict__ out, int ldo, int H, int Lq, int Dh,
-                     long long mask_sb, long long mask_sq) {
+    attention_kernel(HeadView<const T> q, HeadView<const T> ka,
+                     HeadView<const T> va, int rows_a, HeadView<const T> kc,
+                     HeadView<const T> vc, int rows_c,
+                     const uint8_t* __restrict__ mask, long long mask_sb,
+                     long long mask_sq, HeadView<T> out, int H, int Lq,
+                     int Dh) {
   extern __shared__ float smem[];
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
-  const int Lk = a.rows + c.rows;
+  const int Lk = rows_a + rows_c;
   const float sqrt_dh = sqrtf(static_cast<float>(Dh));
+  const float inv_sqrt_dh = static_cast<float>(1.0 / sqrt(static_cast<double>(Dh)));
   const int ks_ld = Dh + 1;  // odd stride: lanes reading key rows j hit distinct banks
   float* Ks = smem;                      // [Lk][Dh + 1]
   float* Vs = Ks + (size_t)Lk * ks_ld;   // [Lk][Dh]
@@ -60,19 +90,15 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
   const int nthr = blockDim.x;
   for (int e = threadIdx.x; e < Lk * Dh; e += nthr) {
     const int j = e / Dh, d = e % Dh;
-    const bool first = j < a.rows;
-    const T* ks = first ? a.k : c.k;
-    const T* vs = first ? a.v : c.v;
-    const size_t row = first ? (size_t)b * a.rows + j
-                             : (size_t)b * c.rows + (j - a.rows);
-    const size_t ldk = first ? a.ldk : c.ldk;
-    const size_t ldv = first ? a.ldv : c.ldv;
-    Ks[j * ks_ld + d] = Cvt<T>::to_f(ks[row * ldk + h * Dh + d]);
-    Vs[j * Dh + d] = Cvt<T>::to_f(vs[row * ldv + h * Dh + d]);
+    const bool first = j < rows_a;
+    Ks[j * ks_ld + d] = Cvt<T>::to_f(first ? ka.at(b, h, j, d)
+                                           : kc.at(b, h, j - rows_a, d));
+    Vs[j * Dh + d] = Cvt<T>::to_f(first ? va.at(b, h, j, d)
+                                        : vc.at(b, h, j - rows_a, d));
   }
   for (int e = threadIdx.x; e < Lq * Dh; e += nthr) {
     const int i = e / Dh, d = e % Dh;
-    Qs[i * Dh + d] = Cvt<T>::to_f(q[((size_t)b * Lq + i) * ldq + h * Dh + d]);
+    Qs[i * Dh + d] = Cvt<T>::to_f(q.at(b, h, i, d));
   }
   __syncthreads();
 
@@ -87,7 +113,7 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
       const float* kj = Ks + (size_t)j * ks_ld;
       float s = 0.f;
       for (int d = 0; d < Dh; ++d) s = fmaf(qi[d], kj[d], s);
-      s = s / sqrt_dh;
+      s = S == Scale::kDivSqrt ? s / sqrt_dh : s * inv_sqrt_dh;
       if (!mrow[j]) s = MASK_FILL;
       P[j] = s;
       mx = fmaxf(mx, s);
@@ -109,10 +135,37 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
     for (int d = lane; d < Dh; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < Lk; ++j) acc = fmaf(P[j], Vs[(size_t)j * Dh + d], acc);
-      out[((size_t)b * Lq + i) * ldo + h * Dh + d] = Cvt<T>::from_f(acc);
+      out.at(b, h, i, d) = Cvt<T>::from_f(acc);
     }
     __syncwarp();
   }
+}
+
+// shared memory of one (sample, head) block
+inline size_t attention_smem(int Lq, int Lk, int Dh) {
+  return sizeof(float) * ((size_t)Lk * (Dh + 1) + (size_t)Lk * Dh +
+                          (size_t)Lq * Dh + (size_t)ATT_WARPS * Lk);
+}
+
+template <typename T, Scale S>
+cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
+                             HeadView<const T> va, int rows_a,
+                             HeadView<const T> kc, HeadView<const T> vc,
+                             int rows_c, const uint8_t* mask,
+                             long long mask_sb, long long mask_sq,
+                             HeadView<T> out, int B, int H, int Lq, int Dh,
+                             cudaStream_t stream) {
+  const size_t smem = attention_smem(Lq, rows_a + rows_c, Dh);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        attention_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  attention_kernel<T, S><<<B * H, ATT_WARPS * 32, smem, stream>>>(
+      q, ka, va, rows_a, kc, vc, rows_c, mask, mask_sb, mask_sq, out, H, Lq,
+      Dh);
+  return cudaGetLastError();
 }
 
 // keys a ++ c; q points at head 0's column of a row-major [B*Lq, ldq] buffer
@@ -121,19 +174,12 @@ cudaError_t attention2(const T* q, int ldq, KeySrc<T> a, KeySrc<T> c,
                        const uint8_t* mask, long long mask_sb,
                        long long mask_sq, T* out, int ldo, int B, int H,
                        int Lq, int Dh, cudaStream_t stream) {
-  const int Lk = a.rows + c.rows;
-  const size_t smem = sizeof(float) * ((size_t)Lk * (Dh + 1) +
-                                       (size_t)Lk * Dh + (size_t)Lq * Dh +
-                                       (size_t)ATT_WARPS * Lk);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  attention_kernel<T><<<B * H, ATT_WARPS * 32, smem, stream>>>(
-      q, ldq, a, c, mask, out, ldo, H, Lq, Dh, mask_sb, mask_sq);
-  return cudaGetLastError();
+  return launch_attention<T, Scale::kDivSqrt>(
+      rows_view(q, ldq, Lq, Dh), rows_view(a.k, a.ldk, a.rows, Dh),
+      rows_view(a.v, a.ldv, a.rows, Dh), a.rows,
+      rows_view(c.k, c.ldk, c.rows, Dh), rows_view(c.v, c.ldv, c.rows, Dh),
+      c.rows, mask, mask_sb, mask_sq, rows_view(out, ldo, Lq, Dh), B, H, Lq,
+      Dh, stream);
 }
 
 // one key source: q/k/v point at head 0's column of row-major

@@ -27,6 +27,10 @@ launch per round) or ``ops/decoder_layer.py`` (one per layer).  The JAX package 
 narrow window and the wide (W = L) round and whether to go on; here both
 decisions read one small device tensor, so a round costs one host sync.
 
+UIC_s / UIC_u AR (``uic_s_ar_decode``): the bounding plan, then the
+KV-cached AR step of ``decode/ar.py`` with the plan's syn ids, writing
+words only inside the planned length.
+
 Known reference defect NOT replicated: core_NAIC builds the fill mask from
 ``last[j]`` of the final loop iteration for every row
 (TransformerModel.py:1872-1874 uses ``last[j]`` inside ``for i in
@@ -215,11 +219,16 @@ def na_decode(model, memory, src_mask, *, sample_method: str = "greedy",
     return {"seq": seq, "tok_logprobs": tok, "entropy": ent, **plan}
 
 
-def _tok_entropy(logprob, seq):
-    """Dense [B, L, V] log-probs -> chosen-token logprob and entropy
-    [B, L]."""
+def _tok_entropy(logprob, seq, mask=None):
+    """Dense [..., V] log-probs -> chosen-token logprob and entropy [...].
+    ``mask`` (bool) zeroes positions, reproducing loops that stored zero
+    logprob rows there; None keeps every row, reproducing the single-pass
+    fills whose dense tensor had live tail rows."""
     tok = torch.gather(logprob, -1, seq[..., None])[..., 0]
     ent = -(torch.exp(logprob) * logprob).sum(-1)
+    if mask is not None:
+        tok = torch.where(mask, tok, 0.0)
+        ent = torch.where(mask, ent, 0.0)
     return tok, ent
 
 
@@ -437,3 +446,50 @@ def sa_decode(model, memory, src_mask, *, sample_method: str = "greedy",
             "entropy": s["ent"], "phrase_num": s["phrase_num"],
             "phrase_length": s["phrase_length"][:, 1:-1],
             "phrase_syn": s["phrase_syn"][:, 1:-1]}
+
+
+@torch.no_grad()
+def uic_s_ar_decode(model, memory, src_mask, *, sample_method: str = "greedy",
+                    temperature: float = 1.0, max_steps: Optional[int] = None,
+                    ar_max_steps: Optional[int] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """UIC_s / UIC_u autoregressive branch (reference core_UIC_s_AIC,
+    TransformerModel.py:2313-2391): bound the syn plan with the shared
+    predictor, then decode autoregressively with word + syn embeddings,
+    writing words only inside the planned length.
+
+    The AR phase is the KV-cached ``ar_step`` with the per-position syn id
+    from the plan, for a fixed ``ar_max_steps`` (default L) with no host
+    sync: a step past every row's plan writes PAD and zeros, so the result
+    equals the JAX package's while-loop, which stops there.
+
+    Returns {'seq', 'tok_logprobs', 'entropy', 'phrase_num',
+    'phrase_length', 'phrase_syn'}: [B, L] each except phrase_num [B]."""
+    L = model.max_length
+    B = memory.shape[0]
+    dev = memory.device
+    n_bound = L if max_steps is None else min(max_steps, L)
+    plan = bound_plan(model, memory, src_mask, n_bound, L)
+    extend_syn = plan["extend_syn"]
+    last = plan["last"]                                  # 1 + total words
+    n_ar = L if ar_max_steps is None else min(ar_max_steps, L)
+    cache = model.init_ar_cache(memory, L + 1)
+    it = torch.full((B,), BOS, dtype=torch.long, device=dev)
+    seq = torch.full((B, L), PAD, dtype=torch.long, device=dev)
+    tok_lp = torch.zeros((B, L), dtype=torch.float32, device=dev)
+    ent_lp = torch.zeros((B, L), dtype=torch.float32, device=dev)
+    for pos in range(n_ar):
+        # the syn id of the CURRENT input token's label slot pos + 1
+        # (reference decode_A input extend_phrase_syn[:, 1:i+2], :2374)
+        logprob, cache = model.ar_step(it, pos, cache, src_mask,
+                                       syn_t=extend_syn[:, pos + 1])
+        ids, _ = sample_next_word(logprob, sample_method, temperature)
+        write = (pos + 1) < last                          # reference :2385
+        ids = torch.where(write, ids, PAD)
+        seq[:, pos] = ids
+        tok_lp[:, pos], ent_lp[:, pos] = _tok_entropy(logprob, ids, write)
+        it = ids
+    return {"seq": seq, "tok_logprobs": tok_lp, "entropy": ent_lp,
+            "phrase_num": plan["phrase_num"],
+            "phrase_length": plan["phrase_length"][:, :L],
+            "phrase_syn": plan["phrase_syn"][:, :L]}

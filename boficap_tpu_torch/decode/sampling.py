@@ -8,6 +8,9 @@ from typing import Optional
 
 import torch
 
+# the finite fill of forbidden words (the JAX package's sampling.NEG_INF)
+NEG_INF = -1e9
+
 
 def sample_next_word(logprobs: torch.Tensor, sample_method: str = "greedy",
                      temperature: float = 1.0,

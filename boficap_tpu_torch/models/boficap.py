@@ -1,14 +1,15 @@
-"""BoFiCap, inference half for the NA and SA roles: the port of the JAX
+"""BoFiCap, inference half for the NA, SA and A roles: the port of the JAX
 package's ``models/boficap.py`` (reference TransformerModel.py:97-175,
 386-587).
 
-Covers what the NA "bound then fill" and the SA per-phrase decodes need:
-the parameters every train_mode's setup creates, ``encode``, the cached
-bounding step (the N_len == 1 path every shipped config uses) and the
-general ``bound_step``, the add | single | gate decoder-input mix (over the
-whole frame, or over a window of slots for the SA fill), ``decode_na``,
-``decode_sa`` and the generator.  Training paths, AR decoding and PB_pad
-come in later slices.
+Covers what the NA "bound then fill", the SA per-phrase and the AR decodes
+need: the parameters each train_mode's flax tree holds, ``encode``, the
+cached bounding step (the N_len == 1 path every shipped config uses) and
+the general ``bound_step``, the add | single | gate decoder-input mix (over
+the whole frame, or over a window of slots for the SA fill), ``decode_na``,
+``decode_sa``, ``decode_a``, the KV-cached AR step (``init_ar_cache``,
+``ar_step``) and the generator.  Training paths and PB_pad come in later
+slices.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from .layers import (
     Dense,
     Encoder,
     Generator,
+    MultiHeadAttention,
     PositionalEncoding,
     RefLayerNorm,
     TokenEmbed,
@@ -46,6 +48,10 @@ DECODER_ROLES = {
 }
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# train_modes whose flax tree holds no length/syntax predictor and no syn
+# embedding: their training forward never calls them
+NO_PREDICTOR = ("AIC", "auto")
 
 
 def decoder_roles(train_mode: str, role: Optional[str] = None):
@@ -96,26 +102,30 @@ class BoFiCap(nn.Module):
         for i in range(n_stacks):
             self.add_module(f"decoder{i}",
                             Decoder(N_dec, d_model, d_ff, num_heads, **dd))
+        # length/syntax predictor (reference LengthPredictor_UIC :333-383)
+        self.n_lp = 0 if train_mode in NO_PREDICTOR else max(N_len, 1)
+        # (the parameters are created in this order, which fixes the order
+        # init_params draws them in)
         self.word_embed = TokenEmbed(tgt_vocab, d_model, **dd)
-        self.syn_embed = TokenEmbed(SYN_DIM, d_model, **dd)
+        if self.n_lp:
+            self.syn_embed = TokenEmbed(SYN_DIM, d_model, **dd)
         self.posenc = PositionalEncoding(d_model, max(5000, L2), device)
         self.generator = Generator(d_model, tgt_vocab, **dd)
 
-        # length/syntax predictor (reference LengthPredictor_UIC :333-383)
-        self.n_lp = max(N_len, 1)
         for i in range(self.n_lp):
             self.add_module(f"lp{i}",
                             DecoderLayer(d_model, d_ff, num_heads, **dd))
-        if N_len == 0:
+        if self.n_lp and N_len == 0:
             # one cross-attention sublayer (DecoderLayer.cross_only); the
             # flax tree holds no parameters for the parts it never calls
             for name in ("self_attn", "ffn", "sub1", "sub2"):
                 delattr(self.lp0, name)
-        self.lp_norm = RefLayerNorm(d_model, **dd)
-        self.len_head1 = Dense(d_model, 100, **dd)
-        self.len_head2 = Dense(100, LENGTH_DIM, **dd)
-        self.syn_head1 = Dense(d_model, 100, **dd)
-        self.syn_head2 = Dense(100, SYN_DIM, **dd)
+        if self.n_lp:
+            self.lp_norm = RefLayerNorm(d_model, **dd)
+            self.len_head1 = Dense(d_model, 100, **dd)
+            self.len_head2 = Dense(100, LENGTH_DIM, **dd)
+            self.syn_head1 = Dense(d_model, 100, **dd)
+            self.syn_head2 = Dense(100, SYN_DIM, **dd)
 
         if train_mode == "PB_pad":
             self.lp_word_embed = TokenEmbed(tgt_vocab, d_model, **dd)
@@ -144,6 +154,15 @@ class BoFiCap(nn.Module):
 
     def lp_layers(self):
         return [getattr(self, f"lp{i}") for i in range(self.n_lp)]
+
+    def set_attention_core(self, enabled: bool) -> None:
+        """Route (or stop routing) every attention of the model whose mask
+        has rank 2 or 3 through the attention-core kernel
+        (``MultiHeadAttention.use_core``): the config's ``use_pallas``, as
+        the JAX package's ``models.setup`` reads it."""
+        for m in self.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.use_core = bool(enabled)
 
     def packed_encoder(self):
         """The encoder's weights for the kernels (``ops.stack.StackPack``)."""
@@ -333,15 +352,41 @@ class BoFiCap(nn.Module):
         return self._decoder("NA")(self.na_inputs(syn_seq), memory, src_mask,
                                    tgt_mask)
 
+    def decode_a(self, word_seq, memory, src_mask, tgt_mask, syn_seq=None):
+        """AR decode, teacher-forced over the whole frame; UIC_s/u variants
+        add syn embeddings (reference :832-834).  [B, L] -> [B, L, d]."""
+        x = self.word_embed(word_seq)
+        if syn_seq is not None:
+            x = x + self.syn_embed(syn_seq)
+        return self._decoder("A")(self.posenc(x), memory, src_mask, tgt_mask)
+
+    def init_ar_cache(self, memory, max_len: int):
+        """KV cache of the AR decoder: per layer, the cross-attention K/V
+        projected once and zeroed self-attention K/V [B, max_len, H, Dh]."""
+        return self._decoder("A").init_cache(memory, max_len)
+
+    def ar_step(self, it, pos: int, cache, src_mask, syn_t=None):
+        """One KV-cached AR step: token ids ``it`` [B] at position ``pos``
+        -> (logprob [B, V] float32, cache).  The cache's self-attention
+        K/V are written in place at ``pos``."""
+        x = self.word_embed(it[:, None])
+        if syn_t is not None:
+            x = x + self.syn_embed(syn_t[:, None])
+        x = self.posenc(x, offset=pos)
+        h, cache = self._decoder("A").step(x, cache, pos, src_mask)
+        return self.generate(h)[:, 0], cache
+
     def generate(self, h):
         return self.generator(h)
 
 
 def build_model(cfg, vocab_size: int, device=None) -> BoFiCap:
     """BoFiCap from a config (reference models.setup), parameters zeroed:
-    fill them with ``convert.init_params`` or a loader."""
+    fill them with ``convert.init_params`` or a loader.  ``use_pallas``
+    routes the eligible attentions through the attention-core kernel
+    (``BoFiCap.set_attention_core``)."""
     from ..device import resolve_device
-    return BoFiCap(
+    model = BoFiCap(
         tgt_vocab=vocab_size + 4,
         d_model=cfg.d_model,
         d_ff=cfg.d_ff,
@@ -357,3 +402,5 @@ def build_model(cfg, vocab_size: int, device=None) -> BoFiCap:
         dtype=DTYPES[cfg.get("dtype", "bfloat16")],
         device=resolve_device(device),
     )
+    model.set_attention_core(bool(cfg.get("use_pallas", False)))
+    return model

@@ -12,6 +12,13 @@ Numerics follow the JAX modules:
     the probabilities cast to the compute dtype before ``@ v``;
   * ``RefLayerNorm`` uses the unbiased std with eps added to the std.
 
+``MultiHeadAttention.use_core`` (set for a whole model by
+``BoFiCap.set_attention_core``, from the config's ``use_pallas``) routes
+every attention with a rank-2 or rank-3 mask through the attention-core
+kernel (``ops/attention.py``), as the JAX package's ``use_pallas`` routes
+them to its TPU kernel; here it is a per-module attribute, not a process
+global.
+
 Submodule and parameter names mirror the flax parameter tree
 (``layer{i}``, ``sub0.norm``, ``ffn.Dense_0``, ``Embed_0``...), so the
 weight bridge (``convert.py``) is a mechanical renaming.  Parameters are
@@ -28,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.attention import attention_core
 
 MASK_FILL = -1e9
 
@@ -72,6 +81,8 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.d_model = d_model
         self.compute_dtype = dtype
+        # route rank-2/3-masked calls through the attention-core kernel
+        self.use_core = False
         for name in ("wq", "wk", "wv", "wo"):
             setattr(self, name, Dense(d_model, d_model, dtype, device))
 
@@ -88,8 +99,17 @@ class MultiHeadAttention(nn.Module):
 
     def attend(self, qh, kh, vh, mask=None):
         """qh [B,Lq,H,Dh], kh/vh [B,Lk,H,Dh]; bool mask [B,Lk] | [B,Lq,Lk]
-        | 4-D broadcastable over [B,H,Lq,Lk] (True = attend)."""
+        | 4-D broadcastable over [B,H,Lq,Lk] (True = attend).  With
+        ``use_core`` a rank-2/3 mask routes to the attention-core kernel
+        (layers.py:115-130 of the JAX package); the views it is handed are
+        read in place."""
         B, Lq, H, Dh = qh.shape
+        if self.use_core and mask is not None and mask.dim() in (2, 3):
+            Lk = kh.shape[1]
+            m3 = mask[:, None, :] if mask.dim() == 2 else mask
+            out = attention_core(qh.transpose(1, 2), kh.transpose(1, 2),
+                                 vh.transpose(1, 2), m3.expand(B, Lq, Lk))
+            return self.wo(out.transpose(1, 2).reshape(B, Lq, self.d_model))
         scores = torch.einsum("bqhd,bkhd->bhqk", qh.float(),
                               kh.float()) / math.sqrt(Dh)
         if mask is not None:
@@ -97,9 +117,9 @@ class MultiHeadAttention(nn.Module):
                 mask = mask[:, None, None, :]
             elif mask.dim() == 3:
                 mask = mask[:, None, :, :]
-            scores = torch.where(mask, scores,
-                                 torch.tensor(MASK_FILL, dtype=scores.dtype,
-                                              device=scores.device))
+            # a Python scalar: a tensor made here would be a blocking
+            # host-to-device copy, a stream sync on every call
+            scores = torch.where(mask, scores, MASK_FILL)
         probs = torch.softmax(scores, dim=-1).to(self.compute_dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), vh.float())
         out = out.to(self.compute_dtype).reshape(B, Lq, self.d_model)
@@ -231,6 +251,35 @@ class DecoderLayer(nn.Module):
         return self.sub0(x, lambda y: self.src_attn(y, memory, memory,
                                                     src_mask))
 
+    def init_cache(self, memory, max_len: int):
+        """Per-layer KV cache: zeroed self-attention K/V [B, max_len, H, Dh]
+        and the cross-attention K/V of the encoder memory, projected once."""
+        kc, vc = self.src_attn.project_kv(memory)
+        B, _, H, Dh = kc.shape
+        z = torch.zeros((B, max_len, H, Dh), dtype=kc.dtype,
+                        device=kc.device)
+        return {"ks": z, "vs": z.clone(), "kc": kc, "vc": vc}
+
+    def step(self, x_t, cache, pos: int, src_mask, vis):
+        """One causal decode step: x_t [B, 1, d] at 0-based position
+        ``pos``.  Returns (out_t [B, 1, d], cache).  Unlike the JAX
+        package's immutable arrays, the cache's self-attention K/V are
+        written IN PLACE at ``pos`` and the same dict comes back.  ``vis``:
+        the rank-4 visibility mask of keys <= pos (``step_mask``, made once
+        a step for all layers); rank 4 keeps the self-attention on the plain
+        path, as in the JAX package, while the cross-attention's [B, R]
+        mask may take the attention core."""
+        n = self.sub0.norm_only(x_t)
+        kh, vh = self.self_attn.project_kv(n)
+        ks, vs = cache["ks"], cache["vs"]
+        ks[:, pos] = kh[:, 0]
+        vs[:, pos] = vh[:, 0]
+        att = self.self_attn.attend(self.self_attn.project_q(n), ks, vs, vis)
+        x = x_t + att
+        q1 = self.src_attn.project_q(self.sub1.norm_only(x))
+        x = x + self.src_attn.attend(q1, cache["kc"], cache["vc"], src_mask)
+        return self.sub2(x, self.ffn), cache
+
 
 class Decoder(nn.Module):
     """N DecoderLayers + final norm (reference :1379-1396)."""
@@ -251,6 +300,17 @@ class Decoder(nn.Module):
         for layer in self.layers():
             x = layer(x, memory, src_mask, tgt_mask)
         return self.norm(x)
+
+    def init_cache(self, memory, max_len: int):
+        return [layer.init_cache(memory, max_len) for layer in self.layers()]
+
+    def step(self, x_t, caches, pos: int, src_mask):
+        """One KV-cached step through every layer (caches updated in
+        place), then the final norm."""
+        vis = step_mask(caches[0]["ks"].shape[1], pos, x_t.device)
+        for layer, cache in zip(self.layers(), caches):
+            x_t, _ = layer.step(x_t, cache, pos, src_mask, vis)
+        return self.norm(x_t), caches
 
 
 class TokenEmbed(nn.Module):
@@ -279,7 +339,8 @@ def sinusoid_np(max_len: int, d_model: int) -> np.ndarray:
 
 
 class PositionalEncoding(nn.Module):
-    """Sinusoid PE added to [..., L, d] (reference :1489-1507); the table is
+    """Sinusoid PE added to [..., L, d] (reference :1489-1507), starting at
+    row ``offset`` (a single-token decode step's position); the table is
     a non-persistent buffer, so it never enters a checkpoint."""
 
     def __init__(self, d_model: int, max_len: int = 5000, device=None):
@@ -289,8 +350,8 @@ class PositionalEncoding(nn.Module):
             "pe", torch.from_numpy(sinusoid_np(max_len, d_model).copy()).to(
                 device), persistent=False)
 
-    def forward(self, x):
-        return x + self.pe[:x.shape[-2]].to(x.dtype)
+    def forward(self, x, offset: int = 0):
+        return x + self.pe[offset:offset + x.shape[-2]].to(x.dtype)
 
 
 class Generator(nn.Module):
@@ -303,6 +364,17 @@ class Generator(nn.Module):
 
     def forward(self, x):
         return torch.log_softmax(self.proj(x).float(), dim=-1)
+
+
+def causal_mask(L: int, device=None) -> torch.Tensor:
+    """[L, L] lower-triangular visibility (reference subsequent_mask
+    :1415-1419)."""
+    return torch.tril(torch.ones((L, L), dtype=torch.bool, device=device))
+
+
+def step_mask(Lk: int, pos: int, device=None) -> torch.Tensor:
+    """[1, 1, 1, Lk] visibility of a decode step's keys: key <= pos."""
+    return (torch.arange(Lk, device=device) <= pos)[None, None, None, :]
 
 
 def prefix_mask(prefix: torch.Tensor, Lk: int) -> torch.Tensor:

@@ -6,9 +6,9 @@ own counted wrappers in ``COUNTED`` and this package gathers them."""
 
 from typing import Dict
 
-from . import decoder_layer, stack
+from . import attention, decoder_layer, stack
 
-COUNTED = {**decoder_layer.COUNTED, **stack.COUNTED}
+COUNTED = {**decoder_layer.COUNTED, **stack.COUNTED, **attention.COUNTED}
 
 
 def reset_launch_counts() -> None:

@@ -33,9 +33,16 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # the entry points of each kernel library (one per csrc/*.cu): argument
 # types and return type; the layer and stack entries take a pointer to
-# their argument struct (ops/decoder_layer.py and ops/stack.py mirror it),
-# the encoder and decoder stacks also the layer count
+# their argument struct (ops/decoder_layer.py, ops/stack.py and
+# ops/attention.py mirror it), the encoder and decoder stacks also the layer
+# count
 SIGNATURES = {
+    "attention_core": {
+        "bfc_attention_core": ([_I, _I, _P, _P], _I),
+        "bfc_attention_core_scratch": ([_I, _I, _I], _L),
+        "bfc_attention_core_args_size": ([], _I),
+        "bfc_error_string": ([_I], ctypes.c_char_p),
+    },
     "encoder_layer": {
         "bfc_encoder_layer": ([_I, _I, _P, _P], _I),
         "bfc_encoder_layer_scratch": ([_I, _I, _I, _I], _L),

@@ -1,5 +1,5 @@
-"""Serving layer: request batching over the NA bound-then-fill decode and
-the SA per-phrase decode (the port of the JAX package's
+"""Serving layer: request batching over the NA bound-then-fill decode, the
+SA per-phrase decode and the AR decode (the port of the JAX package's
 ``serve.py::CaptionServer``).
 
 Requests (precomputed region features, the reference's input contract) are
@@ -12,17 +12,19 @@ their masks stay sane.
 
 The weights are resident on the device once (the model is moved at
 construction, never per request).  The decode runs ``fused_encode``, then
-``na_decode(fused_fill=True)`` for mode 'NAIC' or
-``sa_decode(fused_fill=True)`` for mode 'SAIC': on the card through the
-hand-written kernels, routed as the JAX package routes them (the
-whole-stack kernels for a bf16 model at B <= 128), on the CPU through
-their plain twins.  With ``pipeline=True`` the
+``na_decode(fused_fill=True)`` for mode 'NAIC',
+``sa_decode(fused_fill=True)`` for mode 'SAIC' or the KV-cached
+``ar_sample`` for mode 'AIC' (the JAX server's choice for AIC, on a UIC_s
+model too): on the card through the hand-written kernels, routed as the
+JAX package routes them (the whole-stack kernels for a bf16 model at
+B <= 128; the attention core on the AR and bounding steps when the model's
+``use_pallas`` is set), on the CPU through their plain twins.  With
+``pipeline=True`` the
 worker thread uploads and launches a batch while a completion thread waits
 for the previous batch's result, so the next upload overlaps the decode in
 flight.
 
-Modes 'NAIC' and 'SAIC' are served; 'AIC' comes with the AR decoder.  The
-JAX server's ``route='auto'`` (timing plain against fused programs)
+The JAX server's ``route='auto'`` (timing plain against fused programs)
 and ``mesh`` (data-parallel serving) are not ported.
 """
 
@@ -38,6 +40,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .decode import ar
 from .decode import bound_fill as bf
 from .device import resolve_device
 from .models.boficap import DECODER_ROLES, DTYPES
@@ -84,9 +87,6 @@ class CaptionServer:
             raise ValueError(
                 f"mode={mode} needs a '{role}' decoder role; train_mode="
                 f"{model.train_mode} has {sorted(roles)}")
-        if mode == "AIC":
-            raise NotImplementedError("mode=AIC: the AR decoder is not "
-                                      "ported yet (NAIC and SAIC are)")
         if feature_dtype not in DTYPES:
             raise ValueError(f"feature_dtype must be one of "
                              f"{sorted(DTYPES)}")
@@ -137,6 +137,9 @@ class CaptionServer:
     @torch.no_grad()
     def _decode(self, att: torch.Tensor, am: torch.Tensor):
         memory = bf.fused_encode(self.model, att, am)
+        if self.mode == "AIC":
+            return ar.ar_sample(self.model, memory, am.bool(),
+                                max_steps=self.max_steps)
         decode = bf.sa_decode if self.mode == "SAIC" else bf.na_decode
         return decode(self.model, memory, am.bool(), max_steps=self.max_steps,
                       fused_fill=True)

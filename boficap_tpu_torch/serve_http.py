@@ -5,6 +5,8 @@
         --vocab vocab.json --port 8787
     python -m boficap_tpu_torch.serve_http --random_init --seed 0 \
         --cfg configs/uic_sd.yml --port 8787 --mode SAIC
+    python -m boficap_tpu_torch.serve_http --random_init \
+        --cfg configs/transformer.yml --mode AIC --use_pallas 1
 
 POST /caption with a JSON body {"features": [[...2048 floats...] x R]}
 returns {"caption": "...", "seq": [...], "batch": n}.  POST /caption_bin
@@ -16,7 +18,10 @@ returns latency percentiles; POST /shutdown stops the server.
 ``--vocab`` a JSON object {id: word}.  ``--random_init`` builds random
 weights from ``--seed`` (and, without ``--vocab``, a synthetic vocabulary
 of ``--vocab_size`` words ``w4 ...``).  ``--mode`` picks the decode:
-NAIC (bound then fill, the default) or SAIC (per-phrase).
+NAIC (bound then fill, the default), SAIC (per-phrase) or AIC (word by
+word, KV-cached).  ``--use_pallas 0|1`` routes the eligible attentions
+through the attention-core kernel; without it the config's ``use_pallas``
+holds.
 """
 
 from __future__ import annotations
@@ -45,7 +50,10 @@ def parse_args(argv=None):
     p.add_argument("--vocab_size", type=int, default=9487,
                    help="synthetic vocabulary size for --random_init")
     p.add_argument("--mode", type=str, default="NAIC",
-                   choices=["NAIC", "SAIC"])
+                   choices=["NAIC", "SAIC", "AIC"])
+    p.add_argument("--use_pallas", type=int, default=None, choices=[0, 1],
+                   help="attention-core kernel on the eligible attentions; "
+                        "default: the config's use_pallas")
     p.add_argument("--port", type=int, default=8787)
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--max_batch", type=int, default=64)
@@ -54,7 +62,8 @@ def parse_args(argv=None):
                    help="region width of the feature store; 0 = the "
                         "model's max_boxes")
     p.add_argument("--max_steps", type=int, default=0,
-                   help="cap bounding steps (0 = max_length)")
+                   help="cap decode steps: bounding (NAIC, SAIC) or AR "
+                        "(AIC); 0 = max_length")
     p.add_argument("--warm", type=int, default=1)
     p.add_argument("--feature_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
@@ -80,6 +89,8 @@ def build_server(args):
                 vocab_size = len(json.load(f))
         model = init_params(cfg, vocab_size, seed=args.seed,
                             device=args.device)
+    if args.use_pallas is not None:
+        model.set_attention_core(bool(args.use_pallas))
     if args.vocab:
         with open(args.vocab) as f:
             ix_to_word = {str(k): v for k, v in json.load(f).items()}

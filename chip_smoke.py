@@ -26,10 +26,27 @@ Phases, each printing one JSON line:
   7. sa_serve the SA main path: CaptionServer(mode="SAIC") at the default
               dtype (bfloat16: the whole-stack kernels), the same
               requests, launch counts read around this run.
-  8. times    each kernel's time beside its plain version's, one PyTorch
+  8. attention  the attention core (#9) against its plain version at the
+              shapes of the AR step's cross-attention, the bounding step
+              (a query broadcast over the batch), beam search (B*K = 192),
+              an encoder self-attention (rank-2 mask over 36 rows) and a
+              rank-3 mask, float32 and bfloat16, with fully masked rows and
+              padded regions.
+  9. ar_decode  configs/transformer.yml at full width, float32, B = 64:
+              ar_sample and ar_beam_search (K = 3) with use_pallas on (#9
+              on every step's cross-attention) against off (the plain
+              attend); uic_s_ar_decode on a configs/uic_s_ori.yml model and
+              the NA decode on uic_sd, both ways; then the AR decode at the
+              default bfloat16 against its plain path.
+ 10. aic_serve  the AR main path: CaptionServer(mode="AIC") at the default
+              dtype with use_pallas on, the same requests; #9 launches 6 x
+              steps x batches, the encoder-stack kernel at least once.
+ 11. times    each kernel's time beside its plain version's, one PyTorch
               library call's (a yardstick the port never calls) and the
               least time the card could take (bound); decode times,
-              launches and host syncs per decode.
+              launches and host syncs per decode; #9's host cost a call,
+              AR and NA decode times with use_pallas on and off, an AR
+              breakdown.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed phase raises: the script exits
@@ -75,6 +92,7 @@ LOGPROB_TOL = 1e-3
 BF16_MARGIN_NOISE = 0.1
 
 REPLACES = {
+    "attention_core": "boficap_tpu/ops/pallas_attention.py:33",
     "encoder_layer": "boficap_tpu/ops/pallas_decoder_layer.py:500",
     "decoder_layer": "boficap_tpu/ops/pallas_decoder_layer.py:124",
     "greedy_head": "boficap_tpu/ops/pallas_decoder_layer.py:671",
@@ -93,6 +111,8 @@ SOURCES["window_wide_stack"] = "boficap_tpu_torch/csrc/window_stack.cu"
 NA_KERNELS = ("encoder_stack", "decoder_stack", "greedy_head")
 SA_KERNELS = ("encoder_stack", "window_stack", "window_wide_stack",
               "greedy_head")
+AIC_KERNELS = ("encoder_stack", "attention_core")
+K_BEAM = 3                    # beam width of the beam-search check
 W_NARROW = 8                  # sa_decode's default window
 LONG = 10                     # a phrase longer than the window: a wide round
 STOP_SHIFT = 6.0              # against random weights' early "stop" (shape_plans)
@@ -133,15 +153,18 @@ def bf16_ulp(x):
 # model and inputs
 # ---------------------------------------------------------------------------
 
-def build(dtype=None):
-    """uic_sd at full width, random weights from SEED; ``dtype`` overrides
-    the config's compute dtype (None: the default, bfloat16)."""
+def build(dtype=None, config: str = "uic_sd.yml"):
+    """A shipped config (uic_sd by default) at full width, random weights
+    from SEED; ``dtype`` overrides the config's compute dtype (None: the
+    default, bfloat16)."""
     from boficap_tpu_torch.config import load_config
     from boficap_tpu_torch.convert import init_params
-    cfg = load_config(os.path.join(HERE, "configs", "uic_sd.yml"))
+    cfg = load_config(os.path.join(HERE, "configs", config))
     if dtype is not None:
         cfg.dtype = dtype
     model = init_params(cfg, VOCAB, seed=SEED, device=DEV).eval()
+    if not model.n_lp:
+        return model                  # an AR model: no length predictor
     # Random weights plan empty captions (the length head's argmax is
     # "stop" for every image), which would leave the fill and the head
     # nothing to decide.  Nudge the length head toward 1-3 word phrases and
@@ -659,6 +682,282 @@ def check_bf16_decodes(model):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the attention core against its plain version
+# ---------------------------------------------------------------------------
+
+def attention_cases(dtype, seed: int = 21):
+    """#9's operands as MultiHeadAttention.attend hands them over (views of
+    [B, L, H, Dh] projections, masks expanded over the query rows), by
+    case: (q, k, v, mask).  Padded regions, and a fully masked sample or
+    row in each case."""
+    g = torch.Generator().manual_seed(seed)
+    H = 8
+    Dh = D // H
+
+    def heads(n, rows):
+        return torch.randn((n, rows, H, Dh), generator=g).to(DEV, dtype)
+
+    def padded(n, keys):
+        live = torch.randint(1, keys + 1, (n,), generator=g)
+        live[0] = 0                                     # fully masked
+        return (torch.arange(keys)[None, :] < live[:, None]).to(DEV)
+
+    def rows2(mask, Lq):
+        return mask[:, None, :].expand(mask.shape[0], Lq, mask.shape[1])
+
+    q1 = torch.randn((1, 1, H, Dh), generator=g).to(DEV, dtype)
+    prefix = torch.randint(0, L + 3, (B,), generator=g)
+    r3 = torch.rand((B, L, L), generator=g) < 0.6
+    r3[3, 5] = False                                    # a fully masked row
+    BK = B * K_BEAM
+    cases = {
+        # the AR step's cross-attention: one query row over 36 regions
+        "ar_cross": (heads(B, 1), heads(B, R), heads(B, R),
+                     rows2(padded(B, R), 1)),
+        # the bounding step's self-attention: the [LEN] query broadcast over
+        # the batch (sample stride 0), keys < prefix visible
+        "bound_self": (q1.expand(B, 1, H, Dh), heads(B, L + 2),
+                       heads(B, L + 2),
+                       (torch.arange(L + 2)[None, None, :]
+                        < prefix[:, None, None]).to(DEV)),
+        # the beam's cross-attention over B*K rows
+        "beam_cross": (heads(BK, 1), heads(BK, R), heads(BK, R),
+                       rows2(padded(BK, R), 1)),
+        # an encoder self-attention (plain encode under use_pallas)
+        "encoder_self": (heads(B, R), heads(B, R), heads(B, R),
+                         rows2(padded(B, R), R)),
+        # a rank-3 mask (the plain NA fill under use_pallas)
+        "rank3": (heads(B, L), heads(B, L), heads(B, L), r3.to(DEV)),
+    }
+    return {name: (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), m)
+            for name, (q, k, v, m) in cases.items()}
+
+
+def check_attention():
+    """#9 against its plain twin on every case, float32 and bfloat16."""
+    from boficap_tpu_torch.ops import attention as at
+    res = {}
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        tol = TOL[dtype_name]
+        res[dtype_name] = {}
+        for name, (q, k, v, m) in attention_cases(dtype).items():
+            got = at.attention_core(q, k, v, m)
+            want = at.attention_core_plain(q, k, v, m)
+            torch.cuda.synchronize()
+            e = rel_err(got, want)
+            if not torch.isfinite(got.float()).all() or e > tol:
+                fail(f"attention_core {name} {dtype_name}: rel err {e} > "
+                     f"{tol}")
+            res[dtype_name][name] = {
+                "shape_q_k": [list(q.shape), list(k.shape)],
+                "q_strides": list(q.stride()),
+                "mask_strides": list(m.stride()),
+                "rel_err": e,
+                "max_abs_err": (got.float() - want.float()).abs().max().item()}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the AR decodes with use_pallas on against off
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def plain_ar(model, decode, *args, **kw):
+    """A decode with the model as it is, and each AR step's top-2 logprob
+    margin [B, steps] (recorded at the generator: no decode option is used
+    here, so that is the distribution each step picks from)."""
+    gaps = []
+    generate = model.generate
+
+    def record(h):
+        lp = generate(h)
+        top2 = lp.topk(2, dim=-1).values
+        gaps.append(top2[..., 0] - top2[..., 1])
+        return lp
+
+    model.generate = record
+    try:
+        out = decode(model, *args, **kw)
+    finally:
+        del model.generate
+    return out, torch.cat(gaps, -1)
+
+
+def ar_agree(got, want, margin, what: str, noise: float = MARGIN_NOISE,
+             lp_tol=LOGPROB_TOL, plan: bool = False) -> dict:
+    """The AR rule (the SA rule without rounds): seq identical, except in a
+    sample whose first differing word lies where the plain run's top-2
+    margin is below ``noise`` (the later words follow the other word);
+    tok_logprobs and entropy within ``lp_tol`` in every other sample (None:
+    reported only).  ``plan``: the phrase plan identical in every sample."""
+    if plan:
+        for k in ("phrase_num", "phrase_length", "phrase_syn"):
+            if not torch.equal(got[k], want[k]):
+                fail(f"{what}: {k} differs")
+    diff = got["seq"] != want["seq"]
+    has = diff.any(-1)
+    first = diff.int().argmax(-1)
+    loose = has & (margin.gather(1, first[:, None])[:, 0] < noise)
+    if (has & ~loose).any():
+        fail(f"{what}: seq differs above the noise margin {noise}")
+    same = ~has
+    errs = {k: (got[k][same] - want[k][same]).abs().max().item()
+            for k in ("tok_logprobs", "entropy")}
+    if lp_tol is not None and max(errs.values()) > lp_tol:
+        fail(f"{what}: tok/entropy err {errs} > {lp_tol}")
+    return {"excused_samples": int(loose.sum()),
+            "tokens": int((want["seq"] > 3).sum()),
+            "ended_rows": int((want["seq"] == 2).any(-1).sum()),
+            **{f"{k}_err": v for k, v in errs.items()}}
+
+
+@torch.no_grad()
+def beam_margins(model, memory, src, K: int):
+    """ar_beam_search with the model as it is, and per sample the smallest
+    gap between neighbouring entries of any top-K selection it made (the
+    candidates and the done-pool merges; NEG_INF fillers left out)."""
+    from boficap_tpu_torch.decode import ar
+    from boficap_tpu_torch.decode.sampling import NEG_INF
+    top_k = ar._top_k
+    mins = torch.full((memory.shape[0],), math.inf, device=memory.device)
+
+    def record(x, k):
+        vals, idx = top_k(x, min(k + 1, x.shape[-1]))
+        gap = torch.where(vals[..., 1:] > NEG_INF / 2,
+                          vals[..., :-1] - vals[..., 1:], math.inf)
+        mins.copy_(torch.minimum(mins, gap.min(-1).values))
+        return vals[..., :k], idx[..., :k]
+
+    ar._top_k = record
+    try:
+        out = ar.ar_beam_search(model, memory, src, beam_size=K)
+    finally:
+        ar._top_k = top_k
+    return out, mins
+
+
+def beam_agree(got, want, mins, what: str) -> dict:
+    """Beams, scores and token log-probs identical (within LOGPROB_TOL),
+    except in a sample whose selections had a sub-noise gap."""
+    diff = (got["seq"] != want["seq"]).flatten(1).any(-1)
+    loose = diff & (mins < MARGIN_NOISE)
+    if (diff & ~loose).any():
+        fail(f"{what}: beams differ above the noise margin")
+    same = ~diff
+    errs = {k: (got[k][same] - want[k][same]).abs().max().item()
+            for k in ("scores", "tok_logprobs")}
+    if max(errs.values()) > LOGPROB_TOL:
+        fail(f"{what}: score/logprob err {errs}")
+    return {"excused_samples": int(loose.sum()),
+            **{f"{k}_err": v for k, v in errs.items()}}
+
+
+@torch.no_grad()
+def with_core(model, enabled: bool, fn):
+    """fn() with the model's attention-core routing set, then reset off."""
+    model.set_attention_core(enabled)
+    try:
+        return fn()
+    finally:
+        model.set_attention_core(False)
+
+
+@torch.no_grad()
+def counted(fn):
+    """fn()'s result and the launch counts of its run."""
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+@torch.no_grad()
+def check_ar_decodes(aic, uic_s, uic_sd):
+    """float32, B = 64: each AR decode and the NA decode with use_pallas on
+    (#9) against off (the plain attend), on the same encoder memory."""
+    from boficap_tpu_torch.decode.ar import ar_beam_search, ar_sample
+    from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
+                                                     uic_s_ar_decode)
+    att, am = features(B, seed=17)
+    att, am = att.to(DEV), am.to(DEV)
+    src = am.bool()
+    NLd = aic.N_dec
+    res = {"margin_noise": MARGIN_NOISE}
+
+    mem = fused_encode(aic, att, am)
+    want, margin = plain_ar(aic, ar_sample, mem, src)
+    got, c = counted(lambda: with_core(aic, True,
+                                       lambda: ar_sample(aic, mem, src)))
+    if c["attention_core"] != NLd * L:
+        fail(f"ar_sample: attention_core launched {c['attention_core']} "
+             f"times, not {NLd} layers x {L} steps")
+    res["ar_sample"] = {**ar_agree(got, want, margin, "ar_sample"),
+                        "attention_core_launches": c["attention_core"]}
+
+    want, mins = beam_margins(aic, mem, src, K_BEAM)
+    got, c = counted(lambda: with_core(aic, True, lambda: ar_beam_search(
+        aic, mem, src, beam_size=K_BEAM)))
+    if c["attention_core"] != NLd * L:
+        fail(f"ar_beam_search: attention_core launched {c['attention_core']}")
+    res["ar_beam_search"] = {"beam_size": K_BEAM,
+                             **beam_agree(got, want, mins, "ar_beam_search"),
+                             "attention_core_launches": c["attention_core"]}
+
+    mem = fused_encode(uic_s, att, am)
+    want, margin = plain_ar(uic_s, uic_s_ar_decode, mem, src)
+    got, c = counted(lambda: with_core(uic_s, True, lambda: uic_s_ar_decode(
+        uic_s, mem, src)))
+    if c["attention_core"] != 2 * L + uic_s.N_dec * L:
+        fail(f"uic_s_ar_decode: attention_core launched "
+             f"{c['attention_core']}, not 2 x {L} bounding + "
+             f"{uic_s.N_dec} x {L} AR")
+    res["uic_s_ar_decode"] = {
+        **ar_agree(got, want, margin, "uic_s_ar_decode", plan=True),
+        "planned_words": int(want["phrase_length"].sum()),
+        "attention_core_launches": c["attention_core"]}
+
+    mem = fused_encode(uic_sd, att, am)
+    want = na_decode(uic_sd, mem, src, fused_fill=True)
+    got, c = counted(lambda: with_core(uic_sd, True, lambda: na_decode(
+        uic_sd, mem, src, fused_fill=True)))
+    if c["attention_core"] != 2 * L:
+        fail(f"na_decode: attention_core launched {c['attention_core']}, "
+             f"not 2 x {L} bounding steps")
+    res["na_decode"] = {**na_agree(got, want, plain_margins(uic_sd, mem, src),
+                                   "na_decode use_pallas"),
+                        "attention_core_launches": c["attention_core"]}
+    return res
+
+
+@torch.no_grad()
+def check_bf16_ar(aic16):
+    """bfloat16, the default dtype: the AR decode as the server runs it
+    (the encoder-stack kernel, #9 on) against the plain path (plain encode
+    and attend) in bfloat16, by the AR rule at BF16_MARGIN_NOISE, with at
+    most a quarter of the shared-context positions excused."""
+    from boficap_tpu_torch.decode.ar import ar_sample
+    from boficap_tpu_torch.decode.bound_fill import fused_encode
+    att, am = features(B, seed=18)
+    att, am = att.to(DEV), am.to(DEV)
+    src = am.bool()
+    want, margin = plain_ar(aic16, ar_sample, aic16.encode(att, am), src)
+    got = with_core(aic16, True, lambda: ar_sample(
+        aic16, fused_encode(aic16, att, am), src))
+    res = ar_agree(got, want, margin, "bf16 ar_sample", BF16_MARGIN_NOISE,
+                   None)
+    diff = got["seq"] != want["seq"]
+    shared = int(torch.where(diff.any(-1), diff.int().argmax(-1) + 1,
+                             L).sum())
+    if res["excused_samples"] > shared // 4:
+        fail(f"bf16 ar_sample: {res} in {shared} shared-context positions")
+    return {"margin_noise": BF16_MARGIN_NOISE,
+            "shared_context_positions": shared, **res}
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 6: serving (the main paths)
 # ---------------------------------------------------------------------------
 
@@ -669,10 +968,13 @@ def replay_batches(model, mode: str, att, am, outs):
     batches are consecutive runs whose sizes the results report; each batch
     is padded as the server pads it.  (A batch's rows are decoded
     independently, but the SA rounds' narrow/wide choice is the batch's.)"""
+    from boficap_tpu_torch.decode.ar import ar_sample
     from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
                                                      sa_decode)
     from boficap_tpu_torch.serve import _buckets
-    decode = sa_decode if mode == "SAIC" else na_decode
+    decode = {"NAIC": lambda *a: na_decode(*a, fused_fill=True),
+              "SAIC": lambda *a: sa_decode(*a, fused_fill=True),
+              "AIC": ar_sample}[mode]
     buckets = _buckets(B)
     want, i = [], 0
     for n in batch_sizes(outs):
@@ -682,8 +984,7 @@ def replay_batches(model, mode: str, att, am, outs):
         a[:n], m[:n] = att[i:i + n], am[i:i + n]
         m[n:, 0] = 1.0
         a, m = a.to(DEV), m.to(DEV)
-        out = decode(model, fused_encode(model, a, m), m.bool(),
-                     fused_fill=True)
+        out = decode(model, fused_encode(model, a, m), m.bool())
         want.append(out["seq"][:n].cpu())
         i += n
     return torch.cat(want)
@@ -770,6 +1071,30 @@ def timed(fn, reps: int = 20, warm: int = 3) -> float:
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """A kernel's device time a call: the card spins (torch.cuda._sleep)
+    while the host enqueues the timed calls, so they run back to back and
+    the events read the card's time, not the host's time to launch them
+    (which exceeds a small kernel's)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    # cover twice the host's enqueue time at up to 2 GHz
+    torch.cuda._sleep(int(2 * reps * host_s * 2e9) + 1_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -871,6 +1196,13 @@ def library_window_stack(x, ws, kc, vc, k2, v2, tgt, src, stacked, norm, H):
                                                                       vc)
 
 
+def library_attention(q, k, v, m):
+    """Yardstick only: F.scaled_dot_product_attention on the same views,
+    the bool mask (True = attend) broadcast over the heads."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=m[:, None])
+
+
 def library_head(h, weight_vd, b):
     import torch.nn.functional as F
     lp = torch.log_softmax(F.linear(h, weight_vd, b).float(), dim=-1)
@@ -931,8 +1263,13 @@ def bounds(dtype_name: str, esize: int):
     ww_b = (NL * ww_w + esize * (2 * ml_ * D + NL * (2 * ml_ * D
                                                      + 2 * B * R * D))
             + B * L * L + B * R)
+    # #9 at the AR step's cross-attention: q and out [B, H, 1, Dh], k and v
+    # [B, H, R, Dh], the mask [B, 1, R]
+    att_f = 4 * B * H * R * Dh
+    att_b = esize * (2 * B * D + 2 * B * R * D) + B * R
     out = {}
-    for name, f, b in (("encoder_layer", enc_f, enc_b),
+    for name, f, b in (("attention_core", att_f, att_b),
+                       ("encoder_layer", enc_f, enc_b),
                        ("decoder_layer", dec_f, dec_b),
                        ("greedy_head", head_f, head_b),
                        ("encoder_stack", NL * enc_f, encs_b),
@@ -953,6 +1290,7 @@ def measure(model, model16):
     (bfloat16) model of the main paths."""
     from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
                                                      use_stacked)
+    from boficap_tpu_torch.ops import attention as at
     from boficap_tpu_torch.ops import decoder_layer as dl
     from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
     from boficap_tpu_torch.ops import stack as st
@@ -971,7 +1309,12 @@ def measure(model, model16):
         w0, ws_, fn = pack.layers[0], pack.stack, pack.final_norm
         xn, wkc, wvc, wk2, wv2, wst, tgn, srn = window_inputs(dtype, W_NARROW, 14)
         xw, _, _, _, _, _, tgw, srw = window_inputs(dtype, L, 15, wide=True)
+        aq, ak, av, amk = attention_cases(dtype)["ar_cross"]
         t = {
+            "attention_core": (
+                lambda: at.attention_core(aq, ak, av, amk),
+                lambda: at.attention_core_plain(aq, ak, av, amk),
+                lambda: library_attention(aq, ak, av, amk)),
             "encoder_layer": (
                 lambda: dl.fused_encoder_layer(x_enc, src, enc_w, H),
                 lambda: dl.encoder_layer_plain(x_enc, src, enc_w, H),
@@ -1026,10 +1369,10 @@ def measure(model, model16):
         for name, (kern, plain, lib) in t.items():
             # kernel, plain, library, then the kernel again: the two kernel
             # readings bracket the others on the same card
-            k1 = timed(kern)
-            p = timed(plain)
-            lb = timed(lib)
-            k2 = timed(kern)
+            k1 = device_ms(kern)
+            p = device_ms(plain)
+            lb = device_ms(lib)
+            k2 = device_ms(kern)
             res[dtype_name][name] = {"ms": min(k1, k2), "ms_first": k1,
                                      "ms_last": k2, "plain_ms": p,
                                      "library_ms": lb, **bnd[name]}
@@ -1062,6 +1405,177 @@ def measure(model, model16):
                           fused_fill=True)["seq"])
     res["sa"] = measure_sa(model, model16, att, am)
     return res
+
+
+def count_syncs(fn) -> int:
+    """The host-device synchronizations one call of fn makes, counted by
+    torch's sync debug mode (one warning each)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(1)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host time to enqueue one call of fn, in microseconds (no sync inside
+    the window; the card runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+@torch.no_grad()
+def measure_ar(aic, aic16, model16):
+    """The AR path at B = 64: #9's host cost a call against the plain
+    attend's, the AR decode (fused encode + ar_sample) at bfloat16 and
+    float32 with use_pallas on and off, the bf16 NA decode both ways, and
+    the bf16 AR decode's breakdown and kernel count both ways."""
+    from boficap_tpu_torch.decode.ar import ar_sample
+    from boficap_tpu_torch.decode.bound_fill import fused_encode, na_decode
+    from boficap_tpu_torch.ops import attention as at
+    res = {}
+    att, am = features(B, seed=19)
+    att, am = att.to(DEV), am.to(DEV)
+    src = am.bool()
+    # one cross-attention of the bf16 AR step: the layer's attend (with
+    # its output projection) on each route, and #9's wrapper alone
+    mha = aic16.decoder0.layer0.src_attn
+    mem = fused_encode(aic16, att, am)
+    q1 = mha.project_q(mem[:, :1])
+    kc, vc = mha.project_kv(mem)
+    aq, ak, av, amk = attention_cases(torch.bfloat16)["ar_cross"]
+    host = {"attention_core_wrapper": host_us(
+        lambda: at.attention_core(aq, ak, av, amk))}
+    for name, on in (("attend_core", True), ("attend_plain", False)):
+        mha.use_core = on
+        host[name] = host_us(lambda: mha.attend(q1, kc, vc, src))
+    mha.use_core = False
+    res["host_us_per_call_bf16"] = host
+
+    def ar_once(m, on):
+        m.set_attention_core(on)
+        try:
+            return ar_sample(m, fused_encode(m, att, am), src)["seq"]
+        finally:
+            m.set_attention_core(False)
+
+    def na_once(m, on):
+        m.set_attention_core(on)
+        try:
+            return na_decode(m, fused_encode(m, att, am), src,
+                             fused_fill=True)["seq"]
+        finally:
+            m.set_attention_core(False)
+
+    for key, once, models in (("ar_decode_b64_ms", ar_once,
+                               (("bfloat16", aic16), ("float32", aic))),
+                              ("na_decode_b64_ms", na_once,
+                               (("bfloat16", model16),))):
+        res[key] = {}
+        for name, m in models:
+            once(m, True)
+            once(m, False)
+            # on and off in turns, one decode each: the host clock around a
+            # synchronize (the end-to-end time), and the host thread's CPU
+            # time (its work, which a busy shared host does not stretch);
+            # medians of 9 each
+            wall = {True: [], False: []}
+            cpu = {True: [], False: []}
+            for _ in range(9):
+                for on in (True, False):
+                    torch.cuda.synchronize()
+                    t0, c0 = time.perf_counter(), time.thread_time()
+                    once(m, on)
+                    torch.cuda.synchronize()
+                    wall[on].append((time.perf_counter() - t0) * 1e3)
+                    cpu[on].append((time.thread_time() - c0) * 1e3)
+            res[key][name] = {
+                "use_pallas_on": sorted(wall[True])[4],
+                "use_pallas_off": sorted(wall[False])[4],
+                "host_cpu_on": sorted(cpu[True])[4],
+                "host_cpu_off": sorted(cpu[False])[4],
+                "readings_on": wall[True], "readings_off": wall[False],
+                "host_syncs_on": count_syncs(lambda: once(m, True)),
+                "host_syncs_off": count_syncs(lambda: once(m, False))}
+    res["breakdown_b64_bf16"] = ar_breakdown(aic16, att, am)
+    res["profile_b64_bf16"] = {
+        "use_pallas_on": profile_decode(lambda: ar_once(aic16, True)),
+        "use_pallas_off": profile_decode(lambda: ar_once(aic16, False))}
+    res["profile_b64_f32_on"] = profile_decode(lambda: ar_once(aic, True))
+    return res
+
+
+def ar_breakdown(model, att, am, reps: int = 3):
+    """Where one bf16 AR decode's time goes with use_pallas on: CUDA events
+    around the encode (encoder-stack kernel), the cache set-up (cross K/V
+    of every layer), the decoder steps (six layers each, #9 on the
+    cross-attention) and the head (generator + log-softmax); 'other' is the
+    rest of the device timeline (embedding, selection, bookkeeping, and
+    idle while the host enqueues).  Host enqueue time against wall time
+    says whether the host bounds the decode."""
+    from boficap_tpu_torch.decode.ar import ar_sample
+    from boficap_tpu_torch.decode.bound_fill import fused_encode
+    dec = model._decoder("A")
+    segs = {"cache": [], "steps": [], "head": []}
+
+    def timed_call(seg, fn):
+        def run(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            segs[seg].append(ev)
+            return out
+        return run
+
+    model.init_ar_cache = timed_call("cache", model.init_ar_cache)
+    dec.step = timed_call("steps", dec.step)
+    model.generate = timed_call("head", model.generate)
+    model.set_attention_core(True)
+    acc = {k: 0.0 for k in ("encode", *segs, "other", "total",
+                            "host_enqueue", "wall")}
+    try:
+        for rep in range(reps + 1):
+            for v in segs.values():
+                v.clear()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            mem = fused_encode(model, att, am)
+            ev[1].record()
+            ar_sample(model, mem, am.bool())
+            ev[2].record()
+            t_host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t_wall = time.perf_counter() - t0
+            if rep == 0:
+                continue                               # warm-up
+            parts = {k: sum(a.elapsed_time(b) for a, b in v)
+                     for k, v in segs.items()}
+            enc, total = ev[0].elapsed_time(ev[1]), ev[0].elapsed_time(ev[2])
+            parts.update(encode=enc, total=total,
+                         other=total - enc - sum(parts.values()),
+                         host_enqueue=t_host * 1e3, wall=t_wall * 1e3)
+            for k, v in parts.items():
+                acc[k] += v / reps
+    finally:
+        model.set_attention_core(False)
+        del model.init_ar_cache, model.generate, dec.step
+    return {**{f"{k}_ms": v for k, v in acc.items()},
+            "calls": {k: len(v) for k, v in segs.items()}}
 
 
 @torch.no_grad()
@@ -1286,11 +1800,14 @@ def main():
 
 
 def run_phases(smi: str):
-    """Phases 2-7; returns the {"kernels": [...]} list."""
+    """Phases 2-11; returns the {"kernels": [...]} list."""
     # the same random weights at both compute dtypes: float32 for the
     # decode comparisons, the default (bfloat16) for the main paths
     model = build("float32")
     model16 = build()
+    aic, aic16 = build("float32", "transformer.yml"), build(
+        None, "transformer.yml")
+    uic_s = build("float32", "uic_s_ori.yml")
     long_shift = shape_plans([model, model16])
     errs = check_kernels(model)
     werrs = check_window_kernels(model)
@@ -1307,13 +1824,32 @@ def run_phases(smi: str):
     emit({"phase": "bf16_decode", **check_bf16_decodes(model16)})
     sa_served = check_serve(model16, "SAIC", SA_KERNELS)
     emit({"phase": "sa_serve", "card": smi, **sa_served})
+    att_errs = check_attention()
+    emit({"phase": "attention", "tolerance_rel": TOL, **att_errs})
+    emit({"phase": "ar_decode", **check_ar_decodes(aic, uic_s, model),
+          "bf16": check_bf16_ar(aic16)})
+    aic16.set_attention_core(True)          # the server's model: use_pallas
+    aic_served = check_serve(aic16, "AIC", AIC_KERNELS)
+    n_batches = len(aic_served["batch_sizes"])
+    want = aic16.N_dec * L * n_batches
+    if aic_served["launches"]["attention_core"] != want:
+        fail(f"aic_serve: attention_core launched "
+             f"{aic_served['launches']['attention_core']} times, not "
+             f"{aic16.N_dec} layers x {L} steps x {n_batches} batches")
+    aic16.set_attention_core(False)
+    emit({"phase": "aic_serve", "card": smi, "use_pallas": True,
+          "attention_core_expected": want, **aic_served})
     unforce_long([model, model16], long_shift)
     times = measure(model, model16)
+    times["ar"] = measure_ar(aic, aic16, model16)
     emit({"phase": "times", "card": smi, "long_bias_shift": 0.0, **times})
+    errs["float32"]["attention_core"] = att_errs["float32"]["ar_cross"]
+    errs["bfloat16"]["attention_core"] = att_errs["bfloat16"]["ar_cross"]
 
     # launches: each kernel on the main path that runs it (the per-layer
     # kernels on the float32 decodes, their route)
-    paths = {"encoder_layer": ("na_decode_float32_per_layer",
+    paths = {"attention_core": ("aic_serve", aic_served),
+             "encoder_layer": ("na_decode_float32_per_layer",
                                {"launches": na_counts}),
              "decoder_layer": ("na_decode_float32_per_layer",
                                {"launches": na_counts}),

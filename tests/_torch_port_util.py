@@ -28,9 +28,10 @@ def to_numpy_tree(tree):
 def make_pair(train_mode: str = "UIC", input_mode: str = "add",
               seed: int = 0, n_len: int = 1, dtype: str = "float32"):
     """(jax_model, jax_params, torch_model) on shared weights, both built
-    for the compute ``dtype``.  The length and syntax heads' biases are
-    nudged (in numpy, before both models get them) so the random model
-    plans non-empty captions of varied length."""
+    for the compute ``dtype``.  The length and syntax heads' biases (where
+    the train_mode has them; AIC has none) are nudged (in numpy, before
+    both models get them) so the random model plans non-empty captions of
+    varied length."""
     cfg = tiny_cfg(train_mode, N_len=n_len)
     cfg.max_length = L
     cfg.decoder_input_mode = input_mode
@@ -45,13 +46,14 @@ def make_pair(train_mode: str = "UIC", input_mode: str = "add",
     tree = to_numpy_tree(jax.device_get(params))
     rs = np.random.RandomState(seed + 100)
     p = tree["params"]
-    p["len_head2"]["bias"] = (p["len_head2"]["bias"]
-                              + np.array([1.0] + [1.5] * 3 + [0.0] * 16,
-                                         np.float32)
-                              + rs.randn(20).astype(np.float32) * 0.5)
-    p["syn_head2"]["bias"] = (p["syn_head2"]["bias"]
-                              + np.array([0] * 4 + [2.0] * 3 + [0] * 3,
-                                         np.float32))
+    if "len_head2" in p:
+        p["len_head2"]["bias"] = (p["len_head2"]["bias"]
+                                  + np.array([1.0] + [1.5] * 3 + [0.0] * 16,
+                                             np.float32)
+                                  + rs.randn(20).astype(np.float32) * 0.5)
+        p["syn_head2"]["bias"] = (p["syn_head2"]["bias"]
+                                  + np.array([0] * 4 + [2.0] * 3 + [0] * 3,
+                                             np.float32))
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     tcfg = make_config(**{k: cfg[k] for k in (
         "train_mode", "N_enc", "N_dec", "N_len", "d_model", "d_ff",

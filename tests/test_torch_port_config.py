@@ -18,13 +18,13 @@ from boficap_tpu_torch.models import layers as tl
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 MODEL_FIELDS = ("train_mode", "d_model", "d_ff", "N_enc", "N_dec", "N_len",
                 "num_att_heads", "max_length", "decoder_input_mode",
-                "max_boxes", "att_feat_size", "dtype")
+                "max_boxes", "att_feat_size", "dtype", "use_pallas")
 
 
 def test_reader_matches_jax_loader_on_every_config():
     """Every shipped config gives build_model the same fields as the JAX
     package's loader (defaults, _BASE_ chain, finalize), the compute dtype
-    included."""
+    and use_pallas included."""
     paths = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yml")))
     assert len(paths) > 20
     for path in paths:
@@ -83,3 +83,26 @@ def test_load_jax_params_rejects_mismatched_trees():
     with pytest.raises(ValueError, match="shape"):
         load_jax_params(tl.RefLayerNorm(8), {"scale": np.ones(9),
                                              "bias": np.zeros(8)})
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_build_model_routes_attention_by_use_pallas(use_pallas):
+    """use_pallas sets the attention-core routing on every attention of the
+    model, as the JAX package's models.setup sets its global; an AR model
+    holds no length predictor, as its flax tree holds none."""
+    from boficap_tpu_torch.models.boficap import build_model
+    cfg = _tiny_cfg()
+    cfg.use_pallas = use_pallas
+    model = build_model(cfg, 20, device="cpu")
+    mhas = [m for m in model.modules()
+            if isinstance(m, tl.MultiHeadAttention)]
+    assert len(mhas) == 5          # encoder 1, decoder 2, predictor 2
+    assert all(m.use_core == use_pallas for m in mhas)
+    model.set_attention_core(not use_pallas)
+    assert all(m.use_core != use_pallas for m in mhas)
+    ar = build_model(make_config(train_mode="AIC", N_enc=1, N_dec=1,
+                                 d_model=32, d_ff=64, num_att_heads=4),
+                     20, device="cpu")
+    assert ar.n_lp == 0 and not any(
+        n.startswith(("lp", "len_head", "syn_")) for n, _ in
+        ar.named_parameters())

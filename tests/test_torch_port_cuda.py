@@ -234,3 +234,53 @@ def test_decoder_stack_kernel(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     assert _rel(got, want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_core_kernel(cuda, dtype):
+    """#9 on the views attend hands it: transposed [B,L,H,Dh] projections,
+    a query broadcast over the batch, a [B,Lk] mask expanded over the rows
+    with a fully masked sample; and a rank-3 mask with a fully masked row.
+    The launch is counted; the output is a view of [B,Lq,H,Dh] rows."""
+    from boficap_tpu_torch.ops import attention as at
+    B, H, Lq, Lk, Dh = 5, 3, 4, 37, 40
+    g = torch.Generator().manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(cuda, dtype)
+
+    q1, k, v = rnd(1, Lq, H, Dh), rnd(B, Lk, H, Dh), rnd(B, Lk, H, Dh)
+    m2 = torch.arange(Lk, device=cuda)[None, :] < torch.tensor(
+        [0, 37, 5, 1, 20], device=cuda)[:, None]
+    m3 = (torch.rand((B, Lq, Lk), generator=g) < 0.5).to(cuda)
+    m3[2, 1] = False
+    qv = q1.expand(B, Lq, H, Dh).transpose(1, 2)
+    kv, vv = k.transpose(1, 2), v.transpose(1, 2)
+    at.attention_core.launches = 0
+    for mask in (m2[:, None, :].expand(B, Lq, Lk), m3):
+        got = at.attention_core(qv, kv, vv, mask)
+        want = at.attention_core_plain(qv, kv, vv, mask)
+        torch.cuda.synchronize()
+        assert got.shape == (B, H, Lq, Dh) and got.dtype == dtype
+        assert got.transpose(1, 2).is_contiguous()
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got, want) < TOL[dtype]
+    assert at.attention_core.launches == 2
+
+
+def test_attention_core_wrapper_checks(cuda):
+    from boficap_tpu_torch.ops import attention as at
+    from boficap_tpu_torch.ops._build import kernels
+    lib = kernels().attention_core
+    for Lq, Lk, Dh in ((1, 36, 64), (22, 22, 64), (5, 300, 96)):
+        assert lib.bfc_attention_core_scratch(Lq, Lk, Dh) == \
+            at.shared_bytes(Lq, Lk, Dh)
+    q = torch.zeros(2, 2, 3, 8, device=cuda)
+    k = torch.zeros(2, 2, 4, 8, device=cuda)
+    m = torch.ones(2, 3, 4, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        at.attention_core(q, k.bfloat16(), k, m)
+    with pytest.raises(ValueError, match="on"):
+        at.attention_core(q, k, k, m.cpu())
+    with pytest.raises(TypeError):
+        at.attention_core(q.half(), k.half(), k.half(), m)

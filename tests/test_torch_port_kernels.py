@@ -20,6 +20,7 @@ from boficap_tpu.models import layers as jl
 from boficap_tpu.ops import pallas_decoder_layer as pdl
 from boficap_tpu_torch.convert import load_jax_params
 from boficap_tpu_torch.models import layers as tl
+from boficap_tpu_torch.ops import attention as at
 from boficap_tpu_torch.ops import decoder_layer as dl
 from boficap_tpu_torch.ops import stack as st
 from tests._torch_port_util import to_numpy_tree
@@ -129,20 +130,24 @@ def test_wrappers_reject_other_devices():
 
 def test_launch_counts_untouched_on_cpu():
     from boficap_tpu_torch import ops
+    from boficap_tpu_torch.ops.attention import attention_core
     ops.reset_launch_counts()
     h = torch.randn(1, 2, D)
     dl.fused_greedy_head(h, torch.randn(D, 9), torch.randn(9))
+    q = torch.randn(1, 2, 3, 8)
+    attention_core(q, q, q, torch.ones(1, 3, 3, dtype=torch.bool))
     assert ops.launch_counts() == {
         "encoder_layer": 0, "decoder_layer": 0, "greedy_head": 0,
         "window_layer": 0, "encoder_stack": 0, "decoder_stack": 0,
-        "window_stack": 0, "window_wide_stack": 0}
+        "window_stack": 0, "window_wide_stack": 0, "attention_core": 0}
 
 
 @pytest.mark.parametrize("entry,mirror", [
     ("encoder_layer", dl._EncoderLayerArgs),
     ("decoder_layer", dl._DecoderLayerArgs),
     ("window_layer", dl._WindowLayerArgs),
-    ("window_stack", st._WindowStackArgs)])
+    ("window_stack", st._WindowStackArgs),
+    ("attention_core", at._AttentionCoreArgs)])
 def test_args_struct_mirrors_c(entry, mirror):
     """The wrapper's ctypes struct lists the C entry's argument struct
     fields in order, each a pointer, long long or int as in C (the card

@@ -6,7 +6,6 @@ the same weights."""
 import json
 import threading
 import time
-import types
 import urllib.error
 import urllib.request
 
@@ -155,9 +154,21 @@ def test_serve_close_drains_and_validates(pair):
         srv2.close()
 
     CaptionServer(tm, IX_TO_WORD, mode="SAIC", device="cpu").close()
-    with pytest.raises(NotImplementedError):
-        CaptionServer(types.SimpleNamespace(train_mode="AIC"), IX_TO_WORD,
-                      mode="AIC", device="cpu")
+    # an AR model serves mode AIC (its captions against the JAX server's:
+    # tests/test_torch_port_ar.py); a model without an A role does not
+    from boficap_tpu_torch.config import make_config
+    from boficap_tpu_torch.convert import init_params
+    aic = init_params(make_config(train_mode="AIC", N_enc=1, N_dec=1,
+                                  d_model=32, d_ff=64, num_att_heads=4,
+                                  max_length=6, max_boxes=R, dtype="float32"),
+                      VOCAB, seed=1, device="cpu")
+    srv3 = CaptionServer(aic, IX_TO_WORD, mode="AIC", max_regions=R,
+                         device="cpu")
+    try:
+        out = srv3.submit(att[0], am[0]).wait(timeout=120)
+    finally:
+        srv3.close()
+    assert isinstance(out["caption"], str) and out["seq"].shape == (6,)
     with pytest.raises(ValueError):
         CaptionServer(tm, IX_TO_WORD, mode="AIC", device="cpu")
 
