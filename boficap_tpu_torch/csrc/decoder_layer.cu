@@ -14,7 +14,7 @@
 //   n2 = refnorm(x2);  out = x2 + (relu(n2 @ W1 + bf1) @ W2 + bf2)
 //
 // Twelve launches of the building blocks on the caller's stream (3 refnorm,
-// 7 gemm, 2 attention); activations pass through a scratch buffer the
+// 7 products, 2 attention); activations pass through a scratch buffer the
 // wrapper allocates.  The TPU kernel's block-diagonal batching and its 2x
 // fill on cross-sample blocks are a VMEM layout trick: attention here is
 // per (sample, head) with per-sample masks.
@@ -27,9 +27,14 @@
 // Bound on the H100: operations, ~12.0 GFLOP a layer at B = 64, L = 20,
 // R = 36, D = 512, d_ff = 2048, against ~27 MB to move in float32 (the
 // stack: six times the work, ~0.1 GB of weights).  As for the encoder,
-// the products run on float32 FFMA tiles (gemm.cuh).
+// the products go through product<T> (wgmma_gemm.cuh): bf16 on the tensor
+// cores, float32 on the FFMA tile of gemm.cuh.
+//
+// bfc_gemm runs one product alone, C = epilogue(A @ W + bias), on the same
+// route: a way to time the products (ops/decoder_layer.py fused_linear);
+// no decode path calls it.
 #include "attention.cuh"
-#include "gemm.cuh"
+#include "wgmma_gemm.cuh"
 #include "refnorm.cuh"
 
 // Field order and types are mirrored by ops/decoder_layer.py
@@ -75,24 +80,24 @@ cudaError_t decoder_layer(const BfcDecoderLayerArgs& a, cudaStream_t s) {
 
   // self-attention sublayer
   BFC_TRY(refnorm<T>(x, a.s0, a.b0, n, M, D, s));
-  BFC_TRY(gemm<T>(n, w(a.wqkv), w(a.bqkv), nullptr, qkv, M, 3 * D, D, false,
-                  s));
+  BFC_TRY(product<T>(n, w(a.wqkv), w(a.bqkv), nullptr, qkv, M, 3 * D, D,
+                     false, s));
   BFC_TRY(attention<T>(qkv, 3 * D, qkv + D, 3 * D, qkv + 2 * D, 3 * D, tgt,
                        a.tgt_sb, a.tgt_sq, ctx, D, a.B, a.H, a.L, a.L, Dh, s));
-  BFC_TRY(gemm<T>(ctx, w(a.wo), w(a.bo), x, x1, M, D, D, false, s));
+  BFC_TRY(product<T>(ctx, w(a.wo), w(a.bo), x, x1, M, D, D, false, s));
   // cross-attention sublayer: only the query side is normed
   BFC_TRY(refnorm<T>(x1, a.s1, a.b1, n, M, D, s));
-  BFC_TRY(gemm<T>(n, w(a.wq2), w(a.bq2), nullptr, q2, M, D, D, false, s));
-  BFC_TRY(gemm<T>(w(a.memory), w(a.wkv2), w(a.bkv2), nullptr, kv2, MR, 2 * D,
-                  D, false, s));
+  BFC_TRY(product<T>(n, w(a.wq2), w(a.bq2), nullptr, q2, M, D, D, false, s));
+  BFC_TRY(product<T>(w(a.memory), w(a.wkv2), w(a.bkv2), nullptr, kv2, MR,
+                     2 * D, D, false, s));
   BFC_TRY(attention<T>(q2, D, kv2, 2 * D, kv2 + D, 2 * D, src, a.src_sb,
                        a.src_sq, ctx, D, a.B, a.H, a.L, a.R, Dh, s));
-  BFC_TRY(gemm<T>(ctx, w(a.wo2), w(a.bo2), x1, x2, M, D, D, false, s));
+  BFC_TRY(product<T>(ctx, w(a.wo2), w(a.bo2), x1, x2, M, D, D, false, s));
   // FFN sublayer
   BFC_TRY(refnorm<T>(x2, a.s2, a.b2, n, M, D, s));
-  BFC_TRY(gemm<T>(n, w(a.w1), w(a.bf1), nullptr, f, M, F, D, true, s));
-  return gemm<T>(f, w(a.w2), w(a.bf2), x2, static_cast<T*>(a.out), M, D, F,
-                 false, s);
+  BFC_TRY(product<T>(n, w(a.w1), w(a.bf1), nullptr, f, M, F, D, true, s));
+  return product<T>(f, w(a.w2), w(a.bf2), x2, static_cast<T*>(a.out), M, D,
+                    F, false, s);
 }
 
 // a: the layer's arguments with every weight pointer at layer 0 of its
@@ -144,6 +149,17 @@ int run(int dtype, int device, const BfcDecoderLayerArgs* a, int NL,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// bfc_gemm's product in the type T
+template <typename T>
+int run_product(const void* A, const void* W, const void* bias,
+                const void* res, void* C, int M, int N, int K, bool relu,
+                cudaStream_t s) {
+  return static_cast<int>(product<T>(
+      static_cast<const T*>(A), static_cast<const T*>(W),
+      static_cast<const T*>(bias), static_cast<const T*>(res),
+      static_cast<T*>(C), M, N, K, relu, s));
+}
+
 }  // namespace bfc
 
 extern "C" int bfc_decoder_layer_args_size() {
@@ -173,4 +189,30 @@ extern "C" int bfc_decoder_stack(int dtype, int device,
                                  const BfcDecoderLayerArgs* a, int NL,
                                  void* stream) {
   return bfc::run(dtype, device, a, NL, true, stream);
+}
+
+// one product alone: C [M, N] = epilogue(A [M, K] @ W [K, N] + bias [N]),
+// relu if relu != 0, res [M, N] (nullable) added last
+extern "C" int bfc_gemm(int dtype, int device, const void* A, const void* W,
+                        const void* bias, const void* res, void* C, int M,
+                        int N, int K, int relu, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (M < 0 || N <= 0 || K <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == BFC_DTYPE_F32)
+    return bfc::run_product<float>(A, W, bias, res, C, M, N, K, relu != 0, s);
+  if (dtype == BFC_DTYPE_BF16)
+    return bfc::run_product<__nv_bfloat16>(A, W, bias, res, C, M, N, K,
+                                           relu != 0, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the bf16 product's tile for an M x N product: BM, BN and the block count
+extern "C" int bfc_gemm_tile(int M, int N, int* bm, int* bn) {
+  *bm = bfc::tc::tile_m(M, N);
+  *bn = bfc::tc::tile_n(N);
+  return ((M + *bm - 1) / *bm) * ((N + *bn - 1) / *bn);
 }

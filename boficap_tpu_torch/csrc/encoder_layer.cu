@@ -12,7 +12,7 @@
 //
 // The TPU runs the layer as one kernel over a block of samples held in
 // VMEM.  Here it is seven launches of the building blocks on the caller's
-// stream (2 refnorm, 4 gemm, 1 attention); activations pass between them
+// stream (2 refnorm, 4 products, 1 attention); activations pass between them
 // through a scratch buffer the wrapper allocates, which at the serving
 // batch stays in the 50 MB L2.
 //
@@ -25,11 +25,12 @@
 //
 // Bound on the H100: operations, ~14.7 GFLOP a layer at B = 64, R = 36,
 // D = 512, d_ff = 2048, against ~22 MB to move in float32 (the stack: six
-// times the work, ~75 MB of weights).  The products dominate and run on
-// float32 FFMA tiles (gemm.cuh); tensor cores and one persistent fused
-// kernel are later work.
+// times the work, ~75 MB of weights).  The products, ~98% of the flops,
+// go through product<T> (wgmma_gemm.cuh): at bf16 TMA-fed wgmma on the
+// tensor cores, at float32 the FFMA tile of gemm.cuh.  One persistent
+// fused kernel is later work.
 #include "attention.cuh"
-#include "gemm.cuh"
+#include "wgmma_gemm.cuh"
 #include "refnorm.cuh"
 
 // Field order and types are mirrored by ops/decoder_layer.py
@@ -61,16 +62,16 @@ cudaError_t encoder_layer(const BfcEncoderLayerArgs& a, cudaStream_t s) {
   T* x1 = ctx + (size_t)M * D;         // [M, D]
   T* f = x1 + (size_t)M * D;           // [M, F]
   BFC_TRY(refnorm<T>(x, a.s0, a.b0, n, M, D, s));
-  BFC_TRY(gemm<T>(n, w(a.wqkv), w(a.bqkv), nullptr, qkv, M, 3 * D, D, false,
-                  s));
+  BFC_TRY(product<T>(n, w(a.wqkv), w(a.bqkv), nullptr, qkv, M, 3 * D, D,
+                     false, s));
   BFC_TRY(attention<T>(qkv, 3 * D, qkv + D, 3 * D, qkv + 2 * D, 3 * D,
                        static_cast<const uint8_t*>(a.mask), a.mask_sb,
                        a.mask_sq, ctx, D, a.B, a.H, a.R, a.R, D / a.H, s));
-  BFC_TRY(gemm<T>(ctx, w(a.wo), w(a.bo), x, x1, M, D, D, false, s));
+  BFC_TRY(product<T>(ctx, w(a.wo), w(a.bo), x, x1, M, D, D, false, s));
   BFC_TRY(refnorm<T>(x1, a.s1, a.b1, n, M, D, s));
-  BFC_TRY(gemm<T>(n, w(a.w1), w(a.bf1), nullptr, f, M, F, D, true, s));
-  return gemm<T>(f, w(a.w2), w(a.bf2), x1, static_cast<T*>(a.out), M, D, F,
-                 false, s);
+  BFC_TRY(product<T>(n, w(a.w1), w(a.bf1), nullptr, f, M, F, D, true, s));
+  return product<T>(f, w(a.w2), w(a.bf2), x1, static_cast<T*>(a.out), M, D,
+                    F, false, s);
 }
 
 // a: the layer's arguments with every weight pointer at layer 0 of its

@@ -30,12 +30,13 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 
 # the entry points of each kernel library (one per csrc/*.cu): argument
 # types and return type; the layer and stack entries take a pointer to
 # their argument struct (ops/decoder_layer.py, ops/stack.py and
 # ops/attention.py mirror it), the encoder and decoder stacks also the layer
-# count
+# count; bfc_gemm runs one product of the layer kernels alone
 SIGNATURES = {
     "attention_core": {
         "bfc_attention_core": ([_I, _I, _P, _P], _I),
@@ -57,6 +58,8 @@ SIGNATURES = {
         "bfc_decoder_stack": ([_I, _I, _P, _I, _P], _I),
         "bfc_decoder_stack_scratch": ([_I, _I, _I, _I, _I], _L),
         "bfc_decoder_layer_args_size": ([], _I),
+        "bfc_gemm": ([_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "bfc_gemm_tile": ([_I, _I, _IP, _IP], _I),
         "bfc_error_string": ([_I], ctypes.c_char_p),
     },
     "greedy_head": {

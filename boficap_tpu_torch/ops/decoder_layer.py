@@ -35,8 +35,13 @@ stay float32, as the flax modules hold them.
 
 Bounds on the H100 at the serving batch (B = 64, D = 512, d_ff = 2048,
 R = 36, L = 20, V = 9491): the layers and the head are bound by operations
-(~14.7, ~12.0 and ~12.4 GFLOP a launch); this first version computes its
-products on float32 FFMA tiles, so bf16 is no faster than float32 yet.
+(~14.7, ~12.0 and ~12.4 GFLOP a launch).  The layer kernels' bf16 products
+run on the tensor cores (``csrc/wgmma_gemm.cuh``: TMA into a shared-memory
+ring, wgmma), which read their operands with TMA: at bf16 the widths D and
+d_ff must be multiples of 8 and the activations 16-byte aligned, and the
+wrappers raise ``ValueError`` otherwise (``check_product_shape``).  Their
+float32 products, the window layer's and the head's run on float32 FFMA
+tiles.  ``fused_linear`` runs one such product alone, to time it.
 """
 
 from __future__ import annotations
@@ -370,6 +375,29 @@ def weight_shapes(keys, D: int, F: int, lead=()) -> Dict[str, tuple]:
     return {k: lead + shapes[k] for k in keys}
 
 
+def check_product_shape(dtype, widths: Dict[str, int],
+                        tensors: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> None:
+    """Raise ValueError unless the layer kernels' products can take these
+    operands.  The bf16 product (csrc/wgmma_gemm.cuh) reads A [M, K] and
+    W [K, N] with TMA, which needs 16-byte row strides and bases: every
+    product width (``widths``: K and N) a multiple of 8, every tensor the
+    kernel reads with TMA (``tensors``) 16-byte aligned.  float32 takes any
+    shape."""
+    if dtype != torch.bfloat16:
+        return
+    for name, n in widths.items():
+        if n % 8:
+            raise ValueError(
+                f"{name} = {n}: the bf16 tensor-core product reads rows with "
+                f"TMA, which needs widths that are multiples of 8 (16-byte "
+                f"row strides)")
+    for name, t in (tensors or {}).items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned: the bf16 "
+                             f"tensor-core product reads it with TMA")
+
+
 def encoder_call(entry: str, x, mask, w, num_heads: int,
                  NL: Optional[int] = None):
     """Check an encoder layer's operands and run ``entry`` of
@@ -382,6 +410,7 @@ def encoder_call(entry: str, x, mask, w, num_heads: int,
     msb, msq = _mask_strides(mask, B, R, R, dev, "mask")
     lead = () if NL is None else (NL,)
     _check_weights(w, weight_shapes(_ENC_KEYS, D, F, lead), dt, dev)
+    check_product_shape(dt, {"D": D, "d_ff": F}, {"x": x})
     lib = _kernels().encoder_layer
     n_scratch = getattr(lib, f"bfc_{entry}_scratch")(B, R, D, F)
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
@@ -409,6 +438,7 @@ def decoder_call(entry: str, x, memory, tgt_mask, src_mask, w,
     ssb, ssq = _mask_strides(src_mask, B, L, R, dev, "src_mask")
     lead = () if NL is None else (NL,)
     _check_weights(w, weight_shapes(_DEC_KEYS, D, F, lead), dt, dev)
+    check_product_shape(dt, {"D": D, "d_ff": F}, {"x": x, "memory": memory})
     lib = _kernels().decoder_layer
     n_scratch = getattr(lib, f"bfc_{entry}_scratch")(B, L, R, D, F)
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
@@ -523,16 +553,54 @@ def fused_window_decoder_layer(x_win, k_cache, v_cache, k2, v2, tgt_mask,
     return out, k_new, v_new
 
 
+def fused_linear(a, w, b, relu: bool = False, res=None):
+    """One product of the layer kernels alone, for timing it: a [..., K],
+    w [K, N], b [N], res (optional) [..., N], all in the compute dtype ->
+    ``linear_plain(a, w, b, relu, res)``.  On CUDA: one call of bfc_gemm
+    (csrc/decoder_layer.cu), the tensor-core product at bf16, the FFMA tile
+    at float32.  No decode path calls it."""
+    if not _route(a):
+        return linear_plain(a, w, b, relu, res)
+    K, N = a.shape[-1], w.shape[-1]
+    M = a.numel() // K if K else 0
+    dev, dt = a.device, a.dtype
+    _require(a, "a", dt, None, dev)
+    _require(w, "w", dt, (K, N), dev)
+    _require(b, "b", dt, (N,), dev)
+    out = torch.empty((*a.shape[:-1], N), dtype=dt, device=dev)
+    if res is not None:
+        _require(res, "res", dt, out.shape, dev)
+    check_product_shape(dt, {"K": K, "N": N}, {"a": a, "w": w})
+    k = _kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    k.check(k.decoder_layer.bfc_gemm(
+        _DTYPE_CODE[dt], dev.index, a.data_ptr(), w.data_ptr(), b.data_ptr(),
+        None if res is None else res.data_ptr(), out.data_ptr(), M, N, K,
+        int(relu), stream), "gemm")
+    fused_linear.launches += 1
+    return out
+
+
+def product_tile(M: int, N: int) -> Tuple[int, int, int]:
+    """The bf16 product's tile for an M x N product: (BM, BN, blocks)."""
+    bm, bn = ctypes.c_int(), ctypes.c_int()
+    blocks = _kernels().decoder_layer.bfc_gemm_tile(M, N, ctypes.byref(bm),
+                                                    ctypes.byref(bn))
+    return bm.value, bn.value, blocks
+
+
 fused_encoder_layer.launches = 0
 fused_decoder_layer.launches = 0
 fused_greedy_head.launches = 0
 fused_window_decoder_layer.launches = 0
+fused_linear.launches = 0
 
 # this module's counted wrappers, by kernel name (``ops.launch_counts``)
 COUNTED = {"encoder_layer": fused_encoder_layer,
            "decoder_layer": fused_decoder_layer,
            "greedy_head": fused_greedy_head,
-           "window_layer": fused_window_decoder_layer}
+           "window_layer": fused_window_decoder_layer,
+           "linear": fused_linear}
 
 
 # ---------------------------------------------------------------------------

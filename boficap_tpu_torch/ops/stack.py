@@ -33,8 +33,10 @@ both types.  An SA narrow round (W = 8) moves ~208 MB in float32 and ~104
 MB in bf16 for ~23 GFLOP; a wide round (W = 20) ~176 / ~88 MB for ~57
 GFLOP.  On float32 FFMA both are bound by operations; in bf16 the narrow
 round is bound by bytes (its weights and cross K/V are read again every
-round) and the wide round by operations.  The products here run on float32
-FFMA, so no type reaches the tensor cores yet.
+round) and the wide round by operations.  The encoder and decoder stacks'
+bf16 products run on the tensor cores (csrc/wgmma_gemm.cuh, the layer
+kernels' product); their float32 products, and the window stacks' at both
+types, run on float32 FFMA.
 """
 
 from __future__ import annotations

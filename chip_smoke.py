@@ -9,7 +9,9 @@ Phases, each printing one JSON line:
   2. kernels  each kernel against its plain PyTorch version at the serving
               shapes (B = 64, full uic_sd width, all six layers for the
               stacks), float32 and bfloat16, with fully masked rows, padded
-              regions, a ragged vocab edge and a planted argmax tie.
+              regions, a ragged vocab edge and a planted argmax tie; and
+              the bf16 product of #1 and #2 (tensor cores) alone at each of
+              its 11 serving shapes, with bitwise batch independence.
   3. decode   fused_encode + na_decode on both kernel routes (whole-stack
               encoder and decoder kernels, per-layer kernels) against the
               plain path, float32, uic_sd at full width with random
@@ -22,7 +24,9 @@ Phases, each printing one JSON line:
               kernels, per-layer window kernel) against the plain path,
               float32, with narrow and wide rounds.
   6. bf16_decode  na_decode and sa_decode at the default dtype (bfloat16,
-              the whole-stack route) against the plain path at bfloat16.
+              the whole-stack route) against the plain path at bfloat16;
+              and na_decode at B = 256, the per-layer route (#1, #2),
+              with their launch counts read around it.
   7. sa_serve the SA main path: CaptionServer(mode="SAIC") at the default
               dtype (bfloat16: the whole-stack kernels), the same
               requests, launch counts read around this run.
@@ -46,7 +50,10 @@ Phases, each printing one JSON line:
               least time the card could take (bound); decode times,
               launches and host syncs per decode; #9's host cost a call,
               AR and NA decode times with use_pallas on and off, an AR
-              breakdown.
+              breakdown; each bf16 product of #1 and #2 against its bound
+              and torch.matmul, with its tile; #1's and #2's bf16 device
+              time split into products, attention and refnorm; host µs of
+              a layer and a stack call at bf16 and float32.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed phase raises: the script exits
@@ -112,6 +119,23 @@ NA_KERNELS = ("encoder_stack", "decoder_stack", "greedy_head")
 SA_KERNELS = ("encoder_stack", "window_stack", "window_wide_stack",
               "greedy_head")
 AIC_KERNELS = ("encoder_stack", "attention_core")
+# the bf16 products of #1 (B*R = 2304 rows) and #2 (B*L = 1280 rows; the
+# memory's 2304 for wkv2), each with its epilogue: (name, M, K, N, relu,
+# residual).  They run on the tensor cores (csrc/wgmma_gemm.cuh)
+PRODUCTS = (
+    ("enc.wqkv", B * R, D, 3 * D, False, False),
+    ("enc.wo", B * R, D, D, False, True),
+    ("enc.w1", B * R, D, 4 * D, True, False),
+    ("enc.w2", B * R, 4 * D, D, False, True),
+    ("dec.wqkv", B * L, D, 3 * D, False, False),
+    ("dec.wo", B * L, D, D, False, True),
+    ("dec.wq2", B * L, D, D, False, False),
+    ("dec.wkv2", B * R, D, 2 * D, False, False),
+    ("dec.wo2", B * L, D, D, False, True),
+    ("dec.w1", B * L, D, 4 * D, True, False),
+    ("dec.w2", B * L, 4 * D, D, False, True),
+)
+B_WIDE = 256                  # a batch past the whole-stack route (B > 128)
 K_BEAM = 3                    # beam width of the beam-search check
 W_NARROW = 8                  # sa_decode's default window
 LONG = 10                     # a phrase longer than the window: a wide round
@@ -352,6 +376,51 @@ def check_kernels(model):
     return res
 
 
+def product_operands(M: int, K: int, N: int, relu: bool, residual: bool,
+                     seed: int = 31):
+    """bf16 operands of one product: a [M, K], w [K, N] scaled as a
+    layer's, bias [N], res [M, N] or None; (a, w, b, relu, res)."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn((M, K), generator=g).to(DEV, torch.bfloat16)
+    w = (torch.randn((K, N), generator=g) / math.sqrt(K)).to(
+        DEV, torch.bfloat16)
+    b = (0.1 * torch.randn((N,), generator=g)).to(DEV, torch.bfloat16)
+    res = (torch.randn((M, N), generator=g).to(DEV, torch.bfloat16)
+           if residual else None)
+    return a, w, b, relu, res
+
+
+def check_products():
+    """The layer kernels' bf16 product (fused_linear, the tensor-core path
+    of #1 and #2) against linear_plain at each serving shape, and bitwise
+    batch independence: its first 37 rows and its first row, computed as
+    products of 37 and of 1 rows (other tiles), equal the full product's."""
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    tol = TOL["bfloat16"]
+    res = {}
+    for name, M, K, N, relu, residual in PRODUCTS:
+        a, w, b, relu, r = product_operands(M, K, N, relu, residual)
+        got = dl.fused_linear(a, w, b, relu, r)
+        want = dl.linear_plain(a, w, b, relu, r)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        if not torch.isfinite(got.float()).all() or e > tol:
+            fail(f"product {name} {M}x{K}x{N}: rel err {e} > {tol}")
+        for rows in (37, 1):
+            part = dl.fused_linear(a[:rows], w, b, relu,
+                                   None if r is None else r[:rows])
+            torch.cuda.synchronize()
+            if not torch.equal(part, got[:rows]):
+                fail(f"product {name}: the first {rows} rows differ from "
+                     f"a product of {rows} rows (not batch-independent)")
+        bm, bn, blocks = dl.product_tile(M, N)
+        res[name] = {"m_k_n": [M, K, N], "tile": [bm, bn], "blocks": blocks,
+                     "rel_err": e, "max_abs_err":
+                         (got.float() - want.float()).abs().max().item(),
+                     "batch_independent": True}
+    return res
+
+
 def window_inputs(dtype, W: int, seed: int, wide: bool = False):
     """Operands of the window kernels at the serving shapes: x_win
     [B, W, D], caches [NL, B, L, D], cross K/V [NL, B, R, D], window starts
@@ -464,23 +533,67 @@ def plain_margins(model, memory, src):
     return top2[..., 0] - top2[..., 1]
 
 
+@torch.no_grad()
+def plain_plan_margins(model, memory, src):
+    """The plain bounding loop's top-2 logprob margin at each step, the
+    smaller of the length and the syntax head's, [B, L]: step i fills plan
+    slot i."""
+    from boficap_tpu_torch.decode.bound_fill import bound_plan
+    gaps = []
+    step = model.bound_step_cached
+
+    def record(*a, **kw):
+        out = step(*a, **kw)
+        top2 = [lp.float().topk(2, dim=-1).values for lp in out]
+        gaps.append(torch.minimum(*(t[..., 0] - t[..., 1] for t in top2)))
+        return out
+
+    model.bound_step_cached = record
+    try:
+        bound_plan(model, memory, src, L, L)
+    finally:
+        del model.bound_step_cached
+    return torch.stack(gaps, -1)
+
+
 def na_agree(got, want, margin, what: str, noise: float = MARGIN_NOISE,
-             lp_tol=LOGPROB_TOL) -> dict:
+             lp_tol=LOGPROB_TOL, plan_margin=None) -> dict:
     """The NA rule: phrase plan identical; seq identical except where the
     plain path's top-2 margin is below ``noise``; tok_logprobs (where seq
-    agrees) and entropy within ``lp_tol`` (None: reported only)."""
-    for k in ("phrase_num", "phrase_length", "phrase_syn"):
-        if not torch.equal(got[k], want[k]):
-            fail(f"{what}: {k} differs")
-    diff = got["seq"] != want["seq"]
+    agrees) and entropy within ``lp_tol`` (None: reported only).
+
+    With ``plan_margin`` (``plain_plan_margins``; the bf16 checks, whose
+    encoder memory rounds apart from the plain path's), the margin rule
+    covers the plan too: a sample's plan may differ if the plain bounding
+    loop's margin at its first differing slot is below ``noise``; such a
+    sample decodes another plan, and its seq is not compared."""
+    plan_diff = torch.zeros_like(got["phrase_num"], dtype=torch.bool)
+    for k in ("phrase_length", "phrase_syn"):
+        plan_diff |= (got[k] != want[k]).any(-1)
+    plan_diff |= got["phrase_num"] != want["phrase_num"]
+    if plan_diff.any():
+        if plan_margin is None:
+            fail(f"{what}: the phrase plan differs")
+        first = ((got["phrase_length"] != want["phrase_length"])
+                 | (got["phrase_syn"] != want["phrase_syn"])).int().argmax(-1)
+        at = plan_margin.gather(1, first[:, None])[:, 0]
+        if (plan_diff & (at >= noise)).any():
+            fail(f"{what}: the phrase plan differs above the noise margin "
+                 f"{noise}")
+    same = ~plan_diff
+    diff = (got["seq"] != want["seq"]) & same[:, None]
     if (diff & (margin >= noise)).any():
         fail(f"{what}: seq differs above the noise margin {noise}")
-    e_tok = (got["tok_logprobs"] - want["tok_logprobs"])[~diff].abs().max()
-    e_ent = (got["entropy"] - want["entropy"]).abs().max()
+    e_tok = (got["tok_logprobs"] - want["tok_logprobs"])[
+        ~diff & same[:, None]].abs().max()
+    e_ent = (got["entropy"] - want["entropy"])[same].abs().max()
     if lp_tol is not None and max(e_tok.item(), e_ent.item()) > lp_tol:
         fail(f"{what}: tok/entropy err {e_tok.item()} {e_ent.item()}")
-    return {"seq_differs_below_margin": int(diff.sum()),
-            "tok_logprob_err": e_tok.item(), "entropy_err": e_ent.item()}
+    out = {"seq_differs_below_margin": int(diff.sum()),
+           "tok_logprob_err": e_tok.item(), "entropy_err": e_ent.item()}
+    if plan_margin is not None:
+        out["plan_excused_samples"] = int(plan_diff.sum())
+    return out
 
 
 @torch.no_grad()
@@ -643,10 +756,13 @@ def check_bf16_decodes(model):
     """bfloat16, the default dtype: na_decode and sa_decode on the route
     the server takes (the whole-stack kernels) against the plain path in
     bfloat16, by the margin rule at BF16_MARGIN_NOISE: the phrase plan
-    identical, seq identical except below the margin, and differing words
-    at no more than a quarter of the positions decoded in the same context
-    (NA: every position; SA: a sample's positions up to its first differing
-    word, after which its context differs); logprobs reported."""
+    identical except where the plain bounding loop's margin is below it
+    (NA; the SA rule excuses a sample from its first sub-margin word), seq
+    identical except below the margin, and differing words at no more than
+    a quarter of the positions decoded in the same context (NA: every
+    position of a sample with the same plan; SA: a sample's positions up
+    to its first differing word, after which its context differs);
+    logprobs reported."""
     from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
                                                      sa_decode)
     att, am = features(B, seed=7)
@@ -657,9 +773,12 @@ def check_bf16_decodes(model):
     out_p = na_decode(model, mem_p, src)
     out_k = na_decode(model, mem_k, src, fused_fill=True)
     na = na_agree(out_k, out_p, plain_margins(model, mem_p, src),
-                  "bf16 na_decode", BF16_MARGIN_NOISE, None)
-    if na["seq_differs_below_margin"] > out_p["seq"].numel() // 4:
-        fail(f"bf16 na_decode: {na} differs at over a quarter of positions")
+                  "bf16 na_decode", BF16_MARGIN_NOISE, None,
+                  plain_plan_margins(model, mem_p, src))
+    if (na["seq_differs_below_margin"] > out_p["seq"].numel() // 4
+            or na["plan_excused_samples"] > B // 4):
+        fail(f"bf16 na_decode: {na} differs at over a quarter of positions "
+             f"or samples")
     want, margin = plain_sa(model, mem_p, src)
     stats = {}
     got = sa_decode(model, mem_k, src, fused_fill=True, stats=stats)
@@ -673,12 +792,49 @@ def check_bf16_decodes(model):
              f"of a shared context")
     return {"memory_rel_err": rel_err(mem_k, mem_p),
             "margin_noise": BF16_MARGIN_NOISE, "na_decode": na,
+            "na_decode_b256_per_layer": check_bf16_per_layer(model),
             "sa_decode": {**stats, "excused_samples": excused,
                           "shared_context_positions": shared,
                           "tokens": int((want["seq"] > 3).sum()),
                           "tok_logprob_err": (got["tok_logprobs"][same]
                                               - want["tok_logprobs"][same]
                                               ).abs().max().item()}}
+
+
+@torch.no_grad()
+def check_bf16_per_layer(model):
+    """bfloat16 at B = 256, past the whole-stack route: fused_encode and
+    na_decode run #1 and #2 themselves (their tensor-core products), held
+    against the plain path in bfloat16 by the margin rule, with #1's and
+    #2's launches read around the kernel run."""
+    from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
+                                                     use_stacked)
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    if use_stacked(model, B_WIDE):
+        fail(f"B = {B_WIDE} takes the whole-stack route")
+    att, am = features(B_WIDE, seed=8)
+    att, am = att.to(DEV), am.to(DEV)
+    src = am.bool()
+    mem_p = model.encode(att, am)
+    out_p = na_decode(model, mem_p, src)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    mem_k = fused_encode(model, att, am)
+    out_k = na_decode(model, mem_k, src, fused_fill=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["encoder_layer"] == 0 or counts["decoder_layer"] == 0:
+        fail(f"bf16 na_decode B = {B_WIDE}: #1/#2 never launched: {counts}")
+    na = na_agree(out_k, out_p, plain_margins(model, mem_p, src),
+                  f"bf16 na_decode B = {B_WIDE}", BF16_MARGIN_NOISE, None,
+                  plain_plan_margins(model, mem_p, src))
+    if (na["seq_differs_below_margin"] > out_p["seq"].numel() // 4
+            or na["plan_excused_samples"] > B_WIDE // 4):
+        fail(f"bf16 na_decode B = {B_WIDE}: {na} differs at over a quarter "
+             f"of positions or samples")
+    return {"batch": B_WIDE, "memory_rel_err": rel_err(mem_k, mem_p),
+            "tokens": int((out_p["seq"] > 3).sum()), "launches": counts,
+            **na}
 
 
 # ---------------------------------------------------------------------------
@@ -1080,27 +1236,32 @@ def timed(fn, reps: int = 20, warm: int = 3) -> float:
 
 
 def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """A kernel's device time a call: the card spins (torch.cuda._sleep)
-    while the host enqueues the timed calls, so they run back to back and
-    the events read the card's time, not the host's time to launch them
-    (which exceeds a small kernel's)."""
+    """A call's device time, the mean of ``reps`` calls each timed alone:
+    the card spins (torch.cuda._sleep) while the host enqueues the call
+    between two events, so the events read the card's time, not the host's
+    time to launch it (which exceeds a small kernel's, and a multi-op
+    yardstick's).  One call at a time: a whole run of a stack's yardstick
+    (~180 ops a call) would overflow the launch queue (~1024 entries) and
+    leave the host launching inside the timed window."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    # cover twice the host's enqueue time at up to 2 GHz
-    torch.cuda._sleep(int(2 * reps * host_s * 2e9) + 1_000_000)
-    start.record()
+    events = []
     for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        # cover twice the host's enqueue time at up to 2 GHz
+        torch.cuda._sleep(int(2 * host_s * 2e9) + 100_000)
+        start.record()
         fn()
-    stop.record()
+        stop.record()
+        events.append((start, stop))
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return sum(a.elapsed_time(b) for a, b in events) / reps
 
 
 def sdpa(q, k, v, m, H):
@@ -1407,6 +1568,107 @@ def measure(model, model16):
     return res
 
 
+@torch.no_grad()
+def measure_products():
+    """Each bf16 product of #1 and #2 alone (fused_linear, the tensor-core
+    path) at its serving shape: device ms against its bound (2MNK / 989
+    TFLOP/s, or the bytes of A, W, bias, C and the residual once over 3.35
+    TB/s), the plain twin's ms, torch.matmul(a, w) + b as the library
+    yardstick (an eager cuBLAS product; no bf16 rounding before the bias
+    and no epilogue), the tile and the block count."""
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    out = {}
+    for name, M, K, N, relu, residual in PRODUCTS:
+        a, w, b, relu, r = product_operands(M, K, N, relu, residual)
+        k1 = device_ms(lambda: dl.fused_linear(a, w, b, relu, r))
+        p = device_ms(lambda: dl.linear_plain(a, w, b, relu, r))
+        lb = device_ms(lambda: torch.matmul(a, w) + b)
+        k2 = device_ms(lambda: dl.fused_linear(a, w, b, relu, r))
+        flops = 2 * M * N * K
+        nbytes = 2 * (M * K + K * N + N + M * N * (2 if residual else 1))
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        bm, bn, blocks = dl.product_tile(M, N)
+        ms = min(k1, k2)
+        bound = max(t_ops, t_bytes)
+        out[name] = {"m_k_n": [M, K, N], "ms": ms, "ms_first": k1,
+                     "ms_last": k2, "plain_ms": p, "library_ms": lb,
+                     "bound_ms": bound, "bound_by": "operations"
+                     if t_ops >= t_bytes else "bytes",
+                     "share_of_bound": bound / ms, "tflops": flops / ms / 1e9,
+                     "tile": [bm, bn], "blocks": blocks}
+    return out
+
+
+@torch.no_grad()
+def layer_split(model, reps: int = 10):
+    """Where #1's and #2's bf16 device time goes: torch.profiler over
+    ``reps`` calls, kernel time summed by building block (the tensor-core
+    products, attention, refnorm) a call."""
+    from torch.profiler import ProfilerActivity, profile
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    H = model.num_heads
+    bf = torch.bfloat16
+    enc_w = dl.pack_encoder_layer(model.encoder.layer0, bf)
+    dec_w = dl.pack_layer_weights(model.decoder0.layer0, bf)
+    x_enc, src, x_dec, mem, tgt, _ = layer_inputs(bf, 4)
+    calls = {"encoder_layer": lambda: dl.fused_encoder_layer(
+                 x_enc, src, enc_w, H),
+             "decoder_layer": lambda: dl.fused_decoder_layer(
+                 x_dec, mem, tgt, src, dec_w, H)}
+    parts = {"products": "gemm_tc_kernel", "attention": "attention_kernel",
+             "refnorm": "refnorm_kernel"}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split = {k: 0.0 for k in (*parts, "other")}
+        launches = {k: 0 for k in split}
+        for row in prof.key_averages():
+            dev_us = getattr(row, "self_device_time_total",
+                             getattr(row, "self_cuda_time_total", 0.0))
+            if not dev_us or not str(getattr(row, "device_type",
+                                             "")).endswith("CUDA"):
+                continue
+            part = next((k for k, v in parts.items() if v in row.key),
+                        "other")
+            split[part] += dev_us / 1e3 / reps
+            launches[part] += row.count // reps
+        out[name] = {**{f"{k}_ms": v for k, v in split.items()},
+                     "launches": launches}
+    return out
+
+
+@torch.no_grad()
+def host_costs(model):
+    """Host µs of one fused_encoder_layer and one fused_encoder_stack_forward
+    call at B = 64 in bf16 (tensor-core products: their A maps encoded per
+    call, W maps from the cache) and in float32 (the FFMA route, the same
+    launches): the difference is what the tensor maps cost the host."""
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    from boficap_tpu_torch.ops import stack as st
+    H = model.num_heads
+    out = {}
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
+        enc = st.pack_encoder_stack(model.encoder, dtype)
+        x_enc, src, *_ = layer_inputs(dtype, 4)
+        out[dtype_name] = {
+            "fused_encoder_layer": host_us(
+                lambda: dl.fused_encoder_layer(x_enc, src, enc_w, H), 30),
+            "fused_encoder_stack_forward": host_us(
+                lambda: st.fused_encoder_stack_forward(
+                    x_enc, src, enc.stack, enc.final_norm, H), 30)}
+    out["bf16_minus_float32"] = {
+        k: out["bfloat16"][k] - out["float32"][k] for k in out["float32"]}
+    return out
+
+
 def count_syncs(fn) -> int:
     """The host-device synchronizations one call of fn makes, counted by
     torch's sync debug mode (one warning each)."""
@@ -1423,16 +1685,19 @@ def count_syncs(fn) -> int:
 
 
 def host_us(fn, n: int = 200) -> float:
-    """Host time to enqueue one call of fn, in microseconds (no sync inside
-    the window; the card runs behind)."""
+    """Host time to enqueue one call of fn, in microseconds: the median of
+    ``n`` calls, each timed alone with the card drained before it, so no
+    call waits on a full launch queue (a stack's ~50 launches a call would
+    fill it within a run of calls)."""
     fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t = []
     for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
-    t = time.perf_counter() - t0
+        t.append((time.perf_counter() - t0) * 1e6)
     torch.cuda.synchronize()
-    return t / n * 1e6
+    return sorted(t)[n // 2]
 
 
 @torch.no_grad()
@@ -1813,7 +2078,8 @@ def run_phases(smi: str):
     werrs = check_window_kernels(model)
     for dtype_name in errs:
         errs[dtype_name].update(werrs[dtype_name])
-    emit({"phase": "kernels", "tolerance_rel": TOL, **errs})
+    emit({"phase": "kernels", "tolerance_rel": TOL, **errs,
+          "products_bf16": check_products()})
     na_dec, na_counts = check_decode(model)
     emit({"phase": "decode", **na_dec})
     served = check_serve(model16, "NAIC", NA_KERNELS)
@@ -1821,7 +2087,8 @@ def run_phases(smi: str):
     sa_dec, sa_counts = check_sa_decode(model)
     emit({"phase": "sa_decode", "stop_bias_shift": -STOP_SHIFT,
           "long_bias_shift": long_shift, **sa_dec})
-    emit({"phase": "bf16_decode", **check_bf16_decodes(model16)})
+    bf16_dec = check_bf16_decodes(model16)
+    emit({"phase": "bf16_decode", **bf16_dec})
     sa_served = check_serve(model16, "SAIC", SA_KERNELS)
     emit({"phase": "sa_serve", "card": smi, **sa_served})
     att_errs = check_attention()
@@ -1841,6 +2108,9 @@ def run_phases(smi: str):
           "attention_core_expected": want, **aic_served})
     unforce_long([model, model16], long_shift)
     times = measure(model, model16)
+    times["products_bf16"] = measure_products()
+    times["layer_split_bf16"] = layer_split(model)
+    times["host_us_per_call"] = host_costs(model)
     times["ar"] = measure_ar(aic, aic16, model16)
     emit({"phase": "times", "card": smi, "long_bias_shift": 0.0, **times})
     errs["float32"]["attention_core"] = att_errs["float32"]["ar_cross"]
@@ -1875,6 +2145,10 @@ def run_phases(smi: str):
             "bf16": {key: t16[key] for key in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")},
             "bf16_max_abs_err": errs["bfloat16"][name]["max_abs_err"]})
+        if name in ("encoder_layer", "decoder_layer"):
+            # #1 and #2 at bf16 run at B > 128: the B = 256 NA decode
+            kernels[-1]["bf16"]["launches"] = bf16_dec[
+                "na_decode_b256_per_layer"]["launches"][name]
     return kernels
 
 

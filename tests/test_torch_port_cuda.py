@@ -6,7 +6,9 @@ the probe's reason.  Run on the GPU machine with
 
 Shapes are small and deliberately ragged (not multiples of the 64-wide
 tiles) so the kernels' edge masking is exercised; ``chip_smoke.py``
-checks the serving shapes.
+checks the serving shapes.  The bf16 product of the layer kernels
+(``fused_linear``) is checked on its own at ragged shapes up to 2304 rows,
+and for bitwise batch independence.
 """
 
 import pytest
@@ -113,6 +115,93 @@ def test_wrapper_raises_on_bad_input(cuda):
     with pytest.raises(TypeError):
         dl.fused_encoder_layer(x.half(), torch.ones(
             2, 3, dtype=torch.bool, device=cuda), w, H)
+
+
+# the bf16 product's ragged test shapes: M below, at and above the 64- and
+# 128-row tiles; N and K not multiples of the 64-wide tiles
+PRODUCT_M = (1, 37, 2304)
+PRODUCT_N = (72, 288, 1536)
+PRODUCT_K = (96, 200, 2048)
+
+
+def _product_operands(cuda, M, N, K, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(M, K, generator=g).to(cuda, dtype)
+    w = (torch.randn(K, N, generator=g) / K ** 0.5).to(cuda, dtype)
+    b = (torch.randn(N, generator=g) * 0.1).to(cuda, dtype)
+    res = torch.randn(M, N, generator=g).to(cuda, dtype)
+    return a, w, b, res
+
+
+@pytest.mark.parametrize("K", PRODUCT_K)
+@pytest.mark.parametrize("N", PRODUCT_N)
+@pytest.mark.parametrize("M", PRODUCT_M)
+def test_fused_linear_kernel(cuda, M, N, K):
+    """The layer kernels' bf16 product (TMA, wgmma) against linear_plain,
+    with and without ReLU and the residual; each call launches once."""
+    bf = torch.bfloat16
+    a, w, b, res = _product_operands(cuda, M, N, K, bf)
+    dl.fused_linear.launches = 0
+    for relu, r in ((False, None), (True, None), (False, res), (True, res)):
+        got = dl.fused_linear(a, w, b, relu=relu, res=r)
+        want = dl.linear_plain(a, w, b, relu=relu, res=r)
+        torch.cuda.synchronize()
+        assert got.shape == (M, N) and got.dtype == bf
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got, want) < TOL[bf]
+    assert dl.fused_linear.launches == 4
+
+
+def test_fused_linear_float32(cuda):
+    """float32 products keep the FFMA tile, at any width."""
+    a, w, b, res = _product_operands(cuda, 37, 75, 101, torch.float32)
+    got = dl.fused_linear(a, w, b, relu=True, res=res)
+    want = dl.linear_plain(a, w, b, relu=True, res=res)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("K", PRODUCT_K)
+@pytest.mark.parametrize("N", PRODUCT_N)
+def test_fused_linear_batch_independent(cuda, N, K):
+    """Row r of a bf16 product is bitwise the same whatever M: the first
+    37 rows of an M = 2304 product equal the M = 37 product, though the
+    two take different tiles (no split-K; one k order per element)."""
+    a, w, b, res = _product_operands(cuda, 2304, N, K, torch.bfloat16, 1)
+    full = dl.fused_linear(a, w, b, relu=True, res=res)
+    part = dl.fused_linear(a[:37], w, b, relu=True, res=res[:37])
+    torch.cuda.synchronize()
+    assert torch.equal(full[:37], part)
+
+
+def test_product_tiles(cuda):
+    """(BM, BN, blocks) of the serving shapes: BN from N alone, BM = 128
+    where that still fills the 132 SMs."""
+    assert dl.product_tile(2304, 1536) == (128, 128, 216)
+    assert dl.product_tile(2304, 512) == (128, 64, 144)
+    assert dl.product_tile(1280, 1536) == (64, 128, 240)
+    assert dl.product_tile(1280, 512) == (64, 64, 160)
+    assert dl.product_tile(1, 72) == (64, 64, 2)
+
+
+def test_product_rejects_bad_width(cuda):
+    """A bf16 width that is not a multiple of 8 raises ValueError (TMA's
+    16-byte strides), in the product and in a layer; float32 takes it."""
+    bf = torch.bfloat16
+    a, w, b, _ = _product_operands(cuda, 4, 24, 100, bf)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        dl.fused_linear(a, w, b)
+    D, F, H = 100, 200, 4
+    layer = _layer(tl.EncoderLayer, D, F, H).to(cuda)
+    x = torch.randn(2, 3, D, device=cuda)
+    mask = torch.ones(2, 3, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        dl.fused_encoder_layer(x.to(bf), mask,
+                               dl.pack_encoder_layer(layer, bf), H)
+    w32 = dl.pack_encoder_layer(layer, torch.float32)
+    got = dl.fused_encoder_layer(x, mask, w32, H)
+    torch.cuda.synchronize()
+    assert _rel(got, dl.encoder_layer_plain(x, mask, w32, H)) < 1e-4
 
 
 def _window_operands(cuda, dtype, NL, B, W, L, R, D, F, H):

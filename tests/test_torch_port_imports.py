@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no file of ``boficap_tpu_torch/``, nor
-``chip_smoke.py``, imports jax, flax or the JAX package."""
+``chip_smoke.py`` or ``scripts/port_decode_ab.py``, imports jax, flax or
+the JAX package."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "boficap_tpu")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "scripts", "port_decode_ab.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "boficap_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -136,10 +136,86 @@ def test_launch_counts_untouched_on_cpu():
     dl.fused_greedy_head(h, torch.randn(D, 9), torch.randn(9))
     q = torch.randn(1, 2, 3, 8)
     attention_core(q, q, q, torch.ones(1, 3, 3, dtype=torch.bool))
+    dl.fused_linear(h, torch.randn(D, 9), torch.randn(9))
     assert ops.launch_counts() == {
         "encoder_layer": 0, "decoder_layer": 0, "greedy_head": 0,
-        "window_layer": 0, "encoder_stack": 0, "decoder_stack": 0,
-        "window_stack": 0, "window_wide_stack": 0, "attention_core": 0}
+        "window_layer": 0, "linear": 0, "encoder_stack": 0,
+        "decoder_stack": 0, "window_stack": 0, "window_wide_stack": 0,
+        "attention_core": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu,with_res", [(False, False), (True, True)])
+def test_fused_linear_runs_plain_on_cpu(dtype, relu, with_res):
+    """On CPU tensors the product's wrapper is linear_plain, bit for bit,
+    at any width (the TMA width rule binds only the card), and its launch
+    count stays 0."""
+    rs = np.random.RandomState(3)
+    M, K, N = 5, 12, 10
+
+    def t(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dtype)
+
+    a, w, b = t(M, K), t(K, N), t(N)
+    res = t(M, N) if with_res else None
+    dl.fused_linear.launches = 0
+    got = dl.fused_linear(a, w, b, relu=relu, res=res)
+    assert torch.equal(got, dl.linear_plain(a, w, b, relu=relu, res=res))
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert dl.fused_linear.launches == 0
+
+
+def test_product_shape_check():
+    """The layer kernels' bf16 product (TMA) takes widths that are
+    multiples of 8 and 16-byte aligned operands; float32 takes any."""
+    bf = torch.bfloat16
+    dl.check_product_shape(bf, {"D": 96, "d_ff": 200},
+                           {"x": torch.zeros(4, 96, dtype=bf)})
+    dl.check_product_shape(torch.float32, {"D": 100, "d_ff": 3},
+                           {"x": torch.zeros(9)[1:]})
+    for bad in ({"D": 100, "d_ff": 200}, {"D": 96, "d_ff": 196}):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            dl.check_product_shape(bf, bad)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dl.check_product_shape(bf, {"K": 8},
+                               {"a": torch.zeros(9, dtype=bf)[1:]})
+
+
+def _c_entries():
+    """(library, entry) for every C entry the kernel libraries export."""
+    from boficap_tpu_torch.ops._build import SIGNATURES
+    return [(lib, fn) for lib, fns in SIGNATURES.items() for fn in fns]
+
+
+@pytest.mark.parametrize("lib,entry", _c_entries())
+def test_signatures_mirror_c(lib, entry):
+    """Each entry's ctypes signature in ops/_build.py SIGNATURES lists the
+    argument and return kinds of its extern "C" definition: pointer, int,
+    long long, int pointer (the card loads the symbol, but ctypes cannot
+    check its arguments)."""
+    from boficap_tpu_torch.ops._build import SIGNATURES
+    src = (CSRC / f"{lib}.cu").read_text() + (CSRC / "common.cuh").read_text()
+    m = re.search(r'extern "C" ([\w\s\*]+?)\s*\b' + entry + r"\((.*?)\)\s*\{",
+                  src, re.S)
+    assert m, f"{entry} not defined in {lib}.cu"
+
+    def kind(decl: str) -> str:
+        d = decl.replace(" ", "")
+        if "char*" in d:
+            return "str"
+        if d.startswith("int*"):
+            return "iptr"
+        if "*" in d:
+            return "ptr"
+        return "ll" if d.startswith("longlong") else "int"
+
+    params = [p for p in m.group(2).split(",") if p.strip()]
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+             ctypes.c_longlong: "ll", ctypes.c_char_p: "str",
+             ctypes.POINTER(ctypes.c_int): "iptr"}
+    argtypes, restype = SIGNATURES[lib][entry]
+    assert [kind(p) for p in params] == [kinds[t] for t in argtypes]
+    assert kind(m.group(1)) == kinds[restype]
 
 
 @pytest.mark.parametrize("entry,mirror", [
