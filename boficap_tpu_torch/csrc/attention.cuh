@@ -20,7 +20,11 @@
 // row j of source a, the rest are source c's rows.  The windowed decoder
 // layers (pallas_decoder_layer.py::_win_kernel :283) attend over a K/V cache
 // followed by the window's fresh K/V; reading both in place saves copying
-// them into one [B, L + W, D] buffer per layer.
+// them into one [B, L + W, D] buffer per layer.  Those layers also hand the
+// block a destination for the fresh K/V (KvDst): once its sample's keys
+// are staged, block (b, h) copies head h's columns of source c's rows into
+// it, so the narrow SA round updates its cache in place with no launch of
+// its own, and every key was read before any is overwritten.
 //
 // Bound on the H100: bytes.  At BoFiCap's sizes (L <= 36, Dh = 64) the
 // score and context work is ~4 * L * L * Dh flops per (sample, head), a few
@@ -61,6 +65,17 @@ HeadView<T> rows_view(T* p, int ld, int rows, int Dh) {
   return HeadView<T>{p, (long long)rows * ld, Dh, ld};
 }
 
+// Where the fresh K/V (source c's rows) go: row (b, j) to row s_b + j of
+// row-major [B, Ld, ld] k and v, s_b = clamp(starts[b], 0, Ld - rows_c)
+// (0 without starts).  k == nullptr: nowhere.
+template <typename T>
+struct KvDst {
+  T* k;
+  T* v;
+  const int* starts;
+  int Ld, ld;
+};
+
 // How the scores are scaled: the layer kernels divide by sqrt(Dh)
 // (pallas_decoder_layer.py:86); the attention core multiplies by the float32
 // 1/sqrt(Dh) (pallas_attention.py:38,47).  The two agree exactly when
@@ -74,7 +89,7 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
                      HeadView<const T> vc, int rows_c,
                      const uint8_t* __restrict__ mask, long long mask_sb,
                      long long mask_sq, HeadView<T> out, int H, int Lq,
-                     int Dh) {
+                     int Dh, KvDst<T> dst) {
   extern __shared__ float smem[];
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
@@ -101,6 +116,21 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
     Qs[i * Dh + d] = Cvt<T>::to_f(q.at(b, h, i, d));
   }
   __syncthreads();
+
+  if (dst.k != nullptr) {
+    // every key of (b, h) is staged: copy the fresh rows out, exactly (T
+    // to float32 and back is the identity); no other block touches them
+    const int s0 = dst.starts == nullptr
+                       ? 0
+                       : min(max(dst.starts[b], 0), dst.Ld - rows_c);
+    for (int e = threadIdx.x; e < rows_c * Dh; e += nthr) {
+      const int j = e / Dh, d = e % Dh;
+      const size_t o = ((size_t)b * dst.Ld + s0 + j) * dst.ld +
+                       (size_t)h * Dh + d;
+      dst.k[o] = Cvt<T>::from_f(Ks[(rows_a + j) * ks_ld + d]);
+      dst.v[o] = Cvt<T>::from_f(Vs[(rows_a + j) * Dh + d]);
+    }
+  }
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -154,7 +184,7 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
                              int rows_c, const uint8_t* mask,
                              long long mask_sb, long long mask_sq,
                              HeadView<T> out, int B, int H, int Lq, int Dh,
-                             cudaStream_t stream) {
+                             cudaStream_t stream, KvDst<T> dst = {}) {
   const size_t smem = attention_smem(Lq, rows_a + rows_c, Dh);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -164,22 +194,24 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
   }
   attention_kernel<T, S><<<B * H, ATT_WARPS * 32, smem, stream>>>(
       q, ka, va, rows_a, kc, vc, rows_c, mask, mask_sb, mask_sq, out, H, Lq,
-      Dh);
+      Dh, dst);
   return cudaGetLastError();
 }
 
-// keys a ++ c; q points at head 0's column of a row-major [B*Lq, ldq] buffer
+// keys a ++ c; q points at head 0's column of a row-major [B*Lq, ldq]
+// buffer; c's rows also go to dst, if it has k
 template <typename T>
 cudaError_t attention2(const T* q, int ldq, KeySrc<T> a, KeySrc<T> c,
                        const uint8_t* mask, long long mask_sb,
                        long long mask_sq, T* out, int ldo, int B, int H,
-                       int Lq, int Dh, cudaStream_t stream) {
+                       int Lq, int Dh, cudaStream_t stream,
+                       KvDst<T> dst = {}) {
   return launch_attention<T, Scale::kDivSqrt>(
       rows_view(q, ldq, Lq, Dh), rows_view(a.k, a.ldk, a.rows, Dh),
       rows_view(a.v, a.ldv, a.rows, Dh), a.rows,
       rows_view(c.k, c.ldk, c.rows, Dh), rows_view(c.v, c.ldv, c.rows, Dh),
       c.rows, mask, mask_sb, mask_sq, rows_view(out, ldo, Lq, Dh), B, H, Lq,
-      Dh, stream);
+      Dh, stream, dst);
 }
 
 // one key source: q/k/v point at head 0's column of row-major

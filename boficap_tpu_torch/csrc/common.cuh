@@ -8,9 +8,9 @@
 //
 // The tiled matrix product here is plain FFMA on float32 (a bf16 product is
 // exact in float32, so bf16 inputs give the same sum as a float32 product of
-// the same values).  The layer kernels' bf16 products run on the tensor
-// cores instead (wgmma_gemm.cuh); the window kernels and the head keep this
-// tile at both types.
+// the same values).  The layer and window kernels' bf16 products run on
+// the tensor cores instead (wgmma_gemm.cuh); the head keeps this tile at
+// both types.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -10,9 +10,8 @@
 // encoder's products are 2304 x 512 x {1536, 512, 2048} and 2304 x 2048 x
 // 512, at least ~100 flops per byte moved.  This product is 64 x 64 tiles of
 // float32 FFMA from shared memory (common.cuh gemm_tile).  It serves every
-// float32 product, and the bf16 products of the window kernels (window.cuh)
-// at the float32 FFMA rate; the layer kernels' bf16 products run on the
-// tensor cores (wgmma_gemm.cuh).
+// float32 product of the layer and window kernels; their bf16 products run
+// on the tensor cores (wgmma_gemm.cuh).
 #pragma once
 
 #include "common.cuh"

@@ -1,9 +1,10 @@
 // Building block: the bfloat16 matrix product on Hopper's tensor cores, for
 // the projections and FFN products of the encoder-layer and decoder-layer
-// kernels (#1, #2; the stacks #4, #5 loop the same bodies).  It replaces,
-// at bf16, the jnp.dot calls of the TPU kernels' bodies
+// kernels (#1, #2; the stacks #4, #5 loop the same bodies) and of the
+// window layer (window.cuh: #6, #7, #8).  It replaces, at bf16, the jnp.dot
+// calls of the TPU kernels' bodies
 // (boficap_tpu/ops/pallas_decoder_layer.py::_mha :75, _kernel :124,
-// _enc_kernel :500).
+// _win_kernel :283, _enc_kernel :500; pallas_stack.py :583-634).
 //
 //   C = epilogue(A[M,K] @ W[K,N])     W in the flax [in, out] layout
 //   epilogue: v = bf16(sum); v = bf16(v + bias); relu?; v = bf16(v + res)
@@ -54,11 +55,12 @@
 
 namespace bfc {
 namespace tc {
-// Internal linkage: encoder_layer.cu and decoder_layer.cu each build this
-// into their own library, with its own CUDA runtime.  Shared (weak)
-// template symbols would let one library's kernel stubs and statics (the
-// shared-memory attribute set per device, the map cache) stand in for the
-// other's, whose runtime never registered or configured them.
+// Internal linkage: encoder_layer.cu, decoder_layer.cu, window_layer.cu
+// and window_stack.cu each build this into their own library, with its own
+// CUDA runtime.  Shared (weak) template symbols would let one library's
+// kernel stubs and statics (the shared-memory attribute set per device, the
+// map cache) stand in for another's, whose runtime never registered or
+// configured them.
 namespace {
 
 using bf16 = __nv_bfloat16;

@@ -17,50 +17,31 @@
 //   x2 = x1 + (attention(q2, k2, v2, src) @ Wo2 + bo2)
 //   n2 = refnorm(x2);  out = x2 + (relu(n2 @ W1 + bf1) @ W2 + bf2)
 //
-// Thirteen launches on the caller's stream (3 refnorm, 6 gemm, 2 attention,
-// 2 row copies).  The row copy of the fresh K/V is launched after the
-// self-attention, so a layer whose destination is its own cache (the
-// narrow stack round) attends over the cache as it was before this layer's
-// update, as the TPU kernel does (pallas_stack.py:587-608).
+// Eleven launches on the caller's stream (3 refnorm, 6 products, 2
+// attention).  The self-attention block also writes the window's fresh K/V
+// into k_dst / v_dst (attention.cuh KvDst): block (b, h) stages its
+// sample's cache and fresh K/V, then copies head h's fresh columns out, so
+// a layer whose destination is its own cache (the narrow stack round)
+// attends over the cache as it was before this layer's update, as the TPU
+// kernel does (pallas_stack.py:587-608).  That matters even for the cache's
+// copies of in-window positions, which the caller masks: a fully masked
+// query row averages uniformly over every key, those included.
 //
 // Bound on the H100: the serving shapes put a narrow round (B = 64, W = 8,
 // 512 rows) at ~3.8 GFLOP a layer against ~32 MB (float32) or ~16 MB (bf16)
 // of weights, caches and cross K/V, so float32 FFMA is bound by operations
-// (~57 us) and bf16 by bytes (~5 us).  This first version runs the products on float32 FFMA tiles
-// (gemm.cuh) and reads every weight once a launch; tensor cores and keeping
-// the weights resident across a round's layers are later work.
+// (~57 us) and bf16 by bytes (~5 us).  The products go through product<T>
+// (wgmma_gemm.cuh): bf16 on the tensor cores (TMA into a shared-memory ring,
+// wgmma; the layer kernels' product), float32 on the FFMA tile of gemm.cuh.
+// Every weight is still read once a launch; keeping the weights resident
+// across a round's layers is later work.
 #pragma once
 
 #include "attention.cuh"
-#include "gemm.cuh"
 #include "refnorm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace bfc {
-
-// fresh K/V row (b, j) of a [B*W, ld_src] buffer -> row start_b + j of a
-// [B, Ld, D] destination; start_b = clamp(starts[b], 0, Ld - W), or 0
-// without starts.  One block per source row.
-template <typename T>
-__global__ void __launch_bounds__(128)
-    copy_rows_kernel(const T* __restrict__ src, int ld_src,
-                     T* __restrict__ dst, const int* __restrict__ starts,
-                     int W, int Ld, int D) {
-  const int r = blockIdx.x;
-  const int b = r / W, j = r % W;
-  int s0 = 0;
-  if (starts != nullptr) s0 = min(max(starts[b], 0), Ld - W);
-  const T* sr = src + (size_t)r * ld_src;
-  T* dr = dst + ((size_t)b * Ld + s0 + j) * D;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) dr[d] = sr[d];
-}
-
-template <typename T>
-cudaError_t copy_rows(const T* src, int ld_src, T* dst, const int* starts,
-                      int B, int W, int Ld, int D, cudaStream_t stream) {
-  copy_rows_kernel<T><<<B * W, 128, 0, stream>>>(src, ld_src, dst, starts, W,
-                                                 Ld, D);
-  return cudaGetLastError();
-}
 
 template <typename T>
 struct WinLayer {
@@ -98,28 +79,25 @@ cudaError_t window_layer(const WinLayer<T>& a, cudaStream_t s) {
   T* x2 = q2 + (size_t)M * D;          // [M, D]
   T* f = x2 + (size_t)M * D;           // [M, F]
 
-  // self-attention sublayer: keys = cache ++ fresh window
+  // self-attention sublayer: keys = cache ++ fresh window; the fresh K/V
+  // go to k_dst / v_dst once the block has staged every key
   BFC_TRY(refnorm<T>(a.x, a.s0, a.b0, n, M, D, s));
-  BFC_TRY(gemm<T>(n, a.wqkv, a.bqkv, nullptr, qkv, M, 3 * D, D, false, s));
+  BFC_TRY(product<T>(n, a.wqkv, a.bqkv, nullptr, qkv, M, 3 * D, D, false, s));
   BFC_TRY(attention2<T>(qkv, 3 * D, KeySrc<T>{a.kc, a.vc, D, D, a.Lc},
                         KeySrc<T>{qkv + D, qkv + 2 * D, 3 * D, 3 * D, a.W},
                         a.tgt, a.tgt_sb, a.tgt_sq, ctx, D, a.B, a.H, a.W, Dh,
-                        s));
-  BFC_TRY(copy_rows<T>(qkv + D, 3 * D, a.k_dst, a.starts, a.B, a.W, a.Ld, D,
-                       s));
-  BFC_TRY(copy_rows<T>(qkv + 2 * D, 3 * D, a.v_dst, a.starts, a.B, a.W, a.Ld,
-                       D, s));
-  BFC_TRY(gemm<T>(ctx, a.wo, a.bo, a.x, x1, M, D, D, false, s));
+                        s, KvDst<T>{a.k_dst, a.v_dst, a.starts, a.Ld, D}));
+  BFC_TRY(product<T>(ctx, a.wo, a.bo, a.x, x1, M, D, D, false, s));
   // cross-attention sublayer on the pre-projected memory K/V
   BFC_TRY(refnorm<T>(x1, a.s1, a.b1, n, M, D, s));
-  BFC_TRY(gemm<T>(n, a.wq2, a.bq2, nullptr, q2, M, D, D, false, s));
+  BFC_TRY(product<T>(n, a.wq2, a.bq2, nullptr, q2, M, D, D, false, s));
   BFC_TRY(attention<T>(q2, D, a.k2, D, a.v2, D, a.src, a.src_sb, a.src_sq,
                        ctx, D, a.B, a.H, a.W, a.R, Dh, s));
-  BFC_TRY(gemm<T>(ctx, a.wo2, a.bo2, x1, x2, M, D, D, false, s));
+  BFC_TRY(product<T>(ctx, a.wo2, a.bo2, x1, x2, M, D, D, false, s));
   // FFN sublayer
   BFC_TRY(refnorm<T>(x2, a.s2, a.b2, n, M, D, s));
-  BFC_TRY(gemm<T>(n, a.w1, a.bf1, nullptr, f, M, F, D, true, s));
-  return gemm<T>(f, a.w2, a.bf2, x2, a.out, M, D, F, false, s);
+  BFC_TRY(product<T>(n, a.w1, a.bf1, nullptr, f, M, F, D, true, s));
+  return product<T>(f, a.w2, a.bf2, x2, a.out, M, D, F, false, s);
 }
 
 }  // namespace bfc

@@ -5,9 +5,12 @@
 // One decoder layer on a W-wide window of new SA positions per sample:
 // keys = the layer's K/V cache [B, L, D] ++ the window's fresh K/V, cross
 // K/V pre-projected.  Returns the window's output and its fresh K/V
-// ([B, W, D] each); the caller scatters them into the cache (a torch index
-// write, as the JAX package scatters in XLA between launches).  The layer
-// body is window.cuh's (13 launches on the caller's stream).
+// ([B, W, D] each, written by the self-attention block); the caller
+// scatters them into the cache (a torch index write, as the JAX package
+// scatters in XLA between launches).  The layer body is window.cuh's (11
+// launches on the caller's stream), so this kernel takes the bf16
+// tensor-core product and the K/V write of the window stacks
+// (window_stack.cu) without a design of its own.
 //
 // Bound on the H100 at B = 64, W = 8, L = 20, R = 36, D = 512, d_ff = 2048:
 // ~3.8 GFLOP against ~32 MB (float32) / ~16 MB (bf16): operations in

@@ -15,20 +15,22 @@
 // (W == L, bfc_window_wide_stack) has no cache keys; it writes each layer's
 // fresh K/V as that layer's whole new cache.
 //
-// Each layer is window.cuh's body (13 launches); layers pass activations
-// through two ping-pong buffers of the scratch, and the last layer writes
-// the output.  The final RefLayerNorm lies outside the TPU kernels too and
-// runs in the Python wrapper.
+// Each layer is window.cuh's body (11 launches: its self-attention block
+// writes the fresh K/V); layers pass activations through two ping-pong
+// buffers of the scratch, and the last layer writes the output.  The final
+// RefLayerNorm lies outside the TPU kernels too and runs in the Python
+// wrapper.
 //
 // Bound on the H100 at B = 64, D = 512, d_ff = 2048, 6 layers, R = 36,
 // L = 20: a narrow round (W = 8) is ~23 GFLOP against ~208 MB (float32) /
 // ~104 MB (bf16) of weights, caches and cross K/V; a wide round (W = 20) is
 // ~57 GFLOP against ~176 / ~88 MB.  Float32 FFMA is bound by operations in
 // both; bf16 is bound by bytes in the narrow round (the weights and cross
-// K/V are read again every round) and by operations in the wide one.  This
-// first version reads every weight once per layer per round and computes
-// on float32 FFMA tiles; one persistent kernel per round on the tensor
-// cores is later work.
+// K/V are read again every round) and by operations in the wide one.  The
+// bf16 products run on the tensor cores (wgmma_gemm.cuh), the float32 ones
+// on FFMA; every weight is read once per layer per round, from L2 for all
+// but the first block row.  A round is 66 launches; one persistent kernel
+// per round, or a CUDA graph of it, is later work.
 #include "window.cuh"
 
 // Field order and types are mirrored by ops/stack.py (_WindowStackArgs);

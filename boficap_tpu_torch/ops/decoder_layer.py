@@ -35,13 +35,14 @@ stay float32, as the flax modules hold them.
 
 Bounds on the H100 at the serving batch (B = 64, D = 512, d_ff = 2048,
 R = 36, L = 20, V = 9491): the layers and the head are bound by operations
-(~14.7, ~12.0 and ~12.4 GFLOP a launch).  The layer kernels' bf16 products
-run on the tensor cores (``csrc/wgmma_gemm.cuh``: TMA into a shared-memory
-ring, wgmma), which read their operands with TMA: at bf16 the widths D and
-d_ff must be multiples of 8 and the activations 16-byte aligned, and the
-wrappers raise ``ValueError`` otherwise (``check_product_shape``).  Their
-float32 products, the window layer's and the head's run on float32 FFMA
-tiles.  ``fused_linear`` runs one such product alone, to time it.
+(~14.7, ~12.0 and ~12.4 GFLOP a launch).  The layer and window kernels'
+bf16 products run on the tensor cores (``csrc/wgmma_gemm.cuh``: TMA into a
+shared-memory ring, wgmma), which read their operands with TMA: at bf16 the
+widths D and d_ff must be multiples of 8 and the activations 16-byte
+aligned, and the wrappers raise ``ValueError`` otherwise
+(``check_product_shape``).  Their float32 products and the head run on
+float32 FFMA tiles.  ``fused_linear`` runs one such product alone, to time
+it.
 """
 
 from __future__ import annotations
@@ -398,6 +399,19 @@ def check_product_shape(dtype, widths: Dict[str, int],
                              f"tensor-core product reads it with TMA")
 
 
+# the window layer's product weights, read with TMA
+_WIN_PRODUCT_KEYS = ("wqkv", "wo", "wq2", "wo2", "w1", "w2")
+
+
+def check_window_products(dtype, D: int, F: int, x_win, w) -> None:
+    """``check_product_shape`` for a window layer or stack (csrc/window.cuh):
+    its products' widths D and d_ff, x_win (the first residual) and the
+    product weights ``w`` (per layer or stacked)."""
+    check_product_shape(dtype, {"D": D, "d_ff": F},
+                        {"x_win": x_win,
+                         **{k: w[k] for k in _WIN_PRODUCT_KEYS}})
+
+
 def encoder_call(entry: str, x, mask, w, num_heads: int,
                  NL: Optional[int] = None):
     """Check an encoder layer's operands and run ``entry`` of
@@ -519,10 +533,21 @@ def fused_window_decoder_layer(x_win, k_cache, v_cache, k2, v2, tgt_mask,
     (ops/stack.py).  Returns
     (x [B,W,D], k_new, v_new [B,W,D]); the caller scatters the fresh K/V
     into the caches.  On CUDA: one call of csrc/window_layer.cu (3 refnorm,
-    6 gemm, 2 attention, 2 row-copy launches)."""
+    6 products, 2 attention launches; the self-attention block writes
+    k_new / v_new)."""
     if not _route(x_win):
         return window_layer_plain(x_win, k_cache, v_cache, k2, v2, tgt_mask,
                                   src_mask, w, num_heads)
+    out = window_layer_call(x_win, k_cache, v_cache, k2, v2, tgt_mask,
+                            src_mask, w, num_heads)
+    fused_window_decoder_layer.launches += 1
+    return out
+
+
+def window_layer_call(x_win, k_cache, v_cache, k2, v2, tgt_mask, src_mask, w,
+                      num_heads: int):
+    """Check a window layer's operands (``fused_window_decoder_layer``'s)
+    and run csrc/window_layer.cu; returns (x, k_new, v_new)."""
     B, W, D = x_win.shape
     L = k_cache.shape[1]
     R = k2.shape[1]
@@ -535,6 +560,7 @@ def fused_window_decoder_layer(x_win, k_cache, v_cache, k2, v2, tgt_mask,
     tsb, tsq = _mask_strides(tgt_mask, B, W, L + W, dev, "tgt_mask")
     ssb, ssq = _mask_strides(src_mask, B, W, R, dev, "src_mask")
     _check_weights(w, weight_shapes(_WIN_KEYS, D, F), dt, dev)
+    check_window_products(dt, D, F, x_win, w)
     n_scratch = _kernels().window_layer.bfc_window_layer_scratch(B, W, D, F)
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
     out = torch.empty_like(x_win)
@@ -549,7 +575,6 @@ def fused_window_decoder_layer(x_win, k_cache, v_cache, k2, v2, tgt_mask,
         k_new=k_new.data_ptr(), v_new=v_new.data_ptr(),
         B=B, W=W, L=L, R=R, D=D, F=F, H=num_heads, **_pointers(w, _WIN_KEYS))
     _launch_layer("window_layer", args, x_win)
-    fused_window_decoder_layer.launches += 1
     return out, k_new, v_new
 
 

@@ -14,7 +14,7 @@ On a CUDA tensor each makes one call into its kernel library: the entries
 ``bfc_decoder_stack`` of ``csrc/decoder_layer.cu`` loop those files'
 layer bodies over the layers; ``bfc_window_stack`` and
 ``bfc_window_wide_stack`` of ``csrc/window_stack.cu`` loop
-``csrc/window.cuh``'s (13 launches a layer).  Around the call the wrapper
+``csrc/window.cuh``'s (11 launches a layer).  Around the call the wrapper
 runs nothing but ``torch.empty``, then the final RefLayerNorm in plain
 torch (it lies outside the TPU kernels too).  On a CPU tensor it runs its
 plain twin (``*_plain``).  Each counts its CUDA calls in ``.launches``
@@ -33,10 +33,11 @@ both types.  An SA narrow round (W = 8) moves ~208 MB in float32 and ~104
 MB in bf16 for ~23 GFLOP; a wide round (W = 20) ~176 / ~88 MB for ~57
 GFLOP.  On float32 FFMA both are bound by operations; in bf16 the narrow
 round is bound by bytes (its weights and cross K/V are read again every
-round) and the wide round by operations.  The encoder and decoder stacks'
-bf16 products run on the tensor cores (csrc/wgmma_gemm.cuh, the layer
-kernels' product); their float32 products, and the window stacks' at both
-types, run on float32 FFMA.
+round) and the wide round by operations.  Every stack's bf16 products
+run on the tensor cores (csrc/wgmma_gemm.cuh, the layer kernels' product),
+so at bf16 the widths D and d_ff must be multiples of 8 and the wrappers
+raise ``ValueError`` otherwise (``check_product_shape``); the float32
+products run on float32 FFMA.
 """
 
 from __future__ import annotations
@@ -48,11 +49,12 @@ import torch
 
 from .decoder_layer import (_I, _LL, _P, _WIN_KEYS, _check_weights, _fields,
                             _kernels, _launch_layer, _mask_strides, _require,
-                            _route, decoder_call, decoder_layer_plain,
-                            encoder_call, encoder_layer_plain,
-                            pack_encoder_layer, pack_layer_weights,
-                            refnorm_plain, scatter_window,
-                            window_layer_plain, weight_shapes)
+                            _route, check_window_products, decoder_call,
+                            decoder_layer_plain, encoder_call,
+                            encoder_layer_plain, pack_encoder_layer,
+                            pack_layer_weights, refnorm_plain,
+                            scatter_window, window_layer_plain,
+                            weight_shapes)
 
 
 class StackPack(NamedTuple):
@@ -238,6 +240,7 @@ def _launch_stack(entry: str, x_win, k_caches, v_caches, k2s, v2s, w_start,
     tsb, tsq = _mask_strides(tgt_mask, B, W, Lk, dev, "tgt_mask")
     ssb, ssq = _mask_strides(src_mask, B, W, R, dev, "src_mask")
     _check_weights(stacked, weight_shapes(_WIN_KEYS, D, F, (NL,)), dt, dev)
+    check_window_products(dt, D, F, x_win, stacked)
     n_scratch = _kernels().window_stack.bfc_window_stack_scratch(B, W, D, F)
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
     out = torch.empty_like(x_win)
@@ -271,7 +274,8 @@ def fused_window_decoder_stack(x_win, w_start, k_caches, v_caches, k2s, v2s,
     w_start[b] + W - 1 after that layer's self-attention has read them, and
     no other row is written.  The returned caches are the input tensors; a
     caller must not reuse their old contents.  On CUDA: one call of
-    csrc/window_stack.cu (13 launches a layer)."""
+    csrc/window_stack.cu (11 launches a layer; the self-attention block
+    writes the fresh K/V)."""
     if not _route(x_win):
         return window_stack_plain(x_win, w_start, k_caches, v_caches, k2s,
                                   v2s, tgt_mask, src_mask, stacked,

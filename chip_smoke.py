@@ -10,8 +10,9 @@ Phases, each printing one JSON line:
               shapes (B = 64, full uic_sd width, all six layers for the
               stacks), float32 and bfloat16, with fully masked rows, padded
               regions, a ragged vocab edge and a planted argmax tie; and
-              the bf16 product of #1 and #2 (tensor cores) alone at each of
-              its 11 serving shapes, with bitwise batch independence.
+              the bf16 product of #1, #2 and #6-#8 (tensor cores) alone at
+              each of its 17 serving shapes, with bitwise batch
+              independence.
   3. decode   fused_encode + na_decode on both kernel routes (whole-stack
               encoder and decoder kernels, per-layer kernels) against the
               plain path, float32, uic_sd at full width with random
@@ -50,10 +51,12 @@ Phases, each printing one JSON line:
               least time the card could take (bound); decode times,
               launches and host syncs per decode; #9's host cost a call,
               AR and NA decode times with use_pallas on and off, an AR
-              breakdown; each bf16 product of #1 and #2 against its bound
-              and torch.matmul, with its tile; #1's and #2's bf16 device
-              time split into products, attention and refnorm; host µs of
-              a layer and a stack call at bf16 and float32.
+              breakdown; each bf16 product of #1, #2 and the narrow window
+              round against its bound and torch.matmul, with its tile;
+              #1's, #2's, #6's and #7's bf16 device time split into
+              products, attention and refnorm, with launches a call (no
+              FFMA product at bf16); host µs of a layer, a stack and a
+              window-stack call at bf16 and float32.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed phase raises: the script exits
@@ -119,9 +122,12 @@ NA_KERNELS = ("encoder_stack", "decoder_stack", "greedy_head")
 SA_KERNELS = ("encoder_stack", "window_stack", "window_wide_stack",
               "greedy_head")
 AIC_KERNELS = ("encoder_stack", "attention_core")
-# the bf16 products of #1 (B*R = 2304 rows) and #2 (B*L = 1280 rows; the
-# memory's 2304 for wkv2), each with its epilogue: (name, M, K, N, relu,
-# residual).  They run on the tensor cores (csrc/wgmma_gemm.cuh)
+W_NARROW = 8                  # sa_decode's default window
+# the bf16 products of #1 (B*R = 2304 rows), #2 (B*L = 1280 rows; the
+# memory's 2304 for wkv2) and a narrow SA round's window layer (#6, #8:
+# B*W = 512 rows; #7's wide round has #2's shapes), each with its epilogue:
+# (name, M, K, N, relu, residual).  They run on the tensor cores
+# (csrc/wgmma_gemm.cuh)
 PRODUCTS = (
     ("enc.wqkv", B * R, D, 3 * D, False, False),
     ("enc.wo", B * R, D, D, False, True),
@@ -134,10 +140,15 @@ PRODUCTS = (
     ("dec.wo2", B * L, D, D, False, True),
     ("dec.w1", B * L, D, 4 * D, True, False),
     ("dec.w2", B * L, 4 * D, D, False, True),
+    ("win.wqkv", B * W_NARROW, D, 3 * D, False, False),
+    ("win.wo", B * W_NARROW, D, D, False, True),
+    ("win.wq2", B * W_NARROW, D, D, False, False),
+    ("win.wo2", B * W_NARROW, D, D, False, True),
+    ("win.w1", B * W_NARROW, D, 4 * D, True, False),
+    ("win.w2", B * W_NARROW, 4 * D, D, False, True),
 )
 B_WIDE = 256                  # a batch past the whole-stack route (B > 128)
 K_BEAM = 3                    # beam width of the beam-search check
-W_NARROW = 8                  # sa_decode's default window
 LONG = 10                     # a phrase longer than the window: a wide round
 STOP_SHIFT = 6.0              # against random weights' early "stop" (shape_plans)
 NL = 6                        # uic_sd encoder and decoder layers
@@ -391,10 +402,11 @@ def product_operands(M: int, K: int, N: int, relu: bool, residual: bool,
 
 
 def check_products():
-    """The layer kernels' bf16 product (fused_linear, the tensor-core path
-    of #1 and #2) against linear_plain at each serving shape, and bitwise
-    batch independence: its first 37 rows and its first row, computed as
-    products of 37 and of 1 rows (other tiles), equal the full product's."""
+    """The layer and window kernels' bf16 product (fused_linear, the
+    tensor-core path of #1, #2 and #6-#8) against linear_plain at each
+    serving shape, and bitwise batch independence: its first 37 rows and
+    its first row, computed as products of 37 and of 1 rows (other tiles),
+    equal the full product's."""
     from boficap_tpu_torch.ops import decoder_layer as dl
     tol = TOL["bfloat16"]
     res = {}
@@ -1570,8 +1582,9 @@ def measure(model, model16):
 
 @torch.no_grad()
 def measure_products():
-    """Each bf16 product of #1 and #2 alone (fused_linear, the tensor-core
-    path) at its serving shape: device ms against its bound (2MNK / 989
+    """Each bf16 product of #1, #2 and the narrow window round alone
+    (fused_linear, the tensor-core path) at its serving shape: device ms
+    against its bound (2MNK / 989
     TFLOP/s, or the bytes of A, W, bias, C and the residual once over 3.35
     TB/s), the plain twin's ms, torch.matmul(a, w) + b as the library
     yardstick (an eager cuBLAS product; no bf16 rounding before the bias
@@ -1602,22 +1615,34 @@ def measure_products():
 
 @torch.no_grad()
 def layer_split(model, reps: int = 10):
-    """Where #1's and #2's bf16 device time goes: torch.profiler over
-    ``reps`` calls, kernel time summed by building block (the tensor-core
-    products, attention, refnorm) a call."""
+    """Where the bf16 device time of #1, #2 (a layer) and #6, #7 (a round
+    of six layers) goes: torch.profiler over ``reps`` calls, kernel time
+    and launches summed by building block a call: the tensor-core products,
+    the FFMA product (none at bf16), attention, refnorm, and other (the
+    wrappers' final norm in torch).  A window round must make 6 x 11
+    launches of the port's kernels and no FFMA product."""
     from torch.profiler import ProfilerActivity, profile
     from boficap_tpu_torch.ops import decoder_layer as dl
+    from boficap_tpu_torch.ops import stack as st
     H = model.num_heads
     bf = torch.bfloat16
     enc_w = dl.pack_encoder_layer(model.encoder.layer0, bf)
     dec_w = dl.pack_layer_weights(model.decoder0.layer0, bf)
     x_enc, src, x_dec, mem, tgt, _ = layer_inputs(bf, 4)
+    pack = st.pack_window_weights(model._decoder("SA"), bf)
+    xn, kc, vc, k2, v2, ws, tgn, srn = window_inputs(bf, W_NARROW, 14)
+    xw, _, _, _, _, _, tgw, srw = window_inputs(bf, L, 15, wide=True)
     calls = {"encoder_layer": lambda: dl.fused_encoder_layer(
                  x_enc, src, enc_w, H),
              "decoder_layer": lambda: dl.fused_decoder_layer(
-                 x_dec, mem, tgt, src, dec_w, H)}
-    parts = {"products": "gemm_tc_kernel", "attention": "attention_kernel",
-             "refnorm": "refnorm_kernel"}
+                 x_dec, mem, tgt, src, dec_w, H),
+             "window_stack": lambda: st.fused_window_decoder_stack(
+                 xn, ws, kc, vc, k2, v2, tgn, srn, pack.stack,
+                 pack.final_norm, H),
+             "window_wide_stack": lambda: st.fused_window_wide_stack(
+                 xw, k2, v2, tgw, srw, pack.stack, pack.final_norm, H)}
+    parts = {"products": "gemm_tc_kernel", "ffma_products": "gemm_kernel",
+             "attention": "attention_kernel", "refnorm": "refnorm_kernel"}
     out = {}
     for name, fn in calls.items():
         fn()
@@ -1640,15 +1665,23 @@ def layer_split(model, reps: int = 10):
             launches[part] += row.count // reps
         out[name] = {**{f"{k}_ms": v for k, v in split.items()},
                      "launches": launches}
+        if name.startswith("window"):
+            port = sum(launches[k] for k in ("products", "ffma_products",
+                                             "attention", "refnorm"))
+            if launches["ffma_products"] or port != NL * 11:
+                fail(f"layer_split {name} bf16: {launches} (want "
+                     f"{NL * 11} launches of the port's kernels, no FFMA "
+                     f"product)")
     return out
 
 
 @torch.no_grad()
 def host_costs(model):
-    """Host µs of one fused_encoder_layer and one fused_encoder_stack_forward
-    call at B = 64 in bf16 (tensor-core products: their A maps encoded per
-    call, W maps from the cache) and in float32 (the FFMA route, the same
-    launches): the difference is what the tensor maps cost the host."""
+    """Host µs of one fused_encoder_layer, one fused_encoder_stack_forward
+    and one fused_window_decoder_stack (a narrow round) call at B = 64 in
+    bf16 (tensor-core products: their A maps encoded per call, W maps from
+    the cache) and in float32 (the FFMA route, the same launches): the
+    difference is what the tensor maps cost the host."""
     from boficap_tpu_torch.ops import decoder_layer as dl
     from boficap_tpu_torch.ops import stack as st
     H = model.num_heads
@@ -1657,13 +1690,19 @@ def host_costs(model):
                               ("float32", torch.float32)):
         enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
         enc = st.pack_encoder_stack(model.encoder, dtype)
+        win = st.pack_window_weights(model._decoder("SA"), dtype)
         x_enc, src, *_ = layer_inputs(dtype, 4)
+        xn, kc, vc, k2, v2, ws, tgn, srn = window_inputs(dtype, W_NARROW, 14)
         out[dtype_name] = {
             "fused_encoder_layer": host_us(
                 lambda: dl.fused_encoder_layer(x_enc, src, enc_w, H), 30),
             "fused_encoder_stack_forward": host_us(
                 lambda: st.fused_encoder_stack_forward(
-                    x_enc, src, enc.stack, enc.final_norm, H), 30)}
+                    x_enc, src, enc.stack, enc.final_norm, H), 30),
+            "fused_window_decoder_stack": host_us(
+                lambda: st.fused_window_decoder_stack(
+                    xn, ws, kc, vc, k2, v2, tgn, srn, win.stack,
+                    win.final_norm, H), 30)}
     out["bf16_minus_float32"] = {
         k: out["bfloat16"][k] - out["float32"][k] for k in out["float32"]}
     return out

@@ -14,7 +14,13 @@ smoke's timed decodes), it prints one line ``AB {...}`` with:
                         core on), each with its readings;
   na_breakdown          chip_smoke.breakdown: device ms of encode, bound,
                         fill and head, host enqueue and wall ms;
-  encoder_stack_ms      the encoder-stack kernel's device ms a call.
+  sa_breakdown          chip_smoke.sa_breakdown: device ms of encode,
+                        predict, cross K/V, the fill by round kind (and a
+                        round of each), head and other;
+  kernel_ms             by dtype, the device ms a call (chip_smoke.device_ms)
+                        of the attention core (#9), the encoder and decoder
+                        layers and stacks (#1, #2, #4) and the window layer
+                        and stacks (#8, #6, #7), on the smoke's inputs.
 
 To compare two commits, run it in turns on both checkouts in one call on
 one card (parent, change, change, parent): the decodes are bound by the
@@ -42,6 +48,46 @@ def median_ms(fn, n: int):
     return sorted(readings)[n // 2], readings
 
 
+def kernel_ms(cs, model):
+    """Device ms a call of #9, #1, #2, #4 and #8, #6, #7 at both dtypes, on
+    chip_smoke's inputs at B = 64 and the weights of ``model``."""
+    import torch
+    from boficap_tpu_torch.ops import attention as at
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    from boficap_tpu_torch.ops import stack as st
+    H = model.num_heads
+    out = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
+        dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
+        enc = st.pack_encoder_stack(model.encoder, dtype)
+        win = st.pack_window_weights(model._decoder("SA"), dtype)
+        x_enc, src, x_dec, mem, tgt, _ = cs.layer_inputs(dtype, 4)
+        xn, kc, vc, k2, v2, ws, tgn, srn = cs.window_inputs(dtype, cs.W_NARROW,
+                                                            14)
+        xw, _, _, _, _, _, tgw, srw = cs.window_inputs(dtype, cs.L, 15,
+                                                       wide=True)
+        aq, ak, av, am = cs.attention_cases(dtype)["ar_cross"]
+        calls = {
+            "attention_core": lambda: at.attention_core(aq, ak, av, am),
+            "encoder_layer": lambda: dl.fused_encoder_layer(x_enc, src, enc_w,
+                                                            H),
+            "decoder_layer": lambda: dl.fused_decoder_layer(
+                x_dec, mem, tgt, src, dec_w, H),
+            "encoder_stack": lambda: st.fused_encoder_stack_forward(
+                x_enc, src, enc.stack, enc.final_norm, H),
+            "window_layer": lambda: dl.fused_window_decoder_layer(
+                xn, kc[0], vc[0], k2[0], v2[0], tgn, srn, win.layers[0], H),
+            "window_stack": lambda: st.fused_window_decoder_stack(
+                xn, ws, kc, vc, k2, v2, tgn, srn, win.stack, win.final_norm,
+                H),
+            "window_wide_stack": lambda: st.fused_window_wide_stack(
+                xw, k2, v2, tgw, srw, win.stack, win.final_norm, H)}
+        out[name] = {k: cs.device_ms(fn) for k, fn in calls.items()}
+    return out
+
+
 def main(root: str, label: str) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -54,7 +100,6 @@ def main(root: str, label: str) -> int:
     from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
                                                      sa_decode)
     from boficap_tpu_torch.ops import _build
-    from boficap_tpu_torch.ops import stack as st
     torch.backends.cuda.matmul.allow_tf32 = False
     built = _build.build()
     _build.kernels()
@@ -79,11 +124,8 @@ def main(root: str, label: str) -> int:
                                             src))):
             out[f"{key}_ms"], out[f"{key}_readings"] = median_ms(fn, n)
         out["na_breakdown"] = cs.breakdown(model, att, am)
-        enc = model.packed_encoder()
-        x = model.embed_att(att)
-        out["encoder_stack_ms"] = cs.device_ms(
-            lambda: st.fused_encoder_stack_forward(
-                x, src, enc.stack, enc.final_norm, model.num_heads))
+        out["sa_breakdown"] = cs.sa_breakdown(model, att, am)
+        out["kernel_ms"] = kernel_ms(cs, model)
     print("AB " + json.dumps(out), flush=True)
     return 0
 

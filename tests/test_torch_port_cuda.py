@@ -6,9 +6,11 @@ the probe's reason.  Run on the GPU machine with
 
 Shapes are small and deliberately ragged (not multiples of the 64-wide
 tiles) so the kernels' edge masking is exercised; ``chip_smoke.py``
-checks the serving shapes.  The bf16 product of the layer kernels
-(``fused_linear``) is checked on its own at ragged shapes up to 2304 rows,
-and for bitwise batch independence.
+checks the serving shapes.  The bf16 product of the layer and window
+kernels (``fused_linear``) is checked on its own at ragged shapes up to
+2304 rows, and for bitwise batch independence; so is the wide window
+round (#7) at bf16, and the narrow round (#6) on a fully masked query row,
+which averages over the cache as it was before the round wrote it.
 """
 
 import pytest
@@ -204,10 +206,14 @@ def test_product_rejects_bad_width(cuda):
     assert _rel(got, dl.encoder_layer_plain(x, mask, w32, H)) < 1e-4
 
 
+def _cycle(values, n):
+    return (list(values) * (n // len(values) + 1))[:n]
+
+
 def _window_operands(cuda, dtype, NL, B, W, L, R, D, F, H):
     """Per-layer and stacked window weights, activations, caches, cross
-    K/V, window starts (one clipped at L - W) and masks with a fully masked
-    sample and padded regions."""
+    K/V, window starts (some clipped at L - W) and masks with a fully masked
+    sample and padded regions; the per-sample patterns repeat past B = 5."""
     from boficap_tpu_torch.ops import stack as st
     dec = _layer(tl.Decoder, NL, D, F, H).to(cuda)
     pack = st.pack_window_weights(dec, dtype)
@@ -220,12 +226,12 @@ def _window_operands(cuda, dtype, NL, B, W, L, R, D, F, H):
     x = rnd(B, W, D)
     kc, vc = rnd(NL, B, L, D), rnd(NL, B, L, D)
     k2, v2 = rnd(NL, B, R, D), rnd(NL, B, R, D)
-    w_start = torch.tensor([0, L - W, 2, 1, L - W][:B], dtype=torch.int32,
-                           device=cuda)
+    w_start = torch.tensor(_cycle([0, L - W, 2, 1, L - W], B),
+                           dtype=torch.int32, device=cuda)
     tgt = (torch.rand((B, W, L + W), generator=g) < 0.6).to(cuda)
     tgt[1] = False
     src = torch.arange(R, device=cuda)[None, :] < torch.tensor(
-        [7, 2, 7, 5, 3][:B], device=cuda)[:, None]
+        _cycle([7, 2, 7, 5, 3], B), device=cuda)[:, None]
     norm = (torch.rand(D, generator=g).to(cuda) + 0.5,
             torch.randn(D, generator=g).to(cuda) * 0.1)
     return layers, stacked, x, kc, vc, k2, v2, w_start, tgt, src, norm
@@ -233,6 +239,8 @@ def _window_operands(cuda, dtype, NL, B, W, L, R, D, F, H):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_window_layer_kernel(cuda, dtype):
+    """#8 at ragged widths (D = 96, F = 200: not multiples of the 64-wide
+    tiles); k_new / v_new are written by its self-attention block."""
     D, F, H, B, W, L, R = 96, 200, 3, 5, 3, 9, 7
     layers, _, x, kc, vc, k2, v2, _, tgt, src, _ = _window_operands(
         cuda, dtype, 1, B, W, L, R, D, F, H)
@@ -245,12 +253,15 @@ def test_window_layer_kernel(cuda, dtype):
         assert _rel(g, w) < TOL[dtype]
 
 
+# window rounds: a few samples, and the serving batch's rows (B = 64,
+# W = 8 or L = 20: M = 512 and 1280, more blocks and other grids)
+@pytest.mark.parametrize("B,W,L,R", [(5, 3, 9, 7), (64, 8, 20, 36)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_window_stack_kernel(cuda, dtype):
-    """A narrow round: caches updated in place, rows outside each window
-    bit-identical, in-window rows the fresh K/V."""
+def test_window_stack_kernel(cuda, dtype, B, W, L, R):
+    """A narrow round (#6) at ragged widths: caches updated in place, rows
+    outside each window bit-identical, in-window rows the fresh K/V."""
     from boficap_tpu_torch.ops import stack as st
-    D, F, H, B, W, L, R, NL = 96, 200, 3, 5, 3, 9, 7, 2
+    D, F, H, NL = 96, 200, 3, 2
     _, stacked, x, kc, vc, k2, v2, ws, tgt, src, norm = _window_operands(
         cuda, dtype, NL, B, W, L, R, D, F, H)
     kc_k, vc_k = kc.clone(), vc.clone()
@@ -269,10 +280,13 @@ def test_window_stack_kernel(cuda, dtype):
         assert _rel(got[:, inside], want[:, inside]) < TOL[dtype]
 
 
+@pytest.mark.parametrize("B,L,R", [(5, 9, 7), (64, 20, 36)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_window_wide_stack_kernel(cuda, dtype):
+def test_window_wide_stack_kernel(cuda, dtype, B, L, R):
+    """A wide round (#7) at ragged widths: each layer's fresh K/V are its
+    new cache."""
     from boficap_tpu_torch.ops import stack as st
-    D, F, H, B, L, R, NL = 96, 200, 3, 5, 9, 7, 2
+    D, F, H, NL = 96, 200, 3, 2
     _, stacked, x, _, _, k2, v2, _, tgt, src, norm = _window_operands(
         cuda, dtype, NL, B, L, L, R, D, F, H)
     tgt = tgt[:, :, L:].contiguous()
@@ -282,6 +296,97 @@ def test_window_wide_stack_kernel(cuda, dtype):
     for g, w in zip(got, want):
         assert torch.isfinite(g.float()).all()
         assert _rel(g, w) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_stack_masked_row_reads_old_cache(cuda, dtype):
+    """A fully masked query row averages uniformly over every key, the
+    cache's stale copies of in-window positions included, so it shows
+    whether #6's self-attention read the cache before this layer's fresh
+    K/V were written into it: the kernel equals the plain twin (read,
+    then write); at float32 it is far from a twin that writes first."""
+    from boficap_tpu_torch.ops import stack as st
+    D, F, H, B, W, L, R, NL = 96, 200, 3, 5, 3, 9, 7, 2
+    _, stacked, x, kc, vc, k2, v2, ws, tgt, src, norm = _window_operands(
+        cuda, dtype, NL, B, W, L, R, D, F, H)
+    tgt[0, 1] = False                     # sample 0, row 1: fully masked
+    h, _, _ = st.fused_window_decoder_stack(
+        x, ws, kc.clone(), vc.clone(), k2, v2, tgt, src, stacked, norm, H)
+    hp, _, _ = st.window_stack_plain(x, ws, kc.clone(), vc.clone(), k2, v2,
+                                     tgt, src, stacked, norm, H)
+    # the wrong order: each layer's fresh K/V written before it attends
+    xw, kw, vw = x, kc.clone(), vc.clone()
+    for i in range(NL):
+        w = {k: t[i] for k, t in stacked.items()}
+        _, kn, vn = dl.window_layer_plain(xw, kw[i], vw[i], k2[i], v2[i], tgt,
+                                          src, w, H)
+        dl.scatter_window(kw[i], kn, ws)
+        dl.scatter_window(vw[i], vn, ws)
+        xw, _, _ = dl.window_layer_plain(xw, kw[i], vw[i], k2[i], v2[i], tgt,
+                                         src, w, H)
+    wrong = dl.refnorm_plain(xw, *norm)
+    torch.cuda.synchronize()
+    assert _rel(h[0, 1], hp[0, 1]) < TOL[dtype]
+    assert _rel(h, hp) < TOL[dtype]
+    if dtype == torch.float32:
+        assert _rel(h[0, 1], wrong[0, 1]) > 100 * TOL[dtype]
+
+
+def test_window_wide_stack_batch_independent(cuda):
+    """#7 at bf16 and full uic_sd width: the first 5 samples of a B = 64
+    round equal a B = 5 round bitwise, h and every layer's new cache (the
+    products take other tiles at the two batches; attention and refnorm
+    run per sample)."""
+    from boficap_tpu_torch.ops import stack as st
+    bf = torch.bfloat16
+    D, F, H, B, L, R, NL = 512, 2048, 8, 64, 20, 36, 2
+    _, stacked, x, _, _, k2, v2, _, tgt, src, norm = _window_operands(
+        cuda, bf, NL, B, L, L, R, D, F, H)
+    tgt = tgt[:, :, L:].contiguous()
+    assert dl.product_tile(B * L, F)[:2] != dl.product_tile(5 * L, F)[:2]
+    full = st.fused_window_wide_stack(x, k2, v2, tgt, src, stacked, norm, H)
+    part = st.fused_window_wide_stack(
+        x[:5].contiguous(), k2[:, :5].contiguous(), v2[:, :5].contiguous(),
+        tgt[:5].contiguous(), src[:5].contiguous(), stacked, norm, H)
+    torch.cuda.synchronize()
+    assert torch.equal(full[0][:5], part[0])
+    assert torch.equal(full[1][:, :5], part[1])
+    assert torch.equal(full[2][:, :5], part[2])
+
+
+@pytest.mark.parametrize("D,F,H", [(100, 200, 4), (96, 196, 3)])
+def test_window_kernels_reject_bad_width(cuda, D, F, H):
+    """A bf16 window call (#6, #7, #8) whose D or d_ff is not a multiple of
+    8 raises ValueError (the tensor-core product reads rows with TMA) and
+    launches nothing; float32 takes the same widths."""
+    from boficap_tpu_torch import ops
+    from boficap_tpu_torch.ops import stack as st
+    B, W, L, R, NL = 2, 3, 5, 4, 2
+    for dtype in (torch.bfloat16, torch.float32):
+        layers, stacked, x, kc, vc, k2, v2, ws, tgt, src, norm = \
+            _window_operands(cuda, dtype, NL, B, W, L, R, D, F, H)
+        xw = torch.randn(B, L, D, device=cuda).to(dtype)
+        wide_tgt = torch.ones(B, L, L, dtype=torch.bool, device=cuda)
+        calls = (
+            lambda: dl.fused_window_decoder_layer(
+                x, kc[0], vc[0], k2[0], v2[0], tgt, src, layers[0], H),
+            lambda: st.fused_window_decoder_stack(
+                x, ws, kc, vc, k2, v2, tgt, src, stacked, norm, H),
+            lambda: st.fused_window_wide_stack(
+                xw, k2, v2, wide_tgt, src, stacked, norm, H))
+        ops.reset_launch_counts()
+        for call in calls:
+            if dtype == torch.bfloat16:
+                with pytest.raises(ValueError, match="multiples of 8"):
+                    call()
+            else:
+                for t in call():
+                    assert torch.isfinite(t.float()).all()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        n = 0 if dtype == torch.bfloat16 else 1
+        assert [counts[k] for k in ("window_layer", "window_stack",
+                                    "window_wide_stack")] == [n, n, n]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -181,6 +181,83 @@ def test_product_shape_check():
                                {"a": torch.zeros(9, dtype=bf)[1:]})
 
 
+def _window_operands(dtype, D=16, F=24, Hn=2, NL=2, B=2, W=3, L=5, R=4):
+    """Small window-kernel operands from a seed: stacked weights [NL, ...]
+    (norms float32), x [B,W,D], caches [NL,B,L,D], cross K/V [NL,B,R,D],
+    window starts, tgt [B,W,L+W] with a fully masked row, src [B,R]."""
+    rs = np.random.RandomState(9)
+
+    def t(*shape, dt=dtype):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dt)
+
+    stacked = {k: t(*s, dt=torch.float32 if k in dl._NORM_KEYS
+                    else dtype) * 0.3
+               for k, s in dl.weight_shapes(dl._WIN_KEYS, D, F,
+                                            (NL,)).items()}
+    tgt = torch.from_numpy(rs.rand(B, W, L + W) < 0.6)
+    tgt[0, 1] = False
+    src = torch.ones(B, R, dtype=torch.bool)
+    src[1, -1] = False
+    norm = (t(D, dt=torch.float32), t(D, dt=torch.float32))
+    return (stacked, norm, t(B, W, D), t(NL, B, L, D), t(NL, B, L, D),
+            t(NL, B, R, D), t(NL, B, R, D),
+            torch.tensor([0, L - W], dtype=torch.int32), tgt, src)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_wrappers_run_plain_on_cpu(dtype):
+    """On CPU tensors #8, #6 and #7's wrappers are their plain twins, bit
+    for bit, and count no launch."""
+    from boficap_tpu_torch import ops
+    stacked, norm, x, kc, vc, k2, v2, ws, tgt, src = _window_operands(dtype)
+    Hn, L = 2, kc.shape[2]
+    ops.reset_launch_counts()
+    w0 = {k: v[0] for k, v in stacked.items()}
+    args = (x, kc[0], vc[0], k2[0], v2[0], tgt, src, w0, Hn)
+    for g, p in zip(dl.fused_window_decoder_layer(*args),
+                    dl.window_layer_plain(*args)):
+        assert torch.equal(g, p)
+    got = st.fused_window_decoder_stack(x, ws, kc.clone(), vc.clone(), k2, v2,
+                                        tgt, src, stacked, norm, Hn)
+    want = st.window_stack_plain(x, ws, kc.clone(), vc.clone(), k2, v2, tgt,
+                                 src, stacked, norm, Hn)
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+    xw = torch.cat([x, x[:, :L - x.shape[1]]], 1)
+    tw = torch.ones(x.shape[0], L, L, dtype=torch.bool)
+    for g, p in zip(
+            st.fused_window_wide_stack(xw, k2, v2, tw, src, stacked, norm, Hn),
+            st.window_wide_stack_plain(xw, k2, v2, tw, src, stacked, norm,
+                                       Hn)):
+        assert torch.equal(g, p)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("D,F", [(20, 24), (16, 28)])
+def test_window_width_check_before_launch(monkeypatch, D, F):
+    """The window wrappers' launch paths (``window_layer_call``,
+    ``_launch_stack``) raise ValueError on a bf16 D or d_ff that is not a
+    multiple of 8 before they reach the kernel libraries; float32 and good
+    bf16 widths go on to them."""
+    def no_launch():
+        raise AssertionError("reached the kernel libraries")
+
+    monkeypatch.setattr(dl, "_kernels", no_launch)
+    monkeypatch.setattr(st, "_kernels", no_launch)
+    for dtype, d, f, err in ((torch.bfloat16, D, F, ValueError),
+                             (torch.float32, D, F, AssertionError),
+                             (torch.bfloat16, 16, 24, AssertionError)):
+        stacked, norm, x, kc, vc, k2, v2, ws, tgt, src = _window_operands(
+            dtype, D=d, F=f)
+        w0 = {k: v[0] for k, v in stacked.items()}
+        with pytest.raises(err):
+            dl.window_layer_call(x, kc[0], vc[0], k2[0], v2[0], tgt, src, w0,
+                                 2)
+        with pytest.raises(err):
+            st._launch_stack("window_stack", x, kc, vc, k2, v2, ws,
+                             tgt, src, stacked, 2, kc.shape[2] + x.shape[1])
+
+
 def _c_entries():
     """(library, entry) for every C entry the kernel libraries export."""
     from boficap_tpu_torch.ops._build import SIGNATURES
