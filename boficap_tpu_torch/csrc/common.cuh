@@ -6,11 +6,9 @@
 // :102-121,139,153-158): a matmul's float32 sum casts to T, the bias adds in
 // T, then ReLU or the residual add, again in T.
 //
-// The tiled matrix product here is plain FFMA on float32 (a bf16 product is
-// exact in float32, so bf16 inputs give the same sum as a float32 product of
-// the same values).  The layer and window kernels' bf16 products run on
-// the tensor cores instead (wgmma_gemm.cuh); the head keeps this tile at
-// both types.
+// The matrix products live in their own blocks: bf16 on the tensor cores
+// (wgmma_gemm.cuh), float32 on the FFMA units (ffma_gemm.cuh), both with
+// the epilogues of epilogue.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,73 +45,17 @@ __device__ __forceinline__ float round_to(float x) {
   return Cvt<T>::to_f(Cvt<T>::from_f(x));
 }
 
-// ---------------------------------------------------------------------------
-// Tiled product: a 64 x 64 output tile of C = A[M,K] @ W[K,N] (both
-// row-major), 256 threads, each holding a 4 x 4 block of float32 sums:
-// rows row0 + ty*4 + i, columns col0 + tx*4 + j (tx = tid % 16,
-// ty = tid / 16).  The k sum runs in order 0..K-1 for every element, so an
-// element's value does not depend on the tile it lies in, nor on M: rows
-// are batch-independent.  Ragged edges load zeros.
-// ---------------------------------------------------------------------------
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int GEMM_THREADS = 256;
-constexpr int SPAD = 4;   // keeps each shared row 16-byte aligned
-
-template <typename T>
-__device__ __forceinline__ void gemm_tile(const T* __restrict__ A,
-                                          const T* __restrict__ W, int M,
-                                          int N, int K, int row0, int col0,
-                                          float acc[4][4]) {
-  __shared__ __align__(16) float As[BK][BM + SPAD];  // A tile, transposed
-  __shared__ __align__(16) float Ws[BK][BN + SPAD];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int e = tid; e < BM * BK; e += GEMM_THREADS) {
-      const int r = e / BK, c = e % BK;
-      const int gr = row0 + r, gc = k0 + c;
-      As[c][r] = (gr < M && gc < K) ? Cvt<T>::to_f(A[(size_t)gr * K + gc])
-                                    : 0.f;
-    }
-#pragma unroll
-    for (int e = tid; e < BK * BN; e += GEMM_THREADS) {
-      const int r = e / BN, c = e % BN;
-      const int gr = k0 + r, gc = col0 + c;
-      Ws[r][c] = (gr < K && gc < N) ? Cvt<T>::to_f(W[(size_t)gr * N + gc])
-                                    : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Ws[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+// a shared-memory address as the 32-bit offset PTX takes
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 }  // namespace bfc
 
-// C interface: each kernel source (encoder_layer.cu, decoder_layer.cu,
-// greedy_head.cu) is its own shared library with one entry point.  The entry
-// selects its device (each library carries its own CUDA runtime), launches
-// on the caller's stream, allocates nothing, and returns the first
-// cudaError_t of its launches for the Python wrapper to check.
+// C interface: each kernel source (csrc/*.cu) is its own shared library.
+// An entry selects its device (each library carries its own CUDA runtime),
+// launches on the caller's stream, allocates nothing, and returns the
+// first cudaError_t of its launches for the Python wrapper to check.
 #define BFC_DTYPE_F32 0
 #define BFC_DTYPE_BF16 1
 

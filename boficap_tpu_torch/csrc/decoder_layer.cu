@@ -28,7 +28,7 @@
 // R = 36, D = 512, d_ff = 2048, against ~27 MB to move in float32 (the
 // stack: six times the work, ~0.1 GB of weights).  As for the encoder,
 // the products go through product<T> (wgmma_gemm.cuh): bf16 on the tensor
-// cores, float32 on the FFMA tile of gemm.cuh.
+// cores, float32 on the FFMA product of ffma_gemm.cuh.
 //
 // bfc_gemm runs one product alone, C = epilogue(A @ W + bias), on the same
 // route: a way to time the products (ops/decoder_layer.py fused_linear);
@@ -210,9 +210,13 @@ extern "C" int bfc_gemm(int dtype, int device, const void* A, const void* W,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the bf16 product's tile for an M x N product: BM, BN and the block count
-extern "C" int bfc_gemm_tile(int M, int N, int* bm, int* bn) {
-  *bm = bfc::tc::tile_m(M, N);
-  *bn = bfc::tc::tile_n(N);
+// the tile of an M x N product at dtype: BM, BN and the block count
+extern "C" int bfc_gemm_tile(int dtype, int M, int N, int* bm, int* bn) {
+  if (dtype == BFC_DTYPE_F32) {
+    bfc::ffma::tile_shape(bfc::ffma::tile_for(M, N), bm, bn);
+  } else {
+    *bm = bfc::tc::tile_m(M, N);
+    *bn = bfc::tc::tile_n(N);
+  }
   return ((M + *bm - 1) / *bm) * ((N + *bn - 1) / *bn);
 }

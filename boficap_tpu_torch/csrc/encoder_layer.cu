@@ -27,8 +27,8 @@
 // D = 512, d_ff = 2048, against ~22 MB to move in float32 (the stack: six
 // times the work, ~75 MB of weights).  The products, ~98% of the flops,
 // go through product<T> (wgmma_gemm.cuh): at bf16 TMA-fed wgmma on the
-// tensor cores, at float32 the FFMA tile of gemm.cuh.  One persistent
-// fused kernel is later work.
+// tensor cores, at float32 the FFMA product of ffma_gemm.cuh.  One
+// persistent fused kernel is later work.
 #include "attention.cuh"
 #include "wgmma_gemm.cuh"
 #include "refnorm.cuh"

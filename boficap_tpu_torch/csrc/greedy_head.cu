@@ -10,91 +10,52 @@
 // without ever writing the [N, V] logits.  The TPU walks the vocabulary
 // tiles in order inside one kernel; Hopper's blocks run in no order, so the
 // work splits in two launches:
-//   1. head_partial: one block per (64-row tile, 64-column vocab chunk)
-//      computes its logits with the shared tiled product, and writes per row
-//      the chunk's (max, first argmax, sum exp(l - max), sum exp(l - max) l),
-//      plus the PAD column's logit from the chunk that holds it.  The ragged
-//      vocab edge is masked here; no padded weight copy.
+//   1. head_partial: one block per (row tile, 128-column vocab chunk) runs
+//      the product of its tile and hands each row to the head epilogue
+//      (epilogue.cuh HeadEpi), which writes per row the chunk's (max, first
+//      argmax, sum exp(l - max), sum exp(l - max) l), plus the PAD column's
+//      logit from the chunk that holds it.  bf16 runs the tensor-core
+//      product (wgmma_gemm.cuh: TMA ring, wgmma), float32 the FFMA product
+//      (ffma_gemm.cuh); both take W [K, Vp] and b [Vp] padded with zero
+//      columns to Vp = 8 ceil(V / 8) (ops/decoder_layer.py pad_head: TMA
+//      needs 16-byte row strides), and columns >= V are masked.
 //   2. head_combine: one warp per row merges the chunks; on equal maxima
 //      the lower index wins, so ids are the first maximum as jnp.argmax.
 //
+// Batch independence: the chunk width (128) follows nothing, and the row
+// tile, which follows N, only sets how many rows share a block; a row's
+// ids and log-probabilities are bitwise the same for any N.
+//
 // Bound on the H100: operations (2 N K V: 12.4 GFLOP at N = 1280, K = 512,
-// V = 9491), W is read from device memory once and from L2 by each row
-// tile.  This version runs the product on float32 FFMA.
-#include "common.cuh"
+// V = 9491: 12.6 us at bf16's 989 TFLOP/s, 186 us at float32's 67); W is
+// read from device memory once and from L2 by each row tile.
+#include "wgmma_gemm.cuh"
 
 namespace bfc {
 
-template <typename T>
-__global__ void __launch_bounds__(GEMM_THREADS)
-    head_partial_kernel(const T* __restrict__ h, const T* __restrict__ W,
-                        const T* __restrict__ bias, int N, int V, int K,
-                        int pad_id, float* __restrict__ pmax,
-                        int* __restrict__ parg, float* __restrict__ psum,
-                        float* __restrict__ pdot,
-                        float* __restrict__ pad_logit) {
-  float acc[4][4];
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  gemm_tile<T>(h, W, N, V, K, row0, col0, acc);
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const bool pad_here = pad_id >= col0 + tx * 4 && pad_id < col0 + tx * 4 + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    float l[4];
-    float m = -INFINITY;
-    int a = INT_MAX;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c < V) {
-        const float bj = Cvt<T>::to_f(bias[c]);
-        l[j] = round_to<T>(round_to<T>(acc[i][j]) + bj);
-      } else {
-        l[j] = -INFINITY;
-      }
-      if (l[j] > m) {   // strict: the first maximum among this thread's columns
-        m = l[j];
-        a = c;
-      }
-    }
-    // the 16 threads sharing ty are one half-warp
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float om = __shfl_xor_sync(0xffffffffu, m, off);
-      const int oa = __shfl_xor_sync(0xffffffffu, a, off);
-      if (om > m || (om == m && oa < a)) {
-        m = om;
-        a = oa;
-      }
-    }
-    float s = 0.f, t = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (col0 + tx * 4 + j < V) {
-        const float e = expf(l[j] - m);
-        s += e;
-        t += e * l[j];
-      }
-    }
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-      t += __shfl_xor_sync(0xffffffffu, t, off);
-    }
-    if (r < N) {
-      if (tx == 0) {
-        const size_t o = (size_t)blockIdx.x * N + r;
-        pmax[o] = m;
-        parg[o] = a;
-        psum[o] = s;
-        pdot[o] = t;
-      }
-      if (pad_here) pad_logit[r] = l[pad_id - col0 - tx * 4];
-    }
-  }
+constexpr int HEAD_BN = 128;   // the vocab chunk: the product's column tile
+
+// head_partial: the product of h [N, K] and W [K, Vp] with the head
+// epilogue on 128-column tiles, at bf16 on the tensor cores
+cudaError_t head_partial(const __nv_bfloat16* h, const __nv_bfloat16* W,
+                         const HeadEpi<__nv_bfloat16>& epi, int N, int Vp,
+                         int K, cudaStream_t s) {
+  // 128 rows where that still gives every SM a block, else 64
+  const long long chunks = (Vp + HEAD_BN - 1) / HEAD_BN;
+  const int bm = (N + 127) / 128 * chunks >= tc::NUM_SMS ? 128 : 64;
+  return tc::run(h, W, epi, N, Vp, K, bm, HEAD_BN, s);
+}
+
+// ... and at float32 on FFMA
+cudaError_t head_partial(const float* h, const float* W,
+                         const HeadEpi<float>& epi, int N, int Vp, int K,
+                         cudaStream_t s) {
+  // the 128 x 128 tile where that still gives every SM a block, else
+  // 64 x 128
+  const bool vec = Vp % 4 == 0 && ffma::aligned16(W);
+  if (ffma::blocks_of<ffma::T128x128>(N, Vp) >= ffma::NUM_SMS)
+    return ffma::launch<ffma::T128x128>(h, W, epi, N, Vp, K, vec, s);
+  return ffma::launch<ffma::T64x128>(h, W, epi, N, Vp, K, vec, s);
 }
 
 constexpr int COMBINE_WARPS = 8;
@@ -153,42 +114,48 @@ __global__ void __launch_bounds__(COMBINE_WARPS * 32)
 
 template <typename T>
 cudaError_t greedy_head(const T* h, const T* W, const T* bias, int N, int V,
-                        int K, int pad_id, float* scratch, long long* ids,
-                        float* tok, float* ent, float* lp_pad,
+                        int Vp, int K, int pad_id, float* scratch,
+                        long long* ids, float* tok, float* ent, float* lp_pad,
                         cudaStream_t stream) {
-  const int n_chunks = (V + BN - 1) / BN;
+  const int n_chunks = (V + HEAD_BN - 1) / HEAD_BN;   // = ceil(Vp / 128)
   const size_t part = (size_t)n_chunks * N;
-  float* pmax = scratch;
-  float* psum = pmax + part;
-  float* pdot = psum + part;
-  int* parg = reinterpret_cast<int*>(pdot + part);
-  float* pad_logit = reinterpret_cast<float*>(parg + part);
-  dim3 grid(n_chunks, (N + BM - 1) / BM);
-  head_partial_kernel<T><<<grid, GEMM_THREADS, 0, stream>>>(
-      h, W, bias, N, V, K, pad_id, pmax, parg, psum, pdot, pad_logit);
-  BFC_TRY(cudaGetLastError());
+  HeadEpi<T> epi;
+  epi.bias = bias;
+  epi.pmax = scratch;
+  epi.psum = epi.pmax + part;
+  epi.pdot = epi.psum + part;
+  epi.parg = reinterpret_cast<int*>(epi.pdot + part);
+  epi.pad_logit = reinterpret_cast<float*>(epi.parg + part);
+  epi.M = N;
+  epi.V = V;
+  epi.pad_id = pad_id;
+  BFC_TRY(head_partial(h, W, epi, N, Vp, K, stream));
   head_combine_kernel<<<(N + COMBINE_WARPS - 1) / COMBINE_WARPS,
                         COMBINE_WARPS * 32, 0, stream>>>(
-      pmax, parg, psum, pdot, pad_logit, N, n_chunks, ids, tok, ent, lp_pad);
+      epi.pmax, epi.parg, epi.psum, epi.pdot, epi.pad_logit, N, n_chunks, ids,
+      tok, ent, lp_pad);
   return cudaGetLastError();
 }
 
 }  // namespace bfc
 
 // scratch (4-byte words) for one launch: pmax, psum, pdot (float32) and
-// parg (int32), each [ceil(V / 64), N], then pad_logit float32 [N]
+// parg (int32), each [ceil(V / 128), N], then pad_logit float32 [N]
 extern "C" long long bfc_greedy_head_scratch(int N, int V) {
-  return 4LL * ((V + bfc::BN - 1) / bfc::BN) * N + N;
+  return 4LL * ((V + bfc::HEAD_BN - 1) / bfc::HEAD_BN) * N + N;
 }
 
+// h [N, K]; W [K, Vp] and bias [Vp], zero past the V real columns,
+// V <= Vp < V + 8 (every chunk holds a real column); at bf16 K and Vp
+// multiples of 8, h and W 16-byte aligned (TMA)
 extern "C" int bfc_greedy_head(int dtype, int device, const void* h,
                                const void* W, const void* bias, int N, int V,
-                               int K, int pad_id, void* scratch, void* ids,
-                               void* tok, void* ent, void* lp_pad,
+                               int Vp, int K, int pad_id, void* scratch,
+                               void* ids, void* tok, void* ent, void* lp_pad,
                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (V <= 0 || pad_id < 0 || pad_id >= V)
+  if (V <= 0 || Vp < V || Vp >= V + 8 || K <= 0 || pad_id < 0 || pad_id >= V)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -200,13 +167,13 @@ extern "C" int bfc_greedy_head(int dtype, int device, const void* h,
   if (dtype == BFC_DTYPE_F32)
     return static_cast<int>(bfc::greedy_head<float>(
         static_cast<const float*>(h), static_cast<const float*>(W),
-        static_cast<const float*>(bias), N, V, K, pad_id, sc, id, tk, en, lp,
-        s));
+        static_cast<const float*>(bias), N, V, Vp, K, pad_id, sc, id, tk, en,
+        lp, s));
   if (dtype == BFC_DTYPE_BF16)
     return static_cast<int>(bfc::greedy_head<__nv_bfloat16>(
         static_cast<const __nv_bfloat16*>(h),
         static_cast<const __nv_bfloat16*>(W),
-        static_cast<const __nv_bfloat16*>(bias), N, V, K, pad_id, sc, id, tk,
-        en, lp, s));
+        static_cast<const __nv_bfloat16*>(bias), N, V, Vp, K, pad_id, sc, id,
+        tk, en, lp, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

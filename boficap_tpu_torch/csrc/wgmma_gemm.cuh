@@ -1,21 +1,24 @@
 // Building block: the bfloat16 matrix product on Hopper's tensor cores, for
 // the projections and FFN products of the encoder-layer and decoder-layer
-// kernels (#1, #2; the stacks #4, #5 loop the same bodies) and of the
-// window layer (window.cuh: #6, #7, #8).  It replaces, at bf16, the jnp.dot
-// calls of the TPU kernels' bodies
-// (boficap_tpu/ops/pallas_decoder_layer.py::_mha :75, _kernel :124,
-// _win_kernel :283, _enc_kernel :500; pallas_stack.py :583-634).
+// kernels (#1, #2; the stacks #4, #5 loop the same bodies), of the window
+// layer (window.cuh: #6, #7, #8) and for the greedy head's logits (#3,
+// greedy_head.cu).  It replaces, at bf16, the jnp.dot calls of the TPU
+// kernels' bodies (boficap_tpu/ops/pallas_decoder_layer.py::_mha :75,
+// _kernel :124, _win_kernel :283, _enc_kernel :500, _head_kernel :671;
+// pallas_stack.py :583-634).
 //
 //   C = epilogue(A[M,K] @ W[K,N])     W in the flax [in, out] layout
-//   epilogue: v = bf16(sum); v = bf16(v + bias); relu?; v = bf16(v + res)
 //
-// the rounding of gemm.cuh's FFMA product, which float32 keeps
-// (``product<float>`` below).
+// One mainloop, with the epilogue a template parameter (epilogue.cuh):
+// LinearEpi rounds as the TPU kernels do, v = bf16(sum); v = bf16(v +
+// bias); relu?; v = bf16(v + res); HeadEpi reduces each row's logits of a
+// vocab chunk to the head's partials.  float32 runs on the FFMA product of
+// ffma_gemm.cuh (``product<float>`` below).
 //
 // Bound on the H100: operations.  At the serving batch the products are
 // 2304 or 1280 rows by 512-2048, 200-700 flops per byte moved; e.g. 2304 x
 // 512 x 1536 is 3.6 GFLOP, 3.66 us at the 989 TFLOP/s of bf16 wgmma.  The
-// FFMA tile ran them at 1.6% of that.  The design:
+// design:
 //
 //  - One output tile of BM x BN per block, k in steps of BK = 64 (one
 //    128-byte row of bf16, the width of TMA's 128-byte swizzle).
@@ -28,8 +31,9 @@
 //  - Compute: BM / 64 consumer warpgroups, each running wgmma m64nBNk16
 //    over its 64 rows with the float32 sums in registers; one k step's
 //    wgmma group stays in flight while the next is issued.
-//  - Epilogue: from the accumulator fragments straight to global memory,
-//    bias and residual read there.
+//  - Epilogue: each thread hands its accumulator fragment to the epilogue
+//    (epilogue.cuh ``fragment``), which works from the registers straight
+//    to global memory, bias and residual read there.
 //  - Ragged edges: TMA fills elements outside A or W with zeros (they add
 //    nothing to a sum); the epilogue writes only rows < M, columns < N.
 //  - Batch independence: no split-K.  Every element sums its k in one
@@ -43,7 +47,10 @@
 //  - Tensor maps: cuTensorMapEncodeTiled, looked up at run time with
 //    cudaGetDriverEntryPoint (no -lcuda).  W's map is cached by (pointer,
 //    shape): weights live as long as their model.  A's is encoded per
-//    call.  Both pass as __grid_constant__ kernel parameters.
+//    call.  Both pass as __grid_constant__ kernel parameters, and so does
+//    the epilogue: its methods take its address, which without the
+//    qualifier makes each thread copy it first (the bf16 products ran up
+//    to ~1 us slower that way on the H100).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; libcuda is not linked
@@ -51,7 +58,7 @@
 #include <atomic>
 #include <mutex>
 
-#include "gemm.cuh"
+#include "ffma_gemm.cuh"
 
 namespace bfc {
 namespace tc {
@@ -75,10 +82,6 @@ __host__ __device__ constexpr int stages() {
 }
 constexpr int ATOM_BYTES = 64 * BK * 2;   // one [64][64] bf16 tile, 8 KB
 constexpr int NUM_SMS = 132;               // H100 SXM
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
@@ -225,13 +228,13 @@ constexpr size_t smem_bytes() {
          2 * stages<NC, BN>() * sizeof(uint64_t);
 }
 
-// NC consumer warpgroups (BM = 64 * NC rows), then one producer warp
-template <int NC, int BN>
+// NC consumer warpgroups (BM = 64 * NC rows), then one producer warp;
+// blockIdx.x along N, blockIdx.y along M
+template <int NC, int BN, class Epi>
 __global__ void __launch_bounds__(NC * 128 + 32, 1)
     gemm_tc_kernel(const __grid_constant__ CUtensorMap a_map,
                    const __grid_constant__ CUtensorMap w_map,
-                   const bf16* __restrict__ bias, const bf16* __restrict__ res,
-                   bf16* __restrict__ C, int M, int N, int K, int relu) {
+                   const __grid_constant__ Epi epi, int K) {
   constexpr int BM = 64 * NC;
   constexpr int A_BYTES = BM * BK * 2;
   constexpr int STAGE_BYTES = A_BYTES + BN * BK * 2;
@@ -306,34 +309,7 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
   const int t = tid % 128;
   const int row0 = m0 + wg * 64 + 16 * (t / 32) + (t % 32) / 4;
   const int col0 = n0 + 2 * (t % 4);
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int c = col0 + 8 * j;
-    if (c >= N) continue;   // N is even, so c + 1 < N too
-    const __nv_bfloat162 b2 =
-        *reinterpret_cast<const __nv_bfloat162*>(bias + c);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row0 + 8 * h;
-      if (r >= M) continue;
-      float v0 = round_to<bf16>(acc[4 * j + 2 * h]);
-      float v1 = round_to<bf16>(acc[4 * j + 2 * h + 1]);
-      v0 = round_to<bf16>(v0 + __low2float(b2));
-      v1 = round_to<bf16>(v1 + __high2float(b2));
-      if (relu) {
-        v0 = fmaxf(v0, 0.f);
-        v1 = fmaxf(v1, 0.f);
-      }
-      const size_t o = (size_t)r * N + c;
-      if (res != nullptr) {
-        const __nv_bfloat162 r2 =
-            *reinterpret_cast<const __nv_bfloat162*>(res + o);
-        v0 = round_to<bf16>(v0 + __low2float(r2));
-        v1 = round_to<bf16>(v1 + __high2float(r2));
-      }
-      *reinterpret_cast<__nv_bfloat162*>(C + o) = __floats2bfloat162_rn(v0, v1);
-    }
-  }
+  epi.template fragment<BN>(acc, row0, col0);
 }
 
 // --------------------------------------------------------------------------
@@ -433,10 +409,9 @@ inline int tile_m(int M, int N) {
   return blocks >= NUM_SMS ? 128 : 64;
 }
 
-template <int NC, int BN>
+template <int NC, int BN, class Epi>
 cudaError_t launch(const CUtensorMap& a_map, const CUtensorMap& w_map,
-                   const bf16* bias, const bf16* res, bf16* C, int M, int N,
-                   int K, bool relu, cudaStream_t stream) {
+                   const Epi& epi, int M, int N, int K, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<NC, BN>();
   static std::atomic<unsigned long long> configured{0};   // bit per device
   int dev = 0;
@@ -444,16 +419,36 @@ cudaError_t launch(const CUtensorMap& a_map, const CUtensorMap& w_map,
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(configured.load() & bit)) {
-    err = cudaFuncSetAttribute(gemm_tc_kernel<NC, BN>,
+    err = cudaFuncSetAttribute(gemm_tc_kernel<NC, BN, Epi>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     configured.fetch_or(bit);
   }
   const dim3 grid((N + BN - 1) / BN, (M + 64 * NC - 1) / (64 * NC));
-  gemm_tc_kernel<NC, BN><<<grid, NC * 128 + 32, smem, stream>>>(
-      a_map, w_map, bias, res, C, M, N, K, relu ? 1 : 0);
+  gemm_tc_kernel<NC, BN, Epi><<<grid, NC * 128 + 32, smem, stream>>>(
+      a_map, w_map, epi, K);
   return cudaGetLastError();
+}
+
+// A [M, K] @ W [K, N] on the BM x BN tile (BM 64 or 128, BN 64 or 128),
+// handed to epi; N is W's row length
+template <class Epi>
+cudaError_t run(const bf16* A, const bf16* W, const Epi& epi, int M, int N,
+                int K, int bm, int bn, cudaStream_t stream) {
+  if (N <= 0 || K <= 0 || N % 8 != 0 || K % 8 != 0 || !aligned(A, 16) ||
+      !aligned(W, 16))
+    return cudaErrorInvalidValue;
+  CUtensorMap a_map, w_map;
+  cudaError_t err = weight_maps().get(W, K, N, &w_map);
+  if (err != cudaSuccess) return err;
+  err = make_map(&a_map, A, M, K, bm);
+  if (err != cudaSuccess) return err;
+  if (bm == 128)
+    return bn == 128 ? launch<2, 128>(a_map, w_map, epi, M, N, K, stream)
+                     : launch<2, 64>(a_map, w_map, epi, M, N, K, stream);
+  return bn == 128 ? launch<1, 128>(a_map, w_map, epi, M, N, K, stream)
+                   : launch<1, 64>(a_map, w_map, epi, M, N, K, stream);
 }
 
 // C = epilogue(A @ W + bias) on the tensor cores; res (nullable) is [M, N]
@@ -461,33 +456,18 @@ inline cudaError_t gemm(const bf16* A, const bf16* W, const bf16* bias,
                         const bf16* res, bf16* C, int M, int N, int K,
                         bool relu, cudaStream_t stream) {
   if (M <= 0) return cudaSuccess;
-  if (N <= 0 || K <= 0 || N % 8 != 0 || K % 8 != 0 || !aligned(A, 16) ||
-      !aligned(W, 16) || !aligned(bias, 4) || !aligned(res, 4) ||
-      !aligned(C, 4))
+  if (!aligned(bias, 4) || !aligned(res, 4) || !aligned(C, 4))
     return cudaErrorInvalidValue;
-  const int bm = tile_m(M, N), bn = tile_n(N);
-  CUtensorMap a_map, w_map;
-  cudaError_t err = weight_maps().get(W, K, N, &w_map);
-  if (err != cudaSuccess) return err;
-  err = make_map(&a_map, A, M, K, bm);
-  if (err != cudaSuccess) return err;
-  if (bm == 128)
-    return bn == 128 ? launch<2, 128>(a_map, w_map, bias, res, C, M, N, K,
-                                      relu, stream)
-                     : launch<2, 64>(a_map, w_map, bias, res, C, M, N, K,
-                                     relu, stream);
-  return bn == 128 ? launch<1, 128>(a_map, w_map, bias, res, C, M, N, K, relu,
-                                    stream)
-                   : launch<1, 64>(a_map, w_map, bias, res, C, M, N, K, relu,
-                                   stream);
+  const LinearEpi<bf16> epi{bias, res, C, M, N, relu ? 1 : 0, 1};
+  return run(A, W, epi, M, N, K, tile_m(M, N), tile_n(N), stream);
 }
 
 }  // namespace
 }  // namespace tc
 
-// The layer bodies' product: float32 on the FFMA tile (gemm.cuh), bf16 on
-// the tensor cores.  There is no fallback between them: a bf16 product the
-// tensor-core path cannot take returns its error.
+// The layer bodies' product: float32 on the FFMA tile (ffma_gemm.cuh), any
+// shape; bf16 on the tensor cores.  There is no fallback between them: a
+// bf16 product the tensor-core path cannot take returns its error.
 template <typename T>
 cudaError_t product(const T* A, const T* W, const T* bias, const T* res, T* C,
                     int M, int N, int K, bool relu, cudaStream_t stream);
@@ -497,7 +477,7 @@ inline cudaError_t product<float>(const float* A, const float* W,
                                   const float* bias, const float* res,
                                   float* C, int M, int N, int K, bool relu,
                                   cudaStream_t stream) {
-  return gemm<float>(A, W, bias, res, C, M, N, K, relu, stream);
+  return ffma::gemm(A, W, bias, res, C, M, N, K, relu, stream);
 }
 
 template <>

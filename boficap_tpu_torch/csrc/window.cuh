@@ -32,7 +32,9 @@
 // of weights, caches and cross K/V, so float32 FFMA is bound by operations
 // (~57 us) and bf16 by bytes (~5 us).  The products go through product<T>
 // (wgmma_gemm.cuh): bf16 on the tensor cores (TMA into a shared-memory ring,
-// wgmma; the layer kernels' product), float32 on the FFMA tile of gemm.cuh.
+// wgmma; the layer kernels' product), float32 on the FFMA product of
+// ffma_gemm.cuh (a cp.async ring, up to 8 x 8 outputs a thread, its tile
+// chosen so the 512-row products still fill the card).
 // Every weight is still read once a launch; keeping the weights resident
 // across a round's layers is later work.
 #pragma once

@@ -28,9 +28,9 @@
 // both; bf16 is bound by bytes in the narrow round (the weights and cross
 // K/V are read again every round) and by operations in the wide one.  The
 // bf16 products run on the tensor cores (wgmma_gemm.cuh), the float32 ones
-// on FFMA; every weight is read once per layer per round, from L2 for all
-// but the first block row.  A round is 66 launches; one persistent kernel
-// per round, or a CUDA graph of it, is later work.
+// on FFMA (ffma_gemm.cuh); every weight is read once per layer per round,
+// from L2 for all but the first block row.  A round is 66 launches; one
+// persistent kernel per round, or a CUDA graph of it, is later work.
 #include "window.cuh"
 
 // Field order and types are mirrored by ops/stack.py (_WindowStackArgs);

@@ -100,8 +100,8 @@ def _fused_parallel_fill(model, x, memory, src_mask, mask3, keep, *,
         h = fused_decoder_forward(x, memory, mask3, src_mask, pack.layers,
                                   pack.final_norm, model.num_heads)
     if sample_method == "greedy":
-        w, b = model.packed_head()
-        ids, tok_a, ent, lp_pad = fused_greedy_head(h, w, b, pad_id=PAD)
+        ids, tok_a, ent, lp_pad = fused_greedy_head(h, *model.packed_head(),
+                                                    pad_id=PAD)
         seq = torch.where(keep, ids, PAD)
         tok = torch.where(keep, tok_a, lp_pad)
         return (seq, tok, ent), None

@@ -197,6 +197,8 @@ class BoFiCap(nn.Module):
         return self._packed[key]
 
     def packed_head(self):
+        """The generator's weights as the head kernel takes them
+        (``ops.decoder_layer.HeadPack``: W and b padded, and V)."""
         from ..ops.decoder_layer import pack_head_weights
         key = ("head",)
         if key not in self._packed:

@@ -59,12 +59,12 @@ SIGNATURES = {
         "bfc_decoder_stack_scratch": ([_I, _I, _I, _I, _I], _L),
         "bfc_decoder_layer_args_size": ([], _I),
         "bfc_gemm": ([_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-        "bfc_gemm_tile": ([_I, _I, _IP, _IP], _I),
+        "bfc_gemm_tile": ([_I, _I, _I, _IP, _IP], _I),
         "bfc_error_string": ([_I], ctypes.c_char_p),
     },
     "greedy_head": {
-        "bfc_greedy_head": ([_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                             _P, _P, _P], _I),
+        "bfc_greedy_head": ([_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                             _P, _P, _P, _P], _I),
         "bfc_greedy_head_scratch": ([_I, _I], _L),
         "bfc_error_string": ([_I], ctypes.c_char_p),
     },

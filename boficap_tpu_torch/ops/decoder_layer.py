@@ -35,21 +35,23 @@ stay float32, as the flax modules hold them.
 
 Bounds on the H100 at the serving batch (B = 64, D = 512, d_ff = 2048,
 R = 36, L = 20, V = 9491): the layers and the head are bound by operations
-(~14.7, ~12.0 and ~12.4 GFLOP a launch).  The layer and window kernels'
-bf16 products run on the tensor cores (``csrc/wgmma_gemm.cuh``: TMA into a
-shared-memory ring, wgmma), which read their operands with TMA: at bf16 the
-widths D and d_ff must be multiples of 8 and the activations 16-byte
-aligned, and the wrappers raise ``ValueError`` otherwise
-(``check_product_shape``).  Their float32 products and the head run on
-float32 FFMA tiles.  ``fused_linear`` runs one such product alone, to time
-it.
+(~14.7, ~12.0 and ~12.4 GFLOP a launch).  Every product of the layer,
+window and head kernels runs, at bf16, on the tensor cores
+(``csrc/wgmma_gemm.cuh``: TMA into a shared-memory ring, wgmma), which read
+their operands with TMA: at bf16 the widths (D, d_ff, the head's padded
+vocabulary) must be multiples of 8 and the activations 16-byte aligned, and
+the wrappers raise ``ValueError`` otherwise (``check_product_shape``).  At
+float32 they run on the FFMA product (``csrc/ffma_gemm.cuh``), which takes
+any shape.  The head's weights are padded with zero columns to a multiple
+of 8 (``pad_head``) and carry the true vocabulary size.  ``fused_linear``
+runs one layer product alone, to time it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -121,10 +123,29 @@ def pack_layer_weights(layer, dtype) -> Dict[str, torch.Tensor]:
     return out
 
 
-def pack_head_weights(proj, dtype):
-    """Generator projection -> (W [D, V], b [V]) in the compute dtype."""
-    return (_kernel_of(proj, dtype),
-            proj.bias.detach().to(dtype).contiguous())
+class HeadPack(NamedTuple):
+    """The head's weights, W [D, Vp] and b [Vp] with zeros past the V real
+    columns (Vp = 8 ceil(V / 8)): ``fused_greedy_head(h, *pack)``."""
+    w: torch.Tensor
+    b: torch.Tensor
+    V: int
+
+
+def pad_head(w, b) -> HeadPack:
+    """W [D, V], b [V] -> their HeadPack.  The pad makes W's rows 16-byte
+    strided at bf16, as the tensor-core product's TMA reads need."""
+    D, V = w.shape
+    Vp = -(-V // 8) * 8
+    wp = w.new_zeros((D, Vp))
+    wp[:, :V] = w
+    bp = b.new_zeros((Vp,))
+    bp[:V] = b
+    return HeadPack(wp, bp, V)
+
+
+def pack_head_weights(proj, dtype) -> HeadPack:
+    """Generator projection -> its HeadPack in the compute dtype."""
+    return pad_head(_kernel_of(proj, dtype), proj.bias.detach().to(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -196,8 +217,12 @@ def decoder_layer_plain(x, memory, tgt_mask, src_mask, w, num_heads: int):
     return linear_plain(f, w["w2"], w["bf2"], res=x)
 
 
-def greedy_head_plain(h, w, b, pad_id: int = 0):
-    """h [B,T,D] -> (ids int64, tok_lp, entropy, lp[pad_id]), each [B,T]."""
+def greedy_head_plain(h, w, b, V: Optional[int] = None, pad_id: int = 0):
+    """h [B,T,D] -> (ids int64, tok_lp, entropy, lp[pad_id]), each [B,T],
+    over the first V columns of w [D, >= V] and b (all of them if V is
+    None)."""
+    if V is not None:
+        w, b = w[:, :V], b[:V]
     acc = torch.matmul(h.float(), w.float())
     if h.dtype == torch.bfloat16:
         logits = (acc.to(torch.bfloat16) + b.to(torch.bfloat16)).float()
@@ -492,21 +517,30 @@ def fused_decoder_layer(x, memory, tgt_mask, src_mask, w, num_heads: int):
     return out
 
 
-def fused_greedy_head(h, w, b, pad_id: int = 0):
-    """Greedy head: h [B,T,D], w [D,V], b [V] (compute dtype) ->
-    (ids int64, tok_logprobs, entropy, lp[pad_id]), each [B,T] float32,
-    without forming [B,T,V].  On CUDA: one call of csrc/greedy_head.cu
-    (head_partial, head_combine launches)."""
+def fused_greedy_head(h, w, b, V: Optional[int] = None, pad_id: int = 0):
+    """Greedy head: h [B,T,D], w [D,Vp], b [Vp] (compute dtype) whose first
+    V columns are the vocabulary (V None: all Vp; ``*pack_head_weights(...)``
+    passes w, b and V) -> (ids int64, tok_logprobs, entropy, lp[pad_id]),
+    each [B,T] float32, without forming [B,T,V].  On CUDA: one call of
+    csrc/greedy_head.cu (head_partial, head_combine launches); there w must
+    be padded to Vp < V + 8 (``pad_head``), and at bf16 Vp and D must be
+    multiples of 8 and h, w 16-byte aligned, or it raises ValueError."""
+    Vp = w.shape[-1]
+    V = Vp if V is None else V
     if not _route(h):
-        return greedy_head_plain(h, w, b, pad_id)
+        return greedy_head_plain(h, w, b, V, pad_id)
     B, T, D = h.shape
-    V = w.shape[1]
     dev, dt = h.device, h.dtype
     _require(h, "h", dt, (B, T, D), dev)
-    _require(w, "w", dt, (D, V), dev)
-    _require(b, "b", dt, (V,), dev)
+    _require(w, "w", dt, (D, Vp), dev)
+    _require(b, "b", dt, (Vp,), dev)
+    if not 0 < V <= Vp < V + 8:
+        raise ValueError(f"w has {Vp} columns for a vocabulary of {V}: pad "
+                         f"it to a multiple of 8 with pad_head")
     if not 0 <= pad_id < V:
         raise ValueError(f"pad_id {pad_id} outside the vocabulary [0, {V})")
+    check_product_shape(dt, {"D": D, "padded vocabulary": Vp},
+                        {"h": h, "w": w})
     N = B * T
     k = _kernels()
     f32 = dict(dtype=torch.float32, device=dev)
@@ -518,7 +552,7 @@ def fused_greedy_head(h, w, b, pad_id: int = 0):
     stream = torch.cuda.current_stream(dev).cuda_stream
     k.check(k.greedy_head.bfc_greedy_head(
         _DTYPE_CODE[dt], dev.index, h.data_ptr(), w.data_ptr(), b.data_ptr(),
-        N, V, D, pad_id, scratch.data_ptr(), ids.data_ptr(), tok.data_ptr(),
+        N, V, Vp, D, pad_id, scratch.data_ptr(), ids.data_ptr(), tok.data_ptr(),
         ent.data_ptr(), lpp.data_ptr(), stream), "greedy_head")
     fused_greedy_head.launches += 1
     return ids, tok, ent, lpp
@@ -582,8 +616,8 @@ def fused_linear(a, w, b, relu: bool = False, res=None):
     """One product of the layer kernels alone, for timing it: a [..., K],
     w [K, N], b [N], res (optional) [..., N], all in the compute dtype ->
     ``linear_plain(a, w, b, relu, res)``.  On CUDA: one call of bfc_gemm
-    (csrc/decoder_layer.cu), the tensor-core product at bf16, the FFMA tile
-    at float32.  No decode path calls it."""
+    (csrc/decoder_layer.cu), the tensor-core product at bf16, the FFMA
+    product at float32.  No decode path calls it."""
     if not _route(a):
         return linear_plain(a, w, b, relu, res)
     K, N = a.shape[-1], w.shape[-1]
@@ -606,11 +640,14 @@ def fused_linear(a, w, b, relu: bool = False, res=None):
     return out
 
 
-def product_tile(M: int, N: int) -> Tuple[int, int, int]:
-    """The bf16 product's tile for an M x N product: (BM, BN, blocks)."""
+def product_tile(M: int, N: int, dtype=torch.bfloat16
+                 ) -> Tuple[int, int, int]:
+    """The layer kernels' tile for an M x N product at ``dtype`` (the
+    tensor-core product at bf16, the FFMA product at float32): (BM, BN,
+    blocks)."""
     bm, bn = ctypes.c_int(), ctypes.c_int()
-    blocks = _kernels().decoder_layer.bfc_gemm_tile(M, N, ctypes.byref(bm),
-                                                    ctypes.byref(bn))
+    blocks = _kernels().decoder_layer.bfc_gemm_tile(
+        _DTYPE_CODE[dtype], M, N, ctypes.byref(bm), ctypes.byref(bn))
     return bm.value, bn.value, blocks
 
 

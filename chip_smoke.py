@@ -9,10 +9,12 @@ Phases, each printing one JSON line:
   2. kernels  each kernel against its plain PyTorch version at the serving
               shapes (B = 64, full uic_sd width, all six layers for the
               stacks), float32 and bfloat16, with fully masked rows, padded
-              regions, a ragged vocab edge and a planted argmax tie; and
-              the bf16 product of #1, #2 and #6-#8 (tensor cores) alone at
-              each of its 17 serving shapes, with bitwise batch
-              independence.
+              regions; the head (#3) through its padded pack at an NA
+              fill's and a narrow SA round's rows, with planted argmax ties
+              (within a chunk, across chunks, at the last real column) and
+              bitwise batch independence; and the product of #1, #2 and
+              #4-#8 alone (tensor cores at bf16, FFMA at float32) at each of
+              its 17 serving shapes, with bitwise batch independence.
   3. decode   fused_encode + na_decode on both kernel routes (whole-stack
               encoder and decoder kernels, per-layer kernels) against the
               plain path, float32, uic_sd at full width with random
@@ -51,12 +53,14 @@ Phases, each printing one JSON line:
               least time the card could take (bound); decode times,
               launches and host syncs per decode; #9's host cost a call,
               AR and NA decode times with use_pallas on and off, an AR
-              breakdown; each bf16 product of #1, #2 and the narrow window
-              round against its bound and torch.matmul, with its tile;
-              #1's, #2's, #6's and #7's bf16 device time split into
-              products, attention and refnorm, with launches a call (no
-              FFMA product at bf16); host µs of a layer, a stack and a
-              window-stack call at bf16 and float32.
+              breakdown; each product of #1, #2 and the narrow window
+              round, at bf16 and float32, against its bound and
+              torch.matmul, with its tile; #1's, #2's, #6's and #7's bf16
+              and #8's float32 device time split into products, attention
+              and refnorm, with launches a call (no FFMA product at bf16,
+              six at float32); #3's split into head_partial and
+              head_combine at both dtypes; host µs of a layer, a stack and
+              a window-stack call at bf16 and float32.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed phase raises: the script exits
@@ -123,11 +127,11 @@ SA_KERNELS = ("encoder_stack", "window_stack", "window_wide_stack",
               "greedy_head")
 AIC_KERNELS = ("encoder_stack", "attention_core")
 W_NARROW = 8                  # sa_decode's default window
-# the bf16 products of #1 (B*R = 2304 rows), #2 (B*L = 1280 rows; the
-# memory's 2304 for wkv2) and a narrow SA round's window layer (#6, #8:
-# B*W = 512 rows; #7's wide round has #2's shapes), each with its epilogue:
-# (name, M, K, N, relu, residual).  They run on the tensor cores
-# (csrc/wgmma_gemm.cuh)
+# the products of #1 (B*R = 2304 rows), #2 (B*L = 1280 rows; the memory's
+# 2304 for wkv2) and a narrow SA round's window layer (#6, #8: B*W = 512
+# rows; #7's wide round has #2's shapes), each with its epilogue: (name, M,
+# K, N, relu, residual).  They run on the tensor cores at bf16
+# (csrc/wgmma_gemm.cuh), on FFMA at float32 (csrc/ffma_gemm.cuh)
 PRODUCTS = (
     ("enc.wqkv", B * R, D, 3 * D, False, False),
     ("enc.wo", B * R, D, D, False, True),
@@ -300,7 +304,7 @@ def check_kernels(model):
         tol = TOL[dtype_name]
         enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
         dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
-        hw, hb = dl.pack_head_weights(model.generator.proj, dtype)
+        head = dl.pack_head_weights(model.generator.proj, dtype)
         x_enc, src, x_dec, mem, tgt, h = layer_inputs(dtype, 1)
         H = model.num_heads
 
@@ -342,90 +346,121 @@ def check_kernels(model):
             stacks[name] = {"rel_err": e, "max_abs_err":
                             (got.float() - want.float()).abs().max().item()}
 
-        ids, tok, ent, lpp = dl.fused_greedy_head(h, hw, hb, pad_id=0)
-        pids, ptok, pent, plpp = dl.greedy_head_plain(h, hw, hb, pad_id=0)
-        torch.cuda.synchronize()
-        diff = ids != pids
-        if dtype_name == "float32":
-            if diff.any():
-                fail(f"greedy_head float32: {int(diff.sum())} ids differ")
-        else:
-            # bf16: ids may differ only where the plain logits' top-2 gap
-            # is within one bf16 ulp (a one-ulp rounding apart)
-            acc = torch.matmul(h.float(), hw.float())
-            logits = (acc.to(dtype) + hb).float()
-            top2 = logits.topk(2, dim=-1).values
-            gap = top2[..., 0] - top2[..., 1]
-            loose = gap <= bf16_ulp(top2[..., 0])
-            if (diff & ~loose).any():
-                fail(f"greedy_head bfloat16: ids differ above one ulp")
-        a_head = max((tok - ptok).abs().max().item(),
-                     (ent - pent).abs().max().item(),
-                     (lpp - plpp).abs().max().item())
-        head_tol = tol * max(ptok.abs().max().item(), 1.0)
-        if a_head > head_tol:
-            fail(f"greedy_head {dtype_name}: tok/ent/lp_pad err {a_head}")
-
-        # planted tie: columns 1000, 1003 (same chunk) and 5000 (another
-        # chunk) identical and dominant -> every id must be 1000
-        hw_t, hb_t = hw.clone(), hb.clone()
-        for c in (1003, 5000):
-            hw_t[:, c] = hw_t[:, 1000]
-        hb_t[[1000, 1003, 5000]] = 40.0
-        tids = dl.fused_greedy_head(h, hw_t, hb_t, pad_id=0)[0]
-        torch.cuda.synchronize()
-        if not (tids == 1000).all():
-            fail(f"greedy_head {dtype_name}: tie not resolved to the lower "
-                 f"index: {tids.unique().tolist()}")
+        # the head at an NA fill's rows (B * L) and a narrow SA round's
+        # (B * W)
+        heads = {f"n{B * T}": check_head(h[:, :T].contiguous(), head,
+                                         dtype_name)
+                 for T in (L, W_NARROW)}
         res[dtype_name] = {
             "encoder_layer": {"rel_err": e_enc, "max_abs_err": a_enc},
             "decoder_layer": {"rel_err": e_dec, "max_abs_err": a_dec},
-            "greedy_head": {"max_abs_err": a_head,
-                            "ids_differ": int(diff.sum())},
+            "greedy_head": {
+                "max_abs_err": max(v["max_abs_err"] for v in heads.values()),
+                **heads},
             **stacks,
         }
     return res
 
 
+def check_head(h, pack, dtype_name: str) -> dict:
+    """#3 through the padded pack (W [D, Vp], b [Vp], V) against its plain
+    twin on h [B, T, D]: float32 ids equal; bf16 ids apart only where the
+    plain logits' top-2 gap is within one bf16 ulp (a one-ulp rounding
+    apart); tok, entropy and the PAD column's logprob within the tolerance;
+    the first 37 rows' ids and tok bitwise those of a head of 37 rows; and
+    planted ties, each set of columns identical and dominant, resolved to
+    the lower index: within one 128-wide chunk and across chunks (1000,
+    1003, 5000), within one chunk alone (2050, 2100), and at the last real
+    column (600, V - 1)."""
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    hw, hb, V = pack
+    ids, tok, ent, lpp = dl.fused_greedy_head(h, *pack, pad_id=0)
+    pids, ptok, pent, plpp = dl.greedy_head_plain(h, *pack, pad_id=0)
+    torch.cuda.synchronize()
+    diff = ids != pids
+    rows = h.shape[0] * h.shape[1]
+    if dtype_name == "float32":
+        if diff.any():
+            fail(f"greedy_head float32 N={rows}: {int(diff.sum())} ids "
+                 f"differ")
+    else:
+        acc = torch.matmul(h.float(), hw[:, :V].float())
+        logits = (acc.to(h.dtype) + hb[:V]).float()
+        top2 = logits.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        loose = gap <= bf16_ulp(top2[..., 0])
+        if (diff & ~loose).any():
+            fail(f"greedy_head bfloat16 N={rows}: ids differ above one ulp")
+    a_head = max((tok - ptok).abs().max().item(),
+                 (ent - pent).abs().max().item(),
+                 (lpp - plpp).abs().max().item())
+    head_tol = TOL[dtype_name] * max(ptok.abs().max().item(), 1.0)
+    if a_head > head_tol:
+        fail(f"greedy_head {dtype_name} N={rows}: tok/ent/lp_pad err "
+             f"{a_head}")
+    n = min(37, rows)
+    part = dl.fused_greedy_head(h.reshape(rows, 1, -1)[:n], *pack, pad_id=0)
+    torch.cuda.synchronize()
+    for got, full in zip(part[:2], (ids, tok)):
+        if not torch.equal(got.reshape(-1), full.reshape(-1)[:n]):
+            fail(f"greedy_head {dtype_name}: the first {n} rows differ from "
+                 f"a head of {n} rows (not batch-independent)")
+    for cols in ((1000, 1003, 5000), (2050, 2100), (600, V - 1)):
+        hw_t, hb_t = hw.clone(), hb.clone()
+        for c in cols[1:]:
+            hw_t[:, c] = hw_t[:, cols[0]]
+        hb_t[list(cols)] = 40.0
+        tids = dl.fused_greedy_head(h, hw_t, hb_t, V, pad_id=0)[0]
+        torch.cuda.synchronize()
+        if not (tids == cols[0]).all():
+            fail(f"greedy_head {dtype_name}: tie {cols} not resolved to the "
+                 f"lower index: {tids.unique().tolist()}")
+    return {"max_abs_err": a_head, "ids_differ": int(diff.sum()),
+            "batch_independent": True, "ties": "lower index"}
+
+
 def product_operands(M: int, K: int, N: int, relu: bool, residual: bool,
-                     seed: int = 31):
-    """bf16 operands of one product: a [M, K], w [K, N] scaled as a
+                     seed: int = 31, dtype=torch.bfloat16):
+    """Operands of one product in ``dtype``: a [M, K], w [K, N] scaled as a
     layer's, bias [N], res [M, N] or None; (a, w, b, relu, res)."""
     g = torch.Generator().manual_seed(seed)
-    a = torch.randn((M, K), generator=g).to(DEV, torch.bfloat16)
-    w = (torch.randn((K, N), generator=g) / math.sqrt(K)).to(
-        DEV, torch.bfloat16)
-    b = (0.1 * torch.randn((N,), generator=g)).to(DEV, torch.bfloat16)
-    res = (torch.randn((M, N), generator=g).to(DEV, torch.bfloat16)
+    a = torch.randn((M, K), generator=g).to(DEV, dtype)
+    w = (torch.randn((K, N), generator=g) / math.sqrt(K)).to(DEV, dtype)
+    b = (0.1 * torch.randn((N,), generator=g)).to(DEV, dtype)
+    res = (torch.randn((M, N), generator=g).to(DEV, dtype)
            if residual else None)
     return a, w, b, relu, res
 
 
-def check_products():
-    """The layer and window kernels' bf16 product (fused_linear, the
-    tensor-core path of #1, #2 and #6-#8) against linear_plain at each
-    serving shape, and bitwise batch independence: its first 37 rows and
-    its first row, computed as products of 37 and of 1 rows (other tiles),
-    equal the full product's."""
+def check_products(dtype):
+    """The layer and window kernels' product (fused_linear: the
+    tensor-core path of #1, #2 and #4-#8 at bf16, the FFMA path at float32)
+    against linear_plain at each serving shape, and bitwise batch
+    independence: its first 37 rows and its first row, computed as products
+    of 37 and of 1 rows (other tiles), equal the full product's."""
     from boficap_tpu_torch.ops import decoder_layer as dl
-    tol = TOL["bfloat16"]
+    dtype_name = "float32" if dtype == torch.float32 else "bfloat16"
+    tol = TOL[dtype_name]
     res = {}
     for name, M, K, N, relu, residual in PRODUCTS:
-        a, w, b, relu, r = product_operands(M, K, N, relu, residual)
+        a, w, b, relu, r = product_operands(M, K, N, relu, residual,
+                                            dtype=dtype)
         got = dl.fused_linear(a, w, b, relu, r)
         want = dl.linear_plain(a, w, b, relu, r)
         torch.cuda.synchronize()
         e = rel_err(got, want)
         if not torch.isfinite(got.float()).all() or e > tol:
-            fail(f"product {name} {M}x{K}x{N}: rel err {e} > {tol}")
+            fail(f"product {name} {dtype_name} {M}x{K}x{N}: rel err {e} > "
+                 f"{tol}")
         for rows in (37, 1):
             part = dl.fused_linear(a[:rows], w, b, relu,
                                    None if r is None else r[:rows])
             torch.cuda.synchronize()
             if not torch.equal(part, got[:rows]):
-                fail(f"product {name}: the first {rows} rows differ from "
-                     f"a product of {rows} rows (not batch-independent)")
-        bm, bn, blocks = dl.product_tile(M, N)
+                fail(f"product {name} {dtype_name}: the first {rows} rows "
+                     f"differ from a product of {rows} rows (not "
+                     f"batch-independent)")
+        bm, bn, blocks = dl.product_tile(M, N, dtype)
         res[name] = {"m_k_n": [M, K, N], "tile": [bm, bn], "blocks": blocks,
                      "rel_err": e, "max_abs_err":
                          (got.float() - want.float()).abs().max().item(),
@@ -1473,8 +1508,9 @@ def measure(model, model16):
                               ("bfloat16", torch.bfloat16)):
         enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
         dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
-        hw, hb = dl.pack_head_weights(model.generator.proj, dtype)
+        head = dl.pack_head_weights(model.generator.proj, dtype)
         wvd = model.generator.proj.weight.detach().to(dtype)
+        hbv = model.generator.proj.bias.detach().to(dtype)
         x_enc, src, x_dec, mem, tgt, h = layer_inputs(dtype, 4)
         enc = st.pack_encoder_stack(model.encoder, dtype)
         dec = st.pack_decoder_stack(model._decoder("NA"), dtype)
@@ -1500,9 +1536,9 @@ def measure(model, model16):
                 lambda: library_layer(x_dec, tgt, dec_w, H,
                                       cross=(mem, src))),
             "greedy_head": (
-                lambda: dl.fused_greedy_head(h, hw, hb),
-                lambda: dl.greedy_head_plain(h, hw, hb),
-                lambda: library_head(h, wvd, hb)),
+                lambda: dl.fused_greedy_head(h, *head),
+                lambda: dl.greedy_head_plain(h, *head),
+                lambda: library_head(h, wvd, hbv)),
             "encoder_stack": (
                 lambda: st.fused_encoder_stack_forward(
                     x_enc, src, enc.stack, enc.final_norm, H),
@@ -1581,27 +1617,31 @@ def measure(model, model16):
 
 
 @torch.no_grad()
-def measure_products():
-    """Each bf16 product of #1, #2 and the narrow window round alone
-    (fused_linear, the tensor-core path) at its serving shape: device ms
-    against its bound (2MNK / 989
-    TFLOP/s, or the bytes of A, W, bias, C and the residual once over 3.35
-    TB/s), the plain twin's ms, torch.matmul(a, w) + b as the library
-    yardstick (an eager cuBLAS product; no bf16 rounding before the bias
-    and no epilogue), the tile and the block count."""
+def measure_products(dtype):
+    """Each product of #1, #2 and the narrow window round alone
+    (fused_linear: the tensor-core path at bf16, the FFMA path at float32)
+    at its serving shape: device ms against its bound (2MNK / 989 TFLOP/s
+    at bf16 or 67 at float32, or the bytes of A, W, bias, C and the
+    residual once over 3.35 TB/s), the plain twin's ms, torch.matmul(a, w)
+    + b as the library yardstick (an eager cuBLAS product, float32 without
+    TF32; no rounding before the bias and no epilogue), the tile and the
+    block count."""
     from boficap_tpu_torch.ops import decoder_layer as dl
+    dtype_name = "float32" if dtype == torch.float32 else "bfloat16"
+    esize = 4 if dtype == torch.float32 else 2
     out = {}
     for name, M, K, N, relu, residual in PRODUCTS:
-        a, w, b, relu, r = product_operands(M, K, N, relu, residual)
+        a, w, b, relu, r = product_operands(M, K, N, relu, residual,
+                                            dtype=dtype)
         k1 = device_ms(lambda: dl.fused_linear(a, w, b, relu, r))
         p = device_ms(lambda: dl.linear_plain(a, w, b, relu, r))
         lb = device_ms(lambda: torch.matmul(a, w) + b)
         k2 = device_ms(lambda: dl.fused_linear(a, w, b, relu, r))
         flops = 2 * M * N * K
-        nbytes = 2 * (M * K + K * N + N + M * N * (2 if residual else 1))
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        nbytes = esize * (M * K + K * N + N + M * N * (2 if residual else 1))
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
         t_bytes = nbytes / HBM_BYTES_S * 1e3
-        bm, bn, blocks = dl.product_tile(M, N)
+        bm, bn, blocks = dl.product_tile(M, N, dtype)
         ms = min(k1, k2)
         bound = max(t_ops, t_bytes)
         out[name] = {"m_k_n": [M, K, N], "ms": ms, "ms_first": k1,
@@ -1613,40 +1653,18 @@ def measure_products():
     return out
 
 
-@torch.no_grad()
-def layer_split(model, reps: int = 10):
-    """Where the bf16 device time of #1, #2 (a layer) and #6, #7 (a round
-    of six layers) goes: torch.profiler over ``reps`` calls, kernel time
-    and launches summed by building block a call: the tensor-core products,
-    the FFMA product (none at bf16), attention, refnorm, and other (the
-    wrappers' final norm in torch).  A window round must make 6 x 11
-    launches of the port's kernels and no FFMA product."""
+def profile_split(fn, parts, reps: int = 10, tries: int = 3):
+    """torch.profiler over ``reps`` calls of fn: device ms and launches a
+    call summed by the first of ``parts`` (label: kernel-name substring)
+    each kernel's name holds, the rest as 'other'.  The profiler may miss
+    the first launches of a window, so a kernel's launches a call are its
+    recorded count over ``reps``, rounded, and its ms a call the mean of
+    its recorded launches times that; a window with no kernel recorded is
+    taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
-    from boficap_tpu_torch.ops import decoder_layer as dl
-    from boficap_tpu_torch.ops import stack as st
-    H = model.num_heads
-    bf = torch.bfloat16
-    enc_w = dl.pack_encoder_layer(model.encoder.layer0, bf)
-    dec_w = dl.pack_layer_weights(model.decoder0.layer0, bf)
-    x_enc, src, x_dec, mem, tgt, _ = layer_inputs(bf, 4)
-    pack = st.pack_window_weights(model._decoder("SA"), bf)
-    xn, kc, vc, k2, v2, ws, tgn, srn = window_inputs(bf, W_NARROW, 14)
-    xw, _, _, _, _, _, tgw, srw = window_inputs(bf, L, 15, wide=True)
-    calls = {"encoder_layer": lambda: dl.fused_encoder_layer(
-                 x_enc, src, enc_w, H),
-             "decoder_layer": lambda: dl.fused_decoder_layer(
-                 x_dec, mem, tgt, src, dec_w, H),
-             "window_stack": lambda: st.fused_window_decoder_stack(
-                 xn, ws, kc, vc, k2, v2, tgn, srn, pack.stack,
-                 pack.final_norm, H),
-             "window_wide_stack": lambda: st.fused_window_wide_stack(
-                 xw, k2, v2, tgw, srw, pack.stack, pack.final_norm, H)}
-    parts = {"products": "gemm_tc_kernel", "ffma_products": "gemm_kernel",
-             "attention": "attention_kernel", "refnorm": "refnorm_kernel"}
-    out = {}
-    for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -1656,22 +1674,88 @@ def layer_split(model, reps: int = 10):
         for row in prof.key_averages():
             dev_us = getattr(row, "self_device_time_total",
                              getattr(row, "self_cuda_time_total", 0.0))
-            if not dev_us or not str(getattr(row, "device_type",
-                                             "")).endswith("CUDA"):
+            if not dev_us or not row.count or not str(
+                    getattr(row, "device_type", "")).endswith("CUDA"):
                 continue
             part = next((k for k, v in parts.items() if v in row.key),
                         "other")
-            split[part] += dev_us / 1e3 / reps
-            launches[part] += row.count // reps
-        out[name] = {**{f"{k}_ms": v for k, v in split.items()},
-                     "launches": launches}
-        if name.startswith("window"):
-            port = sum(launches[k] for k in ("products", "ffma_products",
-                                             "attention", "refnorm"))
-            if launches["ffma_products"] or port != NL * 11:
-                fail(f"layer_split {name} bf16: {launches} (want "
-                     f"{NL * 11} launches of the port's kernels, no FFMA "
-                     f"product)")
+            n = round(row.count / reps)
+            split[part] += dev_us / 1e3 / row.count * n
+            launches[part] += n
+        if any(launches.values()):
+            break
+    return {**{f"{k}_ms": v for k, v in split.items()},
+            "launches": launches}
+
+
+@torch.no_grad()
+def layer_split(model, dtype, reps: int = 10):
+    """Where the device time of a layer or round goes, by building block a
+    call: the tensor-core products, the FFMA products, attention, refnorm,
+    and other (the wrappers' final norm in torch).  bf16: #1, #2 (a layer)
+    and #6, #7 (a round of six layers); a window round must make 6 x 11
+    launches of the port's kernels and no FFMA product.  float32: #8 (one
+    window layer), 11 launches, its six products all on FFMA."""
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    from boficap_tpu_torch.ops import stack as st
+    H = model.num_heads
+    xn, kc, vc, k2, v2, ws, tgn, srn = window_inputs(dtype, W_NARROW, 14)
+    pack = st.pack_window_weights(model._decoder("SA"), dtype)
+    if dtype == torch.float32:
+        calls = {"window_layer": lambda: dl.fused_window_decoder_layer(
+            xn, kc[0], vc[0], k2[0], v2[0], tgn, srn, pack.layers[0], H)}
+    else:
+        enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
+        dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
+        x_enc, src, x_dec, mem, tgt, _ = layer_inputs(dtype, 4)
+        xw, _, _, _, _, _, tgw, srw = window_inputs(dtype, L, 15, wide=True)
+        calls = {"encoder_layer": lambda: dl.fused_encoder_layer(
+                     x_enc, src, enc_w, H),
+                 "decoder_layer": lambda: dl.fused_decoder_layer(
+                     x_dec, mem, tgt, src, dec_w, H),
+                 "window_stack": lambda: st.fused_window_decoder_stack(
+                     xn, ws, kc, vc, k2, v2, tgn, srn, pack.stack,
+                     pack.final_norm, H),
+                 "window_wide_stack": lambda: st.fused_window_wide_stack(
+                     xw, k2, v2, tgw, srw, pack.stack, pack.final_norm, H)}
+    parts = {"products": "gemm_tc_kernel", "ffma_products": "ffma_gemm_kernel",
+             "attention": "attention_kernel", "refnorm": "refnorm_kernel"}
+    out = {}
+    for name, fn in calls.items():
+        out[name] = split = profile_split(fn, parts, reps)
+        launches = split["launches"]
+        if not name.startswith("window"):
+            continue
+        port = sum(launches[k] for k in parts)
+        if dtype == torch.float32:
+            if launches["products"] or launches["ffma_products"] != 6 \
+                    or port != 11:
+                fail(f"layer_split {name} float32: {launches} (want 11 "
+                     f"launches of the port's kernels, 6 FFMA products)")
+        elif launches["ffma_products"] or port != NL * 11:
+            fail(f"layer_split {name} bf16: {launches} (want {NL * 11} "
+                 f"launches of the port's kernels, no FFMA product)")
+    return out
+
+
+@torch.no_grad()
+def head_split(model, reps: int = 10):
+    """#3's device time at B * L = 1280 rows, both dtypes, split into
+    head_partial (the product with the head epilogue: tensor cores at
+    bf16, FFMA at float32) and head_combine, with launches a call."""
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    out = {}
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        pack = dl.pack_head_weights(model.generator.proj, dtype)
+        h = layer_inputs(dtype, 4)[-1]
+        out[dtype_name] = split = profile_split(
+            lambda: dl.fused_greedy_head(h, *pack),
+            {"head_partial": "HeadEpi", "head_combine": "head_combine"},
+            reps)
+        if split["launches"]["head_partial"] != 1 or \
+                split["launches"]["head_combine"] != 1:
+            fail(f"head_split {dtype_name}: {split['launches']}")
     return out
 
 
@@ -2118,7 +2202,8 @@ def run_phases(smi: str):
     for dtype_name in errs:
         errs[dtype_name].update(werrs[dtype_name])
     emit({"phase": "kernels", "tolerance_rel": TOL, **errs,
-          "products_bf16": check_products()})
+          "products_bf16": check_products(torch.bfloat16),
+          "products_float32": check_products(torch.float32)})
     na_dec, na_counts = check_decode(model)
     emit({"phase": "decode", **na_dec})
     served = check_serve(model16, "NAIC", NA_KERNELS)
@@ -2147,8 +2232,11 @@ def run_phases(smi: str):
           "attention_core_expected": want, **aic_served})
     unforce_long([model, model16], long_shift)
     times = measure(model, model16)
-    times["products_bf16"] = measure_products()
-    times["layer_split_bf16"] = layer_split(model)
+    times["products_bf16"] = measure_products(torch.bfloat16)
+    times["products_float32"] = measure_products(torch.float32)
+    times["layer_split_bf16"] = layer_split(model, torch.bfloat16)
+    times["layer_split_float32"] = layer_split(model, torch.float32)
+    times["head_split"] = head_split(model)
     times["host_us_per_call"] = host_costs(model)
     times["ar"] = measure_ar(aic, aic16, model16)
     emit({"phase": "times", "card": smi, "long_bias_shift": 0.0, **times})

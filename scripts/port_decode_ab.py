@@ -19,8 +19,14 @@ smoke's timed decodes), it prints one line ``AB {...}`` with:
                         round of each), head and other;
   kernel_ms             by dtype, the device ms a call (chip_smoke.device_ms)
                         of the attention core (#9), the encoder and decoder
-                        layers and stacks (#1, #2, #4) and the window layer
-                        and stacks (#8, #6, #7), on the smoke's inputs.
+                        layers and stacks (#1, #2, #4), the window layer
+                        and stacks (#8, #6, #7) and the greedy head (#3), on
+                        the smoke's inputs;
+  products              at both dtypes, for each product of
+                        chip_smoke.PRODUCTS (seeded operands, through
+                        fused_linear) its device ms and a hash of its output,
+                        and a hash of the head's ids: equal digests across
+                        two checkouts mean bitwise equal outputs.
 
 To compare two commits, run it in turns on both checkouts in one call on
 one card (parent, change, change, parent): the decodes are bound by the
@@ -29,6 +35,7 @@ host, whose speed drifts within a call.  Exits 2 without a CUDA device.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import sys
@@ -49,8 +56,8 @@ def median_ms(fn, n: int):
 
 
 def kernel_ms(cs, model):
-    """Device ms a call of #9, #1, #2, #4 and #8, #6, #7 at both dtypes, on
-    chip_smoke's inputs at B = 64 and the weights of ``model``."""
+    """Device ms a call of #9, #1, #2, #4, #8, #6, #7 and #3 at both dtypes,
+    on chip_smoke's inputs at B = 64 and the weights of ``model``."""
     import torch
     from boficap_tpu_torch.ops import attention as at
     from boficap_tpu_torch.ops import decoder_layer as dl
@@ -63,7 +70,8 @@ def kernel_ms(cs, model):
         dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
         enc = st.pack_encoder_stack(model.encoder, dtype)
         win = st.pack_window_weights(model._decoder("SA"), dtype)
-        x_enc, src, x_dec, mem, tgt, _ = cs.layer_inputs(dtype, 4)
+        head = dl.pack_head_weights(model.generator.proj, dtype)
+        x_enc, src, x_dec, mem, tgt, h = cs.layer_inputs(dtype, 4)
         xn, kc, vc, k2, v2, ws, tgn, srn = cs.window_inputs(dtype, cs.W_NARROW,
                                                             14)
         xw, _, _, _, _, _, tgw, srw = cs.window_inputs(dtype, cs.L, 15,
@@ -83,8 +91,42 @@ def kernel_ms(cs, model):
                 xn, ws, kc, vc, k2, v2, tgn, srn, win.stack, win.final_norm,
                 H),
             "window_wide_stack": lambda: st.fused_window_wide_stack(
-                xw, k2, v2, tgw, srw, win.stack, win.final_norm, H)}
+                xw, k2, v2, tgw, srw, win.stack, win.final_norm, H),
+            "greedy_head": lambda: dl.fused_greedy_head(h, *head)}
         out[name] = {k: cs.device_ms(fn) for k, fn in calls.items()}
+    return out
+
+
+def products(cs, model):
+    """Each product of the smoke's PRODUCTS shapes through fused_linear, on
+    operands made here from a seed, at both dtypes: sha256 (16 hex digits)
+    of its output and its device ms a call (chip_smoke.device_ms); and the
+    digest of the head's ids at B * L rows."""
+    import torch
+    from boficap_tpu_torch.ops import decoder_layer as dl
+
+    def digest(t):
+        return hashlib.sha256(t.cpu().view(-1).view(torch.uint8).numpy()
+                              .tobytes()).hexdigest()[:16]
+
+    out = {"digest": {}, "ms": {}}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        dig = out["digest"][name] = {}
+        ms = out["ms"][name] = {}
+        g = torch.Generator().manual_seed(31)
+        for key, M, K, N, relu, residual in cs.PRODUCTS:
+            a = torch.randn((M, K), generator=g).to("cuda", dtype)
+            w = (torch.randn((K, N), generator=g) / K ** 0.5).to("cuda",
+                                                                 dtype)
+            b = (0.1 * torch.randn((N,), generator=g)).to("cuda", dtype)
+            r = (torch.randn((M, N), generator=g).to("cuda", dtype)
+                 if residual else None)
+            dig[key] = digest(dl.fused_linear(a, w, b, relu, r))
+            ms[key] = cs.device_ms(lambda: dl.fused_linear(a, w, b, relu, r))
+        h = cs.layer_inputs(dtype, 4)[-1]
+        head = dl.pack_head_weights(model.generator.proj, dtype)
+        dig["greedy_head_ids"] = digest(dl.fused_greedy_head(h, *head)[0])
     return out
 
 
@@ -126,6 +168,7 @@ def main(root: str, label: str) -> int:
         out["na_breakdown"] = cs.breakdown(model, att, am)
         out["sa_breakdown"] = cs.sa_breakdown(model, att, am)
         out["kernel_ms"] = kernel_ms(cs, model)
+        out["products"] = products(cs, model)
     print("AB " + json.dumps(out), flush=True)
     return 0
 

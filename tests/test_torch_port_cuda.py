@@ -6,9 +6,10 @@ the probe's reason.  Run on the GPU machine with
 
 Shapes are small and deliberately ragged (not multiples of the 64-wide
 tiles) so the kernels' edge masking is exercised; ``chip_smoke.py``
-checks the serving shapes.  The bf16 product of the layer and window
-kernels (``fused_linear``) is checked on its own at ragged shapes up to
-2304 rows, and for bitwise batch independence; so is the wide window
+checks the serving shapes.  The product of the layer and window kernels
+(``fused_linear``), bf16 on the tensor cores and float32 on FFMA, is
+checked on its own at ragged shapes up to 2304 rows, and for bitwise batch
+independence; so is the head at both dtypes, and the wide window
 round (#7) at bf16, and the narrow round (#6) on a fully masked query row,
 which averages over the cache as it was before the round wrote it.
 """
@@ -86,24 +87,75 @@ def test_decoder_layer_kernel(cuda, dtype):
     assert _rel(got, want) < TOL[dtype]
 
 
+def _bf16_ulp(x):
+    """One bfloat16 ulp at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.float().abs().clamp_min(1e-30))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("N", [1, 37, 512, 1280])
+@pytest.mark.parametrize("V", [1001, 9491])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_greedy_head_kernel(cuda, dtype):
-    B, T, D, V = 3, 11, 80, 1001
-    h = torch.randn(B, T, D, device=cuda).to(dtype)
-    w = (torch.randn(D, V, device=cuda) * 0.05).to(dtype)
-    b = (torch.randn(V, device=cuda) * 0.01).to(dtype)
-    got = dl.fused_greedy_head(h, w, b, pad_id=5)
-    want = dl.greedy_head_plain(h, w, b, pad_id=5)
+def test_greedy_head_kernel(cuda, dtype, V, N):
+    """The head through the padded pack against its plain twin: float32 ids
+    equal, bf16 ids apart only where the plain logits' top-2 gap is within
+    one bf16 ulp; the PAD column in the last 128-wide chunk; the first rows
+    bitwise those of a head of those rows alone; planted ties within one
+    chunk, across chunks and at the last real column V - 1 resolve to the
+    lower index."""
+    D = 80
+    g = torch.Generator().manual_seed(V + N)
+    h = torch.randn(N, 1, D, generator=g).to(cuda, dtype)
+    w = (torch.randn(D, V, generator=g) * 0.05).to(cuda, dtype)
+    b = (torch.randn(V, generator=g) * 0.01).to(cuda, dtype)
+    pad_id = V - 3
+    pack = dl.pad_head(w, b)
+    got = dl.fused_greedy_head(h, *pack, pad_id=pad_id)
+    want = dl.greedy_head_plain(h, w, b, pad_id=pad_id)
     torch.cuda.synchronize()
+    diff = got[0] != want[0]
     if dtype == torch.float32:
+        assert not diff.any()
+    else:
+        logits = (torch.matmul(h.float(), w.float()).to(dtype) + b).float()
+        top2 = logits.topk(2, dim=-1).values
+        loose = top2[..., 0] - top2[..., 1] <= _bf16_ulp(top2[..., 0])
+        assert not (diff & ~loose).any()
+    for x, y in zip(got[1:], want[1:]):
+        assert (x - y).abs().max().item() < TOL[dtype] * 10
+    n = min(N, 37)
+    part = dl.fused_greedy_head(h[:n].contiguous(), *pack, pad_id=pad_id)
+    torch.cuda.synchronize()
+    for x, y in zip(part, got):
+        assert torch.equal(x, y[:n])
+    for lo, hi in ((130, 133), (70, 700), (5, V - 1)):
+        w2, b2 = w.clone(), b.clone()
+        w2[:, hi] = w2[:, lo]
+        b2[[lo, hi]] = 30.0
+        ids = dl.fused_greedy_head(h, *dl.pad_head(w2, b2), pad_id=pad_id)[0]
+        assert (ids == lo).all(), (lo, hi, ids.unique().tolist())
+
+
+def test_greedy_head_rejects_bad_width(cuda):
+    """At bf16 the head's product reads h and W with TMA: a D that is not a
+    multiple of 8, or a W not padded to one, raises ValueError before any
+    launch; float32 takes both."""
+    V = 1001
+    for D, padded in ((84, True), (80, False)):
+        h = torch.randn(3, 2, D, device=cuda)
+        w = torch.randn(D, V, device=cuda) * 0.05
+        b = torch.zeros(V, device=cuda)
+        args32 = dl.pad_head(w, b) if padded else (w, b)
+        args16 = dl.pad_head(w.bfloat16(), b.bfloat16()) if padded else (
+            w.bfloat16(), b.bfloat16())
+        dl.fused_greedy_head.launches = 0
+        with pytest.raises(ValueError, match="multiples of 8"):
+            dl.fused_greedy_head(h.bfloat16(), *args16)
+        assert dl.fused_greedy_head.launches == 0
+        got = dl.fused_greedy_head(h, *args32)
+        want = dl.greedy_head_plain(h, w, b)
+        torch.cuda.synchronize()
         assert torch.equal(got[0], want[0])
-    for g, x in zip(got[1:], want[1:]):
-        assert (g - x).abs().max().item() < TOL[dtype] * 10
-    # a tie across vocab chunks resolves to the lower index
-    w2, b2 = w.clone(), b.clone()
-    w2[:, 700] = w2[:, 70]
-    b2[[70, 700]] = 30.0
-    assert (dl.fused_greedy_head(h, w2, b2)[0] == 70).all()
 
 
 def test_wrapper_raises_on_bad_input(cuda):
@@ -154,13 +206,38 @@ def test_fused_linear_kernel(cuda, M, N, K):
     assert dl.fused_linear.launches == 4
 
 
-def test_fused_linear_float32(cuda):
-    """float32 products keep the FFMA tile, at any width."""
-    a, w, b, res = _product_operands(cuda, 37, 75, 101, torch.float32)
-    got = dl.fused_linear(a, w, b, relu=True, res=res)
-    want = dl.linear_plain(a, w, b, relu=True, res=res)
-    torch.cuda.synchronize()
-    assert _rel(got, want) < TOL[torch.float32]
+@pytest.mark.parametrize("M,N,K", [
+    (m, n, k) for m in PRODUCT_M for n in PRODUCT_N for k in PRODUCT_K]
+    + [(37, 75, 101), (300, 101, 75), (1, 75, 75)])
+def test_fused_linear_float32(cuda, M, N, K):
+    """float32 products run on the FFMA product (csrc/ffma_gemm.cuh) at any
+    width: the ragged shapes of the bf16 product and odd widths (75, 101,
+    the 4-byte copy path), with and without ReLU and the residual."""
+    f32 = torch.float32
+    a, w, b, res = _product_operands(cuda, M, N, K, f32)
+    dl.fused_linear.launches = 0
+    for relu, r in ((False, None), (True, None), (False, res), (True, res)):
+        got = dl.fused_linear(a, w, b, relu=relu, res=r)
+        want = dl.linear_plain(a, w, b, relu=relu, res=r)
+        torch.cuda.synchronize()
+        assert got.shape == (M, N) and got.dtype == f32
+        assert _rel(got, want) < TOL[f32]
+    assert dl.fused_linear.launches == 4
+
+
+@pytest.mark.parametrize("N,K", [(1536, 512), (512, 2048), (203, 101)])
+def test_fused_linear_float32_batch_independent(cuda, N, K):
+    """Row r of a float32 product is bitwise the same whatever M: one fmaf
+    chain an element, whichever tile M and N select (128 x 128 at 6400
+    rows, 32 x 64 at 37 and 1)."""
+    a, w, b, res = _product_operands(cuda, 6400, N, K, torch.float32, 1)
+    full = dl.fused_linear(a, w, b, relu=True, res=res)
+    for rows in (37, 1):
+        part = dl.fused_linear(a[:rows], w, b, relu=True, res=res[:rows])
+        torch.cuda.synchronize()
+        assert torch.equal(full[:rows], part)
+    assert (dl.product_tile(6400, N, torch.float32)[:2]
+            != dl.product_tile(37, N, torch.float32)[:2])
 
 
 @pytest.mark.parametrize("K", PRODUCT_K)
@@ -177,13 +254,23 @@ def test_fused_linear_batch_independent(cuda, N, K):
 
 
 def test_product_tiles(cuda):
-    """(BM, BN, blocks) of the serving shapes: BN from N alone, BM = 128
-    where that still fills the 132 SMs."""
+    """(BM, BN, blocks) of the serving shapes.  bf16: BN from N alone, BM =
+    128 where that still fills the 132 SMs.  float32: 128 x 128 where its
+    blocks fill at least 3/4 of the 132-block waves they take, else 32 x 64
+    (the narrow SA round's 512-row products among them)."""
     assert dl.product_tile(2304, 1536) == (128, 128, 216)
     assert dl.product_tile(2304, 512) == (128, 64, 144)
     assert dl.product_tile(1280, 1536) == (64, 128, 240)
     assert dl.product_tile(1280, 512) == (64, 64, 160)
     assert dl.product_tile(1, 72) == (64, 64, 2)
+    f32 = torch.float32
+    assert dl.product_tile(2304, 1536, f32) == (128, 128, 216)
+    assert dl.product_tile(1280, 1536, f32) == (128, 128, 120)
+    assert dl.product_tile(2304, 2048, f32) == (32, 64, 2304)
+    assert dl.product_tile(2304, 512, f32) == (32, 64, 576)
+    assert dl.product_tile(1280, 2048, f32) == (32, 64, 1280)
+    assert dl.product_tile(512, 512, f32) == (32, 64, 128)
+    assert dl.product_tile(1, 72, f32) == (32, 64, 2)
 
 
 def test_product_rejects_bad_width(cuda):

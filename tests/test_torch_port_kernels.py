@@ -96,12 +96,15 @@ def test_decoder_layer_plain_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("case", ["random", "tie"])
+@pytest.mark.parametrize("case", ["random", "tie", "padded"])
 def test_greedy_head_plain_matches_pallas(case):
     """ids identical (first maximum on a planted tie), token logprob,
-    entropy and the PAD column's logprob within 1e-5."""
+    entropy and the PAD column's logprob within 1e-5.  "padded": V = 1001
+    (not a multiple of 8) through the zero-padded pack (``pad_head``), with
+    a tie between column 600 and the last real column V - 1."""
     rs = np.random.RandomState(2)
-    B, T, V = 3, 7, 1000              # V not a multiple of any tile
+    B, T = 3, 7
+    V = 1001 if case == "padded" else 1000   # not a multiple of any tile
     pad_id = 7
     h = rs.randn(B, T, D).astype(np.float32)
     w = (rs.randn(D, V) * 0.05).astype(np.float32)
@@ -110,15 +113,45 @@ def test_greedy_head_plain_matches_pallas(case):
         for c in (517, 900):
             w[:, c] = w[:, 13]
         b[[13, 517, 900]] = 30.0
+    if case == "padded":
+        w[:, V - 1] = w[:, 600]
+        b[[600, V - 1]] = 30.0
     want = pdl.fused_greedy_head(jnp.asarray(h), jnp.asarray(w),
                                  jnp.asarray(b), pad_id=pad_id,
                                  interpret=True)
-    got = dl.fused_greedy_head(_t(h), _t(w), _t(b), pad_id=pad_id)
+    if case == "padded":
+        pack = dl.pad_head(_t(w), _t(b))
+        assert pack.w.shape == (D, 1008) and pack.V == V
+        got = dl.fused_greedy_head(_t(h), *pack, pad_id=pad_id)
+    else:
+        got = dl.fused_greedy_head(_t(h), _t(w), _t(b), pad_id=pad_id)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     if case == "tie":
         assert (got[0] == 13).all()
+    if case == "padded":
+        assert (got[0] == 600).all()
     for g, x in zip(got[1:], want[1:]):
         np.testing.assert_allclose(g.numpy(), np.asarray(x), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [9491, 1000])
+def test_pack_head_weights_pads(dtype, V):
+    """pack_head_weights pads W [D, V] and b [V] with zero columns to the
+    next multiple of 8 (16-byte rows at bf16, for TMA), keeps the real
+    columns bit for bit and carries V."""
+    rs = np.random.RandomState(4)
+    proj = tl.Dense(D, V)
+    with torch.no_grad():
+        proj.weight.copy_(_t(rs.randn(V, D).astype(np.float32)))
+        proj.bias.copy_(_t(rs.randn(V).astype(np.float32)))
+    pack = dl.pack_head_weights(proj, dtype)
+    Vp = -(-V // 8) * 8
+    assert pack.V == V and pack.w.shape == (D, Vp) and pack.b.shape == (Vp,)
+    assert pack.w.dtype == dtype and pack.w.is_contiguous()
+    w, b = dl._kernel_of(proj, dtype), proj.bias.detach().to(dtype)
+    assert torch.equal(pack.w[:, :V], w) and torch.equal(pack.b[:V], b)
+    assert not pack.w[:, V:].any() and not pack.b[V:].any()
 
 
 def test_wrappers_reject_other_devices():
@@ -133,7 +166,7 @@ def test_launch_counts_untouched_on_cpu():
     from boficap_tpu_torch.ops.attention import attention_core
     ops.reset_launch_counts()
     h = torch.randn(1, 2, D)
-    dl.fused_greedy_head(h, torch.randn(D, 9), torch.randn(9))
+    dl.fused_greedy_head(h, *dl.pad_head(torch.randn(D, 9), torch.randn(9)))
     q = torch.randn(1, 2, 3, 8)
     attention_core(q, q, q, torch.ones(1, 3, 3, dtype=torch.bool))
     dl.fused_linear(h, torch.randn(D, 9), torch.randn(9))
