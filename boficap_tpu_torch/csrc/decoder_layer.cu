@@ -31,8 +31,9 @@
 // cores, float32 on the FFMA product of ffma_gemm.cuh.
 //
 // bfc_gemm runs one product alone, C = epilogue(A @ W + bias), on the same
-// route: a way to time the products (ops/decoder_layer.py fused_linear);
-// no decode path calls it.
+// route, and bfc_refnorm one RefLayerNorm (refnorm.cuh): ways to time the
+// building blocks alone (ops/decoder_layer.py fused_linear, fused_refnorm);
+// no decode path calls them.
 #include "attention.cuh"
 #include "wgmma_gemm.cuh"
 #include "refnorm.cuh"
@@ -207,6 +208,27 @@ extern "C" int bfc_gemm(int dtype, int device, const void* A, const void* W,
   if (dtype == BFC_DTYPE_BF16)
     return bfc::run_product<__nv_bfloat16>(A, W, bias, res, C, M, N, K,
                                            relu != 0, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// one RefLayerNorm alone: y [rows, d] = refnorm(x [rows, d]), float32
+// scale and bias [d]
+extern "C" int bfc_refnorm(int dtype, int device, const void* x,
+                           const float* scale, const float* bias, void* y,
+                           int rows, int d, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows < 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == BFC_DTYPE_F32)
+    return static_cast<int>(bfc::refnorm<float>(
+        static_cast<const float*>(x), scale, bias, static_cast<float*>(y),
+        rows, d, s));
+  if (dtype == BFC_DTYPE_BF16)
+    return static_cast<int>(bfc::refnorm<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(x), scale, bias,
+        static_cast<__nv_bfloat16*>(y), rows, d, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

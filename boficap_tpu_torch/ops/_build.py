@@ -36,11 +36,13 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # types and return type; the layer and stack entries take a pointer to
 # their argument struct (ops/decoder_layer.py, ops/stack.py and
 # ops/attention.py mirror it), the encoder and decoder stacks also the layer
-# count; bfc_gemm runs one product of the layer kernels alone
+# count; bfc_gemm runs one product of the layer kernels alone, bfc_refnorm
+# one norm
 SIGNATURES = {
     "attention_core": {
         "bfc_attention_core": ([_I, _I, _P, _P], _I),
-        "bfc_attention_core_scratch": ([_I, _I, _I], _L),
+        "bfc_attention_core_scratch": ([_I, _I, _I, _I], _L),
+        "bfc_attention_path": ([_I, _I, _I], _I),
         "bfc_attention_core_args_size": ([], _I),
         "bfc_error_string": ([_I], ctypes.c_char_p),
     },
@@ -60,6 +62,7 @@ SIGNATURES = {
         "bfc_decoder_layer_args_size": ([], _I),
         "bfc_gemm": ([_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "bfc_gemm_tile": ([_I, _I, _I, _IP, _IP], _I),
+        "bfc_refnorm": ([_I, _I, _P, _P, _P, _P, _I, _I, _P], _I),
         "bfc_error_string": ([_I], ctypes.c_char_p),
     },
     "greedy_head": {

@@ -25,6 +25,16 @@ the two agree exactly when sqrt(Dh) is a power of two), masked with the
 finite -1e9 fill (a fully masked row comes out uniform over its Lk keys),
 softmax in float32, the probabilities cast to v's dtype, the context summed
 in float32 and cast to v's dtype.
+
+The kernel (csrc/attention.cuh) takes one of three paths, chosen by
+``attention_path(Lq, Lk, dtype)`` as the C library chooses it: ``row`` for
+Lq <= LQ_ROW (the decode steps: one warp a (sample, head), K and V read
+with 16-byte loads), ``tile`` at bf16 above it (mma.sync tensor cores),
+``ffma`` at float32 above it.  The row and tile paths keep a query's whole
+score row in registers and read 16-byte chunks, so Lk <= KEY_MAX (and
+Dh <= DH_MAX) on every path, and every q, k and v view's base and strides,
+and the head width, must be 16-byte aligned: ``check_operands`` raises
+``ValueError`` otherwise, before any launch.
 """
 
 from __future__ import annotations
@@ -32,21 +42,50 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
 
-from .decoder_layer import _DTYPE_CODE, _I, _LL, _P, _kernels, _route
+from .decoder_layer import (_DTYPE_CODE, _I, _LL, _P, DH_MAX, KEY_MAX,
+                            _kernels, _route)
 
 MASK_FILL = -1e9
 # shared memory a block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
-ATT_WARPS = 4                       # csrc/attention.cuh
+ATT_WARPS = 4                       # csrc/attention.cuh: ffma path warps
+LQ_ROW = 1                          # csrc/attention.cuh: row path up to here
+PATHS = ("row", "tile", "ffma")     # csrc/attention.cuh AttentionPath
 
 
-def shared_bytes(Lq: int, Lk: int, Dh: int) -> int:
-    """Shared memory of one (sample, head) block of the kernel: K [Lk, Dh+1],
-    V [Lk, Dh], Q [Lq, Dh] and a probability row per warp, float32 (the C
-    library's ``bfc_attention_core_scratch``)."""
+def attention_path(Lq: int, Lk: int, dtype) -> Optional[str]:
+    """The path of the attention block for an Lq x Lk attention at ``dtype``
+    (the C library's ``bfc_attention_path``): 'row' up to LQ_ROW query
+    rows, then 'tile' at bf16 and 'ffma' at float32; None past the key
+    bound (no path: the wrappers raise)."""
+    if not 1 <= Lk <= KEY_MAX:
+        return None
+    if Lq <= LQ_ROW:
+        return "row"
+    return "tile" if dtype == torch.bfloat16 else "ffma"
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def shared_bytes(Lq: int, Lk: int, Dh: int, dtype) -> int:
+    """Shared memory of one (sample, head) block on the path ``dtype``
+    takes (the C library's ``bfc_attention_core_scratch``): none on the row
+    path; the tile path's bf16 Q [16-row tiles][Dh + pad] and K, V [16-key
+    tiles][Dh + pad], rows padded to a multiple of 16 columns plus 8; the
+    ffma path's float32 K [Lk, Dh+1], V [Lk, Dh], Q [Lq, Dh] and a
+    probability row a warp (also past the key bound, where C has no
+    path)."""
+    path = attention_path(Lq, Lk, dtype)
+    if path == "row":
+        return 0
+    if path == "tile":
+        return 2 * (_round16(Lq) + 2 * _round16(Lk)) * (_round16(Dh) + 8)
     return 4 * (Lk * (Dh + 1) + Lk * Dh + Lq * Dh + ATT_WARPS * Lk)
 
 
@@ -69,7 +108,8 @@ class _AttentionCoreArgs(ctypes.Structure):
                 ("v", _P), ("v_sb", _LL), ("v_sh", _LL), ("v_sl", _LL),
                 ("mask", _P), ("mask_sb", _LL), ("mask_sq", _LL),
                 ("out", _P), ("o_sb", _LL), ("o_sh", _LL), ("o_sl", _LL),
-                ("B", _I), ("H", _I), ("Lq", _I), ("Lk", _I), ("Dh", _I)]
+                ("B", _I), ("H", _I), ("Lq", _I), ("Lk", _I), ("Dh", _I),
+                ("path", _I)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,10 +124,20 @@ def _library():
     return lib
 
 
+def _aligned16(t: torch.Tensor) -> bool:
+    """t's base and every stride but the last are 16-byte aligned."""
+    e = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        st * e % 16 == 0 for st in t.stride()[:-1])
+
+
 def check_operands(qh, kh, vh, mask) -> None:
     """Raise on operands the kernel does not take: ranks, shapes, dtypes
     (q, k, v alike; a bool mask), devices, a last dimension that is not
-    dense, no keys, or more shared memory than a block has."""
+    dense, no keys, more keys than the key bound (KEY_MAX) or a head wider
+    than DH_MAX, a q, k or v view whose base, strides or head width is not
+    16-byte aligned (its 16-byte loads), or more shared memory than a block
+    has."""
     if qh.dim() != 4 or kh.dim() != 4 or vh.dim() != 4 or mask.dim() != 3:
         raise ValueError(f"attention_core takes q/k/v of rank 4 and a mask "
                          f"of rank 3, got {qh.dim()}, {kh.dim()}, "
@@ -114,22 +164,41 @@ def check_operands(qh, kh, vh, mask) -> None:
                              f"(stride {t.stride(-1)})")
     if Lk == 0 or Dh == 0:
         raise ValueError(f"attention_core needs keys: Lk {Lk}, Dh {Dh}")
-    smem = shared_bytes(Lq, Lk, Dh)
+    if Lk > KEY_MAX:
+        raise ValueError(f"attention_core: {Lk} keys, over the key bound "
+                         f"{KEY_MAX} (a score row sits in registers)")
+    if Dh > DH_MAX:
+        raise ValueError(f"attention_core: head width {Dh} over {DH_MAX}")
+    if Dh * qh.element_size() % 16:
+        raise ValueError(f"attention_core: head width {Dh} is not a "
+                         f"multiple of 16 bytes (16-byte loads)")
+    for name, t in (("qh", qh), ("kh", kh), ("vh", vh)):
+        if not _aligned16(t):
+            raise ValueError(f"attention_core: {name} is not 16-byte "
+                             f"aligned (base {t.data_ptr() % 16} bytes off, "
+                             f"strides {t.stride()}): the kernel reads "
+                             f"16-byte chunks")
+    smem = shared_bytes(Lq, Lk, Dh, qh.dtype)
     if smem > SMEM_LIMIT:
         raise ValueError(f"attention_core: Lq {Lq}, Lk {Lk}, Dh {Dh} need "
                          f"{smem} bytes of shared memory a block, over the "
                          f"{SMEM_LIMIT} the card gives")
 
 
-def attention_core(qh, kh, vh, mask):
-    """q [B,H,Lq,Dh], k/v [B,H,Lk,Dh] (any strides, the last dimension
-    dense), bool mask [B,Lq,Lk] (likewise; a broadcast view will do) ->
-    the attended context [B,H,Lq,Dh] in q's dtype, before the output
-    projection.  On CUDA: one launch of csrc/attention_core.cu, whose
-    output is a [B,H,Lq,Dh] view of [B,Lq,H,Dh] storage."""
+def attention_core(qh, kh, vh, mask, path: Optional[str] = None):
+    """q [B,H,Lq,Dh], k/v [B,H,Lk,Dh] (any 16-byte aligned strides, the
+    last dimension dense), bool mask [B,Lq,Lk] (likewise; a broadcast view
+    will do) -> the attended context [B,H,Lq,Dh] in q's dtype, before the
+    output projection.  On CUDA: one launch of csrc/attention_core.cu, whose
+    output is a [B,H,Lq,Dh] view of [B,Lq,H,Dh] storage, on
+    ``attention_path``'s path; ``path`` ('row', or 'tile' at bf16, 'ffma'
+    at float32) forces one, to time it."""
     if not _route(qh):
         return attention_core_plain(qh, kh, vh, mask)
     check_operands(qh, kh, vh, mask)
+    if path is not None and path not in ("row", "tile" if qh.dtype ==
+                                         torch.bfloat16 else "ffma"):
+        raise ValueError(f"no {path!r} path at {qh.dtype}")
     B, H, Lq, Dh = qh.shape
     lib = _library()
     out = torch.empty((B, Lq, H, Dh), dtype=qh.dtype,
@@ -142,7 +211,7 @@ def attention_core(qh, kh, vh, mask):
         vh.data_ptr(), vs[0], vs[1], vs[2],
         mask.data_ptr(), ms[0], ms[1],
         out.data_ptr(), os_[0], os_[1], os_[2],
-        B, H, Lq, kh.shape[2], Dh)
+        B, H, Lq, kh.shape[2], Dh, -1 if path is None else PATHS.index(path))
     stream = torch.cuda.current_stream(qh.device).cuda_stream
     err = lib.bfc_attention_core(_DTYPE_CODE[qh.dtype], qh.device.index,
                                  ctypes.byref(args), stream)

@@ -57,6 +57,11 @@ import torch
 
 MASK_FILL = -1e9
 NORM_EPS = 1e-6
+# the attention block (csrc/attention.cuh) holds a query's whole score row
+# in registers (no online rescaling): at most KEY_MAX keys, heads of at most
+# DH_MAX
+KEY_MAX = 128
+DH_MAX = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -424,6 +429,22 @@ def check_product_shape(dtype, widths: Dict[str, int],
                              f"tensor-core product reads it with TMA")
 
 
+def check_attention_shape(keys: Dict[str, int], Dh: int) -> None:
+    """Raise ValueError unless the attention block (csrc/attention.cuh)
+    takes these key counts (``keys``: name -> keys a query attends over)
+    and head width: it keeps a query's whole score row in registers, so at
+    most KEY_MAX keys, and a head of at most DH_MAX."""
+    for name, n in keys.items():
+        if n > KEY_MAX:
+            raise ValueError(
+                f"{name} = {n} keys: the attention block keeps a score row "
+                f"in registers and takes at most {KEY_MAX} keys (the key "
+                f"bound)")
+    if Dh > DH_MAX:
+        raise ValueError(f"head width {Dh}: the attention block takes heads "
+                         f"of at most {DH_MAX}")
+
+
 # the window layer's product weights, read with TMA
 _WIN_PRODUCT_KEYS = ("wqkv", "wo", "wq2", "wo2", "w1", "w2")
 
@@ -450,6 +471,7 @@ def encoder_call(entry: str, x, mask, w, num_heads: int,
     lead = () if NL is None else (NL,)
     _check_weights(w, weight_shapes(_ENC_KEYS, D, F, lead), dt, dev)
     check_product_shape(dt, {"D": D, "d_ff": F}, {"x": x})
+    check_attention_shape({"R": R}, D // num_heads)
     lib = _kernels().encoder_layer
     n_scratch = getattr(lib, f"bfc_{entry}_scratch")(B, R, D, F)
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
@@ -478,6 +500,7 @@ def decoder_call(entry: str, x, memory, tgt_mask, src_mask, w,
     lead = () if NL is None else (NL,)
     _check_weights(w, weight_shapes(_DEC_KEYS, D, F, lead), dt, dev)
     check_product_shape(dt, {"D": D, "d_ff": F}, {"x": x, "memory": memory})
+    check_attention_shape({"L": L, "R": R}, D // num_heads)
     lib = _kernels().decoder_layer
     n_scratch = getattr(lib, f"bfc_{entry}_scratch")(B, L, R, D, F)
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
@@ -595,6 +618,7 @@ def window_layer_call(x_win, k_cache, v_cache, k2, v2, tgt_mask, src_mask, w,
     ssb, ssq = _mask_strides(src_mask, B, W, R, dev, "src_mask")
     _check_weights(w, weight_shapes(_WIN_KEYS, D, F), dt, dev)
     check_window_products(dt, D, F, x_win, w)
+    check_attention_shape({"L + W": L + W, "R": R}, D // num_heads)
     n_scratch = _kernels().window_layer.bfc_window_layer_scratch(B, W, D, F)
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
     out = torch.empty_like(x_win)
@@ -640,6 +664,28 @@ def fused_linear(a, w, b, relu: bool = False, res=None):
     return out
 
 
+def fused_refnorm(x, scale, bias):
+    """One RefLayerNorm of the layer kernels alone, for timing it: x [..., D]
+    in the compute dtype, float32 scale and bias [D] ->
+    ``refnorm_plain(x, scale, bias)``.  On CUDA: one call of bfc_refnorm
+    (csrc/decoder_layer.cu over refnorm.cuh).  No decode path calls it."""
+    if not _route(x):
+        return refnorm_plain(x, scale, bias)
+    D = x.shape[-1]
+    dev = x.device
+    _require(x, "x", x.dtype, None, dev)
+    _require(scale, "scale", torch.float32, (D,), dev)
+    _require(bias, "bias", torch.float32, (D,), dev)
+    out = torch.empty_like(x)
+    k = _kernels()
+    k.check(k.decoder_layer.bfc_refnorm(
+        _DTYPE_CODE[x.dtype], dev.index, x.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), x.numel() // D if D else 0, D,
+        torch.cuda.current_stream(dev).cuda_stream), "refnorm")
+    fused_refnorm.launches += 1
+    return out
+
+
 def product_tile(M: int, N: int, dtype=torch.bfloat16
                  ) -> Tuple[int, int, int]:
     """The layer kernels' tile for an M x N product at ``dtype`` (the
@@ -656,13 +702,15 @@ fused_decoder_layer.launches = 0
 fused_greedy_head.launches = 0
 fused_window_decoder_layer.launches = 0
 fused_linear.launches = 0
+fused_refnorm.launches = 0
 
 # this module's counted wrappers, by kernel name (``ops.launch_counts``)
 COUNTED = {"encoder_layer": fused_encoder_layer,
            "decoder_layer": fused_decoder_layer,
            "greedy_head": fused_greedy_head,
            "window_layer": fused_window_decoder_layer,
-           "linear": fused_linear}
+           "linear": fused_linear,
+           "refnorm": fused_refnorm}
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,8 @@ import torch
 
 from .decoder_layer import (_I, _LL, _P, _WIN_KEYS, _check_weights, _fields,
                             _kernels, _launch_layer, _mask_strides, _require,
-                            _route, check_window_products, decoder_call,
+                            _route, check_attention_shape,
+                            check_window_products, decoder_call,
                             decoder_layer_plain, encoder_call,
                             encoder_layer_plain, pack_encoder_layer,
                             pack_layer_weights, refnorm_plain,
@@ -241,6 +242,7 @@ def _launch_stack(entry: str, x_win, k_caches, v_caches, k2s, v2s, w_start,
     ssb, ssq = _mask_strides(src_mask, B, W, R, dev, "src_mask")
     _check_weights(stacked, weight_shapes(_WIN_KEYS, D, F, (NL,)), dt, dev)
     check_window_products(dt, D, F, x_win, stacked)
+    check_attention_shape({"self-attention keys": Lk, "R": R}, D // num_heads)
     n_scratch = _kernels().window_stack.bfc_window_stack_scratch(B, W, D, F)
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
     out = torch.empty_like(x_win)

@@ -38,7 +38,9 @@ Phases, each printing one JSON line:
               (a query broadcast over the batch), beam search (B*K = 192),
               an encoder self-attention (rank-2 mask over 36 rows) and a
               rank-3 mask, float32 and bfloat16, with fully masked rows and
-              padded regions.
+              padded regions: the path attention_path gives (the decode
+              steps' cases must take the row path) and every other path of
+              the dtype, forced.
   9. ar_decode  configs/transformer.yml at full width, float32, B = 64:
               ar_sample and ar_beam_search (K = 3) with use_pallas on (#9
               on every step's cross-attention) against off (the plain
@@ -57,10 +59,15 @@ Phases, each printing one JSON line:
               round, at bf16 and float32, against its bound and
               torch.matmul, with its tile; #1's, #2's, #6's and #7's bf16
               and #8's float32 device time split into products, attention
-              and refnorm, with launches a call (no FFMA product at bf16,
-              six at float32); #3's split into head_partial and
-              head_combine at both dtypes; host µs of a layer, a stack and
-              a window-stack call at bf16 and float32.
+              (by path) and refnorm, with launches a call (7, 12 and 11 a
+              layer; no FFMA product and every attention on the tile path
+              at bf16, six FFMA products at float32); #3's split into
+              head_partial and head_combine at both dtypes; the attention
+              block alone at each caller's shape (path, ms, byte bound,
+              SDPA) and on each path at 1, 2, 4 and 8 query rows; one
+              refnorm at 512 and 2304 rows against its byte bound; host µs
+              of a layer, a stack and a window-stack call at bf16 and
+              float32.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed phase raises: the script exits
@@ -936,28 +943,44 @@ def attention_cases(dtype, seed: int = 21):
             for name, (q, k, v, m) in cases.items()}
 
 
+# the cases of a decode step (one query row): they take the row path
+ROW_CASES = ("ar_cross", "bound_self", "beam_cross")
+
+
 def check_attention():
-    """#9 against its plain twin on every case, float32 and bfloat16."""
+    """#9 against its plain twin on every case, float32 and bfloat16: the
+    path attention_path gives (the decode steps' cases: the row path), and
+    each other path the dtype has (row and tile at bf16, row and ffma at
+    float32), forced, each within TOL."""
     from boficap_tpu_torch.ops import attention as at
     res = {}
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
         tol = TOL[dtype_name]
         res[dtype_name] = {}
+        paths = ("row", "tile" if dtype == torch.bfloat16 else "ffma")
         for name, (q, k, v, m) in attention_cases(dtype).items():
-            got = at.attention_core(q, k, v, m)
+            path = at.attention_path(q.shape[2], k.shape[2], dtype)
+            if name in ROW_CASES and path != "row":
+                fail(f"attention_core {name} {dtype_name}: path {path}, "
+                     f"not the row path")
             want = at.attention_core_plain(q, k, v, m)
-            torch.cuda.synchronize()
-            e = rel_err(got, want)
-            if not torch.isfinite(got.float()).all() or e > tol:
-                fail(f"attention_core {name} {dtype_name}: rel err {e} > "
-                     f"{tol}")
+            errs = {}
+            for forced in (None, *paths):
+                got = at.attention_core(q, k, v, m, path=forced)
+                torch.cuda.synchronize()
+                e = rel_err(got, want)
+                if not torch.isfinite(got.float()).all() or e > tol:
+                    fail(f"attention_core {name} {dtype_name} path "
+                         f"{forced or path}: rel err {e} > {tol}")
+                errs[forced or "auto"] = {
+                    "rel_err": e, "max_abs_err": (got.float() - want.float())
+                    .abs().max().item()}
             res[dtype_name][name] = {
                 "shape_q_k": [list(q.shape), list(k.shape)],
                 "q_strides": list(q.stride()),
                 "mask_strides": list(m.stride()),
-                "rel_err": e,
-                "max_abs_err": (got.float() - want.float()).abs().max().item()}
+                "path": path, "by_path": errs, **errs["auto"]}
     return res
 
 
@@ -1653,6 +1676,110 @@ def measure_products(dtype):
     return out
 
 
+def distinct_bytes(t) -> int:
+    """The bytes of a view's distinct elements (a broadcast dimension, of
+    stride 0, counts once)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n * t.element_size()
+
+
+def attention_bound(q, k, v, m, dtype_name: str):
+    """Least time (ms) of one attention call: q, k, v and the mask read
+    once, the output written once, over 3.35 TB/s; 4 Lq Lk Dh operations a
+    (sample, head) over the dtype's peak.  (ms, 'bytes' | 'operations')."""
+    Bn, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
+    nbytes = (distinct_bytes(q) + distinct_bytes(k) + distinct_bytes(v)
+              + distinct_bytes(m) + Bn * H * Lq * Dh * q.element_size())
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 4 * Bn * H * Lq * Lk * Dh / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+@torch.no_grad()
+def measure_attention_paths():
+    """The attention block alone (through attention_core) at each caller's
+    shape, B = 64, both dtypes: the attention core's cases and the layer
+    kernels' attentions (the encoder's 36 x 36; the decoder's and the wide
+    window round's 20 x 20 and 20 x 36; the narrow round's 8 x 28, its
+    cache and window read as one source, and 8 x 36), each with the path it
+    takes, ms, byte bound and share, and SDPA as the yardstick.  Then the
+    row path's edge: Lq = 1, 2, 4 and 8 over 36 keys on each path the dtype
+    has, forced (LQ_ROW is the largest Lq at which the row path wins)."""
+    from boficap_tpu_torch.ops import attention as at
+    g = torch.Generator().manual_seed(23)
+    H, Dh = 8, D // 8
+
+    def operands(dtype, Lq, Lk):
+        def heads(rows):
+            return torch.randn((B, rows, H, Dh), generator=g).to(
+                DEV, dtype).transpose(1, 2)
+        live = torch.randint(1, Lk + 1, (B,), generator=g)
+        m = (torch.arange(Lk)[None, :] < live[:, None]).to(DEV)
+        return heads(Lq), heads(Lk), heads(Lk), m[:, None, :].expand(B, Lq, Lk)
+
+    out = {}
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        cases = attention_cases(dtype)
+        for name, Lq, Lk in (("decoder_self", L, L), ("decoder_cross", L, R),
+                             ("narrow_self", W_NARROW, L + W_NARROW),
+                             ("narrow_cross", W_NARROW, R)):
+            cases[name] = operands(dtype, Lq, Lk)
+        res = out[dtype_name] = {}
+        for name, (q, k, v, m) in cases.items():
+            ms = device_ms(lambda: at.attention_core(q, k, v, m))
+            bound, by = attention_bound(q, k, v, m, dtype_name)
+            res[name] = {
+                "lq_lk_b": [q.shape[2], k.shape[2], q.shape[0]],
+                "path": at.attention_path(q.shape[2], k.shape[2], dtype),
+                "ms": ms, "bound_ms": bound, "bound_by": by,
+                "share_of_bound": bound / ms,
+                "sdpa_ms": device_ms(lambda: library_attention(q, k, v, m))}
+        paths = ("row", "tile" if dtype == torch.bfloat16 else "ffma")
+        sweep = res["lq_row_sweep"] = {}
+        for Lq in (1, 2, 4, 8):
+            q, k, v, m = operands(dtype, Lq, R)
+            sweep[f"lq{Lq}"] = {p: device_ms(
+                lambda p=p: at.attention_core(q, k, v, m, path=p))
+                for p in paths}
+    return out
+
+
+@torch.no_grad()
+def measure_refnorm():
+    """One RefLayerNorm launch alone (fused_refnorm) at a narrow window
+    round's 512 rows and the encoder's 2304, D = 512, both dtypes: ms
+    against its byte bound (x read and y written once, float32 scale and
+    bias read once, over 3.35 TB/s), the plain twin's ms, and
+    F.layer_norm's as a yardstick (a biased variance with eps inside the
+    square root: not the same function)."""
+    import torch.nn.functional as F
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    g = torch.Generator().manual_seed(29)
+    out = {}
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        res = out[dtype_name] = {}
+        for rows in (B * W_NARROW, B * R):
+            x = torch.randn((rows, D), generator=g).to(DEV, dtype)
+            scale = (1 + 0.1 * torch.randn((D,), generator=g)).to(DEV)
+            bias = (0.1 * torch.randn((D,), generator=g)).to(DEV)
+            ms = device_ms(lambda: dl.fused_refnorm(x, scale, bias))
+            bound = (2 * rows * D * x.element_size() + 2 * D * 4) \
+                / HBM_BYTES_S * 1e3
+            res[f"rows{rows}"] = {
+                "ms": ms, "bound_ms": bound, "bound_by": "bytes",
+                "share_of_bound": bound / ms,
+                "plain_ms": device_ms(lambda: dl.refnorm_plain(x, scale,
+                                                               bias)),
+                "layer_norm_ms": device_ms(lambda: F.layer_norm(
+                    x, (D,), scale.to(dtype), bias.to(dtype), 1e-6))}
+    return out
+
+
 def profile_split(fn, parts, reps: int = 10, tries: int = 3):
     """torch.profiler over ``reps`` calls of fn: device ms and launches a
     call summed by the first of ``parts`` (label: kernel-name substring)
@@ -1691,11 +1818,13 @@ def profile_split(fn, parts, reps: int = 10, tries: int = 3):
 @torch.no_grad()
 def layer_split(model, dtype, reps: int = 10):
     """Where the device time of a layer or round goes, by building block a
-    call: the tensor-core products, the FFMA products, attention, refnorm,
-    and other (the wrappers' final norm in torch).  bf16: #1, #2 (a layer)
-    and #6, #7 (a round of six layers); a window round must make 6 x 11
-    launches of the port's kernels and no FFMA product.  float32: #8 (one
-    window layer), 11 launches, its six products all on FFMA."""
+    call: the tensor-core products, the FFMA products, attention by path
+    (tile: 'attention'; ffma; row), refnorm, and other (the wrappers' final
+    norm in torch).  bf16: #1, #2 (a layer) and #6, #7 (a round of six
+    layers), 7, 12 and 6 x 11 launches of the port's kernels, no FFMA
+    product, every attention on the tile path.  float32: #8 (one window
+    layer), 11 launches, its six products on FFMA, its two attentions on
+    the ffma path."""
     from boficap_tpu_torch.ops import decoder_layer as dl
     from boficap_tpu_torch.ops import stack as st
     H = model.num_heads
@@ -1719,22 +1848,31 @@ def layer_split(model, dtype, reps: int = 10):
                  "window_wide_stack": lambda: st.fused_window_wide_stack(
                      xw, k2, v2, tgw, srw, pack.stack, pack.final_norm, H)}
     parts = {"products": "gemm_tc_kernel", "ffma_products": "ffma_gemm_kernel",
-             "attention": "attention_kernel", "refnorm": "refnorm_kernel"}
+             "attention": "attention_tile_kernel",
+             "attention_ffma": "attention_ffma_kernel",
+             "attention_row": "attention_row_kernel",
+             "refnorm": "refnorm_kernel"}
+    # the port's launches a call: 7 an encoder layer, 12 a decoder layer,
+    # 11 a window layer
+    want = {"encoder_layer": 7, "decoder_layer": 12, "window_layer": 11,
+            "window_stack": NL * 11, "window_wide_stack": NL * 11}
     out = {}
     for name, fn in calls.items():
         out[name] = split = profile_split(fn, parts, reps)
         launches = split["launches"]
-        if not name.startswith("window"):
-            continue
         port = sum(launches[k] for k in parts)
+        if port != want[name]:
+            fail(f"layer_split {name}: {launches} (want {want[name]} "
+                 f"launches of the port's kernels)")
         if dtype == torch.float32:
             if launches["products"] or launches["ffma_products"] != 6 \
-                    or port != 11:
-                fail(f"layer_split {name} float32: {launches} (want 11 "
-                     f"launches of the port's kernels, 6 FFMA products)")
-        elif launches["ffma_products"] or port != NL * 11:
-            fail(f"layer_split {name} bf16: {launches} (want {NL * 11} "
-                 f"launches of the port's kernels, no FFMA product)")
+                    or launches["attention_ffma"] != 2:
+                fail(f"layer_split {name} float32: {launches} (want 6 FFMA "
+                     f"products and 2 attentions on the ffma path)")
+        elif launches["ffma_products"] or launches["attention_ffma"] \
+                or launches["attention_row"]:
+            fail(f"layer_split {name} bf16: {launches} (want no FFMA "
+                 f"product, every attention on the tile path)")
     return out
 
 
@@ -2237,6 +2375,8 @@ def run_phases(smi: str):
     times["layer_split_bf16"] = layer_split(model, torch.bfloat16)
     times["layer_split_float32"] = layer_split(model, torch.float32)
     times["head_split"] = head_split(model)
+    times["attention_paths"] = measure_attention_paths()
+    times["refnorm"] = measure_refnorm()
     times["host_us_per_call"] = host_costs(model)
     times["ar"] = measure_ar(aic, aic16, model16)
     emit({"phase": "times", "card": smi, "long_bias_shift": 0.0, **times})

@@ -18,10 +18,21 @@ smoke's timed decodes), it prints one line ``AB {...}`` with:
                         predict, cross K/V, the fill by round kind (and a
                         round of each), head and other;
   kernel_ms             by dtype, the device ms a call (chip_smoke.device_ms)
-                        of the attention core (#9), the encoder and decoder
-                        layers and stacks (#1, #2, #4), the window layer
-                        and stacks (#8, #6, #7) and the greedy head (#3), on
-                        the smoke's inputs;
+                        of the attention core (#9, at the AR step's
+                        cross-attention and an encoder self-attention), the
+                        encoder and decoder layers and stacks (#1, #2, #4),
+                        the window layer and stacks (#8, #6, #7) and the
+                        greedy head (#3), on the smoke's inputs;
+  kernel_split          by dtype, torch.profiler's device ms a call of the
+                        same #9 calls, #1 and #4, summed by building block
+                        (products, attention, refnorm), with launches: the
+                        kernels' own time without the launch, and the
+                        norm's alone;
+  digest                by dtype, a hash of every output of #9, #1, #2, #4,
+                        #5, #8, #6 (the updated caches too) and #7 on the
+                        smoke's inputs, and of the float32 NA and SA decodes
+                        (fused kernels: the per-layer route): equal digests
+                        across two checkouts mean bitwise equal outputs;
   products              at both dtypes, for each product of
                         chip_smoke.PRODUCTS (seeded operands, through
                         fused_linear) its device ms and a hash of its output,
@@ -76,9 +87,13 @@ def kernel_ms(cs, model):
                                                             14)
         xw, _, _, _, _, _, tgw, srw = cs.window_inputs(dtype, cs.L, 15,
                                                        wide=True)
-        aq, ak, av, am = cs.attention_cases(dtype)["ar_cross"]
+        cases = cs.attention_cases(dtype)
+        aq, ak, av, am = cases["ar_cross"]
+        eq, ek, ev, em = cases["encoder_self"]
         calls = {
             "attention_core": lambda: at.attention_core(aq, ak, av, am),
+            "attention_core_encoder_self": lambda: at.attention_core(
+                eq, ek, ev, em),
             "encoder_layer": lambda: dl.fused_encoder_layer(x_enc, src, enc_w,
                                                             H),
             "decoder_layer": lambda: dl.fused_decoder_layer(
@@ -97,6 +112,95 @@ def kernel_ms(cs, model):
     return out
 
 
+SPLIT_PARTS = {"products": "gemm", "attention": "attention",
+               "refnorm": "refnorm_kernel"}
+
+
+def digest(t):
+    import torch
+    return hashlib.sha256(t.cpu().contiguous().view(-1).view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()[:16]
+
+
+def kernel_calls(cs, model, dtype):
+    """The kernel calls that kernel_split and digest run, by name: each a
+    function returning its outputs, on the smoke's inputs at B = 64."""
+    from boficap_tpu_torch.ops import attention as at
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    from boficap_tpu_torch.ops import stack as st
+    H = model.num_heads
+    enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
+    dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
+    enc = st.pack_encoder_stack(model.encoder, dtype)
+    dec = st.pack_decoder_stack(model._decoder("NA"), dtype)
+    win = st.pack_window_weights(model._decoder("SA"), dtype)
+    x_enc, src, x_dec, mem, tgt, _ = cs.layer_inputs(dtype, 4)
+    xn, kc, vc, k2, v2, ws, tgn, srn = cs.window_inputs(dtype, cs.W_NARROW, 14)
+    xw, _, _, _, _, _, tgw, srw = cs.window_inputs(dtype, cs.L, 15, wide=True)
+    cases = cs.attention_cases(dtype)
+    return {
+        "attention_core": lambda: (at.attention_core(*cases["ar_cross"]),),
+        "attention_core_encoder_self": lambda: (
+            at.attention_core(*cases["encoder_self"]),),
+        "encoder_layer": lambda: (dl.fused_encoder_layer(x_enc, src, enc_w,
+                                                         H),),
+        "decoder_layer": lambda: (dl.fused_decoder_layer(
+            x_dec, mem, tgt, src, dec_w, H),),
+        "encoder_stack": lambda: (st.fused_encoder_stack_forward(
+            x_enc, src, enc.stack, enc.final_norm, H),),
+        "decoder_stack": lambda: (st.fused_decoder_stack_forward(
+            x_dec, mem, tgt, src, dec.stack, dec.final_norm, H),),
+        "window_layer": lambda: dl.fused_window_decoder_layer(
+            xn, kc[0], vc[0], k2[0], v2[0], tgn, srn, win.layers[0], H),
+        # the narrow round updates its caches in place: fresh copies a call
+        "window_stack": lambda: st.fused_window_decoder_stack(
+            xn, ws, kc.clone(), vc.clone(), k2, v2, tgn, srn, win.stack,
+            win.final_norm, H),
+        "window_wide_stack": lambda: st.fused_window_wide_stack(
+            xw, k2, v2, tgw, srw, win.stack, win.final_norm, H)}
+
+
+def kernel_split(cs, model):
+    """torch.profiler's device ms a call of #9 (AR cross, encoder self),
+    #1 and #4 at both dtypes, by building block (chip_smoke.profile_split),
+    with launches a call."""
+    import torch
+    out = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        calls = kernel_calls(cs, model, dtype)
+        out[name] = {k: cs.profile_split(calls[k], SPLIT_PARTS)
+                     for k in ("attention_core", "attention_core_encoder_self",
+                               "encoder_layer", "encoder_stack")}
+    return out
+
+
+def digests(cs, model):
+    """A hash of each kernel call's outputs at both dtypes, and of the
+    float32 NA and SA decodes on the fused (per-layer) route."""
+    import torch
+    from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
+                                                     sa_decode)
+    out = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        out[name] = {k: [digest(t) for t in fn()]
+                     for k, fn in kernel_calls(cs, model, dtype).items()}
+    m32 = cs.build("float32")
+    with torch.no_grad():
+        m32.len_head2.bias[0] -= cs.STOP_SHIFT
+        m32.syn_head2.bias[4:7] += cs.STOP_SHIFT
+    m32.invalidate_packed()
+    att, am = cs.features(cs.B, seed=5)
+    att, am = att.to("cuda"), am.to("cuda")
+    for key, decode in (("na_decode", na_decode), ("sa_decode", sa_decode)):
+        res = decode(m32, fused_encode(m32, att, am), am.bool(),
+                     fused_fill=True)
+        out["float32"][key] = {k: digest(v) for k, v in sorted(res.items())
+                               if torch.is_tensor(v)}
+    return out
+
+
 def products(cs, model):
     """Each product of the smoke's PRODUCTS shapes through fused_linear, on
     operands made here from a seed, at both dtypes: sha256 (16 hex digits)
@@ -104,10 +208,6 @@ def products(cs, model):
     digest of the head's ids at B * L rows."""
     import torch
     from boficap_tpu_torch.ops import decoder_layer as dl
-
-    def digest(t):
-        return hashlib.sha256(t.cpu().view(-1).view(torch.uint8).numpy()
-                              .tobytes()).hexdigest()[:16]
 
     out = {"digest": {}, "ms": {}}
     for name, dtype in (("float32", torch.float32),
@@ -168,6 +268,8 @@ def main(root: str, label: str) -> int:
         out["na_breakdown"] = cs.breakdown(model, att, am)
         out["sa_breakdown"] = cs.sa_breakdown(model, att, am)
         out["kernel_ms"] = kernel_ms(cs, model)
+        out["kernel_split"] = kernel_split(cs, model)
+        out["digest"] = digests(cs, model)
         out["products"] = products(cs, model)
     print("AB " + json.dumps(out), flush=True)
     return 0

@@ -136,8 +136,115 @@ def test_check_operands_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="dense"):
         at.check_operands(q.transpose(2, 3).contiguous().transpose(2, 3), k,
                           k, m)
-    big = torch.zeros(1, 1, 1, 64)
-    kb = torch.zeros(1, 1, 500, 64)
+    # a block's shared memory: the ffma path stages Q whole
+    big = torch.zeros(1, 1, 2000, 64)
+    kb = torch.zeros(1, 1, 8, 64)
     with pytest.raises(ValueError, match="shared memory"):
-        at.check_operands(big, kb, kb, torch.ones(1, 1, 500,
+        at.check_operands(big, kb, kb, torch.ones(1, 2000, 8,
                                                   dtype=torch.bool))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_operands_key_bound_and_alignment(dtype):
+    """Past the key bound (a score row sits in registers), and on a q, k or
+    v view whose base, row stride or head width is not 16-byte aligned, the
+    wrapper raises ValueError before any launch; the bound itself and the
+    aligned views attend hands over pass."""
+    B, H, Lq, Dh = 2, 2, 1, 32
+    q = torch.zeros(B, H, Lq, Dh, dtype=dtype)
+    edge = torch.zeros(B, H, at.KEY_MAX, Dh, dtype=dtype)
+    at.check_operands(q, edge, edge, torch.ones(B, Lq, at.KEY_MAX,
+                                                dtype=torch.bool))
+    over = torch.zeros(B, H, at.KEY_MAX + 1, Dh, dtype=dtype)
+    with pytest.raises(ValueError, match="key bound"):
+        at.check_operands(q, over, over, torch.ones(B, Lq, at.KEY_MAX + 1,
+                                                    dtype=torch.bool))
+    Lk = 5
+    k = torch.zeros(B, H, Lk, Dh, dtype=dtype)
+    m = torch.ones(B, Lq, Lk, dtype=torch.bool)
+    # a base one element off 16 bytes
+    flat = torch.zeros(B * H * Lk * Dh + 1, dtype=dtype)
+    shifted = flat[1:].view(B, H, Lk, Dh)
+    assert shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        at.check_operands(q, shifted, k, m)
+    # a row stride of H * Dh + 1 elements ([B, Lk, H*Dh + 1] projections)
+    wide = torch.zeros(B, Lk, H * Dh + 1, dtype=dtype)[..., :H * Dh]
+    strided = wide.view(B, Lk, H, Dh).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        at.check_operands(q, k, strided, m)
+    # a head width that is not a whole number of 16-byte chunks
+    odd = 16 // q.element_size() + 1
+    with pytest.raises(ValueError, match="16 bytes"):
+        at.check_operands(q[..., :odd].contiguous(), k[..., :odd].contiguous(),
+                          k[..., :odd].contiguous(), m)
+
+
+# (Lq, Lk) of every caller of the attention block at the serving shapes:
+# the attention core's cases (chip_smoke.attention_cases) and the layer
+# kernels' attentions, with the path each takes (LQ_ROW = 1)
+CALLERS = {
+    "ar_cross": (1, 36, "row", "row"),
+    "bound_self": (1, 22, "row", "row"),
+    "beam_cross": (1, 36, "row", "row"),
+    "encoder_self": (36, 36, "ffma", "tile"),
+    "rank3": (20, 20, "ffma", "tile"),
+    "decoder_self": (20, 20, "ffma", "tile"),
+    "decoder_cross": (20, 36, "ffma", "tile"),
+    "narrow_self": (8, 28, "ffma", "tile"),
+    "narrow_cross": (8, 36, "ffma", "tile"),
+    "wide_self": (20, 20, "ffma", "tile"),
+    "wide_cross": (20, 36, "ffma", "tile"),
+    "past_the_key_bound": (1, 129, None, None),
+}
+
+
+@pytest.mark.parametrize("caller", sorted(CALLERS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_path_for_every_caller(caller, dtype):
+    Lq, Lk, f32, bf16 = CALLERS[caller]
+    assert at.LQ_ROW == 1
+    want = f32 if dtype == torch.float32 else bf16
+    assert at.attention_path(Lq, Lk, dtype) == want
+
+
+@pytest.mark.parametrize("Lq,Lk,Dh,dtype,want", [
+    (1, 36, 64, torch.bfloat16, 0),                    # row: no staging
+    (1, 128, 64, torch.float32, 0),
+    (2, 36, 64, torch.bfloat16, 2 * (16 + 2 * 48) * 72),
+    (36, 36, 64, torch.bfloat16, 2 * (48 + 2 * 48) * 72),    # tile
+    (20, 28, 40, torch.bfloat16, 2 * (32 + 2 * 32) * 56),
+    (8, 128, 128, torch.bfloat16, 2 * (16 + 2 * 128) * 136),
+    (20, 20, 64, torch.float32,                        # ffma, float32 rows
+     4 * (20 * 65 + 20 * 64 + 20 * 64 + 4 * 20)),
+    (3, 500, 64, torch.float32,                        # past the key bound
+     4 * (500 * 65 + 500 * 64 + 3 * 64 + 4 * 500)),
+])
+def test_shared_bytes_follow_the_staging(Lq, Lk, Dh, dtype, want):
+    """A block's shared memory on each path: none on the row path; bf16 Q,
+    K and V tiles of 16 rows, each row padded to a multiple of 16 columns
+    plus 8 (ldmatrix without bank conflicts) on the tile path; the float32
+    staging of the ffma block."""
+    assert at.shared_bytes(Lq, Lk, Dh, dtype) == want
+
+
+@pytest.mark.parametrize("Lk", [1, 36, 128])
+@pytest.mark.parametrize("Lq", [1, 2, 3])
+def test_attention_core_plain_matches_jax_at_path_edges(Lq, Lk):
+    """The plain twin against the TPU kernel (interpret mode) on each side
+    of the row path's edge (Lq = LQ_ROW = 1, then 2 and 3) and at one key,
+    36 and the key bound, float32 within 1e-5; a fully masked row comes out
+    uniform over exactly its Lk keys."""
+    assert at.LQ_ROW == 1 and at.KEY_MAX == 128
+    B, H, Dh = 2, 2, 16
+    q, k, v, mask = _inputs(B, H, Lq, Lk, Dh, seed=7 * Lq + Lk)
+    want = jax_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    jnp.asarray(mask), interpret=True)
+    got = at.attention_core(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    for b, i in ((0, 0), (B - 1, Lq - 1)):
+        assert not mask[b, i].any()
+        np.testing.assert_allclose(got[b, :, i].numpy(), v[b].mean(axis=1),
+                                   rtol=1e-5, atol=1e-5)

@@ -553,9 +553,10 @@ def test_attention_core_wrapper_checks(cuda):
     from boficap_tpu_torch.ops import attention as at
     from boficap_tpu_torch.ops._build import kernels
     lib = kernels().attention_core
-    for Lq, Lk, Dh in ((1, 36, 64), (22, 22, 64), (5, 300, 96)):
-        assert lib.bfc_attention_core_scratch(Lq, Lk, Dh) == \
-            at.shared_bytes(Lq, Lk, Dh)
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for Lq, Lk, Dh in ((1, 36, 64), (22, 22, 64), (5, 300, 96)):
+            assert lib.bfc_attention_core_scratch(Lq, Lk, Dh, code) == \
+                at.shared_bytes(Lq, Lk, Dh, dtype)
     q = torch.zeros(2, 2, 3, 8, device=cuda)
     k = torch.zeros(2, 2, 4, 8, device=cuda)
     m = torch.ones(2, 3, 4, dtype=torch.bool, device=cuda)
@@ -565,3 +566,181 @@ def test_attention_core_wrapper_checks(cuda):
         at.attention_core(q, k, k, m.cpu())
     with pytest.raises(TypeError):
         at.attention_core(q.half(), k.half(), k.half(), m)
+
+
+# the attention block's paths (csrc/attention.cuh) at each caller's (Lq,
+# Lk): the decode steps (one query row), the row path's edge, the layers'
+# self and cross attentions, a window round (narrow 8 x 28), the key bound
+ATTENTION_SHAPES = [(1, 36), (1, 22), (2, 36), (3, 36), (8, 28), (20, 20),
+                    (20, 36), (36, 36), (1, 128), (40, 128)]
+
+
+def _paths(dtype):
+    return ("row", "tile") if dtype == torch.bfloat16 else ("row", "ffma")
+
+
+def _attention_operands(cuda, dtype, B, Lq, Lk, seed=5, H=8, Dh=64):
+    """Transposed views of [B, L, H, Dh] projections (as attend hands them
+    over), a padded [B, Lk] mask expanded over the rows with a fully masked
+    sample (0), and a fully masked row (sample 1, row 0)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def heads(rows):
+        return torch.randn((B, rows, H, Dh), generator=g).to(
+            cuda, dtype).transpose(1, 2)
+
+    live = torch.randint(1, Lk + 1, (B,), generator=g)
+    live[0] = 0
+    mask = (torch.arange(Lk)[None, None, :] < live[:, None, None]).expand(
+        B, Lq, Lk).contiguous()
+    mask[1, 0] = False
+    return heads(Lq), heads(Lk), heads(Lk), mask.to(cuda)
+
+
+@pytest.mark.parametrize("Lq,Lk", ATTENTION_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_paths_against_plain(cuda, dtype, Lq, Lk):
+    """Each path the dtype has (row and tile at bf16, row and ffma at
+    float32), forced through attention_core, against the plain twin at each
+    caller's shape; the path left to itself is attention_path's, and one
+    launch is counted a call."""
+    from boficap_tpu_torch.ops import attention as at
+    q, k, v, m = _attention_operands(cuda, dtype, 6, Lq, Lk)
+    want = at.attention_core_plain(q, k, v, m)
+    at.attention_core.launches = 0
+    for path in (None, *_paths(dtype)):
+        got = at.attention_core(q, k, v, m, path=path)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got, want) < TOL[dtype], path
+    assert at.attention_core.launches == 3
+    assert at.attention_path(Lq, Lk, dtype) in _paths(dtype)
+
+
+@pytest.mark.parametrize("Lk", [36, 28, 22])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_masked_row_uniform_over_real_keys(cuda, dtype, Lk):
+    """A fully masked row (every score -1e9) comes out uniform over exactly
+    its Lk keys on every path: the padded key columns up to the n8 / k16
+    tile (Lk not a multiple of 8) add exactly 0.  bf16: p = bf16(1 / Lk),
+    the sum of p v in float32, rounded once."""
+    from boficap_tpu_torch.ops import attention as at
+    for Lq in (1, 20):
+        q, k, v, m = _attention_operands(cuda, dtype, 3, Lq, Lk)
+        p = torch.tensor(1.0 / Lk).to(dtype).float()
+        uniform = (p * v[0].float().sum(1)).to(dtype).float()   # [H, Dh]
+        for path in _paths(dtype):
+            got = at.attention_core(q, k, v, m, path=path)
+            torch.cuda.synchronize()
+            err = (got[0].float() - uniform[:, None]).abs().max().item()
+            bound = 1e-6 if dtype == torch.float32 else 2 * _bf16_ulp(
+                uniform).max().item()
+            assert err <= bound, (path, Lq, err)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(1, 36), (36, 36), (20, 28)])
+def test_attention_rows_batch_independent(cuda, Lq, Lk):
+    """bf16, both paths: the first 37 samples of a B = 64 call equal a
+    37-sample call bitwise."""
+    from boficap_tpu_torch.ops import attention as at
+    q, k, v, m = _attention_operands(cuda, torch.bfloat16, 64, Lq, Lk)
+    for path in _paths(torch.bfloat16):
+        full = at.attention_core(q, k, v, m, path=path)
+        part = at.attention_core(q[:37], k[:37], v[:37], m[:37], path=path)
+        torch.cuda.synchronize()
+        assert torch.equal(full[:37], part), path
+
+
+def test_attention_path_choice_matches_c(cuda):
+    """The C library's path (bfc_attention_path) is ops.attention's
+    attention_path at every query and key count around the edges."""
+    from boficap_tpu_torch.ops import attention as at
+    from boficap_tpu_torch.ops._build import kernels
+    lib = kernels().attention_core
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for Lq in range(1, 41):
+            for Lk in (1, 8, 22, 28, 36, 127, 128, 129):
+                c = lib.bfc_attention_path(Lq, Lk, code)
+                py = at.attention_path(Lq, Lk, dtype)
+                assert (None if c < 0 else at.PATHS[c]) == py, (Lq, Lk)
+                assert lib.bfc_attention_core_scratch(Lq, Lk, 64, code) == \
+                    at.shared_bytes(Lq, Lk, 64, dtype)
+
+
+@pytest.mark.parametrize("rows,d", [(512, 512), (2304, 512), (37, 77),
+                                    (9, 1500)])
+def test_refnorm_kernel(cuda, rows, d):
+    """The one-pass RefLayerNorm (fused_refnorm): float32 within 1e-6 of a
+    float64 reference, bf16 within TOL of its plain twin, at the serving
+    rows, an odd width and a row wider than the registers hold."""
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    g = torch.Generator().manual_seed(rows + d)
+    x = (torch.randn((rows, d), generator=g) * 3 + 1).to(cuda)
+    scale = (1 + 0.1 * torch.randn((d,), generator=g)).to(cuda)
+    bias = (0.1 * torch.randn((d,), generator=g)).to(cuda)
+    xd = x.double()
+    mean = xd.mean(-1, keepdim=True)
+    var = ((xd - mean) ** 2).sum(-1, keepdim=True) / (d - 1)
+    ref = (xd - mean) / (var.sqrt() + dl.NORM_EPS) * scale.double() \
+        + bias.double()
+    dl.fused_refnorm.launches = 0
+    got = dl.fused_refnorm(x, scale, bias)
+    got16 = dl.fused_refnorm(x.bfloat16(), scale, bias)
+    torch.cuda.synchronize()
+    assert dl.fused_refnorm.launches == 2
+    assert _rel(got.double(), ref) < 1e-6
+    assert _rel(got16, dl.refnorm_plain(x.bfloat16(), scale, bias)) < \
+        TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_row_path_reads_old_cache(cuda, dtype):
+    """A narrow round (#6) whose window fits the row path (W = 1 = LQ_ROW):
+    the row path writes the fresh K/V after it has read every cache key,
+    so a fully masked row averages the cache as it was, as the plain twin
+    does; rows outside each window stay bit-identical."""
+    from boficap_tpu_torch.ops import attention as at
+    from boficap_tpu_torch.ops import stack as st
+    D, F, H, B, W, L, R, NL = 96, 200, 3, 5, 1, 9, 7, 2
+    assert at.attention_path(W, L + W, dtype) == "row"
+    _, stacked, x, kc, vc, k2, v2, ws, tgt, src, norm = _window_operands(
+        cuda, dtype, NL, B, W, L, R, D, F, H)
+    tgt[0, 0] = False                     # sample 0's one row: fully masked
+    kc_k, vc_k = kc.clone(), vc.clone()
+    kc_p, vc_p = kc.clone(), vc.clone()
+    h, _, _ = st.fused_window_decoder_stack(
+        x, ws, kc_k, vc_k, k2, v2, tgt, src, stacked, norm, H)
+    hp, _, _ = st.window_stack_plain(x, ws, kc_p, vc_p, k2, v2, tgt, src,
+                                     stacked, norm, H)
+    torch.cuda.synchronize()
+    assert _rel(h[0, 0], hp[0, 0]) < TOL[dtype]
+    assert _rel(h, hp) < TOL[dtype]
+    pos = torch.arange(L, device=cuda)[None, :]
+    inside = (pos >= ws.long()[:, None]) & (pos < ws.long()[:, None] + W)
+    for got, want, old in ((kc_k, kc_p, kc), (vc_k, vc_p, vc)):
+        assert torch.equal(got[:, ~inside], old[:, ~inside])
+        assert _rel(got[:, inside], want[:, inside]) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,D,F,H", [(torch.bfloat16, 24, 48, 2),
+                                         (torch.float32, 100, 200, 4)])
+@pytest.mark.parametrize("R", [1, 7])
+def test_attention_unaligned_heads(cuda, dtype, D, F, H, R):
+    """Layer kernels whose heads are not 16-byte chunks (bf16 Dh = 12,
+    float32 Dh = 25: widths the layer wrappers take) read their attention
+    operands element by element in the same lane layout: the row path at
+    one query row, the tile or ffma path at seven, against the plain
+    twin."""
+    from boficap_tpu_torch.ops import attention as at
+    w = dl.pack_encoder_layer(_layer(tl.EncoderLayer, D, F, H).to(cuda),
+                              dtype)
+    x = torch.randn(5, R, D, device=cuda).to(dtype)
+    mask = torch.arange(R, device=cuda)[None, :] < torch.tensor(
+        [0, 7, 3, 5, 1], device=cuda)[:, None]
+    assert at.attention_path(R, R, dtype) == ("row" if R == 1 else
+                                              at.attention_path(7, 7, dtype))
+    got = dl.fused_encoder_layer(x, mask, w, H)
+    want = dl.encoder_layer_plain(x, mask, w, H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) < TOL[dtype]

@@ -170,11 +170,39 @@ def test_launch_counts_untouched_on_cpu():
     q = torch.randn(1, 2, 3, 8)
     attention_core(q, q, q, torch.ones(1, 3, 3, dtype=torch.bool))
     dl.fused_linear(h, torch.randn(D, 9), torch.randn(9))
+    dl.fused_refnorm(h, torch.ones(D), torch.zeros(D))
     assert ops.launch_counts() == {
         "encoder_layer": 0, "decoder_layer": 0, "greedy_head": 0,
-        "window_layer": 0, "linear": 0, "encoder_stack": 0,
+        "window_layer": 0, "linear": 0, "refnorm": 0, "encoder_stack": 0,
         "decoder_stack": 0, "window_stack": 0, "window_wide_stack": 0,
         "attention_core": 0}
+
+
+@pytest.mark.parametrize("width", [512, 77])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_refnorm_plain_matches_jax(dtype, width):
+    """RefLayerNorm's plain twin (what fused_refnorm runs on CPU tensors)
+    against the JAX package's _refnorm on the same numpy rows, at the
+    serving width and an odd one: float32 within 1e-5, bf16 within one bf16
+    ulp of the JAX result; the plain route counts no launch."""
+    rs = np.random.RandomState(width)
+    x = (rs.randn(6, 5, width) * 3 + 1).astype(np.float32)
+    scale = (1 + 0.1 * rs.randn(width)).astype(np.float32)
+    bias = (0.1 * rs.randn(width)).astype(np.float32)
+    xt = torch.from_numpy(x).to(dtype)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = np.asarray(pdl._refnorm(jnp.asarray(xt.float().numpy()).astype(jdt),
+                                   jnp.asarray(scale), jnp.asarray(bias), jdt)
+                      .astype(jnp.float32))
+    dl.fused_refnorm.launches = 0
+    got = dl.fused_refnorm(xt, _t(scale), _t(bias))
+    assert got.dtype == dtype and dl.fused_refnorm.launches == 0
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    else:
+        _, e = np.frexp(np.maximum(np.abs(want), 1e-30))
+        err = np.abs(got.float().numpy() - want)
+        assert (err <= np.ldexp(np.ones_like(want), e - 8)).all(), err.max()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -289,6 +317,52 @@ def test_window_width_check_before_launch(monkeypatch, D, F):
         with pytest.raises(err):
             st._launch_stack("window_stack", x, kc, vc, k2, v2, ws,
                              tgt, src, stacked, 2, kc.shape[2] + x.shape[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_key_bound_check_before_launch(monkeypatch, dtype):
+    """The layer and stack wrappers' launch paths raise ValueError when an
+    attention would have more keys than the attention block's key bound
+    (dl.KEY_MAX: a score row sits in registers), before they reach the
+    kernel libraries; at the bound they go on to them."""
+    def no_launch():
+        raise AssertionError("reached the kernel libraries")
+
+    monkeypatch.setattr(dl, "_kernels", no_launch)
+    monkeypatch.setattr(st, "_kernels", no_launch)
+    rs = np.random.RandomState(4)
+    d, f, hn, B = 16, 24, 2, 2
+
+    def t(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dtype)
+
+    def weights(keys):
+        return {k: (torch.ones(sh) if k in dl._NORM_KEYS else t(*sh))
+                for k, sh in dl.weight_shapes(keys, d, f).items()}
+
+    enc, dec = weights(dl._ENC_KEYS), weights(dl._DEC_KEYS)
+    for rows, err in ((dl.KEY_MAX + 1, ValueError),
+                      (dl.KEY_MAX, AssertionError)):
+        x = t(B, rows, d)
+        mask = torch.ones(B, rows, dtype=torch.bool)
+        with pytest.raises(err, match="key bound" if err is ValueError
+                           else "kernel libraries"):
+            dl.encoder_call("encoder_layer", x, mask, enc, hn)
+        with pytest.raises(err):
+            dl.decoder_call("decoder_layer", t(B, 3, d), x,
+                            torch.ones(B, 3, 3, dtype=torch.bool), mask, dec,
+                            hn)
+    stacked, norm, x, kc, vc, k2, v2, ws, tgt, src = _window_operands(dtype)
+    W = x.shape[1]
+    big = torch.zeros(kc.shape[0], B, dl.KEY_MAX + 1 - W, d, dtype=dtype)
+    w0 = {k: v[0] for k, v in stacked.items()}
+    tgt_big = torch.ones(B, W, dl.KEY_MAX + 1, dtype=torch.bool)
+    with pytest.raises(ValueError, match="key bound"):
+        dl.window_layer_call(x, big[0], big[0], k2[0], v2[0], tgt_big, src,
+                             w0, hn)
+    with pytest.raises(ValueError, match="key bound"):
+        st._launch_stack("window_stack", x, big, big, k2, v2, ws, tgt_big,
+                         src, stacked, hn, dl.KEY_MAX + 1)
 
 
 def _c_entries():
