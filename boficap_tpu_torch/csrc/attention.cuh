@@ -281,7 +281,7 @@ __device__ __forceinline__ void copy_fresh(HeadView<const T> kc,
 // any is used.  At the callers' key counts (<= ROW_KEYS) one batch holds
 // every key: a call then waits on memory once, with the first query row
 // and its mask, and every further query row reuses the registers.
-template <typename T, Scale S, int G>
+template <typename T, Scale S, int G, bool CH>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
     attention_row_kernel(HeadView<const T> q, HeadView<const T> ka,
                          HeadView<const T> va, int rows_a, HeadView<const T> kc,
@@ -294,6 +294,7 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
   constexpr int NB = ROW_KEYS / KPI < ROW_BATCH ? ROW_KEYS / KPI : ROW_BATCH;
   constexpr int SREG = KEY_MAX / 32;
   const int w = blockIdx.x * ROW_WARPS + threadIdx.x / 32;
+  grid_wait<CH>();   // q, k, v: a predecessor's outputs (common.cuh)
   if (w >= BH) return;
   const int b = w / H, h = w % H;
   const int lane = threadIdx.x % 32, grp = lane / G, lig = lane % G;
@@ -428,6 +429,7 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
     if (grp == 0 && n > 0)
       store_chunk(&out.at(b, h, i, d0), from_floats<T>(acc), n, vec);
   }
+  grid_launch_dependents<CH>();
 
   if (dst.k != nullptr) {
     __syncwarp();   // every key of (b, h) has been read
@@ -493,7 +495,7 @@ __device__ __forceinline__ void stage_chunk(__nv_bfloat16* tile, int ld,
 }
 
 // KT: key tiles of 16 (16 * KT >= Lk)
-template <Scale S, int KT>
+template <Scale S, int KT, bool CH>
 __global__ void __launch_bounds__(TILE_WARPS * 32)
     attention_tile_kernel(HeadView<const __nv_bfloat16> q, HeadView<const __nv_bfloat16> ka,
                 HeadView<const __nv_bfloat16> va, int rows_a,
@@ -504,6 +506,7 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
   using T = __nv_bfloat16;
   extern __shared__ uint4 smem_tile[];
   const int b = blockIdx.x / H, h = blockIdx.x % H;
+  grid_wait<CH>();   // q, k, v: a predecessor's outputs (common.cuh)
   const int Lk = rows_a + rows_c;
   const int LqP = round16(Lq), DhP = round16(Dh), ld = DhP + 8;
   T* Qs = reinterpret_cast<T*>(smem_tile);    // [LqP][ld]
@@ -548,6 +551,7 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
   uint32_t mb0 = mask_bits(warp, 0), mb1 = mask_bits(warp, 1);
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
+  grid_launch_dependents<CH>();   // the operands are staged
 
   if (dst.k != nullptr) {
     // every key of (b, h) is staged: copy the fresh rows out; no other
@@ -685,7 +689,7 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
 
 // ---- ffma path (float32) ----------------------------------------------------
 
-template <typename T, Scale S>
+template <typename T, Scale S, bool CH>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
     attention_ffma_kernel(HeadView<const T> q, HeadView<const T> ka,
                 HeadView<const T> va, int rows_a, HeadView<const T> kc,
@@ -697,6 +701,7 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int Lk = rows_a + rows_c;
+  grid_wait<CH>();   // q, k, v: a predecessor's outputs (common.cuh)
   const float factor = score_factor<S>(Dh);
   const int ks_ld = Dh + 1;  // odd stride: lanes reading key rows j hit distinct banks
   float* Ks = smem;                      // [Lk][Dh + 1]
@@ -718,6 +723,7 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
     Qs[i * Dh + d] = Cvt<T>::to_f(q.at(b, h, i, d));
   }
   __syncthreads();
+  grid_launch_dependents<CH>();   // the operands are staged
 
   if (dst.k != nullptr) {
     // every key of (b, h) is staged: copy the fresh rows out, exactly (T
@@ -814,8 +820,9 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 }
 
 // path < 0: attention_path's; a path given must be one the dtype has
-// (row at both, tile at bf16, ffma at float32)
-template <typename T, Scale S>
+// (row at both, tile at bf16, ffma at float32); CH: launched as a link of a
+// launch chain (common.cuh launch_kernel)
+template <typename T, Scale S, bool CH = false>
 cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
                              HeadView<const T> va, int rows_a,
                              HeadView<const T> kc, HeadView<const T> vc,
@@ -847,17 +854,17 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
     const int BH = B * H;
     const int grid = (BH + ROW_WARPS - 1) / ROW_WARPS;
 #define BFC_ROW(G)                                                            \
-  att::attention_row_kernel<T, S, G><<<grid, ROW_WARPS * 32, 0, stream>>>(              \
-      q, ka, va, rows_a, kc, vc, rows_c, mask, mask_sb, mask_sq, out, BH, H,  \
-      Lq, Dh, dst, vec)
+  return launch_kernel<CH>(att::attention_row_kernel<T, S, G, CH>, grid,      \
+                           ROW_WARPS * 32, 0, stream, q, ka, va, rows_a, kc,  \
+                           vc, rows_c, mask, mask_sb, mask_sq, out, BH, H,    \
+                           Lq, Dh, dst, vec)
     switch (row_lanes(Dh, static_cast<int>(es))) {
-      case 8: BFC_ROW(8); break;
-      case 16: BFC_ROW(16); break;
-      case 32: BFC_ROW(32); break;
+      case 8: BFC_ROW(8);
+      case 16: BFC_ROW(16);
+      case 32: BFC_ROW(32);
       default: return cudaErrorInvalidValue;
     }
 #undef BFC_ROW
-    return cudaGetLastError();
   }
   if constexpr (sizeof(T) == 2) {
     if (path == kPathTile) {
@@ -865,12 +872,12 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
       const int threads = 32 * (tiles < TILE_WARPS ? tiles : TILE_WARPS);
 #define BFC_TILE(KT)                                                          \
   {                                                                           \
-    BFC_TRY(allow_smem(att::attention_tile_kernel<S, KT>, smem));                       \
-    att::attention_tile_kernel<S, KT><<<B * H, threads, smem, stream>>>(                \
-        q, ka, va, rows_a, kc, vc, rows_c, mask, mask_sb, mask_sq, out, H,    \
-        Lq, Dh, dst, vec);                                                    \
-  }                                                                           \
-  break
+    BFC_TRY(allow_smem(att::attention_tile_kernel<S, KT, CH>, smem));         \
+    return launch_kernel<CH>(att::attention_tile_kernel<S, KT, CH>, B * H,    \
+                             threads, smem, stream, q, ka, va, rows_a, kc,    \
+                             vc, rows_c, mask, mask_sb, mask_sq, out, H, Lq,  \
+                             Dh, dst, vec);                                   \
+  }
       switch (att::round16(Lk) / 16) {
         case 1: BFC_TILE(1);
         case 2: BFC_TILE(2);
@@ -883,25 +890,24 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
         default: return cudaErrorInvalidValue;
       }
 #undef BFC_TILE
-      return cudaGetLastError();
     }
   }
-  BFC_TRY(allow_smem(att::attention_ffma_kernel<T, S>, smem));
-  att::attention_ffma_kernel<T, S><<<B * H, ATT_WARPS * 32, smem, stream>>>(
-      q, ka, va, rows_a, kc, vc, rows_c, mask, mask_sb, mask_sq, out, H, Lq,
-      Dh, dst);
-  return cudaGetLastError();
+  BFC_TRY(allow_smem(att::attention_ffma_kernel<T, S, CH>, smem));
+  return launch_kernel<CH>(att::attention_ffma_kernel<T, S, CH>, B * H,
+                           ATT_WARPS * 32, smem, stream, q, ka, va, rows_a,
+                           kc, vc, rows_c, mask, mask_sb, mask_sq, out, H, Lq,
+                           Dh, dst);
 }
 
 // keys a ++ c; q points at head 0's column of a row-major [B*Lq, ldq]
 // buffer; c's rows also go to dst, if it has k
-template <typename T>
+template <typename T, bool CH = false>
 cudaError_t attention2(const T* q, int ldq, KeySrc<T> a, KeySrc<T> c,
                        const uint8_t* mask, long long mask_sb,
                        long long mask_sq, T* out, int ldo, int B, int H,
                        int Lq, int Dh, cudaStream_t stream,
                        KvDst<T> dst = {}) {
-  return launch_attention<T, Scale::kDivSqrt>(
+  return launch_attention<T, Scale::kDivSqrt, CH>(
       rows_view(q, ldq, Lq, Dh), rows_view(a.k, a.ldk, a.rows, Dh),
       rows_view(a.v, a.ldv, a.rows, Dh), a.rows,
       rows_view(c.k, c.ldk, c.rows, Dh), rows_view(c.v, c.ldv, c.rows, Dh),
@@ -911,14 +917,14 @@ cudaError_t attention2(const T* q, int ldq, KeySrc<T> a, KeySrc<T> c,
 
 // one key source: q/k/v point at head 0's column of row-major
 // [B*Lq | B*Lk, ld*] buffers
-template <typename T>
+template <typename T, bool CH = false>
 cudaError_t attention(const T* q, int ldq, const T* k, int ldk, const T* v,
                       int ldv, const uint8_t* mask, long long mask_sb,
                       long long mask_sq, T* out, int ldo, int B, int H,
                       int Lq, int Lk, int Dh, cudaStream_t stream) {
-  return attention2<T>(q, ldq, KeySrc<T>{k, v, ldk, ldv, Lk},
-                       KeySrc<T>{nullptr, nullptr, 0, 0, 0}, mask, mask_sb,
-                       mask_sq, out, ldo, B, H, Lq, Dh, stream);
+  return attention2<T, CH>(q, ldq, KeySrc<T>{k, v, ldk, ldv, Lk},
+                           KeySrc<T>{nullptr, nullptr, 0, 0, 0}, mask,
+                           mask_sb, mask_sq, out, ldo, B, H, Lq, Dh, stream);
 }
 
 }  // namespace bfc

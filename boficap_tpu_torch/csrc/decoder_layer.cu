@@ -13,22 +13,40 @@
 //   x2 = x1 + (attention(q2, k2, v2, src_mask) @ Wo2 + bo2)
 //   n2 = refnorm(x2);  out = x2 + (relu(n2 @ W1 + bf1) @ W2 + bf2)
 //
-// Twelve launches of the building blocks on the caller's stream (3 refnorm,
-// 7 products, 2 attention); activations pass through a scratch buffer the
-// wrapper allocates.  The TPU kernel's block-diagonal batching and its 2x
-// fill on cross-sample blocks are a VMEM layout trick: attention here is
-// per (sample, head) with per-sample masks.
+// The layer is twelve launches of the building blocks on the caller's
+// stream (3 refnorm, 7 products, 2 attention); activations pass through a
+// scratch buffer the wrapper allocates.  The TPU kernel's block-diagonal
+// batching and its 2x fill on cross-sample blocks are a VMEM layout trick:
+// attention here is per (sample, head) with per-sample masks.
 //
 // The stack entry runs that body once per layer in one call, as
 // encoder_layer.cu's does: weights stacked over the layers ([NL, ...]),
-// activations through two ping-pong buffers behind the layer's scratch, the
-// memory and the masks shared by every layer.
+// activations through two ping-pong buffers behind the layer's scratch,
+// the memory and the masks shared by every layer.  1 + 11 NL launches (67
+// at NL = 6; ops/decoder_layer.py decoder_launches mirrors the count).
 //
-// Bound on the H100: operations, ~12.0 GFLOP a layer at B = 64, L = 20,
-// R = 36, D = 512, d_ff = 2048, against ~27 MB to move in float32 (the
-// stack: six times the work, ~0.1 GB of weights).  As for the encoder,
-// the products go through product<T> (wgmma_gemm.cuh): bf16 on the tensor
-// cores, float32 on the FFMA product of ffma_gemm.cuh.
+// Bound on the H100: operations, ~72 GFLOP a stack at B = 64, L = 20,
+// R = 36, D = 512, d_ff = 2048 (0.073 ms at the 989 TFLOP/s of bf16),
+// against ~0.1 GB of float32 weights.  The products go through product<T>
+// (wgmma_gemm.cuh): bf16 on the tensor cores, float32 on the FFMA product
+// of ffma_gemm.cuh.  At B = 64 a layer's kernels each do a few µs of work,
+// so the launches and the dead time between dependent ones were much of
+// the stack's time.  Against that:
+//  - The memory's cross K|V does not depend on the layer's input: the
+//    stack projects every layer's in one product first, memory [B*R, D] @
+//    [D, NL*2D] (the layers' Wkv2 side by side, StackPack "wkv2_all"), 864
+//    128 x 128 tiles in one launch where six launches of 144 left a tail
+//    on 132 SMs; each layer's cross-attention reads its columns of the
+//    result, which no later launch writes.  BN follows the layer's width
+//    2D, so every output sums as #2's own projection does: bitwise.
+//  - At bf16 the launches form one chain by programmatic dependent launch
+//    (common.cuh launch_kernel): each starts while its predecessor drains,
+//    sets up its barriers and fetches its first W tiles, and reads or
+//    writes activations only after griddepcontrol.wait.  Every block of
+//    every kernel waits before it exits, so the chain keeps stream order
+//    (a residual read two launches back included); the outputs are
+//    bitwise those of plain launches.  float32 launches plainly (slower
+//    chained on the H100; PERF.md).
 //
 // bfc_gemm runs one product alone, C = epilogue(A @ W + bias), on the same
 // route, and bfc_refnorm one RefLayerNorm (refnorm.cuh): ways to time the
@@ -62,10 +80,20 @@ struct BfcDecoderLayerArgs {
 
 namespace bfc {
 
+// One layer's launches on stream s.  kv: the layer's cross K|V, rows of
+// [B * R, ld_kv] with K at column 0 and V at column D (the stack's, which
+// it projects for every layer up front), or nullptr: projected here into
+// the scratch (#2).  At bf16 every launch but the layer's first is chained
+// to the one before it (common.cuh launch_kernel); chain_first chains the
+// first too (the stack's layers, which follow the stack's own launches).
+// float32 launches plainly: chained, its FFMA products and attention ran
+// 18% slower on the H100 (PERF.md).
 template <typename T>
-cudaError_t decoder_layer(const BfcDecoderLayerArgs& a, cudaStream_t s) {
+cudaError_t decoder_layer(const BfcDecoderLayerArgs& a, const T* kv,
+                          int ld_kv, bool chain_first, cudaStream_t s) {
   const int M = a.B * a.L, MR = a.B * a.R, D = a.D, F = a.F;
   const int Dh = D / a.H;
+  constexpr bool CH = sizeof(T) == 2;   // chained launches: bf16 only
   auto w = [](const void* p) { return static_cast<const T*>(p); };
   const T* x = w(a.x);
   T* n = static_cast<T*>(a.scratch);   // [M, D]   n0, n1, then n2
@@ -75,43 +103,63 @@ cudaError_t decoder_layer(const BfcDecoderLayerArgs& a, cudaStream_t s) {
   T* q2 = x1 + (size_t)M * D;          // [M, D]
   T* x2 = q2 + (size_t)M * D;          // [M, D]
   T* f = x2 + (size_t)M * D;           // [M, F]
-  T* kv2 = f + (size_t)M * F;          // [MR, 2D]
   const uint8_t* tgt = static_cast<const uint8_t*>(a.tgt_mask);
   const uint8_t* src = static_cast<const uint8_t*>(a.src_mask);
 
-  // self-attention sublayer
-  BFC_TRY(refnorm<T>(x, a.s0, a.b0, n, M, D, s));
-  BFC_TRY(product<T>(n, w(a.wqkv), w(a.bqkv), nullptr, qkv, M, 3 * D, D,
-                     false, s));
-  BFC_TRY(attention<T>(qkv, 3 * D, qkv + D, 3 * D, qkv + 2 * D, 3 * D, tgt,
-                       a.tgt_sb, a.tgt_sq, ctx, D, a.B, a.H, a.L, a.L, Dh, s));
-  BFC_TRY(product<T>(ctx, w(a.wo), w(a.bo), x, x1, M, D, D, false, s));
+  // self-attention sublayer (each call in parentheses: BFC_TRY is a macro,
+  // and the commas of <T, CH> would split its argument)
+  BFC_TRY((chain_first ? refnorm<T, CH>(x, a.s0, a.b0, n, M, D, s)
+                       : refnorm<T>(x, a.s0, a.b0, n, M, D, s)));
+  BFC_TRY((product<T, CH>(n, w(a.wqkv), w(a.bqkv), nullptr, qkv, M, 3 * D,
+                          D, false, s)));
+  BFC_TRY((attention<T, CH>(qkv, 3 * D, qkv + D, 3 * D, qkv + 2 * D, 3 * D,
+                            tgt, a.tgt_sb, a.tgt_sq, ctx, D, a.B, a.H, a.L,
+                            a.L, Dh, s)));
+  BFC_TRY((product<T, CH>(ctx, w(a.wo), w(a.bo), x, x1, M, D, D, false, s)));
   // cross-attention sublayer: only the query side is normed
-  BFC_TRY(refnorm<T>(x1, a.s1, a.b1, n, M, D, s));
-  BFC_TRY(product<T>(n, w(a.wq2), w(a.bq2), nullptr, q2, M, D, D, false, s));
-  BFC_TRY(product<T>(w(a.memory), w(a.wkv2), w(a.bkv2), nullptr, kv2, MR,
-                     2 * D, D, false, s));
-  BFC_TRY(attention<T>(q2, D, kv2, 2 * D, kv2 + D, 2 * D, src, a.src_sb,
-                       a.src_sq, ctx, D, a.B, a.H, a.L, a.R, Dh, s));
-  BFC_TRY(product<T>(ctx, w(a.wo2), w(a.bo2), x1, x2, M, D, D, false, s));
+  BFC_TRY((refnorm<T, CH>(x1, a.s1, a.b1, n, M, D, s)));
+  BFC_TRY((product<T, CH>(n, w(a.wq2), w(a.bq2), nullptr, q2, M, D, D,
+                          false, s)));
+  if (kv == nullptr) {
+    T* kv2 = f + (size_t)M * F;        // [MR, 2D]
+    BFC_TRY((product<T, CH>(w(a.memory), w(a.wkv2), w(a.bkv2), nullptr, kv2,
+                            MR, 2 * D, D, false, s)));
+    kv = kv2;
+    ld_kv = 2 * D;
+  }
+  BFC_TRY((attention<T, CH>(q2, D, kv, ld_kv, kv + D, ld_kv, src, a.src_sb,
+                            a.src_sq, ctx, D, a.B, a.H, a.L, a.R, Dh, s)));
+  BFC_TRY((product<T, CH>(ctx, w(a.wo2), w(a.bo2), x1, x2, M, D, D, false,
+                          s)));
   // FFN sublayer
-  BFC_TRY(refnorm<T>(x2, a.s2, a.b2, n, M, D, s));
-  BFC_TRY(product<T>(n, w(a.w1), w(a.bf1), nullptr, f, M, F, D, true, s));
-  return product<T>(f, w(a.w2), w(a.bf2), x2, static_cast<T*>(a.out), M, D,
-                    F, false, s);
+  BFC_TRY((refnorm<T, CH>(x2, a.s2, a.b2, n, M, D, s)));
+  BFC_TRY((product<T, CH>(n, w(a.w1), w(a.bf1), nullptr, f, M, F, D, true,
+                          s)));
+  return product<T, CH>(f, w(a.w2), w(a.bf2), x2, static_cast<T*>(a.out), M,
+                        D, F, false, s);
 }
 
 // a: the layer's arguments with every weight pointer at layer 0 of its
-// [NL, ...] stack, scratch of bfc_decoder_stack_scratch() elements
+// [NL, ...] stack, except wkv2, which is every layer's K|V projection side
+// by side, [D, NL * 2D] (bkv2, [NL, 2D], is read as [NL * 2D]); scratch of
+// bfc_decoder_stack_scratch() elements
 template <typename T>
 cudaError_t decoder_stack(const BfcDecoderLayerArgs& a, int NL,
                           cudaStream_t s) {
   const size_t D = a.D, F = a.F, M = (size_t)a.B * a.L;
+  const int MR = a.B * a.R, NKV = NL * 2 * a.D;
   auto at = [](const void* p, int l, size_t n) {
     return static_cast<const void*>(static_cast<const T*>(p) + l * n);
   };
-  T* xbuf = static_cast<T*>(a.scratch) + M * (8 * D + F)
-            + (size_t)a.B * a.R * 2 * D;
+  // the layer's activations, then two [M, D] ping-pong buffers, then every
+  // layer's cross K|V, [B * R, NL * 2D]: written once, first, and by no
+  // later launch of the stack
+  T* xbuf = static_cast<T*>(a.scratch) + M * (8 * D + F);
+  T* kv = xbuf + 2 * M * D;
+  BFC_TRY(product<T>(static_cast<const T*>(a.memory),
+                     static_cast<const T*>(a.wkv2),
+                     static_cast<const T*>(a.bkv2), nullptr, kv, MR, NKV,
+                     a.D, false, s, 2 * a.D));
   const void* cur = a.x;
   for (int l = 0; l < NL; ++l) {
     BfcDecoderLayerArgs w = a;
@@ -122,12 +170,12 @@ cudaError_t decoder_stack(const BfcDecoderLayerArgs& a, int NL,
     w.wqkv = at(a.wqkv, l, D * 3 * D); w.bqkv = at(a.bqkv, l, 3 * D);
     w.wo = at(a.wo, l, D * D);         w.bo = at(a.bo, l, D);
     w.wq2 = at(a.wq2, l, D * D);       w.bq2 = at(a.bq2, l, D);
-    w.wkv2 = at(a.wkv2, l, D * 2 * D); w.bkv2 = at(a.bkv2, l, 2 * D);
+    w.wkv2 = w.bkv2 = nullptr;         // read from kv
     w.wo2 = at(a.wo2, l, D * D);       w.bo2 = at(a.bo2, l, D);
     w.w1 = at(a.w1, l, D * F);         w.bf1 = at(a.bf1, l, F);
     w.w2 = at(a.w2, l, F * D);         w.bf2 = at(a.bf2, l, D);
     w.out = (l == NL - 1) ? a.out : xbuf + (l % 2) * M * D;
-    BFC_TRY(decoder_layer<T>(w, s));
+    BFC_TRY(decoder_layer<T>(w, kv + (size_t)l * 2 * D, NKV, true, s));
     cur = w.out;
   }
   return cudaSuccess;
@@ -143,10 +191,12 @@ int run(int dtype, int device, const BfcDecoderLayerArgs* a, int NL,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == BFC_DTYPE_F32)
     return static_cast<int>(stack ? decoder_stack<float>(*a, NL, s)
-                                  : decoder_layer<float>(*a, s));
+                                  : decoder_layer<float>(*a, nullptr, 0,
+                                                         false, s));
   if (dtype == BFC_DTYPE_BF16)
-    return static_cast<int>(stack ? decoder_stack<__nv_bfloat16>(*a, NL, s)
-                                  : decoder_layer<__nv_bfloat16>(*a, s));
+    return static_cast<int>(
+        stack ? decoder_stack<__nv_bfloat16>(*a, NL, s)
+              : decoder_layer<__nv_bfloat16>(*a, nullptr, 0, false, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -173,11 +223,13 @@ extern "C" long long bfc_decoder_layer_scratch(int B, int L, int R, int D,
   return (long long)B * L * (8LL * D + F) + (long long)B * R * 2 * D;
 }
 
-// scratch elements (compute dtype) for one stack launch: the layer's, and
-// two [B, L, D] ping-pong buffers
+// scratch elements (compute dtype) for one stack launch of NL layers: the
+// layer's activations, two [B, L, D] ping-pong buffers, and every layer's
+// cross K|V ([B * R, NL * 2D]; the layer's own K|V region is not used)
 extern "C" long long bfc_decoder_stack_scratch(int B, int L, int R, int D,
-                                               int F) {
-  return bfc_decoder_layer_scratch(B, L, R, D, F) + 2LL * B * L * D;
+                                               int F, int NL) {
+  return bfc_decoder_layer_scratch(B, L, R, D, F) + 2LL * B * L * D +
+         (NL - 1LL) * B * R * 2 * D;
 }
 
 extern "C" int bfc_decoder_layer(int dtype, int device,

@@ -27,8 +27,9 @@ namespace bfc {
 constexpr int NORM_WARPS = 4;
 constexpr float NORM_EPS = 1e-6f;
 
-// PER: elements a lane holds in registers (the row in chunks of 32 * PER)
-template <typename T, int PER>
+// PER: elements a lane holds in registers (the row in chunks of 32 * PER);
+// CHAIN: launched chained (common.cuh)
+template <typename T, int PER, bool CHAIN>
 __global__ void __launch_bounds__(NORM_WARPS * 32)
     refnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                    const float* __restrict__ bias, T* __restrict__ y,
@@ -37,6 +38,7 @@ __global__ void __launch_bounds__(NORM_WARPS * 32)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * NORM_WARPS + warp;
+  grid_wait<CHAIN>();   // x: a predecessor's output; y: read before
   if (row >= rows) return;
   const T* xr = x + (size_t)row * d;
   T* yr = y + (size_t)row * d;
@@ -76,6 +78,7 @@ __global__ void __launch_bounds__(NORM_WARPS * 32)
   for (int off = 16; off > 0; off >>= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
   const float var = q / static_cast<float>(d > 1 ? d - 1 : 1);
   const float denom = sqrtf(var) + NORM_EPS;
+  grid_launch_dependents<CHAIN>();
 
   for (int base = 0; base < d; base += CH) {
     if (!whole) load(base);
@@ -90,24 +93,18 @@ __global__ void __launch_bounds__(NORM_WARPS * 32)
   }
 }
 
-template <typename T>
+// CH: launched as a link of a launch chain (common.cuh launch_kernel)
+template <typename T, bool CH = false>
 cudaError_t refnorm(const T* x, const float* scale, const float* bias, T* y,
                     int rows, int d, cudaStream_t stream) {
   const int blocks = (rows + NORM_WARPS - 1) / NORM_WARPS;
   // registers a lane: the row whole up to d = 1024, then chunks of 1024
-  if (d <= 128)
-    refnorm_kernel<T, 4><<<blocks, NORM_WARPS * 32, 0, stream>>>(
-        x, scale, bias, y, rows, d);
-  else if (d <= 256)
-    refnorm_kernel<T, 8><<<blocks, NORM_WARPS * 32, 0, stream>>>(
-        x, scale, bias, y, rows, d);
-  else if (d <= 512)
-    refnorm_kernel<T, 16><<<blocks, NORM_WARPS * 32, 0, stream>>>(
-        x, scale, bias, y, rows, d);
-  else
-    refnorm_kernel<T, 32><<<blocks, NORM_WARPS * 32, 0, stream>>>(
-        x, scale, bias, y, rows, d);
-  return cudaGetLastError();
+  auto kernel = d <= 128   ? refnorm_kernel<T, 4, CH>
+                : d <= 256 ? refnorm_kernel<T, 8, CH>
+                : d <= 512 ? refnorm_kernel<T, 16, CH>
+                           : refnorm_kernel<T, 32, CH>;
+  return launch_kernel<CH>(kernel, blocks, NORM_WARPS * 32, 0, stream, x,
+                           scale, bias, y, rows, d);
 }
 
 }  // namespace bfc

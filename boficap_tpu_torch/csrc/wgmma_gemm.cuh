@@ -229,8 +229,9 @@ constexpr size_t smem_bytes() {
 }
 
 // NC consumer warpgroups (BM = 64 * NC rows), then one producer warp;
-// blockIdx.x along N, blockIdx.y along M
-template <int NC, int BN, class Epi>
+// blockIdx.x along N, blockIdx.y along M; CH: launched as a link of a
+// launch chain (common.cuh launch_kernel)
+template <int NC, int BN, class Epi, bool CH>
 __global__ void __launch_bounds__(NC * 128 + 32, 1)
     gemm_tc_kernel(const __grid_constant__ CUtensorMap a_map,
                    const __grid_constant__ CUtensorMap w_map,
@@ -260,24 +261,39 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
   __syncthreads();
 
   if (wg == NC) {
-    // producer: one thread issues every copy
+    // producer: one thread issues every copy, a slot's A, then its W.
+    // Chained, the first slots' W go out before grid_wait (common.cuh): no
+    // kernel of a launch chain writes W; A is the predecessor's output.
+    // (Unchained, W first made #4's products 3% slower on the H100.)
     if (tid == NC * 128) {
+      auto load_w = [&](int kt) {
+        uint8_t* slot = ring + (kt % STAGES) * STAGE_BYTES;
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(slot + A_BYTES + j * ATOM_BYTES, &w_map,
+                      &full[kt % STAGES], n0 + 64 * j, kt * BK);
+      };
+      const int pre = !CH ? 0 : KT < STAGES ? KT : STAGES;
+      for (int kt = 0; kt < pre; ++kt) {
+        mbar_expect_tx(&full[kt], STAGE_BYTES);
+        load_w(kt);
+      }
+      grid_wait<CH>();
       for (int kt = 0; kt < KT; ++kt) {
         const int s = kt % STAGES;
         if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
-        uint8_t* slot = ring + s * STAGE_BYTES;
-        mbar_expect_tx(&full[s], STAGE_BYTES);
-        tma_load_2d(slot, &a_map, &full[s], kt * BK, m0);
-#pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load_2d(slot + A_BYTES + j * ATOM_BYTES, &w_map, &full[s],
-                      n0 + 64 * j, kt * BK);
+        if (kt >= pre) mbar_expect_tx(&full[s], STAGE_BYTES);
+        tma_load_2d(ring + s * STAGE_BYTES, &a_map, &full[s], kt * BK, m0);
+        if (kt >= pre) load_w(kt);
       }
+      grid_launch_dependents<CH>();
     }
     return;
   }
 
-  // consumer warpgroup wg: rows m0 + 64 wg .. + 63
+  // consumer warpgroup wg: rows m0 + 64 wg .. + 63; the epilogue reads the
+  // residual, which a predecessor wrote
+  grid_wait<CH>();
   float acc[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0.f;
@@ -303,6 +319,7 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
   }
   wgmma_wait<0>();
   fence_acc(acc);
+  grid_launch_dependents<CH>();
 
   // accumulator fragment: register 4j + 2h + e of thread (warp w, lane l)
   // holds row 16 w + l / 4 + 8 h, column 8 j + 2 (l % 4) + e
@@ -409,7 +426,7 @@ inline int tile_m(int M, int N) {
   return blocks >= NUM_SMS ? 128 : 64;
 }
 
-template <int NC, int BN, class Epi>
+template <int NC, int BN, bool CH, class Epi>
 cudaError_t launch(const CUtensorMap& a_map, const CUtensorMap& w_map,
                    const Epi& epi, int M, int N, int K, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<NC, BN>();
@@ -419,21 +436,20 @@ cudaError_t launch(const CUtensorMap& a_map, const CUtensorMap& w_map,
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(configured.load() & bit)) {
-    err = cudaFuncSetAttribute(gemm_tc_kernel<NC, BN, Epi>,
+    err = cudaFuncSetAttribute(gemm_tc_kernel<NC, BN, Epi, CH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     configured.fetch_or(bit);
   }
   const dim3 grid((N + BN - 1) / BN, (M + 64 * NC - 1) / (64 * NC));
-  gemm_tc_kernel<NC, BN, Epi><<<grid, NC * 128 + 32, smem, stream>>>(
-      a_map, w_map, epi, K);
-  return cudaGetLastError();
+  return launch_kernel<CH>(gemm_tc_kernel<NC, BN, Epi, CH>, grid,
+                           NC * 128 + 32, smem, stream, a_map, w_map, epi, K);
 }
 
 // A [M, K] @ W [K, N] on the BM x BN tile (BM 64 or 128, BN 64 or 128),
-// handed to epi; N is W's row length
-template <class Epi>
+// handed to epi; N is W's row length; CH: launch_kernel's
+template <bool CH = false, class Epi>
 cudaError_t run(const bf16* A, const bf16* W, const Epi& epi, int M, int N,
                 int K, int bm, int bn, cudaStream_t stream) {
   if (N <= 0 || K <= 0 || N % 8 != 0 || K % 8 != 0 || !aligned(A, 16) ||
@@ -445,21 +461,25 @@ cudaError_t run(const bf16* A, const bf16* W, const Epi& epi, int M, int N,
   err = make_map(&a_map, A, M, K, bm);
   if (err != cudaSuccess) return err;
   if (bm == 128)
-    return bn == 128 ? launch<2, 128>(a_map, w_map, epi, M, N, K, stream)
-                     : launch<2, 64>(a_map, w_map, epi, M, N, K, stream);
-  return bn == 128 ? launch<1, 128>(a_map, w_map, epi, M, N, K, stream)
-                   : launch<1, 64>(a_map, w_map, epi, M, N, K, stream);
+    return bn == 128 ? launch<2, 128, CH>(a_map, w_map, epi, M, N, K, stream)
+                     : launch<2, 64, CH>(a_map, w_map, epi, M, N, K, stream);
+  return bn == 128 ? launch<1, 128, CH>(a_map, w_map, epi, M, N, K, stream)
+                   : launch<1, 64, CH>(a_map, w_map, epi, M, N, K, stream);
 }
 
-// C = epilogue(A @ W + bias) on the tensor cores; res (nullable) is [M, N]
-inline cudaError_t gemm(const bf16* A, const bf16* W, const bf16* bias,
-                        const bf16* res, bf16* C, int M, int N, int K,
-                        bool relu, cudaStream_t stream) {
+// C = epilogue(A @ W + bias) on the tensor cores; res (nullable) is [M, N].
+// BN is tile_n(width): width is N, or, for products side by side in one
+// (W = [W_0 | W_1 | ...]), the width of one, so each output sums as in
+// that product alone
+template <bool CH>
+cudaError_t gemm(const bf16* A, const bf16* W, const bf16* bias,
+                 const bf16* res, bf16* C, int M, int N, int K, bool relu,
+                 cudaStream_t stream, int width) {
   if (M <= 0) return cudaSuccess;
   if (!aligned(bias, 4) || !aligned(res, 4) || !aligned(C, 4))
     return cudaErrorInvalidValue;
   const LinearEpi<bf16> epi{bias, res, C, M, N, relu ? 1 : 0, 1};
-  return run(A, W, epi, M, N, K, tile_m(M, N), tile_n(N), stream);
+  return run<CH>(A, W, epi, M, N, K, tile_m(M, N), tile_n(width), stream);
 }
 
 }  // namespace
@@ -468,24 +488,22 @@ inline cudaError_t gemm(const bf16* A, const bf16* W, const bf16* bias,
 // The layer bodies' product: float32 on the FFMA tile (ffma_gemm.cuh), any
 // shape; bf16 on the tensor cores.  There is no fallback between them: a
 // bf16 product the tensor-core path cannot take returns its error.
-template <typename T>
+// CH (bf16): launched as a link of a launch chain (common.cuh
+// launch_kernel); float32 products are never chained (they ran slower so
+// on the H100: PERF.md).  width: for products side by side in one,
+// the width of one (tc::gemm); 0: N.  A float32 output does not depend on
+// the tile.
+template <typename T, bool CH = false>
 cudaError_t product(const T* A, const T* W, const T* bias, const T* res, T* C,
-                    int M, int N, int K, bool relu, cudaStream_t stream);
-
-template <>
-inline cudaError_t product<float>(const float* A, const float* W,
-                                  const float* bias, const float* res,
-                                  float* C, int M, int N, int K, bool relu,
-                                  cudaStream_t stream) {
-  return ffma::gemm(A, W, bias, res, C, M, N, K, relu, stream);
-}
-
-template <>
-inline cudaError_t product<__nv_bfloat16>(
-    const __nv_bfloat16* A, const __nv_bfloat16* W, const __nv_bfloat16* bias,
-    const __nv_bfloat16* res, __nv_bfloat16* C, int M, int N, int K,
-    bool relu, cudaStream_t stream) {
-  return tc::gemm(A, W, bias, res, C, M, N, K, relu, stream);
+                    int M, int N, int K, bool relu, cudaStream_t stream,
+                    int width = 0) {
+  if constexpr (sizeof(T) == 4) {
+    static_assert(!CH, "float32 products are never chained");
+    return ffma::gemm(A, W, bias, res, C, M, N, K, relu, stream);
+  } else {
+    return tc::gemm<CH>(A, W, bias, res, C, M, N, K, relu, stream,
+                        width > 0 ? width : N);
+  }
 }
 
 }  // namespace bfc

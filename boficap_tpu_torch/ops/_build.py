@@ -36,7 +36,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # types and return type; the layer and stack entries take a pointer to
 # their argument struct (ops/decoder_layer.py, ops/stack.py and
 # ops/attention.py mirror it), the encoder and decoder stacks also the layer
-# count; bfc_gemm runs one product of the layer kernels alone, bfc_refnorm
+# count (the decoder stack's scratch too: it holds every layer's cross
+# K|V); bfc_gemm runs one product of the layer kernels alone, bfc_refnorm
 # one norm
 SIGNATURES = {
     "attention_core": {
@@ -58,7 +59,7 @@ SIGNATURES = {
         "bfc_decoder_layer": ([_I, _I, _P, _P], _I),
         "bfc_decoder_layer_scratch": ([_I, _I, _I, _I, _I], _L),
         "bfc_decoder_stack": ([_I, _I, _P, _I, _P], _I),
-        "bfc_decoder_stack_scratch": ([_I, _I, _I, _I, _I], _L),
+        "bfc_decoder_stack_scratch": ([_I, _I, _I, _I, _I, _I], _L),
         "bfc_decoder_layer_args_size": ([], _I),
         "bfc_gemm": ([_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "bfc_gemm_tile": ([_I, _I, _I, _IP, _IP], _I),

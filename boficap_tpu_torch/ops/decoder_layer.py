@@ -205,7 +205,10 @@ def encoder_layer_plain(x, mask, w, num_heads: int):
     return linear_plain(f, w["w2"], w["bf2"], res=x)
 
 
-def decoder_layer_plain(x, memory, tgt_mask, src_mask, w, num_heads: int):
+def decoder_layer_plain(x, memory, tgt_mask, src_mask, w, num_heads: int,
+                        kv=None):
+    """kv: the layer's cross K|V of the memory, [B,R,2D] (as the stack
+    projects it for every layer first), or None: projected here."""
     D = x.shape[-1]
     n0 = refnorm_plain(x, w["s0"], w["b0"])
     q, k, v = linear_plain(n0, w["wqkv"], w["bqkv"]).split(D, dim=-1)
@@ -214,7 +217,9 @@ def decoder_layer_plain(x, memory, tgt_mask, src_mask, w, num_heads: int):
     # only the query side is normed: the memory is already encoder-normed
     n1 = refnorm_plain(x, w["s1"], w["b1"])
     q2 = linear_plain(n1, w["wq2"], w["bq2"])
-    k2, v2 = linear_plain(memory, w["wkv2"], w["bkv2"]).split(D, dim=-1)
+    if kv is None:
+        kv = linear_plain(memory, w["wkv2"], w["bkv2"])
+    k2, v2 = kv.split(D, dim=-1)
     x = linear_plain(attention_plain(q2, k2, v2, src_mask, num_heads),
                      w["wo2"], w["bo2"], res=x)
     n2 = refnorm_plain(x, w["s2"], w["b2"])
@@ -501,8 +506,18 @@ def decoder_call(entry: str, x, memory, tgt_mask, src_mask, w,
     _check_weights(w, weight_shapes(_DEC_KEYS, D, F, lead), dt, dev)
     check_product_shape(dt, {"D": D, "d_ff": F}, {"x": x, "memory": memory})
     check_attention_shape({"L": L, "R": R}, D // num_heads)
+    ptrs = _pointers(w, _DEC_KEYS)
+    if NL is not None:
+        # the stack projects every layer's cross K|V in one product, on
+        # the side-by-side weight (pack_decoder_stack's "wkv2_all")
+        if "wkv2_all" not in w:
+            raise ValueError("the decoder stack takes pack_decoder_stack's "
+                             "weights: 'wkv2_all' is missing")
+        _require(w["wkv2_all"], "wkv2_all", dt, (D, NL * 2 * D), dev)
+        ptrs["wkv2"] = w["wkv2_all"].data_ptr()
     lib = _kernels().decoder_layer
-    n_scratch = getattr(lib, f"bfc_{entry}_scratch")(B, L, R, D, F)
+    n_scratch = (lib.bfc_decoder_layer_scratch(B, L, R, D, F) if NL is None
+                 else lib.bfc_decoder_stack_scratch(B, L, R, D, F, NL))
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
     out = torch.empty_like(x)
     args = _DecoderLayerArgs(
@@ -510,9 +525,21 @@ def decoder_call(entry: str, x, memory, tgt_mask, src_mask, w,
         tgt_mask=tgt_mask.data_ptr(), tgt_sb=tsb, tgt_sq=tsq,
         src_mask=src_mask.data_ptr(), src_sb=ssb, src_sq=ssq,
         scratch=scratch.data_ptr(), out=out.data_ptr(),
-        B=B, L=L, R=R, D=D, F=F, H=num_heads, **_pointers(w, _DEC_KEYS))
+        B=B, L=L, R=R, D=D, F=F, H=num_heads, **ptrs)
     _launch_layer(entry, args, x, "decoder_layer", lead)
     return out
+
+
+def decoder_launches(NL: Optional[int] = None) -> Dict[str, int]:
+    """The port's kernel launches of one decoder-layer call (NL None, #2)
+    or one decoder-stack call of NL layers (#5), by kind, at either dtype;
+    mirrors csrc/decoder_layer.cu.  A layer: 3 refnorm, 7 products (its own
+    cross K|V projection among them), 2 attention.  The stack: one product
+    for every layer's cross K|V first, then per layer the layer's launches
+    without that projection."""
+    if NL is None:
+        return {"products": 7, "attention": 2, "refnorm": 3}
+    return {"products": 1 + 6 * NL, "attention": 2 * NL, "refnorm": 3 * NL}
 
 
 def fused_encoder_layer(x, mask, w, num_heads: int):
@@ -530,7 +557,8 @@ def fused_decoder_layer(x, memory, tgt_mask, src_mask, w, num_heads: int):
     """One pre-norm decoder layer, inference: x [B,L,D], memory [B,R,D],
     bool tgt_mask [B,L,L], bool src_mask [B,R] or [B,L,R], w from
     ``pack_layer_weights``.  On CUDA: one call of csrc/decoder_layer.cu
-    (3 refnorm, 7 gemm, 2 attention launches)."""
+    (``decoder_launches``: 3 refnorm, 7 products, 2 attention; at bf16
+    each launch chained to the one before it)."""
     if not _route(x):
         return decoder_layer_plain(x, memory, tgt_mask, src_mask, w,
                                    num_heads)

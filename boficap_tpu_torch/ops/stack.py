@@ -12,7 +12,9 @@ stack in one launch:
 On a CUDA tensor each makes one call into its kernel library: the entries
 ``bfc_encoder_stack`` of ``csrc/encoder_layer.cu`` and
 ``bfc_decoder_stack`` of ``csrc/decoder_layer.cu`` loop those files'
-layer bodies over the layers; ``bfc_window_stack`` and
+layer bodies over the layers (the decoder stack first projects every
+layer's cross K|V in one product, and at bf16 chains its launches by
+programmatic dependent launch); ``bfc_window_stack`` and
 ``bfc_window_wide_stack`` of ``csrc/window_stack.cu`` loop
 ``csrc/window.cuh``'s (11 launches a layer).  Around the call the wrapper
 runs nothing but ``torch.empty``, then the final RefLayerNorm in plain
@@ -52,8 +54,9 @@ from .decoder_layer import (_I, _LL, _P, _WIN_KEYS, _check_weights, _fields,
                             _route, check_attention_shape,
                             check_window_products, decoder_call,
                             decoder_layer_plain, encoder_call,
-                            encoder_layer_plain, pack_encoder_layer,
-                            pack_layer_weights, refnorm_plain,
+                            encoder_layer_plain, linear_plain,
+                            pack_encoder_layer, pack_layer_weights,
+                            refnorm_plain,
                             scatter_window, window_layer_plain,
                             weight_shapes)
 
@@ -87,10 +90,16 @@ def pack_encoder_stack(encoder, dtype) -> StackPack:
 
 
 def pack_decoder_stack(decoder, dtype) -> StackPack:
-    """Decoder -> ``StackPack`` in the compute dtype (norms float32)."""
-    return StackPack(*_stacked([pack_layer_weights(layer, dtype)
-                                for layer in decoder.layers()]),
-                     _final_norm(decoder.norm))
+    """Decoder -> ``StackPack`` in the compute dtype (norms float32).  Its
+    ``stack`` also holds ``wkv2_all`` [D, NL*2D], every layer's cross K|V
+    projection side by side (layer l at columns 2Dl ..): the stack kernel
+    projects the memory for every layer in one product on it."""
+    stack, layers = _stacked([pack_layer_weights(layer, dtype)
+                              for layer in decoder.layers()])
+    NL, D, D2 = stack["wkv2"].shape
+    stack["wkv2_all"] = stack["wkv2"].permute(1, 0, 2).reshape(
+        D, NL * D2).contiguous()
+    return StackPack(stack, layers, _final_norm(decoder.norm))
 
 
 class WindowPack(NamedTuple):
@@ -133,10 +142,16 @@ def encoder_stack_plain(x, src_mask, stacked, final_norm, num_heads: int):
 
 def decoder_stack_plain(x, memory, tgt_mask, src_mask, stacked, final_norm,
                         num_heads: int):
-    """``decoder_layer_plain`` over the layers, then the final norm."""
-    for i in range(stacked["w1"].shape[0]):
+    """The kernel's schedule: every layer's cross K|V of the memory first
+    (each rounded as ``project_cross_kv`` and ``linear_plain`` round), then
+    ``decoder_layer_plain`` over the layers on them, then the final norm."""
+    NL = stacked["w1"].shape[0]
+    kvs = [linear_plain(memory, stacked["wkv2"][i], stacked["bkv2"][i])
+           for i in range(NL)]
+    for i in range(NL):
         x = decoder_layer_plain(x, memory, tgt_mask, src_mask,
-                                _layer_views(stacked, i), num_heads)
+                                _layer_views(stacked, i), num_heads,
+                                kv=kvs[i])
     return refnorm_plain(x, *final_norm)
 
 
@@ -197,9 +212,10 @@ def fused_decoder_stack_forward(x, memory, tgt_mask, src_mask, stacked,
                                 final_norm, num_heads: int):
     """The whole decoder stack, inference: x [B,L,D], memory [B,R,D], bool
     tgt_mask [B,L,L], bool src_mask [B,R] (None: every region) or [B,L,R],
-    ``stacked`` the ``StackPack.stack`` weights.  Returns the output after
-    the final norm.  On CUDA: one call of csrc/decoder_layer.cu (12
-    launches a layer)."""
+    ``stacked`` the ``StackPack.stack`` weights of ``pack_decoder_stack``.
+    Returns the output after the final norm.  On CUDA: one call of
+    csrc/decoder_layer.cu (``decoder_launches``: every layer's cross K|V in
+    one product, then 11 launches a layer, chained at bf16)."""
     B, R = memory.shape[:2]
     if src_mask is None:
         src_mask = torch.ones((B, R), dtype=torch.bool, device=x.device)

@@ -163,6 +163,7 @@ K_BEAM = 3                    # beam width of the beam-search check
 LONG = 10                     # a phrase longer than the window: a wide round
 STOP_SHIFT = 6.0              # against random weights' early "stop" (shape_plans)
 NL = 6                        # uic_sd encoder and decoder layers
+STACK_REPEATS = 20            # #5 calls back to back, held bitwise equal
 
 
 def emit(obj) -> None:
@@ -352,6 +353,18 @@ def check_kernels(model):
                 fail(f"{name} {dtype_name}: rel err {e} > {tol}")
             stacks[name] = {"rel_err": e, "max_abs_err":
                             (got.float() - want.float()).abs().max().item()}
+        # #5's launch chain: calls back to back give the same bits (a race
+        # between its chained launches would not)
+        again = [st.fused_decoder_stack_forward(x_dec, mem, tgt, src,
+                                                dec.stack, dec.final_norm, H)
+                 for _ in range(STACK_REPEATS)]
+        torch.cuda.synchronize()
+        first = again[0]
+        differ = [i for i, o in enumerate(again) if not torch.equal(o, first)]
+        if differ:
+            fail(f"decoder_stack {dtype_name}: calls {differ} of "
+                 f"{STACK_REPEATS} back to back differ from the first")
+        stacks["decoder_stack"]["repeats_bitwise_equal"] = STACK_REPEATS
 
         # the head at an NA fill's rows (B * L) and a narrow SA round's
         # (B * W)
@@ -1817,62 +1830,77 @@ def profile_split(fn, parts, reps: int = 10, tries: int = 3):
 
 @torch.no_grad()
 def layer_split(model, dtype, reps: int = 10):
-    """Where the device time of a layer or round goes, by building block a
-    call: the tensor-core products, the FFMA products, attention by path
-    (tile: 'attention'; ffma; row), refnorm, and other (the wrappers' final
-    norm in torch).  bf16: #1, #2 (a layer) and #6, #7 (a round of six
-    layers), 7, 12 and 6 x 11 launches of the port's kernels, no FFMA
-    product, every attention on the tile path.  float32: #8 (one window
-    layer), 11 launches, its six products on FFMA, its two attentions on
-    the ffma path."""
+    """Where the device time of a layer, stack or round goes, by building
+    block a call: the tensor-core products, the FFMA products, attention by
+    path (tile: 'attention'; ffma; row), refnorm, and other (the wrappers'
+    final norm in torch), with launches a call, held to ``want`` by kind.
+    bf16: #1, #2 (a layer), #5 (the NA decoder stack, ``decoder_launches``)
+    and #6, #7 (a round of six layers), every product on the tensor cores,
+    every attention on the tile path.  float32: #8 (one window layer) and
+    #5, every product on FFMA, every attention on the ffma path.  Each
+    entry also has device_ms (``device_ms``: the call alone) and gap_ms,
+    device_ms less the sum of its kernels' own times: the dead time between
+    dependent launches (less any overlap of chained ones)."""
     from boficap_tpu_torch.ops import decoder_layer as dl
     from boficap_tpu_torch.ops import stack as st
     H = model.num_heads
     xn, kc, vc, k2, v2, ws, tgn, srn = window_inputs(dtype, W_NARROW, 14)
     pack = st.pack_window_weights(model._decoder("SA"), dtype)
+    dec = st.pack_decoder_stack(model._decoder("NA"), dtype)
+    x_enc, src, x_dec, mem, tgt, _ = layer_inputs(dtype, 4)
+    calls = {"decoder_stack": lambda: st.fused_decoder_stack_forward(
+        x_dec, mem, tgt, src, dec.stack, dec.final_norm, H)}
     if dtype == torch.float32:
-        calls = {"window_layer": lambda: dl.fused_window_decoder_layer(
-            xn, kc[0], vc[0], k2[0], v2[0], tgn, srn, pack.layers[0], H)}
+        calls["window_layer"] = lambda: dl.fused_window_decoder_layer(
+            xn, kc[0], vc[0], k2[0], v2[0], tgn, srn, pack.layers[0], H)
     else:
         enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
         dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
-        x_enc, src, x_dec, mem, tgt, _ = layer_inputs(dtype, 4)
         xw, _, _, _, _, _, tgw, srw = window_inputs(dtype, L, 15, wide=True)
-        calls = {"encoder_layer": lambda: dl.fused_encoder_layer(
-                     x_enc, src, enc_w, H),
-                 "decoder_layer": lambda: dl.fused_decoder_layer(
-                     x_dec, mem, tgt, src, dec_w, H),
-                 "window_stack": lambda: st.fused_window_decoder_stack(
-                     xn, ws, kc, vc, k2, v2, tgn, srn, pack.stack,
-                     pack.final_norm, H),
-                 "window_wide_stack": lambda: st.fused_window_wide_stack(
-                     xw, k2, v2, tgw, srw, pack.stack, pack.final_norm, H)}
+        calls.update({
+            "encoder_layer": lambda: dl.fused_encoder_layer(
+                x_enc, src, enc_w, H),
+            "decoder_layer": lambda: dl.fused_decoder_layer(
+                x_dec, mem, tgt, src, dec_w, H),
+            "window_stack": lambda: st.fused_window_decoder_stack(
+                xn, ws, kc, vc, k2, v2, tgn, srn, pack.stack,
+                pack.final_norm, H),
+            "window_wide_stack": lambda: st.fused_window_wide_stack(
+                xw, k2, v2, tgw, srw, pack.stack, pack.final_norm, H)})
     parts = {"products": "gemm_tc_kernel", "ffma_products": "ffma_gemm_kernel",
              "attention": "attention_tile_kernel",
              "attention_ffma": "attention_ffma_kernel",
              "attention_row": "attention_row_kernel",
              "refnorm": "refnorm_kernel"}
-    # the port's launches a call: 7 an encoder layer, 12 a decoder layer,
-    # 11 a window layer
-    want = {"encoder_layer": 7, "decoder_layer": 12, "window_layer": 11,
-            "window_stack": NL * 11, "window_wide_stack": NL * 11}
+    bf16 = dtype == torch.bfloat16
+    prod, att = (("products", "attention") if bf16
+                 else ("ffma_products", "attention_ffma"))
+
+    def by_kind(k):
+        return {prod: k["products"], att: k["attention"],
+                "refnorm": k["refnorm"]}
+
+    window = {prod: 6, att: 2, "refnorm": 3}
+    # the port's launches a call by kind: an encoder layer 7, a window
+    # layer 11, a decoder layer and stack as decoder_launches says
+    want = {"encoder_layer": {prod: 4, att: 1, "refnorm": 2},
+            "decoder_layer": by_kind(dl.decoder_launches()),
+            "decoder_stack": by_kind(dl.decoder_launches(NL)),
+            "window_layer": window,
+            "window_stack": {k: NL * v for k, v in window.items()},
+            "window_wide_stack": {k: NL * v for k, v in window.items()}}
     out = {}
     for name, fn in calls.items():
         out[name] = split = profile_split(fn, parts, reps)
         launches = split["launches"]
-        port = sum(launches[k] for k in parts)
-        if port != want[name]:
-            fail(f"layer_split {name}: {launches} (want {want[name]} "
-                 f"launches of the port's kernels)")
-        if dtype == torch.float32:
-            if launches["products"] or launches["ffma_products"] != 6 \
-                    or launches["attention_ffma"] != 2:
-                fail(f"layer_split {name} float32: {launches} (want 6 FFMA "
-                     f"products and 2 attentions on the ffma path)")
-        elif launches["ffma_products"] or launches["attention_ffma"] \
-                or launches["attention_row"]:
-            fail(f"layer_split {name} bf16: {launches} (want no FFMA "
-                 f"product, every attention on the tile path)")
+        got = {k: launches[k] for k in parts if launches[k]}
+        if got != want[name]:
+            fail(f"layer_split {name} {dtype}: {launches} (want "
+                 f"{want[name]} launches of the port's kernels)")
+        split["want"] = want[name]
+        split["device_ms"] = device_ms(fn)
+        split["gap_ms"] = split["device_ms"] - sum(
+            split[f"{k}_ms"] for k in (*parts, "other"))
     return out
 
 

@@ -20,14 +20,16 @@ smoke's timed decodes), it prints one line ``AB {...}`` with:
   kernel_ms             by dtype, the device ms a call (chip_smoke.device_ms)
                         of the attention core (#9, at the AR step's
                         cross-attention and an encoder self-attention), the
-                        encoder and decoder layers and stacks (#1, #2, #4),
-                        the window layer and stacks (#8, #6, #7) and the
-                        greedy head (#3), on the smoke's inputs;
+                        encoder and decoder layers and stacks (#1, #2, #4,
+                        #5), the window layer and stacks (#8, #6, #7) and
+                        the greedy head (#3), on the smoke's inputs;
   kernel_split          by dtype, torch.profiler's device ms a call of the
-                        same #9 calls, #1 and #4, summed by building block
-                        (products, attention, refnorm), with launches: the
-                        kernels' own time without the launch, and the
-                        norm's alone;
+                        same #9 calls, #1, #2, #4 and #5, summed by building
+                        block (products, attention, refnorm), with launches:
+                        the kernels' own time without the launch, and the
+                        norm's alone; for #2 and #5 also device_ms and
+                        gap_ms, device_ms less the sum of the kernels' own
+                        times (the dead time between dependent launches);
   digest                by dtype, a hash of every output of #9, #1, #2, #4,
                         #5, #8, #6 (the updated caches too) and #7 on the
                         smoke's inputs, and of the float32 NA and SA decodes
@@ -67,8 +69,9 @@ def median_ms(fn, n: int):
 
 
 def kernel_ms(cs, model):
-    """Device ms a call of #9, #1, #2, #4, #8, #6, #7 and #3 at both dtypes,
-    on chip_smoke's inputs at B = 64 and the weights of ``model``."""
+    """Device ms a call of #9, #1, #2, #4, #5, #8, #6, #7 and #3 at both
+    dtypes, on chip_smoke's inputs at B = 64 and the weights of
+    ``model``."""
     import torch
     from boficap_tpu_torch.ops import attention as at
     from boficap_tpu_torch.ops import decoder_layer as dl
@@ -80,6 +83,7 @@ def kernel_ms(cs, model):
         enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
         dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
         enc = st.pack_encoder_stack(model.encoder, dtype)
+        dec = st.pack_decoder_stack(model._decoder("NA"), dtype)
         win = st.pack_window_weights(model._decoder("SA"), dtype)
         head = dl.pack_head_weights(model.generator.proj, dtype)
         x_enc, src, x_dec, mem, tgt, h = cs.layer_inputs(dtype, 4)
@@ -100,6 +104,8 @@ def kernel_ms(cs, model):
                 x_dec, mem, tgt, src, dec_w, H),
             "encoder_stack": lambda: st.fused_encoder_stack_forward(
                 x_enc, src, enc.stack, enc.final_norm, H),
+            "decoder_stack": lambda: st.fused_decoder_stack_forward(
+                x_dec, mem, tgt, src, dec.stack, dec.final_norm, H),
             "window_layer": lambda: dl.fused_window_decoder_layer(
                 xn, kc[0], vc[0], k2[0], v2[0], tgn, srn, win.layers[0], H),
             "window_stack": lambda: st.fused_window_decoder_stack(
@@ -162,8 +168,10 @@ def kernel_calls(cs, model, dtype):
 
 def kernel_split(cs, model):
     """torch.profiler's device ms a call of #9 (AR cross, encoder self),
-    #1 and #4 at both dtypes, by building block (chip_smoke.profile_split),
-    with launches a call."""
+    #1, #2, #4 and #5 at both dtypes, by building block
+    (chip_smoke.profile_split), with launches a call; for #2 and #5 also
+    the call's device_ms and its gap_ms (device_ms less the sum of the
+    kernels' own times)."""
     import torch
     out = {}
     for name, dtype in (("float32", torch.float32),
@@ -171,7 +179,13 @@ def kernel_split(cs, model):
         calls = kernel_calls(cs, model, dtype)
         out[name] = {k: cs.profile_split(calls[k], SPLIT_PARTS)
                      for k in ("attention_core", "attention_core_encoder_self",
-                               "encoder_layer", "encoder_stack")}
+                               "encoder_layer", "decoder_layer",
+                               "encoder_stack", "decoder_stack")}
+        for k in ("decoder_layer", "decoder_stack"):
+            split = out[name][k]
+            own = sum(split[f"{p}_ms"] for p in (*SPLIT_PARTS, "other"))
+            split["device_ms"] = cs.device_ms(calls[k])
+            split["gap_ms"] = split["device_ms"] - own
     return out
 
 

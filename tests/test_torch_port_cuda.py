@@ -11,7 +11,10 @@ checks the serving shapes.  The product of the layer and window kernels
 checked on its own at ragged shapes up to 2304 rows, and for bitwise batch
 independence; so is the head at both dtypes, and the wide window
 round (#7) at bf16, and the narrow round (#6) on a fully masked query row,
-which averages over the cache as it was before the round wrote it.
+which averages over the cache as it was before the round wrote it.  The NA
+decoder stack (#5), with its hoisted cross K/V and its chained launches,
+is held bitwise to a chain of #2 calls, for batch independence, and to
+itself over 50 calls back to back.
 """
 
 import pytest
@@ -515,6 +518,91 @@ def test_decoder_stack_kernel(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     assert _rel(got, want) < TOL[dtype]
+
+
+def _decoder_operands(cuda, dtype, NL, B, L, R, D=512, F=1024, H=8,
+                      seed=0):
+    """A seeded decoder stack's pack and NA fill operands: an empty plan
+    (sample 0), one fully masked target row (sample 1, row 2), padded
+    regions (sample 2 has 3 of R)."""
+    from boficap_tpu_torch.ops import stack as st
+    pack = st.pack_decoder_stack(
+        _layer(tl.Decoder, NL, D, F, H, seed=seed).to(cuda), dtype)
+    g = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn((B, L, D), generator=g).to(cuda, dtype)
+    mem = torch.randn((B, R, D), generator=g).to(cuda, dtype)
+    total = torch.randint(1, L + 1, (B,), generator=g)
+    total[0] = 0
+    tgt = (torch.arange(L)[None, None, :] < total[:, None, None]).expand(
+        B, L, L).contiguous()
+    live = torch.randint(1, R + 1, (B,), generator=g)
+    live[min(2, B - 1)] = 3
+    src = torch.arange(R)[None, :] < live[:, None]
+    if B > 1 and L > 2:
+        tgt[1, 2] = False
+    return pack, x, mem, tgt.to(cuda), src.to(cuda)
+
+
+@pytest.mark.parametrize("B,R", [(5, 7), (3, 36)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoder_stack_is_layer_chain(cuda, dtype, B, R):
+    """#5 against a chain of NL #2 calls and the final norm, bitwise: the
+    stack's one product for every layer's cross K|V sums each output as
+    #2's own projection does (BN from the layer's width 2D), and its launch
+    chain orders the layers as the stream does.  B * R = 35 and 108 rows
+    of that product: not a multiple of its 64- or 128-row tile.  Both
+    within TOL of the plain twin."""
+    from boficap_tpu_torch.ops import stack as st
+    NL, L, H = 6, 9, 8
+    pack, x, mem, tgt, src = _decoder_operands(cuda, dtype, NL, B, L, R)
+    got = st.fused_decoder_stack_forward(x, mem, tgt, src, pack.stack,
+                                         pack.final_norm, H)
+    chain = dl.fused_decoder_forward(x, mem, tgt, src, pack.layers,
+                                     pack.final_norm, H)
+    want = st.decoder_stack_plain(x, mem, tgt, src, pack.stack,
+                                  pack.final_norm, H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, chain)
+    assert _rel(got, want) < TOL[dtype]
+
+
+def test_decoder_stack_rows_batch_independent(cuda):
+    """bf16 at the serving shape (B = 64, L = 20, R = 36, full width): each
+    of a few samples through the stack alone (B = 1) equals its row of the
+    B = 64 call bitwise."""
+    from boficap_tpu_torch.ops import stack as st
+    NL, B, L, R, H = 6, 64, 20, 36, 8
+    pack, x, mem, tgt, src = _decoder_operands(cuda, torch.bfloat16, NL, B,
+                                               L, R, F=2048)
+    full = st.fused_decoder_stack_forward(x, mem, tgt, src, pack.stack,
+                                          pack.final_norm, H)
+    for i in (0, 1, 2, 37, 63):
+        one = st.fused_decoder_stack_forward(
+            x[i:i + 1].contiguous(), mem[i:i + 1].contiguous(),
+            tgt[i:i + 1].contiguous(), src[i:i + 1].contiguous(),
+            pack.stack, pack.final_norm, H)
+        torch.cuda.synchronize()
+        assert torch.equal(full[i:i + 1], one), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoder_stack_repeats_bitwise(cuda, dtype):
+    """50 stack calls back to back, at the serving shape, with an empty
+    plan, a fully masked target row and padded regions, give bitwise equal
+    outputs: a race in the launch chain (a kernel reading or writing before
+    its predecessor is done) would show as calls that differ."""
+    from boficap_tpu_torch.ops import stack as st
+    NL, B, L, R, H = 6, 64, 20, 36, 8
+    pack, x, mem, tgt, src = _decoder_operands(cuda, dtype, NL, B, L, R,
+                                               F=2048, seed=3)
+    outs = [st.fused_decoder_stack_forward(x, mem, tgt, src, pack.stack,
+                                           pack.final_norm, H)
+            for _ in range(50)]
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[0].float()).all()
+    for i, o in enumerate(outs[1:], 1):
+        assert torch.equal(o, outs[0]), i
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

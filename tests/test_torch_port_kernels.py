@@ -365,6 +365,51 @@ def test_key_bound_check_before_launch(monkeypatch, dtype):
                          src, stacked, hn, dl.KEY_MAX + 1)
 
 
+@pytest.mark.parametrize("NL", [1, 2, 6])
+def test_decoder_launches_mirror(NL):
+    """``decoder_launches``, the Python mirror of csrc/decoder_layer.cu's
+    launches by kind (chip_smoke.layer_split holds the card's profile to
+    it): #2 launches 12 kernels; the stack one product for every layer's
+    cross K|V, then each layer's launches without its own projection (67
+    at the serving NL = 6, where one launch a layer projected its own)."""
+    layer = dl.decoder_launches()
+    assert layer == {"products": 7, "attention": 2, "refnorm": 3}
+    stack = dl.decoder_launches(NL)
+    assert set(stack) == set(layer)
+    assert stack["products"] == 1 + NL * (layer["products"] - 1)
+    assert all(stack[k] == NL * layer[k] for k in ("attention", "refnorm"))
+    assert sum(stack.values()) == NL * sum(layer.values()) - (NL - 1)
+
+
+def test_decoder_stack_needs_side_by_side_kv(monkeypatch):
+    """The stack's launch path (``decoder_call`` with NL) raises ValueError,
+    before it reaches the kernel libraries, on weights without
+    ``wkv2_all`` or with one of the wrong shape; ``pack_decoder_stack``'s
+    weights go on to them."""
+    def no_launch():
+        raise AssertionError("reached the kernel libraries")
+
+    monkeypatch.setattr(dl, "_kernels", no_launch)
+    rs = np.random.RandomState(5)
+    d, f, hn, B, Lq, R, NL = 16, 24, 2, 2, 3, 4, 2
+
+    def t(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32))
+
+    stacked = {k: (torch.ones(sh) if k in dl._NORM_KEYS else t(*sh))
+               for k, sh in dl.weight_shapes(dl._DEC_KEYS, d, f, (NL,)).items()}
+    args = (t(B, Lq, d), t(B, R, d), torch.ones(B, Lq, Lq, dtype=torch.bool),
+            torch.ones(B, R, dtype=torch.bool))
+    with pytest.raises(ValueError, match="wkv2_all"):
+        dl.decoder_call("decoder_stack", *args, stacked, hn, NL=NL)
+    stacked["wkv2_all"] = t(d, 2 * d)
+    with pytest.raises(ValueError, match="wkv2_all"):
+        dl.decoder_call("decoder_stack", *args, stacked, hn, NL=NL)
+    stacked["wkv2_all"] = t(d, NL * 2 * d)
+    with pytest.raises(AssertionError, match="kernel libraries"):
+        dl.decoder_call("decoder_stack", *args, stacked, hn, NL=NL)
+
+
 def _c_entries():
     """(library, entry) for every C entry the kernel libraries export."""
     from boficap_tpu_torch.ops._build import SIGNATURES

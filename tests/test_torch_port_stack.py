@@ -131,3 +131,54 @@ def test_encode_and_fill_follow_routing_rule(uic, monkeypatch, rule):
         tbf.fused_encode(tm, a, m, stacked=not rule)
     assert calls == ["fused_encoder_forward" if rule
                      else "fused_encoder_stack_forward"]
+
+
+def _seeded_decoder(NL, D, F, H, seed):
+    """A port Decoder with parameters drawn from numpy (seeded)."""
+    from boficap_tpu_torch.models import layers as tl
+    rs = np.random.RandomState(seed)
+    dec = tl.Decoder(NL, D, F, H)
+    with torch.no_grad():
+        for name, p in dec.named_parameters():
+            noise = torch.from_numpy(rs.randn(*p.shape).astype(np.float32))
+            p.copy_(1.0 + 0.05 * noise if name.endswith("scale")
+                    else noise * (0.1 if p.dim() > 1 else 0.05))
+    return dec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoder_stack_hoisted_kv_is_layer_chain(dtype):
+    """#5's twin runs the kernel's schedule: every layer's cross K|V of the
+    memory first, then the layers on them.  It is bitwise a chain of
+    ``decoder_layer_plain`` (each layer projecting its own K|V), then the
+    final norm, and so is the wrapper's CPU route: padded regions, an empty
+    plan and one fully masked target row."""
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    D, H, NL, Bs, Ls, Rs = 64, 2, 2, 3, 5, 7
+    pack = st.pack_decoder_stack(_seeded_decoder(NL, D, 2 * D, H, 7), dtype)
+    assert pack.stack["wkv2_all"].shape == (D, NL * 2 * D)
+    for i in range(NL):   # layer l's K|V at columns 2Dl ..
+        assert torch.equal(pack.stack["wkv2_all"][:, 2 * D * i:2 * D * (i + 1)],
+                           pack.stack["wkv2"][i])
+    rs = np.random.RandomState(13)
+    x = torch.from_numpy(rs.randn(Bs, Ls, D).astype(np.float32)).to(dtype)
+    mem = torch.from_numpy(rs.randn(Bs, Rs, D).astype(np.float32)).to(dtype)
+    total = np.array([0, 3, Ls])
+    tgt = np.broadcast_to(np.arange(Ls)[None, None, :] < total[:, None, None],
+                          (Bs, Ls, Ls)).copy()
+    tgt[2, 1] = False                      # one fully masked target row
+    src = np.ones((Bs, Rs), bool)
+    src[1, -3:] = False
+    src[2, 2:] = False
+    tgt, src = torch.from_numpy(tgt), torch.from_numpy(src)
+    h = x
+    for w in pack.layers:
+        h = dl.decoder_layer_plain(h, mem, tgt, src, w, H)
+    want = dl.refnorm_plain(h, *pack.final_norm)
+    got = st.decoder_stack_plain(x, mem, tgt, src, pack.stack,
+                                 pack.final_norm, H)
+    routed = st.fused_decoder_stack_forward(x, mem, tgt, src, pack.stack,
+                                            pack.final_norm, H)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert torch.equal(got, want)
+    assert torch.equal(routed, want)
