@@ -1,6 +1,5 @@
-"""Weight bridge: the JAX package's flax parameter tree -> the port's
-modules, random initialisation from a seed, and the port's own
-checkpoints.
+"""Weight bridge: the JAX package's flax parameter tree and ``.ckpt`` files
+-> the port's modules and back, and random initialisation from a seed.
 
 The port's parameter names mirror the flax tree, so a flax leaf
 ``encoder/layer0/self_attn/wq/kernel`` is the port's
@@ -10,19 +9,24 @@ The port's parameter names mirror the flax tree, so a flax leaf
   * ``Embed_0/embedding`` -> ``Embed_0.weight``,
   * RefLayerNorm ``scale`` / ``bias`` and Dense ``bias`` map as they are.
 
-Reading the JAX package's ``.ckpt`` files (flax msgpack) is not ported yet.
+``load_jax_checkpoint`` reads a ``model.ckpt`` the JAX package wrote
+(``flax.serialization.to_bytes``, read by ``utils/flax_msgpack.py``);
+``to_jax_tree`` is the inverse map, for writing one
+(``train/state.py::save_checkpoint``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-from .config import Config, make_config
+from .config import Config
 from .models.boficap import BoFiCap, build_model
+from .models.layers import Dense, Embed
+from .utils.flax_msgpack import msgpack_restore
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -59,6 +63,8 @@ def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
             if name not in params:
                 raise KeyError(f"flax leaf {path!r} has no port parameter "
                                f"{name!r}")
+            if torch.is_tensor(value):                   # bfloat16 leaves
+                value = value.float().numpy()
             arr = np.array(value, dtype=np.float32)       # a writable copy
             if path.endswith("/kernel"):
                 arr = np.ascontiguousarray(arr.T)
@@ -73,6 +79,35 @@ def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
     if isinstance(model, BoFiCap):
         model.invalidate_packed()
     return model
+
+
+def load_jax_checkpoint(path: str, model: torch.nn.Module):
+    """Fill ``model`` from a ``model<app>.ckpt`` file the JAX package wrote
+    (``train/state.py::save_checkpoint``); ``load_jax_params`` on the
+    file's tree."""
+    with open(path, "rb") as f:
+        tree = msgpack_restore(f.read())
+    return load_jax_params(model, tree)
+
+
+def to_jax_tree(model: torch.nn.Module) -> Dict[str, Any]:
+    """The model's parameters as the JAX package's flax tree
+    (``{"params": {...}}`` of float32 numpy arrays), the inverse of
+    ``load_jax_params``: a Dense ``weight`` [out, in] becomes ``kernel``
+    [in, out], an Embed ``weight`` becomes ``embedding``."""
+    root: Dict[str, Any] = {}
+    for mod_name, mod in model.named_modules():
+        for leaf, p in mod.named_parameters(recurse=False):
+            arr = p.detach().float().cpu().numpy()
+            if isinstance(mod, Dense) and leaf == "weight":
+                leaf, arr = "kernel", arr.T
+            elif isinstance(mod, Embed) and leaf == "weight":
+                leaf = "embedding"
+            node = root
+            for part in mod_name.split(".") if mod_name else []:
+                node = node.setdefault(part, {})
+            node[leaf] = np.ascontiguousarray(arr)
+    return {"params": root}
 
 
 def init_params(cfg: Config, vocab_size: int, seed: int = 0,
@@ -95,20 +130,4 @@ def init_params(cfg: Config, vocab_size: int, seed: int = 0,
                 w = torch.rand(p.shape, generator=gen) * (2 * bound) - bound
                 p.copy_(w)
     model.invalidate_packed()
-    return model
-
-
-def save_checkpoint(model: BoFiCap, cfg: Config, vocab_size: int,
-                    path: str) -> None:
-    torch.save({"config": dict(cfg), "vocab_size": int(vocab_size),
-                "state_dict": model.state_dict()}, path)
-
-
-def load_checkpoint(path: str, device=None,
-                    config: Optional[Config] = None) -> BoFiCap:
-    """Rebuild a model saved by ``save_checkpoint``."""
-    ck = torch.load(path, map_location="cpu", weights_only=True)
-    cfg = config or make_config(**ck["config"])
-    model = build_model(cfg, ck["vocab_size"], device)
-    model.load_state_dict(ck["state_dict"])
     return model

@@ -1,8 +1,8 @@
 """HTTP front of the port's caption server (the JAX package's
 ``tools/serve.py``).
 
-    python -m boficap_tpu_torch.serve_http --checkpoint model.pt \
-        --vocab vocab.json --port 8787
+    python -m boficap_tpu_torch.serve_http --model log/model_best.ckpt \
+        --infos_path log/infos_x_best.pkl --port 8787
     python -m boficap_tpu_torch.serve_http --random_init --seed 0 \
         --cfg configs/uic_sd.yml --port 8787 --mode SAIC
     python -m boficap_tpu_torch.serve_http --random_init \
@@ -14,10 +14,12 @@ takes the raw little-endian feature matrix, its shape and type in the
 headers X-Regions and X-Dtype (float32 | float16 | bfloat16).  GET /stats
 returns latency percentiles; POST /shutdown stops the server.
 
-``--checkpoint`` is a file written by ``convert.save_checkpoint``;
-``--vocab`` a JSON object {id: word}.  ``--random_init`` builds random
-weights from ``--seed`` (and, without ``--vocab``, a synthetic vocabulary
-of ``--vocab_size`` words ``w4 ...``).  ``--mode`` picks the decode:
+``--model`` and ``--infos_path`` are a checkpoint the JAX package (or the
+port's ``train/state.py``) wrote: the model's options and vocabulary come
+from the infos, as the JAX package's ``tools/serve.py`` reads them.
+``--random_init`` builds random weights from ``--seed`` (and, without
+``--vocab``, a JSON object {id: word}, a synthetic vocabulary of
+``--vocab_size`` words ``w4 ...``).  ``--mode`` picks the decode:
 NAIC (bound then fill, the default), SAIC (per-phrase) or AIC (word by
 word, KV-cached).  ``--use_pallas 0|1`` routes the eligible attentions
 through the attention-core kernel; without it the config's ``use_pallas``
@@ -40,13 +42,16 @@ _BODY_DTYPES = {"float32": torch.float32, "float16": torch.float16,
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument("--checkpoint", type=str)
+    src.add_argument("--model", type=str,
+                     help="model.ckpt (flax msgpack); needs --infos_path")
     src.add_argument("--random_init", action="store_true")
+    p.add_argument("--infos_path", type=str, default="",
+                   help="the checkpoint's infos_<id>.pkl")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cfg", type=str, default="configs/uic_sd.yml",
                    help="model config for --random_init")
     p.add_argument("--vocab", type=str, default="",
-                   help="JSON {id: word}; required with --checkpoint")
+                   help="JSON {id: word} for --random_init")
     p.add_argument("--vocab_size", type=int, default=9487,
                    help="synthetic vocabulary size for --random_init")
     p.add_argument("--mode", type=str, default="NAIC",
@@ -73,29 +78,36 @@ def parse_args(argv=None):
 
 
 def build_server(args):
-    from .config import load_config
-    from .convert import init_params, load_checkpoint
+    from .config import (default_config, finalize, load_config,
+                         restore_saved_opt)
+    from .convert import init_params, load_jax_checkpoint
+    from .models import setup
     from .serve import CaptionServer
+    from .train.state import safe_load
 
-    if args.checkpoint:
-        if not args.vocab:
-            raise SystemExit("--checkpoint needs --vocab")
-        model = load_checkpoint(args.checkpoint, device=args.device)
+    if args.model:
+        if not args.infos_path:
+            raise SystemExit("--model needs --infos_path")
+        with open(args.infos_path, "rb") as f:
+            infos = safe_load(f)
+        opt = default_config()
+        opt.merge_from_dict(restore_saved_opt(infos.get("opt", {})))
+        ix_to_word = infos["vocab"]
+        model = setup(finalize(opt), len(ix_to_word), args.device)
+        load_jax_checkpoint(args.model, model)
     else:
         cfg = load_config(args.cfg)
-        vocab_size = args.vocab_size
+        ix_to_word = None
         if args.vocab:
             with open(args.vocab) as f:
-                vocab_size = len(json.load(f))
-        model = init_params(cfg, vocab_size, seed=args.seed,
+                ix_to_word = {str(k): v for k, v in json.load(f).items()}
+        model = init_params(cfg, len(ix_to_word) if ix_to_word
+                            else args.vocab_size, seed=args.seed,
                             device=args.device)
+        if ix_to_word is None:
+            ix_to_word = {str(i): f"w{i}" for i in range(4, model.tgt_vocab)}
     if args.use_pallas is not None:
         model.set_attention_core(bool(args.use_pallas))
-    if args.vocab:
-        with open(args.vocab) as f:
-            ix_to_word = {str(k): v for k, v in json.load(f).items()}
-    else:
-        ix_to_word = {str(i): f"w{i}" for i in range(4, model.tgt_vocab)}
     return CaptionServer(
         model, ix_to_word, mode=args.mode, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, max_regions=args.max_regions or None,

@@ -50,7 +50,23 @@ Phases, each printing one JSON line:
  10. aic_serve  the AR main path: CaptionServer(mode="AIC") at the default
               dtype with use_pallas on, the same requests; #9 launches 6 x
               steps x batches, the encoder-stack kernel at least once.
- 11. times    each kernel's time beside its plain version's, one PyTorch
+ 11. eval     the evaluation path at full uic_sd width: the bf16 model
+              (random weights, plans nudged) written as the JAX package's
+              model.ckpt + infos_<id>.pkl by the port's writer and read
+              back bitwise; eval_split at B = 64 over a 960-image
+              synthetic corpus of the full vocabulary (a 192-image test
+              split, three batches) on the loaded model and on a float32
+              model loaded from the same file, NAIC and SAIC, the kernels
+              (use_cuda_fill auto) against the plain path on the card,
+              every batch's decode by the margin rule; AIC on
+              transformer.yml (bf16, float32) greedy and beam 3,
+              use_pallas on against off; images/s of each; each route's
+              launch counts
+              read around its run; then `python -m
+              boficap_tpu_torch.tools.eval` in a subprocess (SAIC, NAIC)
+              on a checkpoint at uic_sd's widths over the CLI's own
+              synthetic corpus.
+ 12. times    each kernel's time beside its plain version's, one PyTorch
               library call's (a yardstick the port never calls) and the
               least time the card could take (bound); decode times,
               launches and host syncs per decode; #9's host cost a call,
@@ -76,6 +92,7 @@ non-zero and prints no result.  Without CUDA it exits non-zero at once.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -200,16 +217,16 @@ def bf16_ulp(x):
 # model and inputs
 # ---------------------------------------------------------------------------
 
-def build(dtype=None, config: str = "uic_sd.yml"):
-    """A shipped config (uic_sd by default) at full width, random weights
-    from SEED; ``dtype`` overrides the config's compute dtype (None: the
-    default, bfloat16)."""
+def build(dtype=None, config: str = "uic_sd.yml", vocab=None):
+    """A shipped config (uic_sd by default) at full width over ``vocab``
+    words (None: VOCAB), random weights from SEED; ``dtype`` overrides the
+    config's compute dtype (None: the default, bfloat16)."""
     from boficap_tpu_torch.config import load_config
     from boficap_tpu_torch.convert import init_params
     cfg = load_config(os.path.join(HERE, "configs", config))
     if dtype is not None:
         cfg.dtype = dtype
-    model = init_params(cfg, VOCAB, seed=SEED, device=DEV).eval()
+    model = init_params(cfg, vocab or VOCAB, seed=SEED, device=DEV).eval()
     if not model.n_lp:
         return model                  # an AR model: no length predictor
     # Random weights plan empty captions (the length head's argmax is
@@ -1076,17 +1093,19 @@ def beam_margins(model, memory, src, K: int):
     return out, mins
 
 
-def beam_agree(got, want, mins, what: str) -> dict:
-    """Beams, scores and token log-probs identical (within LOGPROB_TOL),
-    except in a sample whose selections had a sub-noise gap."""
+def beam_agree(got, want, mins, what: str, noise: float = MARGIN_NOISE,
+               lp_tol=LOGPROB_TOL) -> dict:
+    """Beams, scores and token log-probs identical (within ``lp_tol``;
+    None: reported only), except in a sample whose selections had a gap
+    below ``noise``."""
     diff = (got["seq"] != want["seq"]).flatten(1).any(-1)
-    loose = diff & (mins < MARGIN_NOISE)
+    loose = diff & (mins < noise)
     if (diff & ~loose).any():
-        fail(f"{what}: beams differ above the noise margin")
+        fail(f"{what}: beams differ above the noise margin {noise}")
     same = ~diff
     errs = {k: (got[k][same] - want[k][same]).abs().max().item()
             for k in ("scores", "tok_logprobs")}
-    if max(errs.values()) > LOGPROB_TOL:
+    if lp_tol is not None and max(errs.values()) > lp_tol:
         fail(f"{what}: score/logprob err {errs}")
     return {"excused_samples": int(loose.sum()),
             **{f"{k}_err": v for k, v in errs.items()}}
@@ -1298,6 +1317,349 @@ def check_serve(model, mode: str, kernels):
             "p50_ms": stats["p50_ms"], "p95_ms": stats["p95_ms"],
             "captions_nonempty": sum(bool(o["caption"]) for o in outs),
             "example": outs[0]["caption"][:80]}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: evaluation (checkpoint files, eval_split, the eval CLI)
+# ---------------------------------------------------------------------------
+
+EVAL_IMAGES = 960             # synthetic corpus: a test split of 192 = 3 x B
+EVAL_MODES = ("NAIC", "SAIC")
+# the kernels each eval route must launch: the bf16 model takes the
+# whole-stack kernels at B = 64, the float32 one the per-layer kernels;
+# AIC runs with use_pallas on (the attention core)
+EVAL_KERNELS = {("NAIC", "bfloat16"): NA_KERNELS,
+                ("SAIC", "bfloat16"): SA_KERNELS,
+                ("AIC", "bfloat16"): AIC_KERNELS,
+                ("NAIC", "float32"): ("encoder_layer", "decoder_layer",
+                                      "greedy_head"),
+                ("SAIC", "float32"): ("encoder_layer", "window_layer",
+                                      "greedy_head"),
+                ("AIC", "float32"): ("encoder_layer", "attention_core")}
+CLI_DECODE_LINE = r"decode_time [0-9.]+s \(compile [0-9.]+s\), images/s " \
+                  r"([0-9.]+|nan)"
+
+
+def eval_opt(config: str, **fields):
+    """A shipped config as the eval reads it (the port's full option
+    defaults, finalized), over the in-memory synthetic corpus."""
+    from boficap_tpu_torch.config import (default_config, finalize,
+                                          load_yaml_with_base)
+    opt = default_config()
+    opt.update(load_yaml_with_base(os.path.join(HERE, "configs", config)))
+    opt.update(input_json="synthetic", input_att_dir="synthetic",
+               data_prefetch=0, **fields)
+    return finalize(opt)
+
+
+def eval_loader(opt):
+    """B = 64 over a 960-image synthetic corpus of the full vocabulary."""
+    from boficap_tpu_torch.data.dataset import CaptionData, LabelStore
+    labels = LabelStore.synthetic(n_images=EVAL_IMAGES, vocab_size=VOCAB,
+                                  L=L, seed=0)
+    return CaptionData(opt, labels=labels)
+
+
+def write_checkpoint(model, opt, loader, path: str) -> dict:
+    """model.ckpt and infos_<id>.pkl as tools/train.py lays them out,
+    written by the port (the card has no JAX to write them with)."""
+    import types
+    from boficap_tpu_torch.convert import to_jax_tree
+    from boficap_tpu_torch.train.state import save_checkpoint
+    infos = {"iter": 0, "epoch": 0, "loader_state_dict": loader.state_dict(),
+             "vocab": loader.ix_to_word, "opt": dict(opt),
+             "best_val_score": None,
+             "plateau": {"best": None, "num_bad": 0}}
+    t0 = time.perf_counter()
+    save_checkpoint(types.SimpleNamespace(checkpoint_path=path, id=opt.id),
+                    to_jax_tree(model), infos)
+    return {"infos": infos, "write_s": time.perf_counter() - t0}
+
+
+@torch.no_grad()
+def round_trip(model, opt, loader, path: str):
+    """The full-width model through the port's writer and reader: every
+    parameter bitwise, the infos equal."""
+    from boficap_tpu_torch.convert import load_jax_checkpoint
+    from boficap_tpu_torch.models import setup
+    from boficap_tpu_torch.train.state import load_infos
+    w = write_checkpoint(model, opt, loader, path)
+    ckpt = os.path.join(path, "model.ckpt")
+    loaded = setup(opt, loader.vocab_size, DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_jax_checkpoint(ckpt, loaded)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    want = dict(model.named_parameters())
+    got = dict(loaded.named_parameters())
+    if sorted(got) != sorted(want):
+        fail("checkpoint round trip: the parameter names differ")
+    differ = [n for n in want if not torch.equal(got[n], want[n])]
+    if differ:
+        fail(f"checkpoint round trip: {len(differ)} parameters differ, "
+             f"e.g. {differ[:3]}")
+    infos = load_infos(path, opt.id)
+    if (infos["opt"] != w["infos"]["opt"]
+            or infos["vocab"] != w["infos"]["vocab"]):
+        fail("checkpoint round trip: the infos differ")
+    return loaded.eval(), {
+        "file_bytes": os.path.getsize(ckpt), "parameters": len(want),
+        "elements": sum(p.numel() for p in want.values()),
+        "write_s": w["write_s"], "read_s": read_s, "bitwise": True}
+
+
+@torch.no_grad()
+def run_eval(model, loader, mode: str, flag: str, kw: dict):
+    """eval_split with use_cuda_fill=flag; returns its result, each decode
+    call's (memory, src_mask, outputs) and the launch counts of the run."""
+    from boficap_tpu_torch.eval import eval_utils
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    log = []
+    make = eval_utils.make_decoders
+
+    def recording(m, kwargs):
+        dec = make(m, kwargs)
+
+        def wrap(f):
+            def g(memory, src_mask):
+                out = f(memory, src_mask)
+                log.append((memory, src_mask, out))
+                return out
+            return g
+        return {k: v if k == "encode" else wrap(v) for k, v in dec.items()}
+
+    eval_utils.make_decoders = recording
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()                       # the eval path starts
+        res = eval_utils.eval_split(model, loader,
+                                    {**kw, "use_cuda_fill": flag}, mode)
+        torch.cuda.synchronize()
+        counts = launch_counts()                    # ... and ends
+    finally:
+        eval_utils.make_decoders = make
+    return res, log, counts
+
+
+def shared_context(got, want) -> int:
+    """Decoded positions whose context both runs share: a whole row where
+    seq agrees, else up to the first differing word."""
+    diff = got["seq"] != want["seq"]
+    return int(torch.where(diff.any(-1), diff.int().argmax(-1) + 1,
+                           got["seq"].shape[-1]).sum())
+
+
+def eval_pair(model, loader, mode: str, dtype_name: str, kw: dict,
+              kernels, agree, core: bool = False) -> dict:
+    """eval_split on the plain path (use_cuda_fill=0, on the card) and on
+    the kernels (auto; with ``core``, use_pallas on: the attention core);
+    ``agree(out_k, out_p, memory_p, src)`` holds each batch's decode
+    outputs by the margin rule."""
+    plain, log_p, counts_p = run_eval(model, loader, mode, "0", kw)
+    if any(counts_p.values()):
+        fail(f"eval {mode} {dtype_name} plain: kernels launched: {counts_p}")
+    kern, log_k, counts = with_core(model, core, lambda: run_eval(
+        model, loader, mode, "auto", kw))
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        fail(f"eval {mode} {dtype_name}: {missing} never launched on the "
+             f"eval path: {counts}")
+    if len(log_k) != len(log_p) or not log_k:
+        fail(f"eval {mode} {dtype_name}: {len(log_k)} kernel decodes, "
+             f"{len(log_p)} plain")
+    batches = [agree(out_k, out_p, mem_p, src)
+               for (_, src, out_k), (mem_p, _, out_p) in zip(log_k, log_p)]
+    for r in (kern, plain):
+        if not all(isinstance(p["caption"], str) for p in r["predictions"]):
+            fail(f"eval {mode} {dtype_name}: a caption is not a string")
+        if not math.isfinite(r["images_per_s"]):
+            fail(f"eval {mode} {dtype_name}: images_per_s "
+                 f"{r['images_per_s']}")
+    same = sum(a["caption"] == b["caption"] for a, b in
+               zip(kern["predictions"], plain["predictions"]))
+    return {"images": kern["n_images"], "decodes": len(log_k),
+            "images_per_s": kern["images_per_s"],
+            "plain_images_per_s": plain["images_per_s"],
+            "decode_time_s": kern["decode_time"],
+            "plain_decode_time_s": plain["decode_time"],
+            "first_batch_s": kern["compile_time"],
+            "captions_equal": same, "launches": counts,
+            "captions_nonempty": sum(bool(p["caption"])
+                                     for p in kern["predictions"]),
+            "lang_stats_keys": sorted(kern["lang_stats"]),
+            "CIDEr": kern["lang_stats"]["CIDEr"],
+            "plain_CIDEr": plain["lang_stats"]["CIDEr"],
+            "batches": batches}
+
+
+def na_eval_agree(model, bf16: bool):
+    def agree(got, want, memory, src):
+        if not bf16:
+            return na_agree(got, want, plain_margins(model, memory, src),
+                            "eval NAIC float32")
+        res = na_agree(got, want, plain_margins(model, memory, src),
+                       "eval NAIC bf16", BF16_MARGIN_NOISE, None,
+                       plain_plan_margins(model, memory, src))
+        if (res["seq_differs_below_margin"] > want["seq"].numel() // 4
+                or res["plan_excused_samples"] > want["seq"].shape[0] // 4):
+            fail(f"eval NAIC bf16: {res} differs at over a quarter of "
+                 f"positions or samples")
+        return res
+    return agree
+
+
+def sa_eval_agree(model, bf16: bool):
+    def agree(got, want, memory, src):
+        _, margin = plain_sa(model, memory, src)
+        noise, tol = ((BF16_MARGIN_NOISE, None) if bf16
+                      else (MARGIN_NOISE, LOGPROB_TOL))
+        excused = sa_agree(got, want, margin, "eval SAIC", noise, tol)
+        shared = shared_context(got, want)
+        if bf16 and excused > shared // 4:
+            fail(f"eval SAIC bf16: {excused} words differ in {shared} "
+                 f"positions of a shared context")
+        return {"excused_samples": excused,
+                "shared_context_positions": shared}
+    return agree
+
+
+def ar_eval_agree(model, bf16: bool):
+    from boficap_tpu_torch.decode.ar import ar_sample
+
+    def agree(got, want, memory, src):
+        _, margin = plain_ar(model, ar_sample, memory, src)
+        if not bf16:
+            return ar_agree(got, want, margin, "eval AIC float32")
+        res = ar_agree(got, want, margin, "eval AIC bf16", BF16_MARGIN_NOISE,
+                       None)
+        shared = shared_context(got, want)
+        if res["excused_samples"] > shared // 4:
+            fail(f"eval AIC bf16: {res} in {shared} shared-context "
+                 f"positions")
+        return {"shared_context_positions": shared, **res}
+    return agree
+
+
+def beam_eval_agree(model, bf16: bool):
+    """beam_agree; at bf16 at BF16_MARGIN_NOISE with no cap on the samples
+    it excuses: there most samples' selections have a gap below it (the
+    done pool merges many ended beams of near-equal score), and a beam of
+    such a sample may differ (49 of 64 samples at full uic_sd width on an
+    H100); the top beam's differences and score error are reported."""
+    def agree(got, want, memory, src):
+        _, mins = beam_margins(model, memory, src, K_BEAM)
+        if not bf16:
+            return beam_agree(got, want, mins, "eval AIC beam float32")
+        res = beam_agree(got, want, mins, "eval AIC beam bf16",
+                         BF16_MARGIN_NOISE, None)
+        top = (got["seq"][:, 0] != want["seq"][:, 0]).any(-1)
+        return {**res, "top_beam_differs": int(top.sum()),
+                "top_score_err": (got["scores"][:, 0] - want["scores"][:, 0]
+                                  ).abs().max().item()}
+    return agree
+
+
+def eval_cli(path: str) -> dict:
+    """``python -m boficap_tpu_torch.tools.eval`` in a process of its own,
+    from an empty working directory, on a checkpoint at uic_sd's layer
+    widths over the CLI's own synthetic corpus (40 words), SAIC then NAIC:
+    exit 0, the decode_time line, vis/vis.json with a caption per test
+    image."""
+    import re
+    from boficap_tpu_torch.data.dataset import CaptionData
+    opt = eval_opt("uic_sd.yml", id="smokecli")
+    loader = CaptionData(opt)
+    model = build(None, vocab=loader.vocab_size)
+    write_checkpoint(model, opt, loader, path)
+    n_test = len(loader.split_ix["test"])
+    out = {"vocab": loader.vocab_size, "test_images": n_test}
+    for mode in ("SAIC", "NAIC"):
+        cwd = os.path.join(path, f"cli_{mode}")
+        os.makedirs(cwd)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "boficap_tpu_torch.tools.eval",
+             "--model", os.path.join(path, "model.ckpt"),
+             "--infos_path", os.path.join(path, "infos_smokecli.pkl"),
+             "--inference_mode", mode, "--language_eval", "1",
+             "--num_images", "-1"],
+            cwd=cwd, env=dict(os.environ, PYTHONPATH=HERE),
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            fail(f"eval CLI {mode}: exit {run.returncode}: "
+                 f"{run.stderr[-2000:]}")
+        line = re.search(CLI_DECODE_LINE, run.stdout)
+        if line is None:
+            fail(f"eval CLI {mode}: no decode_time line in {run.stdout!r}")
+        with open(os.path.join(cwd, "vis", "vis.json")) as f:
+            vis = json.load(f)
+        if len(vis) != n_test or not all(isinstance(p["caption"], str)
+                                         for p in vis):
+            fail(f"eval CLI {mode}: vis.json holds {len(vis)} entries for "
+                 f"{n_test} test images")
+        out[mode] = {"exit": 0, "wall_s": wall, "decode_line": line.group(0),
+                     "captions": len(vis),
+                     "captions_nonempty": sum(bool(p["caption"])
+                                              for p in vis),
+                     "example": vis[0]["caption"][:80]}
+    return out
+
+
+def check_eval(model16, aic16, aic):
+    """Phase eval: the full-width bf16 uic_sd model (random weights, plans
+    nudged) through the port's checkpoint writer and reader, bitwise; then
+    eval_split at B = 64 on the loaded model and on a float32 model loaded
+    from the same file, NAIC and SAIC, kernels against the plain path on
+    the card; AIC (transformer.yml, bf16 and float32) greedy and beam,
+    use_pallas on against off; and the eval CLI in a subprocess."""
+    import tempfile
+    from boficap_tpu_torch.convert import load_jax_checkpoint
+    from boficap_tpu_torch.models import setup
+    res = {"margin_noise": {"float32": MARGIN_NOISE,
+                            "bfloat16": BF16_MARGIN_NOISE}}
+    kw = {"split": "test", "num_images": -1, "language_eval": 1,
+          "verbose_loss": 0}
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="boficap_eval_") as tmp:
+        opt = eval_opt("uic_sd.yml", id="smoke", batch_size=B)
+        loader = eval_loader(opt)
+        ck = os.path.join(tmp, "uic_sd")
+        loaded, res["round_trip"] = round_trip(model16, opt, loader, ck)
+        opt32 = eval_opt("uic_sd.yml", id="smoke", batch_size=B,
+                         dtype="float32")
+        model32 = load_jax_checkpoint(os.path.join(ck, "model.ckpt"),
+                                      setup(opt32, VOCAB, DEV)).eval()
+        for dtype_name, model in (("bfloat16", loaded), ("float32", model32)):
+            bf16 = dtype_name == "bfloat16"
+            for mode in EVAL_MODES:
+                agree = (na_eval_agree if mode == "NAIC"
+                         else sa_eval_agree)(model, bf16)
+                r = eval_pair(model, loader, mode, dtype_name, kw,
+                              EVAL_KERNELS[mode, dtype_name], agree)
+                res[f"{mode}_{dtype_name}"] = r
+                if bf16:
+                    for k, v in r["launches"].items():
+                        launches[k] = launches.get(k, 0) + v
+        del loaded, model32
+        aopt = eval_opt("transformer.yml", id="smoke_aic", batch_size=B)
+        aloader = eval_loader(aopt)
+        for (dtype_name, model), beam in itertools.product(
+                (("bfloat16", aic16), ("float32", aic)), (1, K_BEAM)):
+            bf16 = dtype_name == "bfloat16"
+            agree = (ar_eval_agree if beam == 1
+                     else beam_eval_agree)(model, bf16)
+            name = "AIC" + ("" if beam == 1 else f"_beam{beam}")
+            r = eval_pair(model, aloader, "", dtype_name,
+                          {**kw, "num_images": B, "beam_size": beam},
+                          EVAL_KERNELS["AIC", dtype_name], agree, core=True)
+            res[f"{name}_{dtype_name}"] = r
+            if bf16:
+                for k, v in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        res["cli"] = eval_cli(os.path.join(tmp, "cli"))
+    return res, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2354,7 +2716,7 @@ def main():
 
 
 def run_phases(smi: str):
-    """Phases 2-11; returns the {"kernels": [...]} list."""
+    """Phases 2-12; returns the {"kernels": [...]} list."""
     # the same random weights at both compute dtypes: float32 for the
     # decode comparisons, the default (bfloat16) for the main paths
     model = build("float32")
@@ -2396,6 +2758,8 @@ def run_phases(smi: str):
     aic16.set_attention_core(False)
     emit({"phase": "aic_serve", "card": smi, "use_pallas": True,
           "attention_core_expected": want, **aic_served})
+    evaluated, eval_launches = check_eval(model16, aic16, aic)
+    emit({"phase": "eval", "card": smi, **evaluated})
     unforce_long([model, model16], long_shift)
     times = measure(model, model16)
     times["products_bf16"] = measure_products(torch.bfloat16)
@@ -2439,7 +2803,8 @@ def run_phases(smi: str):
             "dtype": "float32",
             "bf16": {key: t16[key] for key in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")},
-            "bf16_max_abs_err": errs["bfloat16"][name]["max_abs_err"]})
+            "bf16_max_abs_err": errs["bfloat16"][name]["max_abs_err"],
+            "eval_launches": eval_launches.get(name, 0)})
         if name in ("encoder_layer", "decoder_layer"):
             # #1 and #2 at bf16 run at B > 128: the B = 256 NA decode
             kernels[-1]["bf16"]["launches"] = bf16_dec[

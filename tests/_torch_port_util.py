@@ -26,17 +26,18 @@ def to_numpy_tree(tree):
 
 
 def make_pair(train_mode: str = "UIC", input_mode: str = "add",
-              seed: int = 0, n_len: int = 1, dtype: str = "float32"):
+              seed: int = 0, n_len: int = 1, dtype: str = "float32",
+              vocab: int = VOCAB):
     """(jax_model, jax_params, torch_model) on shared weights, both built
-    for the compute ``dtype``.  The length and syntax heads' biases (where
-    the train_mode has them; AIC has none) are nudged (in numpy, before
-    both models get them) so the random model plans non-empty captions of
-    varied length."""
+    for the compute ``dtype`` over ``vocab`` words.  The length and syntax
+    heads' biases (where the train_mode has them; AIC has none) are nudged
+    (in numpy, before both models get them) so the random model plans
+    non-empty captions of varied length."""
     cfg = tiny_cfg(train_mode, N_len=n_len)
     cfg.max_length = L
     cfg.decoder_input_mode = input_mode
     cfg.dtype = dtype
-    jm = jax_build_model(cfg, VOCAB)
+    jm = jax_build_model(cfg, vocab)
     Lp = L + 2
     z = jnp.zeros((2, Lp), jnp.int32)
     init = jax.jit(lambda k, a, m, n: jm.init(
@@ -59,7 +60,7 @@ def make_pair(train_mode: str = "UIC", input_mode: str = "add",
         "train_mode", "N_enc", "N_dec", "N_len", "d_model", "d_ff",
         "num_att_heads", "max_length", "decoder_input_mode",
         "att_feat_size", "max_boxes", "dtype")})
-    tm = torch_build_model(tcfg, VOCAB, device="cpu")
+    tm = torch_build_model(tcfg, vocab, device="cpu")
     load_jax_params(tm, tree)
     return jm, params, tm
 

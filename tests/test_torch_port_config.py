@@ -11,8 +11,10 @@ import torch
 from boficap_tpu.config.config import load_yaml_with_base
 from boficap_tpu.config.opts import default_config, finalize
 from boficap_tpu_torch.config import load_config, make_config, read_flat_yaml
-from boficap_tpu_torch.convert import (init_params, load_checkpoint,
-                                       load_jax_params, save_checkpoint)
+from boficap_tpu_torch.convert import (init_params, load_jax_checkpoint,
+                                       load_jax_params, to_jax_tree)
+from boficap_tpu_torch.models.boficap import build_model
+from boficap_tpu_torch.train.state import load_infos, save_checkpoint
 from boficap_tpu_torch.models import layers as tl
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -61,9 +63,12 @@ def test_init_params_seeded_and_checkpoint_roundtrip(tmp_path):
     assert not torch.equal(sa["encoder.layer0.self_attn.wq.weight"],
                            sc["encoder.layer0.self_attn.wq.weight"])
     assert torch.equal(sa["lp_norm.scale"], torch.ones(32))
-    path = str(tmp_path / "m.pt")
-    save_checkpoint(a, cfg, 20, path)
-    r = load_checkpoint(path, device="cpu")
+    cfg.update(checkpoint_path=str(tmp_path), id="rt")
+    save_checkpoint(cfg, to_jax_tree(a), {"opt": dict(cfg)})
+    opt = load_infos(str(tmp_path), "rt")["opt"]
+    assert opt == dict(cfg)
+    r = load_jax_checkpoint(str(tmp_path / "model.ckpt"),
+                            build_model(make_config(**opt), 20, "cpu"))
     sr = r.state_dict()
     assert sorted(sr) == sorted(sa)
     assert all(torch.equal(sa[k], sr[k]) for k in sa)

@@ -14,7 +14,9 @@ round (#7) at bf16, and the narrow round (#6) on a fully masked query row,
 which averages over the cache as it was before the round wrote it.  The NA
 decoder stack (#5), with its hoisted cross K/V and its chained launches,
 is held bitwise to a chain of #2 calls, for batch independence, and to
-itself over 50 calls back to back.
+itself over 50 calls back to back.  Evaluation: a checkpoint the port
+writes loads bitwise on the card, and ``eval_split`` on the kernels gives
+the plain path's captions at float32.
 """
 
 import pytest
@@ -832,3 +834,91 @@ def test_attention_unaligned_heads(cuda, dtype, D, F, H, R):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     assert _rel(got, want) < TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# evaluation on the card: a checkpoint round trip, eval_split's routes
+# ---------------------------------------------------------------------------
+
+def _eval_model(device, dtype="float32", seed=0):
+    """A small UIC model from a seed with its length and syntax heads
+    nudged (random weights plan empty captions), on ``device``."""
+    from boficap_tpu_torch.config import make_config
+    from boficap_tpu_torch.convert import init_params
+    cfg = make_config(train_mode="UIC", N_enc=2, N_dec=2, N_len=1,
+                      d_model=64, d_ff=128, num_att_heads=4, max_length=8,
+                      max_boxes=9, dtype=dtype)
+    model = init_params(cfg, 40, seed=seed, device=device).eval()
+    with torch.no_grad():
+        model.len_head2.bias += torch.tensor(
+            [-1.0] + [1.5] * 3 + [0.0] * 16, device=device)
+        model.syn_head2.bias += torch.tensor(
+            [0.0] * 4 + [2.0] * 3 + [0.0] * 3, device=device)
+    model.invalidate_packed()
+    return cfg, model
+
+
+def _eval_loader(cfg):
+    from boficap_tpu_torch.config import default_config, finalize
+    from boficap_tpu_torch.data.dataset import CaptionData
+    opt = default_config()
+    opt.update(dict(cfg))
+    opt.update(input_json="synthetic", input_att_dir="synthetic",
+               batch_size=4, data_prefetch=0)
+    return CaptionData(finalize(opt))
+
+
+def test_eval_checkpoint_round_trip(cuda, tmp_path):
+    """The port writes a model.ckpt (flax's format) and infos; a model on
+    the card loaded from them holds every parameter bitwise and evaluates
+    as the written one."""
+    import types
+    from boficap_tpu_torch.convert import load_jax_checkpoint, to_jax_tree
+    from boficap_tpu_torch.eval.eval_utils import eval_split
+    from boficap_tpu_torch.train import state
+    cfg, model = _eval_model(cuda)
+    ck = types.SimpleNamespace(checkpoint_path=str(tmp_path), id="rt")
+    state.save_checkpoint(ck, to_jax_tree(model), {"opt": dict(cfg)})
+    _, loaded = _eval_model(cuda, seed=1)
+    load_jax_checkpoint(str(tmp_path / "model.ckpt"), loaded)
+    for (n, a), (_, b) in zip(model.named_parameters(),
+                              loaded.named_parameters()):
+        assert torch.equal(a, b), n
+    assert state.load_infos(str(tmp_path), "rt")["opt"] == dict(cfg)
+    kw = {"split": "test", "verbose_loss": 0, "language_eval": 1}
+    a = eval_split(model, _eval_loader(cfg), kw, "SAIC")
+    b = eval_split(loaded, _eval_loader(cfg), kw, "SAIC")
+    assert a["predictions"] == b["predictions"]
+
+
+@pytest.mark.parametrize("mode", ["NAIC", "SAIC"])
+def test_eval_split_kernels_match_plain(cuda, mode):
+    """float32: use_cuda_fill auto (the kernels: the per-layer route, as a
+    float32 model takes) against 0 (the plain path on the card), captions
+    identical; the kernels launched only on the auto run."""
+    from boficap_tpu_torch.eval.eval_utils import eval_split
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg, model = _eval_model(cuda)
+    out = {}
+    for flag in ("0", "auto"):
+        reset_launch_counts()
+        out[flag] = eval_split(model, _eval_loader(cfg),
+                               {"split": "test", "verbose_loss": 0,
+                                "language_eval": 1, "use_cuda_fill": flag},
+                               mode)
+        torch.cuda.synchronize()
+        launched = sum(launch_counts().values())
+        assert (launched > 0) == (flag == "auto"), (flag, launch_counts())
+    assert [p["caption"] for p in out["auto"]["predictions"]] == [
+        p["caption"] for p in out["0"]["predictions"]]
+    assert any(p["caption"] for p in out["auto"]["predictions"])
+    assert out["auto"]["lang_stats"]["CIDEr"] == out["0"]["lang_stats"][
+        "CIDEr"]
+
+
+def test_use_cuda_fill_forced_on_cpu_model_raises(cuda):
+    from boficap_tpu_torch.eval.eval_utils import use_cuda_fill
+    _, model = _eval_model("cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        use_cuda_fill("1", model)
+    assert use_cuda_fill("1", model.to(cuda)) is True
