@@ -1,6 +1,8 @@
 """Configuration for the port: a reader for the repo's flat ``key: value``
 YAML files, the JAX package's option defaults (``config/opts.py``), its
-eval-CLI flags, and the checks and derived defaults of its ``finalize``.
+training and eval-CLI flags with their merge order (CLI > ``--set_cfgs`` >
+``--cfg`` file > defaults), and the checks and derived defaults of its
+``finalize``.
 
 PyYAML is not assumed on the GPU machine, so this reader handles only the
 subset the shipped configs use: one ``key: value`` per line, ``#``
@@ -201,6 +203,43 @@ class Config(dict):
                 self[k] = _wrap(v)
         return self
 
+    def merge_from_list(self, kv_list) -> "Config":
+        """``[key1, val1, key2, val2, ...]`` overrides (``--set_cfgs``), each
+        string coerced to the type of the value it replaces."""
+        if len(kv_list) % 2:
+            raise ValueError(f"override list must have even length: "
+                             f"{kv_list}")
+        for k, v in zip(kv_list[0::2], kv_list[1::2]):
+            node = self
+            parts = k.split(".")
+            for p in parts[:-1]:
+                node = node[p]
+            node[parts[-1]] = _coerce(v, node.get(parts[-1]))
+        return self
+
+
+def _coerce(v: Any, like: Any) -> Any:
+    """A string override in the type of the value it replaces (the JAX
+    package's ``_coerce``; a value with no type to follow is read as a
+    flat YAML scalar)."""
+    if not isinstance(v, str):
+        return v
+    if like is None:
+        try:
+            return _scalar(v.strip(), "--set_cfgs")
+        except ValueError:
+            return v
+    if isinstance(like, bool):
+        return v.lower() in ("1", "true", "yes", "on")
+    if isinstance(like, int):
+        try:
+            return int(v)
+        except ValueError:
+            return float(v)
+    if isinstance(like, float):
+        return float(v)
+    return v
+
 
 def _wrap(v: Any) -> Any:
     if isinstance(v, dict) and not isinstance(v, Config):
@@ -370,6 +409,82 @@ def add_eval_options(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--dump_attention", type=int, default=0)
     parser.add_argument("--report_flops", type=int, default=0)
+
+
+# the training CLI's flags of the JAX package's opts.py (every DEFAULTS key)
+# whose DEFAULTS value is None and so carries no type
+_NONE_FLAG_TYPES = {"N_enc": int, "N_dec": int, "d_model": int, "d_ff": int}
+
+
+def _str2bool(v: str) -> bool:
+    return str(v).lower() in ("1", "true", "yes", "on")
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    """The training CLI's parser (the JAX package's ``_build_parser``):
+    ``--cfg``, ``--set_cfgs`` and one flag per DEFAULTS key, each None
+    unless given."""
+    parser = argparse.ArgumentParser(description="BoFiCap trainer (PyTorch)",
+                                     allow_abbrev=False)
+    parser.add_argument("--cfg", type=str, default=None,
+                        help="config yaml (supports _BASE_)")
+    parser.add_argument("--set_cfgs", nargs=argparse.REMAINDER, default=None,
+                        help="override config keys: --set_cfgs k1 v1 k2 v2")
+    for name, default in DEFAULTS.items():
+        flag = "--" + name
+        if name == "mesh_shape":
+            continue            # the mesh is not ported (ROADMAP item 11)
+        if isinstance(default, bool):
+            parser.add_argument(flag, type=_str2bool, nargs="?", const=True,
+                                default=None)
+        elif default is None:
+            parser.add_argument(flag, type=_NONE_FLAG_TYPES.get(name, str),
+                                default=None)
+        else:
+            parser.add_argument(flag, type=type(default), default=None)
+    return parser
+
+
+def merge_cli(cfg: Config, args: argparse.Namespace) -> Config:
+    for k, v in vars(args).items():
+        if k in ("cfg", "set_cfgs") or v is None:
+            continue
+        cfg[k] = v
+    return cfg
+
+
+def check_train_opt(cfg: Config) -> Config:
+    """Options of the JAX trainer the port does not run yet raise here, at
+    parse time, naming their ROADMAP item (section 1)."""
+    for key in ("self_critical_after", "structure_after"):
+        if cfg.get(key, -1) is not None and cfg.get(key, -1) >= 0:
+            raise NotImplementedError(
+                f"{key}={cfg[key]}: the RL stage is not ported yet: "
+                "ROADMAP.md section 1, item 5")
+    for key, item in (("multihost", 11), ("mesh_shape", 11),
+                      ("profile_steps", 4)):
+        if cfg.get(key):
+            raise NotImplementedError(
+                f"{key}={cfg[key]!r} is not ported: ROADMAP.md section 1, "
+                f"item {item}")
+    return cfg
+
+
+def parse_opt(argv=None) -> Config:
+    """The training CLI's options: DEFAULTS < ``--cfg`` file <
+    ``--set_cfgs`` < explicit flags, finalized; ``device`` is ``cuda``
+    unless one of them names another."""
+    args = _build_parser().parse_args(argv)
+    cfg = default_config()
+    if args.cfg is not None:
+        cfg.merge_from_dict(load_yaml_with_base(args.cfg))
+    if args.set_cfgs:
+        cfg.merge_from_list(args.set_cfgs)
+    merge_cli(cfg, args)
+    finalize(cfg)
+    if not cfg.get("device"):
+        cfg.device = "cuda"
+    return check_train_opt(cfg)
 
 
 def make_config(**fields) -> Config:

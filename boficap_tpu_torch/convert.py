@@ -18,7 +18,7 @@ The port's parameter names mirror the flax tree, so a flax leaf
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -40,42 +40,20 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def flax_to_torch_name(path: str) -> str:
-    parts = path.split("/")
-    leaf = {"kernel": "weight", "embedding": "weight"}.get(parts[-1],
-                                                           parts[-1])
-    return ".".join(parts[:-1] + [leaf])
-
-
 def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
     """Fill ``model`` (a BoFiCap, or any of the port's layer modules) from
     the matching flax parameter tree given as nested dicts of numpy arrays
     (``{"params": {...}}`` or its inner dict).  Every parameter of the model
     must be present and every leaf used; shapes must agree."""
-    if "params" in tree and isinstance(tree["params"], Mapping):
-        tree = tree["params"]
-    flat = _flatten(tree)
     params = dict(model.named_parameters())
-    missing = set(params)
+    arrays = named_from_tree(tree, flax_layout(model))
     with torch.no_grad():
-        for path, value in flat.items():
-            name = flax_to_torch_name(path)
-            if name not in params:
-                raise KeyError(f"flax leaf {path!r} has no port parameter "
-                               f"{name!r}")
-            if torch.is_tensor(value):                   # bfloat16 leaves
-                value = value.float().numpy()
-            arr = np.array(value, dtype=np.float32)       # a writable copy
-            if path.endswith("/kernel"):
-                arr = np.ascontiguousarray(arr.T)
+        for name, arr in arrays.items():
             p = params[name]
             if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{path}: shape {arr.shape} != port "
+                raise ValueError(f"{name}: shape {arr.shape} != port "
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(arr))
-            missing.discard(name)
-    if missing:
-        raise KeyError(f"flax tree lacks port parameters: {sorted(missing)}")
     if isinstance(model, BoFiCap):
         model.invalidate_packed()
     return model
@@ -90,33 +68,84 @@ def load_jax_checkpoint(path: str, model: torch.nn.Module):
     return load_jax_params(model, tree)
 
 
+def flax_layout(model: torch.nn.Module) -> Dict[str, Tuple[Tuple[str, ...],
+                                                              bool]]:
+    """Each parameter's place in the JAX package's flax tree: port name ->
+    (path under ``params``, whether the flax leaf is the transpose).  A
+    Dense ``weight`` [out, in] is the flax ``kernel`` [in, out]; an Embed
+    ``weight`` is ``embedding``."""
+    out = {}
+    for mod_name, mod in model.named_modules():
+        for leaf, _ in mod.named_parameters(recurse=False):
+            flax_leaf, transposed = leaf, False
+            if isinstance(mod, Dense) and leaf == "weight":
+                flax_leaf, transposed = "kernel", True
+            elif isinstance(mod, Embed) and leaf == "weight":
+                flax_leaf = "embedding"
+            parts = tuple(mod_name.split(".")) if mod_name else ()
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            out[name] = (parts + (flax_leaf,), transposed)
+    return out
+
+
+def tree_from_named(named: Mapping[str, torch.Tensor], layout
+                    ) -> Dict[str, Any]:
+    """Tensors keyed by port parameter name (the parameters, or an
+    optimizer's moments of them) -> the flax tree ``{"params": {...}}`` of
+    float32 numpy arrays, laid out as ``layout`` (``flax_layout``) says."""
+    root: Dict[str, Any] = {}
+    for name, t in named.items():
+        path, transposed = layout[name]
+        arr = t.detach().float().cpu().numpy()
+        node = root
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(arr.T if transposed else arr)
+    return {"params": root}
+
+
+def named_from_tree(tree: Mapping[str, Any], layout) -> Dict[str, np.ndarray]:
+    """The inverse of ``tree_from_named``: float32 numpy arrays in the port's
+    layout, by parameter name.  Every parameter must be present and every
+    leaf used."""
+    if "params" in tree and isinstance(tree["params"], Mapping):
+        tree = tree["params"]
+    flat = {tuple(k.split("/")): v for k, v in _flatten(tree).items()}
+    out = {}
+    for name, (path, transposed) in layout.items():
+        if path not in flat:
+            raise KeyError(f"flax tree lacks {'/'.join(path)!r} (port "
+                           f"{name!r})")
+        v = flat.pop(path)
+        if torch.is_tensor(v):                         # bfloat16 leaves
+            v = v.float().numpy()
+        arr = np.array(v, dtype=np.float32)
+        out[name] = np.ascontiguousarray(arr.T) if transposed else arr
+    if flat:
+        raise KeyError(f"flax leaves {sorted('/'.join(k) for k in flat)[:5]}"
+                       f" have no port parameter")
+    return out
+
+
 def to_jax_tree(model: torch.nn.Module) -> Dict[str, Any]:
     """The model's parameters as the JAX package's flax tree
     (``{"params": {...}}`` of float32 numpy arrays), the inverse of
-    ``load_jax_params``: a Dense ``weight`` [out, in] becomes ``kernel``
-    [in, out], an Embed ``weight`` becomes ``embedding``."""
-    root: Dict[str, Any] = {}
-    for mod_name, mod in model.named_modules():
-        for leaf, p in mod.named_parameters(recurse=False):
-            arr = p.detach().float().cpu().numpy()
-            if isinstance(mod, Dense) and leaf == "weight":
-                leaf, arr = "kernel", arr.T
-            elif isinstance(mod, Embed) and leaf == "weight":
-                leaf = "embedding"
-            node = root
-            for part in mod_name.split(".") if mod_name else []:
-                node = node.setdefault(part, {})
-            node[leaf] = np.ascontiguousarray(arr)
-    return {"params": root}
+    ``load_jax_params``."""
+    return tree_from_named(dict(model.named_parameters()),
+                           flax_layout(model))
 
 
 def init_params(cfg: Config, vocab_size: int, seed: int = 0,
                 device=None) -> BoFiCap:
-    """A model with random weights made from ``seed`` by a CPU
-    ``torch.Generator`` (so the weights do not depend on the device), in
-    the flax initialisers' law: Xavier-uniform matrices and tables, zero
-    biases, unit norm scales."""
-    model = build_model(cfg, vocab_size, device)
+    """A model with random weights made from ``seed`` (``fill_random``)."""
+    return fill_random(build_model(cfg, vocab_size, device), seed)
+
+
+def fill_random(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """Fill ``model``'s parameters from ``seed`` by a CPU ``torch.Generator``
+    (so the weights do not depend on the device), in the flax
+    initialisers' law: Xavier-uniform matrices and tables, zero biases,
+    unit norm scales."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -129,5 +158,6 @@ def init_params(cfg: Config, vocab_size: int, seed: int = 0,
                 bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
                 w = torch.rand(p.shape, generator=gen) * (2 * bound) - bound
                 p.copy_(w)
-    model.invalidate_packed()
+    if isinstance(model, BoFiCap):
+        model.invalidate_packed()
     return model

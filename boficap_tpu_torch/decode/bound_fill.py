@@ -63,10 +63,11 @@ def use_stacked(model, batch: int) -> bool:
             and batch <= 128)
 
 
+@torch.no_grad()
 def fused_encode(model, att_feats, att_masks,
                  stacked: Optional[bool] = None):
     """``model.encode`` with the encoder stack on the kernel wrappers
-    (inference only); att_embed stays plain.  ``stacked``: the whole-stack
+    (inference only, so under ``no_grad``); att_embed stays plain.  ``stacked``: the whole-stack
     kernel (True) or one launch per layer (False); None follows
     ``use_stacked``."""
     x = model.embed_att(att_feats)
@@ -493,3 +494,106 @@ def uic_s_ar_decode(model, memory, src_mask, *, sample_method: str = "greedy",
             "phrase_num": plan["phrase_num"],
             "phrase_length": plan["phrase_length"][:, :L],
             "phrase_syn": plan["phrase_syn"][:, :L]}
+
+
+@torch.no_grad()
+def ss_sa_loop(model, memory, src_mask, labels, phrase_length, phrase_syn,
+               ss_prob: float, rng: torch.Generator,
+               sample_method: str = "greedy", temperature: float = 1.0
+               ) -> Dict[str, torch.Tensor]:
+    """Scheduled-sampling SA loop (reference ss_SAIC,
+    TransformerModel.py:1988-2121), the no-grad sampling phase of the
+    JAX package's ``ss_sa_loop``.
+
+    Each phrase step, each sample flips a coin (``ss_prob``, from ``rng``)
+    for the model's plan over the gt plan; a second fair coin picks
+    copy-from-sampled-words or bos-only decoder input for the model
+    branch; the gt branch copies the gt labels with the gt plan.  Words
+    always come from the SA decoder through ``sample_next_word``.  Returns
+    the assembled decoder inputs and the plan, from which the training
+    step re-scores every step's log-probs in one differentiable pass.  The
+    loop ends when every sample is finished (one host sync a step).
+    labels / phrase_length / phrase_syn: [B, L2] framed gt rows."""
+    B, L2 = labels.shape
+    L = L2 - 2
+    dev = labels.device
+    pos_dec = torch.arange(L, device=dev)[None, :]
+    bcache = model.bound_cache(memory, False) if model.N_len == 1 else None
+    i32 = dict(dtype=labels.dtype, device=dev)
+
+    def full(v, col0=None):
+        t = torch.full((B, L2), v, **i32)
+        if col0 is not None:
+            t[:, 0] = col0
+        return t
+
+    seq, extend_len = full(PAD, BOS), full(PAD, LEN)
+    extend_word, extend_syn = full(PAD), full(PAD, LEN)
+    plan_len, plan_syn = full(0, 1), full(PAD)
+    vis_dec = torch.zeros((B, L), **i32)
+    phrase_last = torch.ones(B, **i32)
+    seq_last = torch.zeros(B, **i32)
+    label_last = torch.zeros(B, **i32)
+    prev_len = torch.ones(B, **i32)
+    finished = torch.zeros(B, dtype=torch.bool, device=dev)
+    for i in range(1, L2 - 1):
+        if bool(finished.all()):
+            break
+        if bcache is not None:
+            len_lp, syn_lp = model.bound_step_cached(
+                bcache, extend_len, phrase_last, src_mask, use_syn=False)
+        else:
+            len_lp, syn_lp = model.bound_step(extend_len, phrase_last, memory,
+                                              src_mask, False)
+        len_N = torch.argmax(len_lp, -1).to(labels.dtype)
+        syn_N = torch.argmax(syn_lp, -1).to(labels.dtype)
+        gt_len_i, gt_syn_i = phrase_length[:, i], phrase_syn[:, i]
+        stop = ((len_N == 0) | (syn_N < SYN_LOWER) | (syn_N > SYN_UPPER)
+                | (gt_len_i == 0))                         # reference :2029
+        emit = ~finished & ~stop
+        cap = (L2 - 1) - phrase_last
+        pred_len = torch.minimum(len_N, cap)
+        clamp = (len_N + phrase_last) >= (L2 - 1)
+        use_model = torch.rand(B, generator=rng, device=dev) < ss_prob
+        bos_input = torch.rand(B, generator=rng, device=dev) < 0.5
+        # the gt branch clamps the gt length too (reference :2076)
+        len_eff = torch.where(use_model, pred_len,
+                              torch.minimum(gt_len_i, cap))
+        len_eff = torch.where(emit, len_eff, 0)
+        syn_eff = torch.where(use_model, syn_N, gt_syn_i)
+        plan_len[:, i] = len_eff
+        plan_syn[:, i] = torch.where(emit, syn_eff, PAD)
+        # a clamped sample ends on the MODEL's length, before the coin
+        # picks its input branch (reference :2033-2038)
+        finished = finished | stop | (emit & clamp)
+
+        prev_gt = phrase_length[:, max(i - 1, 0)]
+        vals_model, in_ph = _copy_phrase(seq, seq_last, prev_len, len_eff,
+                                         phrase_last, L2)
+        vals_gt, _ = _copy_phrase(labels, label_last, prev_gt, len_eff,
+                                  phrase_last, L2)
+        vals = torch.where(use_model[:, None],
+                           torch.where(bos_input[:, None], BOS, vals_model),
+                           vals_gt)
+        extend_word = torch.where(in_ph, vals, extend_word)
+        extend_syn = torch.where(in_ph, syn_eff[:, None], extend_syn)
+        start_dec = phrase_last - 1
+        vis_dec = torch.where((len_eff > 0)[:, None]
+                              & (pos_dec >= start_dec[:, None]),
+                              (start_dec + len_eff)[:, None], vis_dec)
+        tgt_mask = pos_dec[:, None, :] < vis_dec[:, :, None]
+        logprob = model.generate(model.decode_sa(
+            extend_word[:, 1:-1], extend_syn[:, 1:-1], memory, src_mask,
+            tgt_mask))
+        ids, _ = sample_next_word(logprob, sample_method, temperature)
+        ids_lab = torch.nn.functional.pad(ids.to(labels.dtype), (1, 1))
+        seq = torch.where(in_ph, ids_lab, seq)
+        extend_len = torch.where(in_ph, ids_lab, extend_len)
+        grew = len_eff > 0
+        seq_last = seq_last + torch.where(grew, prev_len, 0)
+        label_last = label_last + torch.where(grew, prev_gt, 0)
+        phrase_last = phrase_last + len_eff
+        prev_len = torch.where(grew, len_eff, prev_len)
+    return {"extend_word": extend_word, "extend_syn": extend_syn,
+            "extend_len": extend_len, "plan_len": plan_len,
+            "plan_syn": plan_syn, "vis_dec": vis_dec, "seq": seq}

@@ -28,12 +28,15 @@ time is reported as ``compile_time``); a one-batch eval decodes its batch
 again for the rate.  ``images_per_s`` counts the images the timed decodes
 processed.
 
+``verbose_loss`` (on by default, as in the JAX package) adds the
+teacher-forced XE loss of each batch with labels (``train/steps.py``
+``xe_loss_fn``, deterministic, glancing off), outside the timer; ``loss``
+is its mean over the batches.
+
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item
 (section 1): the NNAIC and PB_pad branches, ``group_size > 1``,
-``sample_n > 1`` on the AIC branch, the teacher-forced eval loss
-(``verbose_loss``, on by default as in the JAX package: pass
-``verbose_loss=0``); a non-greedy ``sample_method`` raises in
-``decode/sampling.py``.
+``sample_n > 1`` on the AIC branch; a non-greedy ``sample_method`` raises
+in ``decode/sampling.py``.
 """
 
 from __future__ import annotations
@@ -139,6 +142,15 @@ def make_decoders(model, eval_kwargs: Dict[str, Any]) -> Dict[str, Any]:
             "UIC_s_AIC": dec_uic_s_ar}
 
 
+def eval_loss(model, data, device) -> float:
+    """The teacher-forced XE loss of one loader batch (JAX
+    ``eval_utils.py:320-342``): ``xe_loss_fn`` with no dropout and no
+    glancing, under the caller's ``no_grad``."""
+    from ..train.steps import to_device, xe_loss_fn
+    loss, _ = xe_loss_fn(model, to_device(data, device), None)
+    return float(loss)
+
+
 def _stash_decode_constraints(model, ix_to_word, eval_kwargs
                               ) -> Dict[str, Any]:
     """Resolve suppress_UNK / remove_bad_endings into the vocab-index keys
@@ -201,9 +213,7 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
         not_ported("the NNAIC branch (nnaic_decode)", 6)
     if branch == "PB_pad":
         not_ported("the PB_pad branch (decode/pb.py)", 7)
-    if eval_kwargs.get("verbose_loss", 1):
-        not_ported("the teacher-forced eval loss (verbose_loss; pass "
-                   "verbose_loss=0)", 4)
+    verbose_loss = bool(eval_kwargs.get("verbose_loss", 1))
     sample_n = int(eval_kwargs.get("sample_n", 1))
     if sample_n > 1 and branch == "AIC":
         not_ported(f"sample_n={sample_n} (sample_n_captions)", 5)
@@ -233,6 +243,7 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
     ix_to_word = loader.ix_to_word
 
     n = 0
+    loss_sum, loss_evals = 0.0, 1e-8
     predictions: List[dict] = []
     gts_words: Dict[Any, List[str]] = {}
     decode_time = 0.0
@@ -247,6 +258,9 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
         decoded_imgs += len(data["infos"])
         att = torch.from_numpy(data["att_feats"]).to(dev)
         am = torch.from_numpy(data["att_masks"]).to(dev)
+        if verbose_loss and data.get("labels") is not None:
+            loss_sum += eval_loss(model, data, dev)
+            loss_evals += 1
 
         sync()
         t0 = time.perf_counter()
@@ -353,7 +367,7 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
         decode_time = time.perf_counter() - t0
         timed_imgs = att.shape[0]
     return {
-        "loss": 0.0,
+        "loss": loss_sum / loss_evals,
         "predictions": predictions,
         "n_predictions": [],
         "lang_stats": lang_stats,

@@ -1,15 +1,19 @@
-"""BoFiCap, inference half for the NA, SA and A roles: the port of the JAX
-package's ``models/boficap.py`` (reference TransformerModel.py:97-175,
-386-587).
+"""BoFiCap: the port of the JAX package's ``models/boficap.py`` (reference
+TransformerModel.py:97-175, 386-587, 1713-1789).
 
-Covers what the NA "bound then fill", the SA per-phrase and the AR decodes
-need: the parameters each train_mode's flax tree holds, ``encode``, the
-cached bounding step (the N_len == 1 path every shipped config uses) and
-the general ``bound_step``, the add | single | gate decoder-input mix (over
-the whole frame, or over a window of slots for the SA fill), ``decode_na``,
-``decode_sa``, ``decode_a``, the KV-cached AR step (``init_ar_cache``,
-``ar_step``) and the generator.  Training paths and PB_pad come in later
-slices.
+Inference: the parameters each train_mode's flax tree holds, ``encode``,
+the cached bounding step (the N_len == 1 path every shipped config uses)
+and the general ``bound_step``, the add | single | gate decoder-input mix
+(over the whole frame, or over a window of slots for the SA fill),
+``decode_na``, ``decode_sa``, ``decode_a``, the KV-cached AR step
+(``init_ar_cache``, ``ar_step``) and the generator.
+
+Training: ``forward`` / ``decode_train``, the teacher-forced pass of every
+train_mode but NNAIC (ROADMAP item 6) and PB_pad (item 7), with the
+one-pass teacher-forced bounding (``bound_teacher``) and glancing training
+(GLAT).  Dropout follows the layers' rule (``layers.dropout``): ``rng``, a
+``torch.Generator`` on the model's device, or None for the deterministic
+pass that every decode takes.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from ..constants import BOS, LEN, LENGTH_DIM, SYN_DIM
+from ..constants import BOS, EOS, LEN, LENGTH_DIM, PAD, SYN_DIM
+from ..data import phrase_ops as po
 from .layers import (
     Decoder,
     DecoderLayer,
@@ -30,6 +35,8 @@ from .layers import (
     PositionalEncoding,
     RefLayerNorm,
     TokenEmbed,
+    causal_mask,
+    dropout,
     prefix_mask,
 )
 
@@ -77,7 +84,8 @@ class BoFiCap(nn.Module):
                  num_heads: int = 8, att_feat_size: int = 2048,
                  max_boxes: int = 100, max_length: int = 20,
                  train_mode: str = "UIC", decoder_input_mode: str = "add",
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, dropout_rate: float = 0.1,
+                 drop_prob_lm: float = 0.5, self_dis: bool = False):
         super().__init__()
         if decoder_input_mode not in ("add", "single", "gate"):
             raise ValueError(f"decoder_input_mode {decoder_input_mode!r}")
@@ -92,16 +100,21 @@ class BoFiCap(nn.Module):
         self.train_mode = train_mode
         self.decoder_input_mode = decoder_input_mode
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
+        self.drop_prob_lm = drop_prob_lm
+        # uic_loss's self-distillation term (the config's self_dis)
+        self.self_dis = bool(self_dis)
         dd = dict(dtype=dtype, device=device)
+        ddr = dict(dd, dropout_rate=dropout_rate)
         L2 = max_length + 2
 
         self.att_embed = Dense(att_feat_size, d_model, **dd)
-        self.encoder = Encoder(N_enc, d_model, d_ff, num_heads, **dd)
+        self.encoder = Encoder(N_enc, d_model, d_ff, num_heads, **ddr)
         n_stacks = max(decoder_roles(train_mode).values()) + 1
         self.n_stacks = n_stacks
         for i in range(n_stacks):
             self.add_module(f"decoder{i}",
-                            Decoder(N_dec, d_model, d_ff, num_heads, **dd))
+                            Decoder(N_dec, d_model, d_ff, num_heads, **ddr))
         # length/syntax predictor (reference LengthPredictor_UIC :333-383)
         self.n_lp = 0 if train_mode in NO_PREDICTOR else max(N_len, 1)
         # (the parameters are created in this order, which fixes the order
@@ -109,12 +122,13 @@ class BoFiCap(nn.Module):
         self.word_embed = TokenEmbed(tgt_vocab, d_model, **dd)
         if self.n_lp:
             self.syn_embed = TokenEmbed(SYN_DIM, d_model, **dd)
-        self.posenc = PositionalEncoding(d_model, max(5000, L2), device)
+        self.posenc = PositionalEncoding(d_model, max(5000, L2), device,
+                                         dropout_rate)
         self.generator = Generator(d_model, tgt_vocab, **dd)
 
         for i in range(self.n_lp):
             self.add_module(f"lp{i}",
-                            DecoderLayer(d_model, d_ff, num_heads, **dd))
+                            DecoderLayer(d_model, d_ff, num_heads, **ddr))
         if self.n_lp and N_len == 0:
             # one cross-attention sublayer (DecoderLayer.cross_only); the
             # flax tree holds no parameters for the parts it never calls
@@ -140,7 +154,8 @@ class BoFiCap(nn.Module):
     # --------------------------------------------------- packed kernel weights
     # Packed once per model and cached: every loader clears the cache
     # (load_state_dict, .to()/.cuda()); code that writes parameters in place
-    # calls invalidate_packed().
+    # calls invalidate_packed(), as the training step does after each
+    # optimizer update (train/steps.py).
     def invalidate_packed(self):
         self._packed.clear()
 
@@ -208,31 +223,74 @@ class BoFiCap(nn.Module):
         return self._packed[key]
 
     # ------------------------------------------------------------ primitives
-    def embed_att(self, att_feats):
+    def embed_att(self, att_feats, rng=None):
         """2048-d region features -> d_model (reference att_embed,
-        TransformerModel.py:1642-1647: Linear + ReLU)."""
-        return torch.relu(self.att_embed(att_feats.to(self.dtype)))
+        TransformerModel.py:1642-1647: Linear + ReLU +
+        Dropout(drop_prob_lm))."""
+        x = torch.relu(self.att_embed(att_feats.to(self.dtype)))
+        return dropout(x, self.drop_prob_lm, rng)
 
-    def encode(self, att_feats, att_masks=None):
+    def encode(self, att_feats, att_masks=None, rng=None):
         """Region features + padding mask -> encoder memory [B, R, d]."""
-        x = self.embed_att(att_feats)
+        x = self.embed_att(att_feats, rng)
         src_mask = None if att_masks is None else att_masks.bool()
-        return self.encoder(x, src_mask)
+        return self.encoder(x, src_mask, rng)
 
     def _decoder(self, role: str) -> Decoder:
         return getattr(self, f"decoder{decoder_roles(self.train_mode, role)}")
 
-    def _lp_heads(self, h):
+    def _lp_heads(self, h, rng=None):
         """[..., d] -> (length logprob [..., 20], syn logprob [..., 10])."""
-        lh = torch.relu(self.len_head1(h))
+        r = self.dropout_rate
+        lh = dropout(torch.relu(self.len_head1(h)), r, rng)
         len_lp = torch.log_softmax(self.len_head2(lh).float(), dim=-1)
-        sh = torch.relu(self.syn_head1(h))
+        sh = dropout(torch.relu(self.syn_head1(h)), r, rng)
         syn_lp = torch.log_softmax(self.syn_head2(sh).float(), dim=-1)
         return len_lp, syn_lp
 
-    def _lp_embed(self, ids, use_syn: bool):
+    def _lp_embed(self, ids, use_syn: bool, rng=None):
         emb = self.syn_embed(ids) if use_syn else self.word_embed(ids)
-        return self.posenc(emb)
+        return self.posenc(emb, rng=rng)
+
+    # -------------------------------------------------- teacher-forced bound
+    def bound_teacher(self, ids, phrase_length, memory, src_mask,
+                      use_syn: bool, rng=None):
+        """Teacher-forced bounding, every step in one pass.  ids [B, L2]:
+        the predictor input (the word row with [LEN] at 0 for the SA
+        branch, ``extend_syn_seq`` for the NA branch).  Returns (len, syn)
+        log-probs [B, S, .], S = L + 1: slot k is the prediction after
+        phrases 1..k (the reference's ``predict_*_logprob[:, 1:, :]``)."""
+        L2 = ids.shape[-1]
+        S = self.max_length + 1
+        y = self._lp_embed(ids, use_syn, rng)                     # [B, L2, d]
+        B, _, d = y.shape
+        if self.N_len == 1:
+            # only the [LEN] row reaches the heads and its query is the
+            # same at every step: the steps become stacked query rows
+            prefixes = po.bound_prefixes(phrase_length, S)        # [B, S]
+            q = y[:, 0:1, :].expand(B, S, d)
+            mask = prefix_mask(prefixes, L2)                      # [B, S, L2]
+            h = self.lp_norm(self.lp0(q, memory, src_mask, mask, kv=y,
+                                      rng=rng))
+        elif self.N_len == 0:
+            # one cross-attention sublayer, blind to the bound mask: every
+            # step gives the same [LEN] row
+            h0 = self.lp_norm(self.lp0.cross_only(y, memory, src_mask,
+                                                  rng))[:, 0:1, :]
+            h = h0.expand(B, S, d)
+        else:
+            # the S step masks stacked as a batch dimension
+            masks = po.bound_step_masks(phrase_length, S, L2)     # [B,S,L2,L2]
+            R = memory.shape[1]
+            x = y[:, None].expand(B, S, L2, d).reshape(B * S, L2, d)
+            ms = masks.reshape(B * S, L2, L2)
+            mem = memory[:, None].expand(B, S, R, d).reshape(B * S, R, d)
+            sm = None if src_mask is None else src_mask[:, None].expand(
+                B, S, R).reshape(B * S, R)
+            for layer in self.lp_layers():
+                x = layer(x, mem, sm, ms, rng=rng)
+            h = self.lp_norm(x)[:, 0, :].reshape(B, S, -1)
+        return self._lp_heads(h, rng)
 
     # -------------------------------------------------------------- bounding
     def bound_cache(self, memory, use_syn: bool = True):
@@ -326,8 +384,8 @@ class BoFiCap(nn.Module):
             torch.cat([w, s], dim=-1)))
         return g * w + (1 - g) * s
 
-    def _mix_inputs(self, word_seq, syn_seq, gate: str):
-        return self.posenc(self._mix_embed(word_seq, syn_seq, gate))
+    def _mix_inputs(self, word_seq, syn_seq, gate: str, rng=None):
+        return self.posenc(self._mix_embed(word_seq, syn_seq, gate), rng=rng)
 
     def mix_inputs_window(self, word_seq, syn_seq, pos, gate: str):
         """``_mix_inputs`` for a window of decoder slots: embeds only the
@@ -338,29 +396,37 @@ class BoFiCap(nn.Module):
         x = self._mix_embed(word_seq, syn_seq, gate)
         return x + self.posenc.pe[pos].to(x.dtype)
 
-    def decode_sa(self, word_seq, syn_seq, memory, src_mask, tgt_mask):
+    def decode_sa(self, word_seq, syn_seq, memory, src_mask, tgt_mask,
+                  rng=None, grouped: bool = False):
         """SA fill: copied-word + syn input, blockwise mask. [B, L] ->
-        [B, L, d]."""
-        return self._decoder("SA")(self._mix_inputs(word_seq, syn_seq, "sa"),
-                                   memory, src_mask, tgt_mask)
+        [B, L, d].  ``grouped``: the caption rows are image-major over a
+        memory of one row per image (``layers.DecoderLayer._cross``)."""
+        return self._decoder("SA")(
+            self._mix_inputs(word_seq, syn_seq, "sa", rng), memory, src_mask,
+            tgt_mask, rng, grouped)
 
-    def na_inputs(self, syn_seq):
-        """Embedded NA fill inputs: BOS words + the planned syn ids."""
-        word_seq = torch.full_like(syn_seq, BOS)
-        return self._mix_inputs(word_seq, syn_seq, "na")
+    def na_inputs(self, syn_seq, rng=None, glat_input=None):
+        """Embedded NA fill inputs: BOS words (or the glanced words) + the
+        planned syn ids."""
+        word_seq = (torch.full_like(syn_seq, BOS) if glat_input is None
+                    else glat_input)
+        return self._mix_inputs(word_seq, syn_seq, "na", rng)
 
-    def decode_na(self, syn_seq, memory, src_mask, tgt_mask):
-        """NA fill: bos word + syn input. [B, L] -> [B, L, d]."""
-        return self._decoder("NA")(self.na_inputs(syn_seq), memory, src_mask,
-                                   tgt_mask)
+    def decode_na(self, syn_seq, memory, src_mask, tgt_mask, rng=None,
+                  glat_input=None, grouped: bool = False):
+        """NA fill: bos (or glanced) word + syn input. [B, L] -> [B, L, d]."""
+        return self._decoder("NA")(self.na_inputs(syn_seq, rng, glat_input),
+                                   memory, src_mask, tgt_mask, rng, grouped)
 
-    def decode_a(self, word_seq, memory, src_mask, tgt_mask, syn_seq=None):
+    def decode_a(self, word_seq, memory, src_mask, tgt_mask, syn_seq=None,
+                 rng=None, grouped: bool = False):
         """AR decode, teacher-forced over the whole frame; UIC_s/u variants
         add syn embeddings (reference :832-834).  [B, L] -> [B, L, d]."""
         x = self.word_embed(word_seq)
         if syn_seq is not None:
             x = x + self.syn_embed(syn_seq)
-        return self._decoder("A")(self.posenc(x), memory, src_mask, tgt_mask)
+        return self._decoder("A")(self.posenc(x, rng=rng), memory, src_mask,
+                                  tgt_mask, rng, grouped)
 
     def init_ar_cache(self, memory, max_len: int):
         """KV cache of the AR decoder: per layer, the cross-attention K/V
@@ -380,6 +446,142 @@ class BoFiCap(nn.Module):
 
     def generate(self, h):
         return self.generator(h)
+
+    def generate_logits(self, h):
+        return self.generator.logits(h)
+
+    # ----------------------------------------------------------- train paths
+    def forward(self, att_feats, att_masks, labels, phrase_num=None,
+                phrase_length=None, phrase_syn=None, glat_p=None, rng=None
+                ) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward of the train_mode (the JAX package's
+        ``__call__``): log-probability tensors named as the reference's
+        ``_forward`` outputs (TransformerModel.py:1713-1789).  ``labels``
+        is the bos-framed [B, L2] row; the phrase tensors follow
+        ``phrase_ops``.  ``rng`` None is the deterministic pass."""
+        memory = self.encode(att_feats, att_masks, rng)
+        src_mask = None if att_masks is None else att_masks.bool()
+        return self.decode_train(memory, src_mask, labels, phrase_num,
+                                 phrase_length, phrase_syn, glat_p, rng)
+
+    def decode_train(self, memory, src_mask, labels, phrase_num=None,
+                     phrase_length=None, phrase_syn=None, glat_p=None,
+                     rng=None) -> Dict[str, torch.Tensor]:
+        """Teacher-forced decode from the encoder memory.  ``labels`` may
+        have k times the memory's rows (the collate's seq_per_img caption
+        rows, image-major): the word decoders then fold them over one
+        image's keys (``grouped``), the predictors take the memory
+        repeated.  ``glat_p`` None or < 0 turns glancing off; GLAT draws
+        its reveal from ``rng``."""
+        L = self.max_length
+        mem_dec, srcm_dec = memory, src_mask
+        if labels.shape[0] != memory.shape[0]:
+            k = labels.shape[0] // memory.shape[0]
+            memory = memory.repeat_interleave(k, dim=0)
+            if src_mask is not None:
+                src_mask = src_mask.repeat_interleave(k, dim=0)
+        dec = dict(rng=rng, grouped=True)
+        mode = self.train_mode
+        out: Dict[str, torch.Tensor] = {}
+
+        if mode in ("AIC", "auto"):
+            seq = labels[:, :-1]
+            tgt = (seq != EOS) & (seq != PAD)
+            tgt[:, 0] = True
+            tgt_mask = tgt[:, None, :] & causal_mask(seq.shape[1],
+                                                     seq.device)[None]
+            h = self.decode_a(seq, mem_dec, srcm_dec, tgt_mask, **dec)
+            out["logprob"] = self.generate(h)
+            return out
+        if mode == "NNAIC":
+            raise NotImplementedError(
+                "NNAIC training needs nnaic_length, which is not ported yet: "
+                "ROADMAP.md section 1, item 6")
+        if mode == "PB_pad":
+            raise NotImplementedError(
+                "PB_pad training is not ported yet: ROADMAP.md section 1, "
+                "item 7")
+
+        extend_syn = po.extend_syn_seq(phrase_length, phrase_syn, L)
+        word_syn = extend_syn[:, 1:-1]                            # [B, L]
+        sa_mask = po.blockwise_mask(phrase_length, L)             # [B, L, L]
+        total = po.total_words(phrase_length)
+        ar = torch.arange(L, device=labels.device)
+        na_mask = (ar[None, None, :] < total[:, None, None]).expand(
+            labels.shape[0], L, L)
+
+        if mode in ("SAIC", "UIC", "UIC_ds"):
+            lp_words = labels.clone()
+            lp_words[:, 0] = LEN
+            out["sa_len_logprob"], out["sa_syn_logprob"] = self.bound_teacher(
+                lp_words, phrase_length, memory, src_mask, False, rng)
+            copied = po.copy_init(labels, phrase_length, L)
+            h_sa = self.decode_sa(copied, word_syn, mem_dec, srcm_dec,
+                                  sa_mask, **dec)
+            out["sa_logprob"] = self.generate(h_sa)
+            if mode == "SAIC":
+                return out
+
+        if mode in ("NAIC", "UIC", "UIC_ds"):
+            out["na_len_logprob"], out["na_syn_logprob"] = self.bound_teacher(
+                extend_syn, phrase_length, memory, src_mask, True, rng)
+            glanced = None
+            if glat_p is not None and glat_p >= 0:
+                glanced, out["glat_mismatch"] = self._glance(
+                    word_syn, mem_dec, srcm_dec, na_mask, labels,
+                    phrase_length, total, glat_p, rng)
+            h_na = self.decode_na(word_syn, mem_dec, srcm_dec, na_mask,
+                                  glat_input=glanced, **dec)
+            out["na_logprob"] = self.generate(h_na)
+            return out
+
+        if mode in ("UIC_s", "UIC_u"):
+            # one syn-input predictor + AR/SA/NA decodes (reference :772-788)
+            out["len_logprob"], out["syn_logprob"] = self.bound_teacher(
+                extend_syn, phrase_length, memory, src_mask, True, rng)
+            seq = labels[:, :-1]
+            keep = (seq != EOS) & (seq != PAD)
+            keep[:, 0] = True
+            a_mask = (keep[:, None, :] & causal_mask(seq.shape[1],
+                                                     seq.device)[None]
+                      )[:, 1:, 1:]
+            h_a = self.decode_a(labels[:, :-2], mem_dec, srcm_dec, a_mask,
+                                syn_seq=word_syn, **dec)
+            copied = po.copy_init(labels, phrase_length, L)
+            h_sa = self.decode_sa(copied, word_syn, mem_dec, srcm_dec,
+                                  sa_mask, **dec)
+            h_na = self.decode_na(word_syn, mem_dec, srcm_dec, na_mask, **dec)
+            out["a_logits"] = self.generate_logits(h_a)
+            out["a_logprob"] = torch.log_softmax(out["a_logits"], dim=-1)
+            out["sa_logits"] = self.generate_logits(h_sa)
+            out["sa_logprob"] = torch.log_softmax(out["sa_logits"], dim=-1)
+            out["na_logprob"] = self.generate(h_na)
+            return out
+        raise NotImplementedError(mode)
+
+    def _glance(self, word_syn, memory, src_mask, na_mask, labels,
+                phrase_length, total, glat_p: float, rng):
+        """Glancing training (reference :437-464): a no-grad NA pass, then
+        each gt word revealed with probability mismatch_rate * glat_p, the
+        coins drawn from ``rng``.  Returns (glanced words [B, L], the mean
+        mismatch rate)."""
+        if rng is None:
+            raise ValueError("GLAT draws its reveal from rng; pass the "
+                             "training generator")
+        L = self.max_length
+        with torch.no_grad():
+            h0 = self.decode_na(word_syn, memory, src_mask, na_mask, rng=rng,
+                                grouped=True)
+            pred = torch.argmax(self.generate(h0), dim=-1)
+        real = labels[:, 1:-1]
+        wmask = po.word_loss_mask(phrase_length, L)
+        tokens_len = total.float().clamp_min(1.0)
+        same = ((pred == real) & wmask).sum(-1)
+        mismatch = (total - same) / tokens_len
+        keep_prob = (mismatch * glat_p)[:, None] * wmask
+        u = torch.rand(real.shape, generator=rng, device=real.device)
+        glanced = torch.where(u < keep_prob, real, BOS)
+        return glanced, mismatch.mean()
 
 
 def build_model(cfg, vocab_size: int, device=None) -> BoFiCap:
@@ -403,6 +605,9 @@ def build_model(cfg, vocab_size: int, device=None) -> BoFiCap:
         decoder_input_mode=cfg.get("decoder_input_mode", "add"),
         dtype=DTYPES[cfg.get("dtype", "bfloat16")],
         device=resolve_device(device),
+        dropout_rate=cfg.get("dropout", 0.1),
+        drop_prob_lm=cfg.get("drop_prob_lm", 0.5),
+        self_dis=bool(cfg.get("self_dis", False)),
     )
     model.set_attention_core(bool(cfg.get("use_pallas", False)))
     return model

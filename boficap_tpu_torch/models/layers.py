@@ -1,4 +1,4 @@
-"""Transformer primitives, forward only: the port of the JAX package's
+"""Transformer primitives: the port of the JAX package's
 ``models/layers.py`` (reference annotated-transformer pieces,
 captioning/models/TransformerModel.py:1312-1507).
 
@@ -19,6 +19,14 @@ kernel (``ops/attention.py``), as the JAX package's ``use_pallas`` routes
 them to its TPU kernel; here it is a per-module attribute, not a process
 global.
 
+Dropout sits at every site of the flax modules (attention
+probabilities, the FFN's inner activation, each residual branch, the
+positional encoding) and follows flax's law (``dropout``).  Every forward
+takes ``rng``, a ``torch.Generator`` on the activations' device: None, the
+default, is the JAX package's ``deterministic=True`` and draws nothing;
+only the training forward passes one.  ``Module.training`` is never read,
+so a decode on a model left in ``train()`` stays deterministic.
+
 Submodule and parameter names mirror the flax parameter tree
 (``layer{i}``, ``sub0.norm``, ``ffn.Dense_0``, ``Embed_0``...), so the
 weight bridge (``convert.py``) is a mechanical renaming.  Parameters are
@@ -30,6 +38,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,6 +48,20 @@ from torch import nn
 from ..ops.attention import attention_core
 
 MASK_FILL = -1e9
+
+
+def dropout(x, rate: float, rng: Optional[torch.Generator]):
+    """flax ``nn.Dropout``: ``x`` itself when ``rng`` is None
+    (deterministic) or the rate is 0; else each element kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), the mask drawn from
+    ``rng``; rate 1 gives exact zeros, as flax does."""
+    if rng is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=rng, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
 
 
 class Dense(nn.Module):
@@ -76,11 +99,12 @@ class MultiHeadAttention(nn.Module):
     heads are column slices ``h*Dh:(h+1)*Dh`` of the projections."""
 
     def __init__(self, num_heads: int, d_model: int, dtype=torch.float32,
-                 device=None):
+                 device=None, dropout_rate: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
         self.d_model = d_model
         self.compute_dtype = dtype
+        self.dropout_rate = dropout_rate
         # route rank-2/3-masked calls through the attention-core kernel
         self.use_core = False
         for name in ("wq", "wk", "wv", "wo"):
@@ -97,14 +121,16 @@ class MultiHeadAttention(nn.Module):
     def project_kv(self, x):
         return self._heads(self.wk(x)), self._heads(self.wv(x))
 
-    def attend(self, qh, kh, vh, mask=None):
+    def attend(self, qh, kh, vh, mask=None, rng=None):
         """qh [B,Lq,H,Dh], kh/vh [B,Lk,H,Dh]; bool mask [B,Lk] | [B,Lq,Lk]
         | 4-D broadcastable over [B,H,Lq,Lk] (True = attend).  With
-        ``use_core`` a rank-2/3 mask routes to the attention-core kernel
-        (layers.py:115-130 of the JAX package); the views it is handed are
-        read in place."""
+        ``use_core`` and no ``rng`` (deterministic) a rank-2/3 mask routes
+        to the attention-core kernel (layers.py:115-130 of the JAX
+        package); the views it is handed are read in place.  With ``rng``
+        the probabilities take dropout, on the plain path."""
         B, Lq, H, Dh = qh.shape
-        if self.use_core and mask is not None and mask.dim() in (2, 3):
+        if (self.use_core and rng is None and mask is not None
+                and mask.dim() in (2, 3)):
             Lk = kh.shape[1]
             m3 = mask[:, None, :] if mask.dim() == 2 else mask
             out = attention_core(qh.transpose(1, 2), kh.transpose(1, 2),
@@ -121,28 +147,31 @@ class MultiHeadAttention(nn.Module):
             # host-to-device copy, a stream sync on every call
             scores = torch.where(mask, scores, MASK_FILL)
         probs = torch.softmax(scores, dim=-1).to(self.compute_dtype)
+        probs = dropout(probs, self.dropout_rate, rng)
         out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), vh.float())
         out = out.to(self.compute_dtype).reshape(B, Lq, self.d_model)
         return self.wo(out)
 
-    def forward(self, q, k, v, mask=None):
+    def forward(self, q, k, v, mask=None, rng=None):
         qh = self.project_q(q)
         kh = self._heads(self.wk(k))
         vh = self._heads(self.wv(v))
-        return self.attend(qh, kh, vh, mask)
+        return self.attend(qh, kh, vh, mask, rng)
 
 
 class PositionwiseFFN(nn.Module):
-    """d -> d_ff -> relu -> d (reference :1469-1478)."""
+    """d -> d_ff -> relu -> dropout -> d (reference :1469-1478)."""
 
     def __init__(self, d_model: int, d_ff: int, dtype=torch.float32,
-                 device=None):
+                 device=None, dropout_rate: float = 0.1):
         super().__init__()
         self.Dense_0 = Dense(d_model, d_ff, dtype, device)
         self.Dense_1 = Dense(d_ff, d_model, dtype, device)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x):
-        return self.Dense_1(torch.relu(self.Dense_0(x)))
+    def forward(self, x, rng=None):
+        h = dropout(torch.relu(self.Dense_0(x)), self.dropout_rate, rng)
+        return self.Dense_1(h)
 
 
 class RefLayerNorm(nn.Module):
@@ -171,14 +200,17 @@ class RefLayerNorm(nn.Module):
 
 
 class PreNormResidual(nn.Module):
-    """``x + f(norm(x))`` (reference SublayerConnection :1351-1363)."""
+    """``x + dropout(f(norm(x)))`` (reference SublayerConnection
+    :1351-1363)."""
 
-    def __init__(self, d: int, dtype=torch.float32, device=None):
+    def __init__(self, d: int, dtype=torch.float32, device=None,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.norm = RefLayerNorm(d, dtype=dtype, device=device)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x, fn):
-        return x + fn(self.norm(x))
+    def forward(self, x, fn, rng=None):
+        return x + dropout(fn(self.norm(x)), self.dropout_rate, rng)
 
     def norm_only(self, x):
         return self.norm(x)
@@ -186,16 +218,17 @@ class PreNormResidual(nn.Module):
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ff: int, num_heads: int,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, dropout_rate: float = 0.1):
         super().__init__()
-        self.self_attn = MultiHeadAttention(num_heads, d_model, dtype, device)
-        self.ffn = PositionwiseFFN(d_model, d_ff, dtype, device)
-        self.sub0 = PreNormResidual(d_model, dtype, device)
-        self.sub1 = PreNormResidual(d_model, dtype, device)
+        dd = dict(device=device, dropout_rate=dropout_rate)
+        self.self_attn = MultiHeadAttention(num_heads, d_model, dtype, **dd)
+        self.ffn = PositionwiseFFN(d_model, d_ff, dtype, **dd)
+        self.sub0 = PreNormResidual(d_model, dtype, **dd)
+        self.sub1 = PreNormResidual(d_model, dtype, **dd)
 
-    def forward(self, x, mask):
-        x = self.sub0(x, lambda y: self.self_attn(y, y, y, mask))
-        return self.sub1(x, self.ffn)
+    def forward(self, x, mask, rng=None):
+        x = self.sub0(x, lambda y: self.self_attn(y, y, y, mask, rng), rng)
+        return self.sub1(x, lambda y: self.ffn(y, rng), rng)
 
 
 class Encoder(nn.Module):
@@ -203,21 +236,22 @@ class Encoder(nn.Module):
     (reference :1325-1336)."""
 
     def __init__(self, num_layers: int, d_model: int, d_ff: int,
-                 num_heads: int, dtype=torch.float32, device=None):
+                 num_heads: int, dtype=torch.float32, device=None,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer{i}", EncoderLayer(
-                d_model, d_ff, num_heads, dtype, device))
+                d_model, d_ff, num_heads, dtype, device, dropout_rate))
         self.RefLayerNorm_0 = RefLayerNorm(d_model, dtype=dtype,
                                            device=device)
 
     def layers(self):
         return [getattr(self, f"layer{i}") for i in range(self.num_layers)]
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, rng=None):
         for layer in self.layers():
-            x = layer(x, mask)
+            x = layer(x, mask, rng)
         return self.RefLayerNorm_0(x)
 
 
@@ -226,30 +260,56 @@ class DecoderLayer(nn.Module):
     :1398-1413); also the length-predictor layer (:1016-1029)."""
 
     def __init__(self, d_model: int, d_ff: int, num_heads: int,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, dropout_rate: float = 0.1):
         super().__init__()
-        self.self_attn = MultiHeadAttention(num_heads, d_model, dtype, device)
-        self.src_attn = MultiHeadAttention(num_heads, d_model, dtype, device)
-        self.ffn = PositionwiseFFN(d_model, d_ff, dtype, device)
-        self.sub0 = PreNormResidual(d_model, dtype, device)
-        self.sub1 = PreNormResidual(d_model, dtype, device)
-        self.sub2 = PreNormResidual(d_model, dtype, device)
+        dd = dict(device=device, dropout_rate=dropout_rate)
+        self.self_attn = MultiHeadAttention(num_heads, d_model, dtype, **dd)
+        self.src_attn = MultiHeadAttention(num_heads, d_model, dtype, **dd)
+        self.ffn = PositionwiseFFN(d_model, d_ff, dtype, **dd)
+        self.sub0 = PreNormResidual(d_model, dtype, **dd)
+        self.sub1 = PreNormResidual(d_model, dtype, **dd)
+        self.sub2 = PreNormResidual(d_model, dtype, **dd)
 
-    def forward(self, x, memory, src_mask, tgt_mask, kv=None):
+    def forward(self, x, memory, src_mask, tgt_mask, kv=None, rng=None,
+                grouped: bool = False):
         """``kv`` (optional) supplies distinct self-attention keys/values,
-        normed with the same parameters (the fast bounding path)."""
+        normed with the same parameters (the fast bounding path);
+        ``grouped``: see ``_cross``."""
         if kv is None:
-            x = self.sub0(x, lambda y: self.self_attn(y, y, y, tgt_mask))
+            x = self.sub0(x, lambda y: self.self_attn(y, y, y, tgt_mask, rng),
+                          rng)
         else:
             nkv = self.sub0.norm_only(kv)
-            x = self.sub0(x, lambda y: self.self_attn(y, nkv, nkv, tgt_mask))
-        x = self.sub1(x, lambda y: self.src_attn(y, memory, memory, src_mask))
-        return self.sub2(x, self.ffn)
+            x = self.sub0(x, lambda y: self.self_attn(y, nkv, nkv, tgt_mask,
+                                                      rng), rng)
+        x = self.sub1(x, lambda y: self._cross(y, memory, src_mask, rng,
+                                               grouped), rng)
+        return self.sub2(x, lambda y: self.ffn(y, rng), rng)
 
-    def cross_only(self, x, memory, src_mask):
+    def _cross(self, y, memory, src_mask, rng, grouped: bool):
+        """Cross-attention.  With ``grouped`` and a query batch k times the
+        memory's, the k caption rows of each image (image-major, the
+        ``repeat_interleave`` order of the training collate) fold into the
+        query-length axis over that image's keys, [B*k, L, d] -> [B, k*L,
+        d]: row for row the same as repeating the memory, with one K/V
+        projection per image (JAX ``layers.py:323-352``).  A batch
+        mismatch without ``grouped`` raises."""
+        B = memory.shape[0]
+        if y.shape[0] != B:
+            if not (grouped and y.shape[0] % B == 0):
+                raise ValueError(
+                    f"cross-attention query batch {y.shape[0]} != memory "
+                    f"batch {B}: repeat the memory to match, or pass "
+                    "grouped=True for image-major caption rows")
+            yr = y.reshape(B, -1, y.shape[-1])
+            out = self.src_attn(yr, memory, memory, src_mask, rng)
+            return out.reshape(y.shape)
+        return self.src_attn(y, memory, memory, src_mask, rng)
+
+    def cross_only(self, x, memory, src_mask, rng=None):
         """N_len == 0 predictor variant: one cross-attention sublayer."""
         return self.sub0(x, lambda y: self.src_attn(y, memory, memory,
-                                                    src_mask))
+                                                    src_mask, rng), rng)
 
     def init_cache(self, memory, max_len: int):
         """Per-layer KV cache: zeroed self-attention K/V [B, max_len, H, Dh]
@@ -261,9 +321,9 @@ class DecoderLayer(nn.Module):
         return {"ks": z, "vs": z.clone(), "kc": kc, "vc": vc}
 
     def step(self, x_t, cache, pos: int, src_mask, vis):
-        """One causal decode step: x_t [B, 1, d] at 0-based position
-        ``pos``.  Returns (out_t [B, 1, d], cache).  Unlike the JAX
-        package's immutable arrays, the cache's self-attention K/V are
+        """One causal decode step (deterministic): x_t [B, 1, d] at 0-based
+        position ``pos``.  Returns (out_t [B, 1, d], cache).  Unlike the
+        JAX package's immutable arrays, the cache's self-attention K/V are
         written IN PLACE at ``pos`` and the same dict comes back.  ``vis``:
         the rank-4 visibility mask of keys <= pos (``step_mask``, made once
         a step for all layers); rank 4 keeps the self-attention on the plain
@@ -285,20 +345,23 @@ class Decoder(nn.Module):
     """N DecoderLayers + final norm (reference :1379-1396)."""
 
     def __init__(self, num_layers: int, d_model: int, d_ff: int,
-                 num_heads: int, dtype=torch.float32, device=None):
+                 num_heads: int, dtype=torch.float32, device=None,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer{i}", DecoderLayer(
-                d_model, d_ff, num_heads, dtype, device))
+                d_model, d_ff, num_heads, dtype, device, dropout_rate))
         self.norm = RefLayerNorm(d_model, dtype=dtype, device=device)
 
     def layers(self):
         return [getattr(self, f"layer{i}") for i in range(self.num_layers)]
 
-    def forward(self, x, memory, src_mask, tgt_mask):
+    def forward(self, x, memory, src_mask, tgt_mask, rng=None,
+                grouped: bool = False):
         for layer in self.layers():
-            x = layer(x, memory, src_mask, tgt_mask)
+            x = layer(x, memory, src_mask, tgt_mask, rng=rng,
+                      grouped=grouped)
         return self.norm(x)
 
     def init_cache(self, memory, max_len: int):
@@ -339,19 +402,23 @@ def sinusoid_np(max_len: int, d_model: int) -> np.ndarray:
 
 
 class PositionalEncoding(nn.Module):
-    """Sinusoid PE added to [..., L, d] (reference :1489-1507), starting at
-    row ``offset`` (a single-token decode step's position); the table is
-    a non-persistent buffer, so it never enters a checkpoint."""
+    """Sinusoid PE added to [..., L, d], then dropout (reference
+    :1489-1507), starting at row ``offset`` (a single-token decode step's
+    position); the table is a non-persistent buffer, so it never enters a
+    checkpoint."""
 
-    def __init__(self, d_model: int, max_len: int = 5000, device=None):
+    def __init__(self, d_model: int, max_len: int = 5000, device=None,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.max_len = max_len
+        self.dropout_rate = dropout_rate
         self.register_buffer(
             "pe", torch.from_numpy(sinusoid_np(max_len, d_model).copy()).to(
                 device), persistent=False)
 
-    def forward(self, x, offset: int = 0):
-        return x + self.pe[offset:offset + x.shape[-2]].to(x.dtype)
+    def forward(self, x, offset: int = 0, rng=None):
+        x = x + self.pe[offset:offset + x.shape[-2]].to(x.dtype)
+        return dropout(x, self.dropout_rate, rng)
 
 
 class Generator(nn.Module):
@@ -363,7 +430,10 @@ class Generator(nn.Module):
         self.proj = Dense(d_model, vocab, dtype, device)
 
     def forward(self, x):
-        return torch.log_softmax(self.proj(x).float(), dim=-1)
+        return torch.log_softmax(self.logits(x), dim=-1)
+
+    def logits(self, x):
+        return self.proj(x).float()
 
 
 def causal_mask(L: int, device=None) -> torch.Tensor:

@@ -193,7 +193,7 @@ def attention_core(qh, kh, vh, mask, path: Optional[str] = None):
     output is a [B,H,Lq,Dh] view of [B,Lq,H,Dh] storage, on
     ``attention_path``'s path; ``path`` ('row', or 'tile' at bf16, 'ffma'
     at float32) forces one, to time it."""
-    if not _route(qh):
+    if not _route(qh, kh, vh):
         return attention_core_plain(qh, kh, vh, mask)
     check_operands(qh, kh, vh, mask)
     if path is not None and path not in ("row", "tile" if qh.dtype ==

@@ -304,8 +304,30 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _route(x: torch.Tensor) -> bool:
-    """True for the kernel path (CUDA), False for the plain twin (CPU)."""
+def _tensors(obj):
+    """The tensors of a wrapper operand: a tensor, or those inside a weight
+    dict, a pack or a sequence."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v)
+
+
+def _route(x: torch.Tensor, *operands) -> bool:
+    """True for the kernel path (CUDA), False for the plain twin (CPU),
+    by ``x``'s device.  The kernels have no backward: with grad mode on, an
+    operand that requires grad raises ``ValueError`` on either device,
+    rather than being detached or sent down the plain path."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in _tensors((x,) + operands)):
+        raise ValueError(
+            "a kernel wrapper got a tensor that requires grad: the kernels "
+            "are inference-only (no backward); run them under "
+            "torch.no_grad(), or call the plain modules to train")
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
@@ -546,7 +568,7 @@ def fused_encoder_layer(x, mask, w, num_heads: int):
     """One pre-norm encoder layer, inference: x [B,R,D], bool mask [B,R]
     (padding) or [B,R,R], w from ``pack_encoder_layer``.  On CUDA: one call
     of csrc/encoder_layer.cu (2 refnorm, 4 gemm, 1 attention launches)."""
-    if not _route(x):
+    if not _route(x, mask, w):
         return encoder_layer_plain(x, mask, w, num_heads)
     out = encoder_call("encoder_layer", x, mask, w, num_heads)
     fused_encoder_layer.launches += 1
@@ -559,7 +581,7 @@ def fused_decoder_layer(x, memory, tgt_mask, src_mask, w, num_heads: int):
     ``pack_layer_weights``.  On CUDA: one call of csrc/decoder_layer.cu
     (``decoder_launches``: 3 refnorm, 7 products, 2 attention; at bf16
     each launch chained to the one before it)."""
-    if not _route(x):
+    if not _route(x, memory, tgt_mask, src_mask, w):
         return decoder_layer_plain(x, memory, tgt_mask, src_mask, w,
                                    num_heads)
     out = decoder_call("decoder_layer", x, memory, tgt_mask, src_mask, w,
@@ -578,7 +600,7 @@ def fused_greedy_head(h, w, b, V: Optional[int] = None, pad_id: int = 0):
     multiples of 8 and h, w 16-byte aligned, or it raises ValueError."""
     Vp = w.shape[-1]
     V = Vp if V is None else V
-    if not _route(h):
+    if not _route(h, w, b):
         return greedy_head_plain(h, w, b, V, pad_id)
     B, T, D = h.shape
     dev, dt = h.device, h.dtype
@@ -620,7 +642,7 @@ def fused_window_decoder_layer(x_win, k_cache, v_cache, k2, v2, tgt_mask,
     into the caches.  On CUDA: one call of csrc/window_layer.cu (3 refnorm,
     6 products, 2 attention launches; the self-attention block writes
     k_new / v_new)."""
-    if not _route(x_win):
+    if not _route(x_win, k_cache, v_cache, k2, v2, w):
         return window_layer_plain(x_win, k_cache, v_cache, k2, v2, tgt_mask,
                                   src_mask, w, num_heads)
     out = window_layer_call(x_win, k_cache, v_cache, k2, v2, tgt_mask,
@@ -670,7 +692,7 @@ def fused_linear(a, w, b, relu: bool = False, res=None):
     ``linear_plain(a, w, b, relu, res)``.  On CUDA: one call of bfc_gemm
     (csrc/decoder_layer.cu), the tensor-core product at bf16, the FFMA
     product at float32.  No decode path calls it."""
-    if not _route(a):
+    if not _route(a, w, b, res):
         return linear_plain(a, w, b, relu, res)
     K, N = a.shape[-1], w.shape[-1]
     M = a.numel() // K if K else 0
@@ -697,7 +719,7 @@ def fused_refnorm(x, scale, bias):
     in the compute dtype, float32 scale and bias [D] ->
     ``refnorm_plain(x, scale, bias)``.  On CUDA: one call of bfc_refnorm
     (csrc/decoder_layer.cu over refnorm.cuh).  No decode path calls it."""
-    if not _route(x):
+    if not _route(x, scale, bias):
         return refnorm_plain(x, scale, bias)
     D = x.shape[-1]
     dev = x.device

@@ -199,7 +199,7 @@ def fused_encoder_stack_forward(x, src_mask, stacked, final_norm,
     if src_mask is None:
         src_mask = torch.ones((B, R), dtype=torch.bool, device=x.device)
     src_mask = src_mask.contiguous()
-    if not _route(x):
+    if not _route(x, src_mask, stacked, final_norm):
         return encoder_stack_plain(x, src_mask, stacked, final_norm,
                                    num_heads)
     h = encoder_call("encoder_stack", x, src_mask, stacked, num_heads,
@@ -220,7 +220,7 @@ def fused_decoder_stack_forward(x, memory, tgt_mask, src_mask, stacked,
     if src_mask is None:
         src_mask = torch.ones((B, R), dtype=torch.bool, device=x.device)
     tgt_mask, src_mask = tgt_mask.contiguous(), src_mask.contiguous()
-    if not _route(x):
+    if not _route(x, memory, tgt_mask, src_mask, stacked, final_norm):
         return decoder_stack_plain(x, memory, tgt_mask, src_mask, stacked,
                                    final_norm, num_heads)
     h = decoder_call("decoder_stack", x, memory, tgt_mask, src_mask, stacked,
@@ -294,7 +294,7 @@ def fused_window_decoder_stack(x_win, w_start, k_caches, v_caches, k2s, v2s,
     caller must not reuse their old contents.  On CUDA: one call of
     csrc/window_stack.cu (11 launches a layer; the self-attention block
     writes the fresh K/V)."""
-    if not _route(x_win):
+    if not _route(x_win, k_caches, v_caches, k2s, v2s, stacked):
         return window_stack_plain(x_win, w_start, k_caches, v_caches, k2s,
                                   v2s, tgt_mask, src_mask, stacked,
                                   final_norm, num_heads)
@@ -315,7 +315,7 @@ def fused_window_wide_stack(x_win, k2s, v2s, tgt_mask, src_mask, stacked,
     tgt_mask [B,L,L], bool src_mask [B,R] or [B,L,R].  Returns (h_win
     after the final norm, the new caches k [NL,B,L,D], v [NL,B,L,D]): each
     layer's fresh K/V.  On CUDA: one call of csrc/window_stack.cu."""
-    if not _route(x_win):
+    if not _route(x_win, k2s, v2s, stacked):
         return window_wide_stack_plain(x_win, k2s, v2s, tgt_mask, src_mask,
                                        stacked, final_norm, num_heads)
     NL = k2s.shape[0]

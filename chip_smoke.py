@@ -66,7 +66,22 @@ Phases, each printing one JSON line:
               boficap_tpu_torch.tools.eval` in a subprocess (SAIC, NAIC)
               on a checkpoint at uic_sd's widths over the CLI's own
               synthetic corpus.
- 12. times    each kernel's time beside its plain version's, one PyTorch
+ 12. train    XE training of uic_sd at full width: one float32 step with
+              dropout off on the card against the same step on the CPU
+              (loss to 1e-5 relative, every gradient leaf to 1e-4 of its
+              largest magnitude); 30 bf16 steps with dropout 0.1 and a
+              constant Adam rate of 5e-4 on one repeated batch of 10 x 5
+              synthetic captions (every loss finite, the last five below
+              0.8 x the first five), and 13 float32 steps: step ms (median
+              of 10 after 3 warm-up), peak memory, CUDA kernels a step and
+              the device-busy share of a profiled step; no kernel launched
+              by a step; the trained model's packs rebuilt, and eval_split
+              (NAIC, SAIC) on its kernels against the plain path by the
+              bf16 margin rule, with the eval loss and the launch counts;
+              then the training CLI in a subprocess (a validation and a
+              checkpoint, a --start_from resume) and the eval CLI on its
+              model_best.ckpt.
+ 13. times    each kernel's time beside its plain version's, one PyTorch
               library call's (a yardstick the port never calls) and the
               least time the card could take (bound); decode times,
               launches and host syncs per decode; #9's host cost a call,
@@ -1490,7 +1505,9 @@ def eval_pair(model, loader, mode: str, dtype_name: str, kw: dict,
             "lang_stats_keys": sorted(kern["lang_stats"]),
             "CIDEr": kern["lang_stats"]["CIDEr"],
             "plain_CIDEr": plain["lang_stats"]["CIDEr"],
-            "batches": batches}
+            "batches": batches,
+            **({"loss": kern["loss"], "plain_loss": plain["loss"]}
+               if kw.get("verbose_loss") else {})}
 
 
 def na_eval_agree(model, bf16: bool):
@@ -1659,6 +1676,307 @@ def check_eval(model16, aic16, aic):
                 for k, v in r["launches"].items():
                     launches[k] = launches.get(k, 0) + v
         res["cli"] = eval_cli(os.path.join(tmp, "cli"))
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
+# phase train: the XE step on the card, training, validation on the kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 30              # bf16 steps on one repeated batch
+TRAIN_LR = 5e-4               # constant Adam rate of the training check
+TRAIN_DROP = 0.8              # mean of the last 5 losses below this x first 5
+TRAIN_IMAGES = 640            # synthetic corpus: a test split of 128 = 2 x B
+# gradients: each leaf to GRAD_TOL of its largest magnitude; a leaf whose
+# gradient is zero in exact arithmetic (a key projection's bias: softmax
+# ignores a shift common to every key) carries only rounding noise and is
+# held to ZERO_GRAD of the largest gradient instead
+GRAD_TOL, ZERO_GRAD = 1e-4, 1e-6
+# a ReLU input within float32 rounding of zero may fall on the other side
+# on the card than on the CPU, and then a whole row's term of a weight's
+# gradient moves (the phase reports the worst leaf of a run without the
+# alignment: unaligned_grad_worst_rel_err): the card's checked run takes
+# the CPU's value at each such input (the gradient still flows through its
+# own), and each must lie within RELU_GAP of it
+RELU_GAP = 1e-4
+
+
+def train_opt(**fields):
+    """uic_sd as the trainer reads it, over the synthetic corpus, a constant
+    Adam rate (no noam, no decay)."""
+    return eval_opt("uic_sd.yml", id="smoketrain", noamopt=False,
+                    learning_rate=TRAIN_LR, learning_rate_decay_start=-1,
+                    **fields)
+
+
+def train_batch(opt):
+    """One train batch of 10 images x 5 captions over the full vocabulary."""
+    from boficap_tpu_torch.data.dataset import CaptionData, LabelStore
+    labels = LabelStore.synthetic(n_images=TRAIN_IMAGES, vocab_size=VOCAB,
+                                  L=L, seed=1)
+    loader = CaptionData(opt, labels=labels)
+    return loader, loader.get_batch("train")
+
+
+def relu_inputs(model):
+    """The Dense modules whose outputs feed a ReLU: att_embed, every FFN's
+    first product, the length and syntax heads' first products."""
+    return [(n, m) for n, m in model.named_modules()
+            if n in ("att_embed", "len_head1", "syn_head1")
+            or n.endswith(".ffn.Dense_0")]
+
+
+def xe_grads(opt, batch, device, record=None, align=None):
+    """One XE step's loss and gradients of uic_sd from the seeded weights
+    on ``device``.  ``record`` (a dict) keeps every ReLU input, by module
+    and call; ``align`` (such a dict) makes each ReLU input that falls on
+    the other side of zero take the recorded value, and counts them."""
+    from boficap_tpu_torch.convert import init_params
+    from boficap_tpu_torch.train import steps
+    model = init_params(opt, VOCAB, seed=SEED, device=device)
+    calls, stats = {}, {"flipped": 0, "max_gap": 0.0}
+
+    def hook(name):
+        def fn(mod, inp, out):
+            key = (name, calls.setdefault(name, 0))
+            calls[name] += 1
+            if record is not None:
+                record[key] = out.detach().cpu()
+                return None
+            ref = align[key].to(out.device)
+            flip = (out > 0) != (ref > 0)
+            n = int(flip.sum())
+            if not n:
+                return None
+            stats["flipped"] += n
+            stats["max_gap"] = max(stats["max_gap"], float(
+                (out.detach() - ref).abs()[flip].max()))
+            # the CPU's value where the side differs; the gradient flows
+            # through this run's own product
+            return out + ((ref - out) * flip).detach()
+        return fn
+
+    handles = ([m.register_forward_hook(hook(n)) for n, m in
+                relu_inputs(model)] if record is not None or align else [])
+    try:
+        loss, _ = steps.xe_loss_fn(model, steps.to_device(batch, device),
+                                   torch.Generator(device=device))
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+    finally:
+        for h in handles:
+            h.remove()
+    return (float(loss.detach()), [n for n, _ in model.named_parameters()],
+            [None if g is None else g.detach().cpu() for g in grads], stats)
+
+
+def check_cross_device(batch) -> dict:
+    """float32, dropout off: one XE step on the card against the CPU, the
+    ReLU sides aligned (RELU_GAP)."""
+    opt = train_opt(dtype="float32", dropout=0.0, drop_prob_lm=0.0)
+    relu = {}
+    t0 = time.perf_counter()
+    lc, names, gc, _ = xe_grads(opt, batch, "cpu", record=relu)
+    cpu_s = time.perf_counter() - t0
+    _, _, raw, _ = xe_grads(opt, batch, DEV)
+    lg, _, gg, stats = xe_grads(opt, batch, DEV, align=relu)
+    if abs(lg - lc) > 1e-5 * abs(lc):
+        fail(f"train: card loss {lg} != CPU loss {lc}")
+    if stats["max_gap"] > RELU_GAP:
+        fail(f"train: a ReLU input differs by {stats['max_gap']} across "
+             f"zero between the card and the CPU")
+    gmax = max(g.abs().max().item() for g in gc if g is not None)
+    worst, unaligned, zero = 0.0, 0.0, []
+    for n, a, b, r in zip(names, gg, gc, raw):
+        if (a is None) != (b is None):
+            fail(f"train: gradient of {n} missing on one device")
+        if b is None:
+            continue
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if scale <= ZERO_GRAD * gmax:
+            zero.append(n)
+            if a.abs().max().item() > ZERO_GRAD * gmax:
+                fail(f"train: {n}'s zero gradient is not zero on the card")
+            continue
+        if err > GRAD_TOL * scale:
+            fail(f"train: gradient of {n} differs by {err / scale} of its "
+                 f"largest magnitude")
+        worst = max(worst, err / scale)
+        unaligned = max(unaligned, (r - b).abs().max().item() / scale)
+    return {"loss_card": lg, "loss_cpu": lc, "loss_rel_err": abs(lg - lc)
+            / abs(lc), "grad_leaves": len(names),
+            "grad_worst_rel_err": worst, "zero_grad_leaves": len(zero),
+            "relu_inputs": sum(t.numel() for t in relu.values()),
+            "relu_flipped": stats["flipped"],
+            "relu_flip_max_gap": stats["max_gap"],
+            "unaligned_grad_worst_rel_err": unaligned, "cpu_step_s": cpu_s}
+
+
+def timed_steps(step, batch, gen, n: int, warm: int = 3):
+    """The losses of ``warm + n`` steps and the ms of the last n, each timed
+    between torch.cuda.synchronize() calls."""
+    losses, ms = [], []
+    for i in range(warm + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(batch, gen)
+        torch.cuda.synchronize()
+        if i >= warm:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    return losses, ms
+
+
+def pack_digest(model) -> float:
+    """A digest of the NA decoder stack's packed weights."""
+    return float(model.packed_decoder("NA").stack["wqkv"].float().sum())
+
+
+def trainer(opt):
+    """uic_sd at ``opt``'s dtype on the card, seeded, with its optimizer
+    and XE step."""
+    from boficap_tpu_torch.convert import flax_layout, init_params
+    from boficap_tpu_torch.train import optim, steps
+    model = init_params(opt, VOCAB, seed=SEED, device=DEV)
+    layout = flax_layout(model)
+    opt_ = optim.Optimizer(optim.build_optimizer(opt, layout), model, layout)
+    return model, steps.make_xe_step(model, opt_)
+
+
+def train_cli(path: str) -> dict:
+    """``python -m boficap_tpu_torch.tools.train`` in a process of its own
+    at uic_sd's widths over the CLI's synthetic corpus: a few iterations
+    with one validation and one checkpoint, then ``--start_from`` for a
+    few more, then the eval CLI on its model_best.ckpt."""
+    import re
+    from boficap_tpu_torch.train.state import load_infos
+    ck = os.path.join(path, "ckpt")
+    base = [sys.executable, "-m", "boficap_tpu_torch.tools.train",
+            "--cfg", os.path.join(HERE, "configs", "uic_sd.yml"),
+            "--id", "smokecli", "--checkpoint_path", ck,
+            "--input_json", "synthetic", "--input_att_dir", "synthetic",
+            "--val_images_use", "6", "--save_checkpoint_every", "3",
+            "--losses_log_every", "1"]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    out = {}
+    for name, extra in (("train", ["--max_epochs", "2"]),
+                        ("resume", ["--max_epochs", "3", "--start_from",
+                                    ck])):
+        t0 = time.perf_counter()
+        run = subprocess.run(base + extra, cwd=path, env=env,
+                             capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            fail(f"train CLI {name}: exit {run.returncode}: "
+                 f"{run.stderr[-2000:]}")
+        infos = load_infos(ck, "smokecli")
+        out[name] = {"exit": 0, "wall_s": time.perf_counter() - t0,
+                     "iter": infos["iter"], "epoch": infos["epoch"],
+                     "validations": run.stdout.count("val[NAIC]"),
+                     "last_loss_line": [ln for ln in run.stdout.splitlines()
+                                        if ln.startswith("iter ")][-1:]}
+        if name == "train" and "val[SAIC]" not in run.stdout:
+            fail(f"train CLI: no validation in {run.stdout[-2000:]!r}")
+        if name == "resume" and (infos["iter"] <= out["train"]["iter"]
+                                 or "mismatch" in run.stdout):
+            fail(f"train CLI resume: iter {infos['iter']} after "
+                 f"{out['train']['iter']}, {run.stdout[-2000:]!r}")
+    files = sorted(os.listdir(ck))
+    for want in ("model.ckpt", "model_best.ckpt", "optimizer.ckpt",
+                 "infos_smokecli.pkl", "histories_smokecli.pkl"):
+        if want not in files:
+            fail(f"train CLI: {want} not written ({files})")
+    cwd = os.path.join(path, "eval")
+    os.makedirs(cwd)
+    run = subprocess.run(
+        [sys.executable, "-m", "boficap_tpu_torch.tools.eval", "--model",
+         os.path.join(ck, "model_best.ckpt"), "--infos_path",
+         os.path.join(ck, "infos_smokecli_best.pkl"), "--inference_mode",
+         "NAIC", "--language_eval", "1", "--num_images", "-1",
+         "--verbose_loss", "1"], cwd=cwd, env=env, capture_output=True,
+        text=True, timeout=600)
+    if run.returncode != 0 or not re.search(CLI_DECODE_LINE, run.stdout):
+        fail(f"eval CLI on the trained checkpoint: exit {run.returncode}: "
+             f"{run.stderr[-2000:]}")
+    out["eval_cli"] = {"exit": 0, "decode_line": re.search(
+        CLI_DECODE_LINE, run.stdout).group(0)}
+    out["files"] = files
+    return out
+
+
+def check_train() -> tuple:
+    """Phase train (see the module docstring); returns (result, the kernel
+    launches of the trained model's validation on the kernels)."""
+    import tempfile
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    res = {"grad_tol": GRAD_TOL, "zero_grad": ZERO_GRAD}
+    opt16 = train_opt(dropout=0.1)
+    loader, batch = train_batch(opt16)
+    res["batch"] = {k: list(batch[k].shape) for k in ("att_feats", "labels")}
+    res["cross_device_float32"] = check_cross_device(batch)
+
+    from boficap_tpu_torch.train import steps
+    tb = steps.to_device(batch, DEV)
+    for dtype_name in ("float32", "bfloat16"):
+        model = step = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, step = trainer(train_opt(dropout=0.1, dtype=dtype_name))
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        if dtype_name == "bfloat16":
+            digest0, pack0 = pack_digest(model), model.packed_decoder("NA")
+        reset_launch_counts()
+        n = TRAIN_STEPS - 3 if dtype_name == "bfloat16" else 10
+        losses, ms = timed_steps(step, tb, gen, n)
+        if any(launch_counts().values()):
+            fail(f"train {dtype_name}: the training step launched kernels: "
+                 f"{launch_counts()}")
+        r = {"step_ms_median_of_10": sorted(ms[:10])[5], "step_ms": ms[:10],
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+             "losses": losses,
+             "profile_step": profile_decode(lambda: step(tb, gen))}
+        r["profile_step"].pop("top_kernels")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train {dtype_name}: a loss is not finite: {losses}")
+        res[f"steps_{dtype_name}"] = r
+    print(f"train: {json.dumps(res)}", file=sys.stderr, flush=True)
+    losses = res["steps_bfloat16"]["losses"][:TRAIN_STEPS]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    res["loss_first5_mean"], res["loss_last5_mean"] = first, last
+    if not last < TRAIN_DROP * first:
+        fail(f"train: the loss went {first} -> {last} in {TRAIN_STEPS} "
+             f"steps (want below {TRAIN_DROP} x)")
+
+    model.eval()
+    digest1, pack1 = pack_digest(model), model.packed_decoder("NA")
+    if pack1 is pack0 or digest1 == digest0:
+        fail("train: the kernel packs were not rebuilt after the steps")
+    res["packs_rebuilt"] = {"new_object": pack1 is not pack0,
+                            "digest_before": digest0, "digest_after": digest1}
+    kw = {"split": "test", "num_images": -1, "language_eval": 1,
+          "verbose_loss": 1}
+    eval_loader_ = train_batch(eval_opt("uic_sd.yml", id="smoketrain",
+                                        batch_size=B))[0]
+    launches = {}
+    for mode in EVAL_MODES:
+        agree = (na_eval_agree if mode == "NAIC" else sa_eval_agree)(
+            model, True)
+        # the trained model plans phrases of at most 5 words (the corpus'),
+        # within the narrow window: no SA round is wide, so #7 may not run
+        kernels = [k for k in EVAL_KERNELS[mode, "bfloat16"]
+                   if k != "window_wide_stack"]
+        r = eval_pair(model, eval_loader_, mode, "bfloat16", kw, kernels,
+                      agree)
+        res[f"val_{mode}"] = r
+        if abs(r["loss"] - r["plain_loss"]) > 1e-6 * abs(r["plain_loss"]):
+            fail(f"train: eval loss {r['loss']} on the kernel route, "
+                 f"{r['plain_loss']} on the plain one")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    with tempfile.TemporaryDirectory(prefix="boficap_train_") as tmp:
+        res["cli"] = train_cli(tmp)
+    res["phase_s"] = time.perf_counter() - t_phase
     return res, launches
 
 
@@ -2716,7 +3034,7 @@ def main():
 
 
 def run_phases(smi: str):
-    """Phases 2-12; returns the {"kernels": [...]} list."""
+    """Phases 2-13; returns the {"kernels": [...]} list."""
     # the same random weights at both compute dtypes: float32 for the
     # decode comparisons, the default (bfloat16) for the main paths
     model = build("float32")
@@ -2760,6 +3078,8 @@ def run_phases(smi: str):
           "attention_core_expected": want, **aic_served})
     evaluated, eval_launches = check_eval(model16, aic16, aic)
     emit({"phase": "eval", "card": smi, **evaluated})
+    trained, train_launches = check_train()
+    emit({"phase": "train", "card": smi, **trained})
     unforce_long([model, model16], long_shift)
     times = measure(model, model16)
     times["products_bf16"] = measure_products(torch.bfloat16)
@@ -2804,7 +3124,8 @@ def run_phases(smi: str):
             "bf16": {key: t16[key] for key in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")},
             "bf16_max_abs_err": errs["bfloat16"][name]["max_abs_err"],
-            "eval_launches": eval_launches.get(name, 0)})
+            "eval_launches": eval_launches.get(name, 0),
+            "train_val_launches": train_launches.get(name, 0)})
         if name in ("encoder_layer", "decoder_layer"):
             # #1 and #2 at bf16 run at B > 128: the B = 256 NA decode
             kernels[-1]["bf16"]["launches"] = bf16_dec[

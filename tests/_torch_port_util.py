@@ -27,9 +27,10 @@ def to_numpy_tree(tree):
 
 def make_pair(train_mode: str = "UIC", input_mode: str = "add",
               seed: int = 0, n_len: int = 1, dtype: str = "float32",
-              vocab: int = VOCAB):
+              vocab: int = VOCAB, **fields):
     """(jax_model, jax_params, torch_model) on shared weights, both built
-    for the compute ``dtype`` over ``vocab`` words.  The length and syntax
+    for the compute ``dtype`` over ``vocab`` words; ``fields`` (e.g.
+    dropout, drop_prob_lm) set in both configs.  The length and syntax
     heads' biases (where the train_mode has them; AIC has none) are nudged
     (in numpy, before both models get them) so the random model plans
     non-empty captions of varied length."""
@@ -37,6 +38,7 @@ def make_pair(train_mode: str = "UIC", input_mode: str = "add",
     cfg.max_length = L
     cfg.decoder_input_mode = input_mode
     cfg.dtype = dtype
+    cfg.update(fields)
     jm = jax_build_model(cfg, vocab)
     Lp = L + 2
     z = jnp.zeros((2, Lp), jnp.int32)
@@ -59,7 +61,7 @@ def make_pair(train_mode: str = "UIC", input_mode: str = "add",
     tcfg = make_config(**{k: cfg[k] for k in (
         "train_mode", "N_enc", "N_dec", "N_len", "d_model", "d_ff",
         "num_att_heads", "max_length", "decoder_input_mode",
-        "att_feat_size", "max_boxes", "dtype")})
+        "att_feat_size", "max_boxes", "dtype")}, **fields)
     tm = torch_build_model(tcfg, vocab, device="cpu")
     load_jax_params(tm, tree)
     return jm, params, tm

@@ -922,3 +922,92 @@ def test_use_cuda_fill_forced_on_cpu_model_raises(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         use_cuda_fill("1", model)
     assert use_cuda_fill("1", model.to(cuda)) is True
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the XE step against the CPU, the packs after an
+# update, the wrappers' refusal of tensors that require grad
+# ---------------------------------------------------------------------------
+
+def _train_setup(device, cfg, model):
+    from boficap_tpu_torch.convert import flax_layout
+    from boficap_tpu_torch.train import optim, steps
+    layout = flax_layout(model)
+    opt = optim.Optimizer(optim.build_optimizer(cfg, layout), model, layout)
+    return opt, steps.make_xe_step(model, opt)
+
+
+def test_xe_step_on_card_matches_cpu(cuda):
+    """float32, dropout off: one XE step on the card gives the CPU's loss
+    to 1e-5 relative and every gradient leaf to 1e-4 of its largest
+    magnitude."""
+    from boficap_tpu_torch.config import make_config
+    from boficap_tpu_torch.convert import init_params
+    from boficap_tpu_torch.train import steps
+    cfg = make_config(train_mode="UIC", N_enc=2, N_dec=2, N_len=1,
+                      d_model=64, d_ff=128, num_att_heads=4, max_length=8,
+                      max_boxes=9, dtype="float32", dropout=0.0,
+                      drop_prob_lm=0.0, self_dis=True)
+    batch = _eval_loader(cfg).get_batch("train")
+    out = {}
+    for dev in ("cpu", cuda):
+        model = init_params(cfg, 40, seed=0, device=dev)
+        loss, _ = steps.xe_loss_fn(model, steps.to_device(batch, dev),
+                                   torch.Generator(device=dev))
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+        out[str(dev)] = (loss.detach().cpu(),
+                         [None if g is None else g.cpu() for g in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    gmax = max(g.abs().max().item() for g in gc if g is not None)
+    for a, b in zip(gg, gc):
+        if b is None:
+            assert a is None
+            continue
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= max(1e-4 * scale, 1e-6 * gmax)
+
+
+def test_packs_rebuilt_after_step_and_kernel_eval_matches_plain(cuda):
+    """After an optimizer step the model's kernel packs are new objects
+    holding the updated weights, and eval on the kernels gives the plain
+    path's captions on those weights (float32)."""
+    from boficap_tpu_torch.eval.eval_utils import eval_split
+    from boficap_tpu_torch.train import steps
+    cfg, model = _eval_model(cuda)
+    loader = _eval_loader(cfg)
+    old = model.packed_decoder("NA")
+    w_old = old.stack["wqkv"].clone()
+    opt, step = _train_setup(cuda, cfg, model)
+    step(steps.to_device(loader.get_batch("train"), cuda),
+         torch.Generator(device=cuda))
+    new = model.packed_decoder("NA")
+    assert new is not old and not torch.equal(new.stack["wqkv"], w_old)
+    out = {}
+    for flag in ("0", "auto"):
+        out[flag] = eval_split(model, _eval_loader(cfg),
+                               {"split": "test", "language_eval": 0,
+                                "use_cuda_fill": flag}, "NAIC")
+    assert [p["caption"] for p in out["auto"]["predictions"]] == [
+        p["caption"] for p in out["0"]["predictions"]]
+    assert out["auto"]["loss"] == pytest.approx(out["0"]["loss"], rel=1e-5)
+
+
+def test_wrappers_refuse_tensors_that_require_grad(cuda):
+    """No kernel has a backward: a wrapper given a tensor that requires
+    grad raises ValueError (and computes under no_grad)."""
+    from boficap_tpu_torch.ops.attention import attention_core
+    D, H = 64, 4
+    layer = _layer(tl.EncoderLayer, D, 128, H).to(cuda)
+    w = dl.pack_encoder_layer(layer, torch.float32)
+    x = torch.randn(2, 5, D, device=cuda, requires_grad=True)
+    mask = torch.ones(2, 5, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="requires grad"):
+        dl.fused_encoder_layer(x, mask, w, H)
+    q = torch.randn(2, H, 3, D // H, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="requires grad"):
+        attention_core(q, q.detach(), q.detach(),
+                       torch.ones(2, 3, 3, dtype=torch.bool, device=cuda))
+    with torch.no_grad():
+        assert torch.isfinite(dl.fused_encoder_layer(x, mask, w, H)).all()

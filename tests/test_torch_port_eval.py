@@ -11,6 +11,7 @@ through the same pure-Python arithmetic)."""
 import argparse
 import json
 import os
+import pickle
 import subprocess
 import sys
 
@@ -209,7 +210,7 @@ def uic_cpu():
 @pytest.mark.parametrize("kw,match", [
     ({"train_mode": "NNAIC"}, "item 6"),
     ({"train_mode": "PB_pad"}, "item 7"),
-    ({"verbose_loss": 1}, "item 4"),
+    ({"train_mode": "NNAIC", "verbose_loss": 1}, "item 6"),
     ({"train_mode": "AIC", "sample_n": 2}, "item 5"),
     ({"train_mode": "AIC", "beam_size": 2, "group_size": 2}, "item 6"),
     ({"sample_method": "sample"}, "greedy"),
@@ -327,11 +328,25 @@ def test_eval_cli_matches_jax_cli(jax_checkpoint, tmp_path, monkeypatch,
                                   capsys):
     """Both CLIs, --device cpu, on one checkpoint the JAX package wrote,
     SAIC (the CLI's default mode) over the synthetic test split (6
-    images); then --only_lang_eval scores the port's cached predictions."""
+    images), with the eval loss on (--verbose_loss 1: the JAX CLI keeps
+    it to itself, so its value is taken from the JAX package's eval_split
+    on the same options, checkpoint and split); then --only_lang_eval
+    scores the port's cached predictions."""
     model, infos = jax_checkpoint
+    extra = ("--verbose_loss", "1")
     jdir, tdir, result = _cli_pair(tmp_path, monkeypatch, capsys, model,
-                                   infos, "SAIC")
+                                   infos, "SAIC", extra)
     _same_outputs(jdir, tdir, "cli", 6)
+    argv = ["--model", model, "--infos_path", infos, "--device", "cpu",
+            "--inference_mode", "SAIC", "--num_images", "-1", *extra]
+    with open(infos, "rb") as f:
+        jopt = jeval.build_eval_opt(jeval.parse_eval_opt(argv),
+                                    pickle.load(f))
+    jm, params, _ = make_pair("UIC", "add", seed=2, vocab=40)
+    want = jeu.eval_split(jm, params, jds.CaptionData(jopt), dict(jopt),
+                          inference_mode="SAIC")
+    assert want["loss"] > 0
+    assert abs(result["loss"] - want["loss"]) <= TOL * want["loss"]
     assert any(p["caption"] for p in result["predictions"])
     stats = teval.main(["--model", model, "--infos_path", infos,
                         "--device", "cpu", "--only_lang_eval", "1"])
