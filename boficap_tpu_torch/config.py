@@ -456,11 +456,6 @@ def merge_cli(cfg: Config, args: argparse.Namespace) -> Config:
 def check_train_opt(cfg: Config) -> Config:
     """Options of the JAX trainer the port does not run yet raise here, at
     parse time, naming their ROADMAP item (section 1)."""
-    for key in ("self_critical_after", "structure_after"):
-        if cfg.get(key, -1) is not None and cfg.get(key, -1) >= 0:
-            raise NotImplementedError(
-                f"{key}={cfg[key]}: the RL stage is not ported yet: "
-                "ROADMAP.md section 1, item 5")
     for key, item in (("multihost", 11), ("mesh_shape", 11),
                       ("profile_steps", 4)):
         if cfg.get(key):

@@ -17,8 +17,8 @@ captioning/models/AttModel.py:307-430 and CaptionModel.py:48-222).
     top-K here is a stable descending sort (equal values keep index order),
     which matters in the done pool, where many entries are equal to NEG_INF.
 
-Only the greedy branch of ``sample_next_word`` is ported; the sampled ones
-raise until the RL slice.  ``ar_diverse_beam_search``,
+``ar_sample`` takes every method of ``sample_next_word``; a sampled one
+draws from the caller's ``generator``.  ``ar_diverse_beam_search``,
 ``ar_old_beam_search`` and ``ar_diverse_sample`` are not ported yet.
 """
 
@@ -73,9 +73,11 @@ def ar_sample(model, memory, src_mask, *, sample_method: str = "greedy",
               suppress_unk_idx: Optional[int] = None,
               max_steps: Optional[int] = None, block_trigrams: bool = False,
               penalty_seqs=None, diversity_lambda: float = 0.5,
-              bad_endings_ix: Optional[tuple] = None
+              bad_endings_ix: Optional[tuple] = None,
+              generator: Optional[torch.Generator] = None
               ) -> Dict[str, torch.Tensor]:
-    """Greedy-decode captions autoregressively.
+    """Decode captions autoregressively, each word by ``sample_method``
+    (a sampled method draws from ``generator``).
 
     Returns {'seq': [B, L] int64, 'tok_logprobs': [B, L] float32 (the
     chosen token's log-prob), 'entropy': [B, L] float32}; finished rows
@@ -128,7 +130,8 @@ def ar_sample(model, memory, src_mask, *, sample_method: str = "greedy",
             counts = torch.zeros((B, V), device=dev).scatter_add_(
                 1, seq, match.float())
             logprob = logprob + counts * (-0.693) * 2.0
-        ids, _ = sample_next_word(logprob, sample_method, temperature)
+        ids, _ = sample_next_word(logprob, sample_method, temperature,
+                                  generator)
         ids = torch.where(unfinished, ids, PAD)
         tok = torch.gather(logprob, 1, ids[:, None])[:, 0]
         ent = -(torch.exp(logprob) * logprob).sum(-1)

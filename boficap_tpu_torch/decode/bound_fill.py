@@ -452,12 +452,15 @@ def sa_decode(model, memory, src_mask, *, sample_method: str = "greedy",
 @torch.no_grad()
 def uic_s_ar_decode(model, memory, src_mask, *, sample_method: str = "greedy",
                     temperature: float = 1.0, max_steps: Optional[int] = None,
-                    ar_max_steps: Optional[int] = None
+                    ar_max_steps: Optional[int] = None,
+                    generator: Optional[torch.Generator] = None
                     ) -> Dict[str, torch.Tensor]:
     """UIC_s / UIC_u autoregressive branch (reference core_UIC_s_AIC,
     TransformerModel.py:2313-2391): bound the syn plan with the shared
     predictor, then decode autoregressively with word + syn embeddings,
-    writing words only inside the planned length.
+    writing words only inside the planned length.  The plan is argmax, as
+    in the JAX package; only the words follow ``sample_method`` (a sampled
+    one draws from ``generator``).
 
     The AR phase is the KV-cached ``ar_step`` with the per-position syn id
     from the plan, for a fixed ``ar_max_steps`` (default L) with no host
@@ -484,7 +487,8 @@ def uic_s_ar_decode(model, memory, src_mask, *, sample_method: str = "greedy",
         # (reference decode_A input extend_phrase_syn[:, 1:i+2], :2374)
         logprob, cache = model.ar_step(it, pos, cache, src_mask,
                                        syn_t=extend_syn[:, pos + 1])
-        ids, _ = sample_next_word(logprob, sample_method, temperature)
+        ids, _ = sample_next_word(logprob, sample_method, temperature,
+                                  generator)
         write = (pos + 1) < last                          # reference :2385
         ids = torch.where(write, ids, PAD)
         seq[:, pos] = ids
@@ -585,7 +589,7 @@ def ss_sa_loop(model, memory, src_mask, labels, phrase_length, phrase_syn,
         logprob = model.generate(model.decode_sa(
             extend_word[:, 1:-1], extend_syn[:, 1:-1], memory, src_mask,
             tgt_mask))
-        ids, _ = sample_next_word(logprob, sample_method, temperature)
+        ids, _ = sample_next_word(logprob, sample_method, temperature, rng)
         ids_lab = torch.nn.functional.pad(ids.to(labels.dtype), (1, 1))
         seq = torch.where(in_ph, ids_lab, seq)
         extend_len = torch.where(in_ph, ids_lab, extend_len)

@@ -35,8 +35,9 @@ is its mean over the batches.
 
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item
 (section 1): the NNAIC and PB_pad branches, ``group_size > 1``,
-``sample_n > 1`` on the AIC branch; a non-greedy ``sample_method`` raises
-in ``decode/sampling.py``.
+``sample_n > 1`` on the AIC branch.  A non-greedy ``sample_method`` draws
+from one ``torch.Generator`` on the model's device, seeded by
+``eval_kwargs['seed']`` (0 by default), as the JAX package seeds its key.
 """
 
 from __future__ import annotations
@@ -99,7 +100,14 @@ def make_decoders(model, eval_kwargs: Dict[str, Any]) -> Dict[str, Any]:
     suppress_unk_idx = eval_kwargs.get("_suppress_unk_idx")
     bad_endings_ix = eval_kwargs.get("_bad_endings_ix")
     length_penalty = eval_kwargs.get("length_penalty", "") or ""
-    sampling = dict(sample_method=sample_method, temperature=temperature)
+    # a sampled method draws from one generator on the model's device,
+    # seeded as the JAX package's eval_split seeds its PRNGKey
+    generator = None
+    if sample_method != "greedy":
+        generator = torch.Generator(device=_model_device(model)).manual_seed(
+            int(eval_kwargs.get("seed", 0) or 0))
+    sampling = dict(sample_method=sample_method, temperature=temperature,
+                    generator=generator)
 
     def encode(att, am):
         if fused:
@@ -216,7 +224,7 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
     verbose_loss = bool(eval_kwargs.get("verbose_loss", 1))
     sample_n = int(eval_kwargs.get("sample_n", 1))
     if sample_n > 1 and branch == "AIC":
-        not_ported(f"sample_n={sample_n} (sample_n_captions)", 5)
+        not_ported(f"sample_n={sample_n} (sample_n_captions)", 6)
     if sample_n > 1:
         # the reference's eval_split_n has _sample branches only for the AR
         # train modes (AttModel.py:339-467); the JAX package skips, and says

@@ -18,6 +18,7 @@ pass that every decode takes.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -38,6 +39,7 @@ from .layers import (
     causal_mask,
     dropout,
     prefix_mask,
+    widen,
 )
 
 # decoder-stack role table: train_mode -> {role: stack_index}
@@ -179,6 +181,23 @@ class BoFiCap(nn.Module):
             if isinstance(m, MultiHeadAttention):
                 m.use_core = bool(enabled)
 
+    @contextlib.contextmanager
+    def plain_attention(self):
+        """Every attention on the plain path inside the block, the
+        attention-core setting restored after it: for a forward that
+        autograd records (the RL re-score), since the kernel has no
+        backward and its wrapper refuses operands that require grad."""
+        mods = [m for m in self.modules()
+                if isinstance(m, MultiHeadAttention)]
+        was = [m.use_core for m in mods]
+        for m in mods:
+            m.use_core = False
+        try:
+            yield
+        finally:
+            for m, w in zip(mods, was):
+                m.use_core = w
+
     def packed_encoder(self):
         """The encoder's weights for the kernels (``ops.stack.StackPack``)."""
         from ..ops.stack import pack_encoder_stack
@@ -243,9 +262,9 @@ class BoFiCap(nn.Module):
         """[..., d] -> (length logprob [..., 20], syn logprob [..., 10])."""
         r = self.dropout_rate
         lh = dropout(torch.relu(self.len_head1(h)), r, rng)
-        len_lp = torch.log_softmax(self.len_head2(lh).float(), dim=-1)
+        len_lp = torch.log_softmax(widen(self.len_head2(lh)), dim=-1)
         sh = dropout(torch.relu(self.syn_head1(h)), r, rng)
-        syn_lp = torch.log_softmax(self.syn_head2(sh).float(), dim=-1)
+        syn_lp = torch.log_softmax(widen(self.syn_head2(sh)), dim=-1)
         return len_lp, syn_lp
 
     def _lp_embed(self, ids, use_syn: bool, rng=None):

@@ -64,6 +64,13 @@ def dropout(x, rate: float, rng: Optional[torch.Generator]):
     return torch.where(keep, x / keep_prob, 0.0)
 
 
+def widen(x):
+    """``x`` in float32 for the reductions, or float64 where it already is
+    (a model whose compute dtype is float64: the float64 witness that
+    ``chip_smoke.py`` holds float32 gradients to)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 class Dense(nn.Module):
     """``y = cast(x) @ cast(W).T`` rounded to the compute dtype, then
     ``+ cast(b)``; ``weight`` is [out, in] as in ``nn.Linear``."""
@@ -136,8 +143,8 @@ class MultiHeadAttention(nn.Module):
             out = attention_core(qh.transpose(1, 2), kh.transpose(1, 2),
                                  vh.transpose(1, 2), m3.expand(B, Lq, Lk))
             return self.wo(out.transpose(1, 2).reshape(B, Lq, self.d_model))
-        scores = torch.einsum("bqhd,bkhd->bhqk", qh.float(),
-                              kh.float()) / math.sqrt(Dh)
+        scores = torch.einsum("bqhd,bkhd->bhqk", widen(qh),
+                              widen(kh)) / math.sqrt(Dh)
         if mask is not None:
             if mask.dim() == 2:
                 mask = mask[:, None, None, :]
@@ -148,7 +155,7 @@ class MultiHeadAttention(nn.Module):
             scores = torch.where(mask, scores, MASK_FILL)
         probs = torch.softmax(scores, dim=-1).to(self.compute_dtype)
         probs = dropout(probs, self.dropout_rate, rng)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), vh.float())
+        out = torch.einsum("bhqk,bkhd->bqhd", widen(probs), widen(vh))
         out = out.to(self.compute_dtype).reshape(B, Lq, self.d_model)
         return self.wo(out)
 
@@ -190,7 +197,7 @@ class RefLayerNorm(nn.Module):
 
     def forward(self, x):
         d = x.shape[-1]
-        xf = x.float()
+        xf = widen(x)
         xs = xf - xf[..., :1]
         m1 = xs.mean(-1, keepdim=True)
         m2 = (xs * xs).mean(-1, keepdim=True)
@@ -433,7 +440,7 @@ class Generator(nn.Module):
         return torch.log_softmax(self.logits(x), dim=-1)
 
     def logits(self, x):
-        return self.proj(x).float()
+        return widen(self.proj(x))
 
 
 def causal_mask(L: int, device=None) -> torch.Tensor:

@@ -114,12 +114,67 @@ def probe() -> Dict[str, object]:
     return out
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+def digest(flags, sources) -> str:
+    """A hash of the compiler flags and of each source's name and bytes:
+    the name of a build, so that a changed source or flag rebuilds."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in sources:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def source_hash() -> str:
+    return digest(NVCC_FLAGS, sorted(CSRC.glob("*.cu*")))
+
+
+def compile_all(compiler: str, flags, jobs: Dict[Path, Path]):
+    """Compile each source ``jobs[lib]`` into the library ``lib``, one
+    compiler process each, all started together.  Each writes a
+    per-process temporary file that ``os.replace`` moves into place, so a
+    reader never loads a half-written library.  Returns (the compilers'
+    output, the names of the sources that failed)."""
+    procs = {}
+    for lib, src in jobs.items():
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        procs[lib] = (src, tmp, subprocess.Popen(
+            [compiler, *flags, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    log, failed = [], []
+    for lib, (src, tmp, proc) in procs.items():
+        text, _ = proc.communicate()
+        log.append(f"== {src.name} (rc {proc.returncode})\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)
+    return "\n".join(log), failed
+
+
+def bind(path: Path, signatures) -> ctypes.CDLL:
+    """Load the library at ``path`` with each entry's argument and return
+    types from ``signatures`` ({name: (argtypes, restype)})."""
+    lib = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    return lib
+
+
+def load_once(make):
+    """A function that returns ``make()``, made once per process (under a
+    lock)."""
+    lock, made = threading.Lock(), []
+
+    def get():
+        with lock:
+            if not made:
+                made.append(make())
+            return made[0]
+
+    return get
 
 
 def build(build_root: Path = BUILD_ROOT) -> Dict[str, object]:
@@ -138,23 +193,9 @@ def build(build_root: Path = BUILD_ROOT) -> Dict[str, object]:
                            "kernels are built from source at first use")
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    procs = {}
-    for n in names:
-        tmp = out_dir / f"lib{n}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True))
-    log, failed = [], []
-    for n, (tmp, proc) in procs.items():
-        text, _ = proc.communicate()
-        log.append(f"== {n}.cu (rc {proc.returncode})\n{text}")
-        if proc.returncode != 0:
-            failed.append(n)
-        else:
-            os.replace(tmp, libs[n])     # atomic: readers never see a half file
-    log_text = "\n".join(log)
+    log_text, failed = compile_all(
+        nvcc, [*NVCC_FLAGS, "-I", str(CSRC)],
+        {libs[n]: CSRC / f"{n}.cu" for n in names})
     (out_dir / "build.log").write_text(log_text)
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n{log_text}")
@@ -168,12 +209,7 @@ class Kernels:
 
     def __init__(self, lib_dir: Path):
         for name, fns in SIGNATURES.items():
-            lib = ctypes.CDLL(str(lib_dir / f"lib{name}.so"))
-            for fn, (argtypes, restype) in fns.items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = restype
-            setattr(self, name, lib)
+            setattr(self, name, bind(lib_dir / f"lib{name}.so", fns))
 
     def check(self, err: int, what: str) -> None:
         if err != 0:
@@ -181,16 +217,5 @@ class Kernels:
             raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-_lock = threading.Lock()
-_kernels: Optional[Kernels] = None
-
-
-def kernels() -> Kernels:
-    """Build (at first use) and load the kernel libraries, once per
-    process."""
-    global _kernels
-    with _lock:
-        if _kernels is None:
-            info = build()
-            _kernels = Kernels(Path(info["dir"]))
-        return _kernels
+# build (at first use) and load the kernel libraries, once per process
+kernels = load_once(lambda: Kernels(Path(build()["dir"])))

@@ -1,5 +1,5 @@
-"""Training CLI of the port: the XE stage of the JAX package's
-``tools/train.py``, with the same flags and files, on the card:
+"""Training CLI of the port: the JAX package's ``tools/train.py``, with the
+same flags and files, on the card:
 
     python -m boficap_tpu_torch.tools.train --cfg configs/uic_sd.yml \\
         --id uic_sd                      # on cuda
@@ -10,17 +10,36 @@ State machine of reference tools/train.py:29-374: seeded init
 (``convert.fill_random``), infos / histories resume with the loader's
 position (``--start_from``), the encoder warm start (``--init_from``), the
 per-epoch schedules (lr decay or noam, scheduled sampling, glancing,
-drop-worst), linear warm-up, the iteration log and ``metrics.jsonl``,
-periodic validation through ``eval_split`` (its decoders on the card's
-kernels, on the weights just written; the modes by train_mode), the best
-score (CIDEr, else -loss), ``reduce_on_plateau``, and ``model.ckpt``,
-``model_best.ckpt``, ``optimizer.ckpt``, ``infos_<id>.pkl`` and
-``histories_<id>.pkl`` in the JAX package's formats, so either package
-resumes or evaluates the other's run.
+drop-worst, and the RL stage's ``self_critical_after`` /
+``structure_after``), linear warm-up, the iteration log and
+``metrics.jsonl``, periodic validation through ``eval_split`` (its
+decoders on the card's kernels, on the weights just written; the modes by
+train_mode), the best score (CIDEr, else -loss), ``reduce_on_plateau``,
+and ``model.ckpt``, ``model_best.ckpt``, ``optimizer.ckpt``,
+``infos_<id>.pkl`` and ``histories_<id>.pkl`` in the JAX package's
+formats, so either package resumes or evaluates the other's run.
+
+The RL stage (JAX tools/train.py:253-362): from the epoch
+``structure_after`` the structure-loss step (``train/steps.py``
+``make_rl_step``: sampled decodes on the kernels, CIDEr-D on the host by
+the native scorer, the re-score and update), from ``self_critical_after``
+classic SCST (AIC and auto only: a phrase train_mode keeps XE and says so,
+as the JAX package does); the scorer is initialised from
+``cached_tokens`` on the first RL epoch, and the step is rebuilt when the
+stage moves from SCST to the structure loss.  The RL metrics (``reward``,
+``<branch>_struc_loss``, ``lm_loss``, ``rl_kl``) go to ``metrics.jsonl``.
+
+The first batch: the JAX trainer draws one train batch to initialise the
+model (its tools/train.py:182) before it restores the loader
+(:210), and a fresh loader's ``load_state_dict(None)`` keeps that draw, so
+a fresh JAX run trains first on batch 2.  The port draws and drops one
+batch at the same point, so its loader positions and epoch wraps (which
+the RL stage keys off) are the JAX package's; on a resume the saved
+position wins.  The original PyTorch reference trains first on batch 1;
+the port follows the JAX package, the reference it is held against.
 
 Not ported (``NotImplementedError`` at parse time, naming the ROADMAP
-item, section 1): the RL stage (``self_critical_after``,
-``structure_after``: item 5), the mesh and multihost (item 11) and
+item, section 1): the mesh and multihost (item 11) and
 ``--profile_steps`` (item 4's leftover); NNAIC and PB_pad training raise
 in the model's forward (items 6 and 7).
 """
@@ -42,6 +61,7 @@ from ..data.dataset import CaptionData
 from ..device import resolve_device
 from ..eval.eval_utils import eval_split
 from ..models import setup as models_setup
+from ..rewards import init_scorer
 from ..train import optim as optim_mod
 from ..train import steps as steps_mod
 from ..train.state import (encoder_only_init, load_histories, load_infos,
@@ -104,6 +124,9 @@ def train(opt):
 
     iteration = infos["iter"]
     epoch = infos["epoch"]
+    # JAX's order: one train batch drawn before the loader is restored (see
+    # the module docstring); a saved position replaces it
+    loader.get_batch("train")
     loader.load_state_dict(infos.get("loader_state_dict"))
     best_val_score = (infos.get("best_val_score") if opt.load_best_score
                       else None)
@@ -116,6 +139,9 @@ def train(opt):
         model, optimizer, label_smoothing=opt.label_smoothing,
         debug_checks=bool(opt.get("debug_checks", False)),
         grad_accum=int(opt.get("grad_accum", 1) or 1))
+    rl_sample = rl_step = None
+    rl_step_kind = None          # "scst" | "struc"; rebuilt on change
+    warned_sc_ignored = False
     os.makedirs(opt.checkpoint_path, exist_ok=True)
     metrics_log = os.path.join(opt.checkpoint_path, "metrics.jsonl")
 
@@ -135,8 +161,28 @@ def train(opt):
                      plateau=plateau.state_dict(),
                      opt=dict(opt))
 
+    def rl_batch(data):
+        """One RL step on a loader batch: sample on the card, score on the
+        host, update."""
+        tb = steps_mod.to_device(data, device)
+        att, am = tb["att_feats"], tb["att_masks"]
+        samples = rl_sample(att, am, gen)
+        classic = sc_flag and not struc_flag
+        scores = steps_mod.rl_host_scores(samples, data["gts"], opt,
+                                          classic_scst=classic)
+        scores = {k: torch.as_tensor(v, device=device)
+                  for k, v in scores.items()}
+        if classic:
+            return rl_step(att, am, samples, scores["scst_reward"])
+        gt = None
+        if opt.get("structure_loss_weight", 1.0) < 1.0:
+            # the (1-w)*lm_loss XE term needs the gt batch (reference
+            # loss_wrapper.py:169/220-222)
+            gt = {k: tb[k] for k in steps_mod.LABEL_KEYS if k in tb}
+        return rl_step(att, am, samples, scores, gt=gt, rng=gen)
+
     epoch_done = True
-    drop_worst_flag = False
+    sc_flag = struc_flag = drop_worst_flag = False
     glat_p, ss_prob = -1.0, 0.0
     try:
         while True:
@@ -147,8 +193,41 @@ def train(opt):
                     optimizer.set_lr(optim_mod.epoch_lr(opt, epoch))
                 glat_p = optim_mod.glat_rate(opt, epoch)
                 ss_prob = optim_mod.scheduled_sampling_prob(opt, epoch)
+                sc_flag = (opt.self_critical_after != -1
+                           and epoch >= opt.self_critical_after)
+                struc_flag = (opt.structure_after != -1
+                              and epoch >= opt.structure_after)
                 drop_worst_flag = (opt.drop_worst_after != -1
                                    and epoch >= opt.drop_worst_after)
+                if (sc_flag and not struc_flag
+                        and model.train_mode not in ("AIC", "auto")):
+                    # the reference implements classic SCST only in its AIC
+                    # branch; every phrase train_mode ignores the flag and
+                    # keeps XE (loss_wrapper.py:40-82 against :83+)
+                    if not warned_sc_ignored:
+                        print(f"WARNING: self_critical_after set but "
+                              f"train_mode={model.train_mode} has no classic "
+                              f"SCST path (the reference implements sc_flag "
+                              f"only for AIC); continuing with XE: use "
+                              f"structure_after for the RL stage")
+                        warned_sc_ignored = True
+                    sc_flag = False
+                if sc_flag or struc_flag:
+                    # built on the first RL epoch, the step rebuilt when
+                    # the schedule moves from classic SCST into the
+                    # structure stage (self_critical_after < structure_after)
+                    needed = "struc" if struc_flag else "scst"
+                    if rl_sample is None:
+                        init_scorer(opt.cached_tokens)
+                        rl_sample = steps_mod.make_rl_sample(
+                            model, sample_method=opt.train_sample_method,
+                            temperature=opt.temperature,
+                            sample_n=opt.train_sample_n)
+                    if rl_step_kind != needed:
+                        make = (steps_mod.make_rl_step if needed == "struc"
+                                else steps_mod.make_scst_step)
+                        rl_step = make(model, optimizer, opt)
+                        rl_step_kind = needed
                 epoch_done = False
             if (opt.use_warmup and iteration < opt.noamopt_warmup
                     and not opt.noamopt):
@@ -160,10 +239,14 @@ def train(opt):
             read_time = time.time() - t_read
 
             t_step = time.time()
-            metrics = steps_mod.run_xe_step(
-                xe_step, data, gen, glat_p=glat_p,
-                drop_worst=opt.drop_worst_rate if drop_worst_flag else 0.0,
-                ss_prob=ss_prob, device=device)
+            if sc_flag or struc_flag:
+                metrics = rl_batch(data)
+            else:
+                metrics = steps_mod.run_xe_step(
+                    xe_step, data, gen, glat_p=glat_p,
+                    drop_worst=(opt.drop_worst_rate if drop_worst_flag
+                                else 0.0),
+                    ss_prob=ss_prob, device=device)
             sync()
             step_time = time.time() - t_step
 

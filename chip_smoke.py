@@ -81,7 +81,37 @@ Phases, each printing one JSON line:
               then the training CLI in a subprocess (a validation and a
               checkpoint, a --start_from resume) and the eval CLI on its
               model_best.ckpt.
- 13. times    each kernel's time beside its plain version's, one PyTorch
+ 13. rl       the RL stage (configs/uic_sd_nscl.yml: 10 images x 5 samples,
+              new_self_critical, a constant Adam rate of 5e-6) on phase
+              train's trained bf16 model: the sampler's kernel launches
+              (#4, #5, #6, and #7 when a sampled SA phrase is wider than
+              the window) and none in the step's autograd; the top1
+              sampled NA and SA decodes on the kernels equal the greedy
+              kernel decodes at float32; the sampler's token log-probs
+              against rl_rescore's plain values (float32 within 1e-4, bf16
+              within 0.05 nats, a limit between the sound reading and a
+              control's, the same sampler with its stacks' outputs moved
+              by 8 bf16 ulps, which must exceed it; both printed); 20,000
+              draws a method (sample, gumbel, top3, top0.9 at temperature
+              0.7) from a CUDA generator against the closed form by a
+              chi-square test; one float32 structure-loss step on the
+              card against the CPU on the trained model's samples and
+              their CIDEr-D scores (the loss to 1e-5 relative, every
+              gradient leaf to 1e-4 of its largest magnitude, the ReLU
+              sides aligned; a loss or leaf beyond that is held to a
+              float64 step on the CPU, the card within 4x the CPU's own
+              distance from it), and on the seeded weights with seeded
+              scores to the CPU alone; 3 + 10 RL steps at bf16
+              and at float32 (every loss finite, the parameters moved, the
+              packs rebuilt after each step): step ms split into sampler,
+              host scoring and update, samples/s, peak memory, host syncs
+              a step, CUDA kernels and the device-busy share of a
+              profiled step; the native and Python scorers' ms with their
+              scores equal; one SCST step of configs/transformer.yml with
+              use_pallas on (#9 launched by the sampler); the training CLI
+              resumed from phase train's checkpoint with structure_after
+              0 (the RL keys in metrics.jsonl).
+ 14. times    each kernel's time beside its plain version's, one PyTorch
               library call's (a yardstick the port never calls) and the
               least time the card could take (bound); decode times,
               launches and host syncs per decode; #9's host cost a call,
@@ -113,6 +143,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1726,15 +1757,14 @@ def relu_inputs(model):
             or n.endswith(".ffn.Dense_0")]
 
 
-def xe_grads(opt, batch, device, record=None, align=None):
-    """One XE step's loss and gradients of uic_sd from the seeded weights
-    on ``device``.  ``record`` (a dict) keeps every ReLU input, by module
-    and call; ``align`` (such a dict) makes each ReLU input that falls on
-    the other side of zero take the recorded value, and counts them."""
-    from boficap_tpu_torch.convert import init_params
-    from boficap_tpu_torch.train import steps
-    model = init_params(opt, VOCAB, seed=SEED, device=device)
+def relu_hooks(model, record=None, align=None):
+    """Forward hooks on ``relu_inputs(model)``: with ``record`` (a dict)
+    keep every ReLU input, by module and call; with ``align`` (such a dict)
+    make each ReLU input that falls on the other side of zero take the
+    recorded value, and count them.  Returns (handles, stats)."""
     calls, stats = {}, {"flipped": 0, "max_gap": 0.0}
+    if record is None and not align:
+        return [], stats
 
     def hook(name):
         def fn(mod, inp, out):
@@ -1756,8 +1786,19 @@ def xe_grads(opt, batch, device, record=None, align=None):
             return out + ((ref - out) * flip).detach()
         return fn
 
-    handles = ([m.register_forward_hook(hook(n)) for n, m in
-                relu_inputs(model)] if record is not None or align else [])
+    return ([m.register_forward_hook(hook(n)) for n, m in
+             relu_inputs(model)], stats)
+
+
+def xe_grads(opt, batch, device, record=None, align=None):
+    """One XE step's loss and gradients of uic_sd from the seeded weights
+    on ``device``.  ``record`` (a dict) keeps every ReLU input, by module
+    and call; ``align`` (such a dict) makes each ReLU input that falls on
+    the other side of zero take the recorded value, and counts them."""
+    from boficap_tpu_torch.convert import init_params
+    from boficap_tpu_torch.train import steps
+    model = init_params(opt, VOCAB, seed=SEED, device=device)
+    handles, stats = relu_hooks(model, record, align)
     try:
         loss, _ = steps.xe_loss_fn(model, steps.to_device(batch, device),
                                    torch.Generator(device=device))
@@ -1782,14 +1823,31 @@ def check_cross_device(batch) -> dict:
     lg, _, gg, stats = xe_grads(opt, batch, DEV, align=relu)
     if abs(lg - lc) > 1e-5 * abs(lc):
         fail(f"train: card loss {lg} != CPU loss {lc}")
+    return {"loss_card": lg, "loss_cpu": lc, "loss_rel_err": abs(lg - lc)
+            / abs(lc), **compare_grads("train", names, gg, gc, raw, relu,
+                                       stats), "cpu_step_s": cpu_s}
+
+
+def compare_grads(what: str, names, got, want, raw, relu, stats,
+                  witness=None) -> dict:
+    """The card's gradients ``got`` (ReLU sides aligned) against the CPU's
+    ``want``: each leaf within GRAD_TOL of its largest magnitude, a leaf of
+    structurally zero gradient within ZERO_GRAD of the largest gradient;
+    ``raw`` (the card's unaligned run) is reported only.  With ``witness``
+    (the float64 gradients), a leaf beyond GRAD_TOL passes if the card is
+    within WITNESS_K times the CPU's distance from the witness, and fails
+    if not: then the witness sides with the CPU."""
     if stats["max_gap"] > RELU_GAP:
-        fail(f"train: a ReLU input differs by {stats['max_gap']} across "
+        fail(f"{what}: a ReLU input differs by {stats['max_gap']} across "
              f"zero between the card and the CPU")
-    gmax = max(g.abs().max().item() for g in gc if g is not None)
-    worst, unaligned, zero = 0.0, 0.0, []
-    for n, a, b, r in zip(names, gg, gc, raw):
+    gmax = max(g.abs().max().item() for g in want if g is not None)
+    if not gmax > 0:
+        fail(f"{what}: every gradient is zero")
+    worst, unaligned, zero, witnessed = 0.0, 0.0, [], {}
+    ratio = (0.0, None)
+    for i, (n, a, b, r) in enumerate(zip(names, got, want, raw)):
         if (a is None) != (b is None):
-            fail(f"train: gradient of {n} missing on one device")
+            fail(f"{what}: gradient of {n} missing on one device")
         if b is None:
             continue
         scale = b.abs().max().item()
@@ -1797,20 +1855,36 @@ def check_cross_device(batch) -> dict:
         if scale <= ZERO_GRAD * gmax:
             zero.append(n)
             if a.abs().max().item() > ZERO_GRAD * gmax:
-                fail(f"train: {n}'s zero gradient is not zero on the card")
+                fail(f"{what}: {n}'s zero gradient is not zero on the card")
             continue
-        if err > GRAD_TOL * scale:
-            fail(f"train: gradient of {n} differs by {err / scale} of its "
+        if witness is not None:
+            w = witness[i]
+            card = (a.double() - w.double()).abs().max().item() / scale
+            cpu = (b.double() - w.double()).abs().max().item() / scale
+            if card > ratio[0] * max(cpu, 1e-300):
+                ratio = (card / max(cpu, 1e-300), n)
+            if err > GRAD_TOL * scale:
+                witnessed[n] = {"card_cpu": err / scale, "card_float64": card,
+                                "cpu_float64": cpu}
+                if card > WITNESS_K * cpu:
+                    fail(f"{what}: gradient of {n} differs by {err / scale} "
+                         f"of its largest magnitude, and the card is {card} "
+                         f"off the float64 witness, the CPU {cpu}")
+        elif err > GRAD_TOL * scale:
+            fail(f"{what}: gradient of {n} differs by {err / scale} of its "
                  f"largest magnitude")
         worst = max(worst, err / scale)
         unaligned = max(unaligned, (r - b).abs().max().item() / scale)
-    return {"loss_card": lg, "loss_cpu": lc, "loss_rel_err": abs(lg - lc)
-            / abs(lc), "grad_leaves": len(names),
-            "grad_worst_rel_err": worst, "zero_grad_leaves": len(zero),
-            "relu_inputs": sum(t.numel() for t in relu.values()),
-            "relu_flipped": stats["flipped"],
-            "relu_flip_max_gap": stats["max_gap"],
-            "unaligned_grad_worst_rel_err": unaligned, "cpu_step_s": cpu_s}
+    out = {"grad_leaves": len(names), "grad_worst_rel_err": worst,
+           "zero_grad_leaves": len(zero),
+           "relu_inputs": sum(t.numel() for t in relu.values()),
+           "relu_flipped": stats["flipped"],
+           "relu_flip_max_gap": stats["max_gap"],
+           "unaligned_grad_worst_rel_err": unaligned}
+    if witness is not None:
+        out.update(witness_k=WITNESS_K, witnessed_leaves=witnessed,
+                   witness_worst_card_over_cpu=ratio)
+    return out
 
 
 def timed_steps(step, batch, gen, n: int, warm: int = 3):
@@ -1904,10 +1978,10 @@ def train_cli(path: str) -> dict:
     return out
 
 
-def check_train() -> tuple:
-    """Phase train (see the module docstring); returns (result, the kernel
-    launches of the trained model's validation on the kernels)."""
-    import tempfile
+def check_train(tmp: str) -> tuple:
+    """Phase train (see the module docstring), its CLI runs under ``tmp``;
+    returns (result, the kernel launches of the trained model's validation
+    on the kernels, the trained bf16 model, its train batch)."""
     from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
     t_phase = time.perf_counter()
     res = {"grad_tol": GRAD_TOL, "zero_grad": ZERO_GRAD}
@@ -1974,10 +2048,546 @@ def check_train() -> tuple:
                  f"{r['plain_loss']} on the plain one")
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    with tempfile.TemporaryDirectory(prefix="boficap_train_") as tmp:
-        res["cli"] = train_cli(tmp)
+    res["cli"] = train_cli(tmp)
     res["phase_s"] = time.perf_counter() - t_phase
-    return res, launches
+    return res, launches, model, batch
+
+
+# ---------------------------------------------------------------------------
+# phase rl: the structure-loss stage on the card
+# ---------------------------------------------------------------------------
+
+RL_STEPS = 10                 # timed RL steps at each dtype, after 3 warm-up
+RL_DRAWS = 20_000             # draws of the sampling-law check
+RL_P_MIN = 1e-4               # its chi-square bound on the p-value
+RL_T = 0.7                    # its temperature
+RESCORE_TOL = 1e-4            # float32: sampler tok_logprobs vs re-score
+# bf16: the sampler's token log-probs against the re-score, held to
+# RESCORE_BF16 nats, a limit set between two readings on the card: the
+# sound sampler's largest gap, and that of a control, the same sampler with
+# each stack output (the generator's input) moved by CONTROL_ULPS bf16 ulps
+# of a random sign (a stack that rounds that much worse); both are printed
+# and the control must exceed the limit, so that the check sees such a fault
+RESCORE_BF16 = 0.05
+CONTROL_ULPS = 8
+# the float32 step: a gradient leaf that differs from the CPU's by more than
+# GRAD_TOL is held to a float64 step on the CPU (the witness): the card's
+# distance from it within WITNESS_K times the CPU float32's own
+WITNESS_K = 4.0
+# the kernels the bf16 sampler must launch (B = 10 images, 50 samples: the
+# whole-stack route): the encoder stack, the NA fill, the narrow SA round
+RL_KERNELS = ("encoder_stack", "decoder_stack", "window_stack")
+
+
+def rl_opt(**fields):
+    """configs/uic_sd_nscl.yml (the flagship's structure-loss stage:
+    batch 10, train_sample_n 5, new_self_critical, a constant Adam rate of
+    5e-6) over the synthetic corpus."""
+    return eval_opt("uic_sd_nscl.yml", id="smokerl", **fields)
+
+
+def rl_model(opt, state):
+    """uic_sd at ``opt``'s dtype on the card holding ``state`` (the trained
+    model's parameters), with its sampler and RL step."""
+    from boficap_tpu_torch.convert import flax_layout, init_params
+    from boficap_tpu_torch.train import optim, steps
+    model = init_params(opt, VOCAB, seed=SEED, device=DEV).eval()
+    model.load_state_dict(state)
+    layout = flax_layout(model)
+    o = optim.Optimizer(optim.build_optimizer(opt, layout), model, layout)
+    sampler = steps.make_rl_sample(model, opt.train_sample_method,
+                                   opt.temperature, opt.train_sample_n)
+    return model, sampler, steps.make_rl_step(model, o, opt)
+
+
+def written(d):
+    """The positions a phrase sampler wrote a token log-prob at."""
+    pos = torch.arange(d["seq"].shape[1], device=d["seq"].device)
+    return pos[None, :] < d["phrase_length"].sum(-1)[:, None]
+
+
+def rl_step_once(sampler, step, tb, gts, opt, gen):
+    """One RL step: sample on the card, score on the host, update.  Returns
+    (metrics, samples, ms of the sampler, the host scoring, the update)."""
+    from boficap_tpu_torch.train import steps
+    att, am = tb["att_feats"], tb["att_masks"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = sampler(att, am, gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    scores = steps.rl_host_scores(samples, gts, opt)
+    t2 = time.perf_counter()
+    m = step(att, am, samples, {k: torch.as_tensor(v, device=DEV)
+                                for k, v in scores.items()}, rng=gen)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return m, samples, [(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3]
+
+
+def count_syncs(fn) -> int:
+    """The host syncs fn() makes, counted by CUDA's sync debug mode (one
+    warning a synchronizing call)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+@torch.no_grad()
+def rescore_gap(model, tb, samples, n) -> dict:
+    """The sampler's tok_logprobs against rl_rescore's plain values at the
+    drawn words (where the sampler wrote them), per branch."""
+    from boficap_tpu_torch.train import steps
+    lps = steps.rl_rescore(model, tb["att_feats"], tb["att_masks"], samples,
+                           n)
+    out = {}
+    for key in ("sa", "na"):
+        d = samples[key]
+        got = torch.gather(lps[f"{key}_logprob"], -1, d["seq"][..., None])
+        m = written(d)
+        out[key] = {"positions": int(m.sum()), "max_abs_err": (
+            got[..., 0] - d["tok_logprobs"])[m].abs().max().item()}
+    return out
+
+
+@torch.no_grad()
+def control_gap(model, sampler, tb, n, ulps: int) -> dict:
+    """rescore_gap of the control: ``sampler`` with every input of the
+    generator (a stack's output) moved by ``ulps`` bf16 ulps of its value,
+    the sign drawn per element from a seeded generator."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+
+    def moved(mod, inp):
+        x = inp[0]
+        sign = torch.randint(0, 2, x.shape, generator=g, device=x.device)
+        return ((x.float() + ulps * bf16_ulp(x) * (2 * sign - 1))
+                .to(x.dtype),)
+
+    handle = model.generator.proj.register_forward_pre_hook(moved)
+    try:
+        samples = sampler(tb["att_feats"], tb["att_masks"],
+                          torch.Generator(device=DEV).manual_seed(SEED))
+    finally:
+        handle.remove()
+    return rescore_gap(model, tb, samples, n)
+
+
+def rl_grads(opt, state, samples, scores, device, record=None, align=None,
+             float64: bool = False):
+    """One structure-loss step's loss and gradients (rl_loss_fn) of the
+    model holding ``state`` on ``device``, on fixed samples and scores;
+    ``record`` / ``align`` as relu_hooks; ``float64`` computes in float64
+    (the parameters stay float32: every product casts them).  Returns
+    (loss, names, gradients, stats)."""
+    from boficap_tpu_torch.convert import init_params
+    from boficap_tpu_torch.train import steps
+    model = init_params(opt, VOCAB, seed=SEED, device=device)
+    model.load_state_dict(state)
+    if float64:
+        model.dtype = torch.float64
+        for m in model.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = torch.float64
+    tb = {k: v.to(device) for k, v in samples["batch"].items()}
+    sm = {k: {n: t.to(device) for n, t in d.items()}
+          for k, d in samples["samples"].items()}
+    sc = {k: torch.as_tensor(v, device=device) for k, v in scores.items()}
+    handles, stats = relu_hooks(model, record, align)
+    try:
+        loss, _ = steps.rl_loss_fn(model, tb["att_feats"], tb["att_masks"],
+                                   sm, sc, opt)
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+    finally:
+        for h in handles:
+            h.remove()
+    return (float(loss.detach()), [n for n, _ in model.named_parameters()],
+            [None if g is None else g.detach().cpu() for g in grads], stats)
+
+
+def fixed_samples(tb, samples) -> dict:
+    """The batch's features and a sampler's SA and NA samples, on the
+    host: what rl_grads takes on either device."""
+    return {"batch": {k: tb[k].cpu() for k in ("att_feats", "att_masks")},
+            "samples": {k: {f: samples[k][f].cpu() for f in
+                            ("seq", "phrase_length", "phrase_syn")}
+                        for k in ("sa", "na")}}
+
+
+def check_rl_cross_device(opt32, state, samples, scores,
+                          witness: bool = True) -> dict:
+    """float32: one structure-loss step of the model holding ``state`` on
+    the card against the CPU, on the same samples and scores, the ReLU
+    sides aligned (RELU_GAP): the loss to 1e-5 relative, each gradient
+    leaf as compare_grads; with ``witness``, a leaf beyond GRAD_TOL is held
+    to the float64 step on the CPU (its ReLU sides the CPU's too), and so
+    is a loss beyond 1e-5: the leave-one-out advantages sum to zero over
+    an image's samples, so the loss is a cancelling sum."""
+    relu = {}
+    lc, names, gc, _ = rl_grads(opt32, state, samples, scores, "cpu",
+                                record=relu)
+    _, _, raw, _ = rl_grads(opt32, state, samples, scores, DEV)
+    lg, _, gg, stats = rl_grads(opt32, state, samples, scores, DEV,
+                                align=relu)
+    out = {"loss_card": lg, "loss_cpu": lc,
+           "loss_rel_err": abs(lg - lc) / abs(lc)}
+    g64 = None
+    if witness:
+        t0 = time.perf_counter()
+        l64, _, g64, s64 = rl_grads(opt32, state, samples, scores, "cpu",
+                                    align=relu, float64=True)
+        out.update(loss_float64=l64, witness_s=time.perf_counter() - t0,
+                   witness_relu_flipped=s64["flipped"],
+                   witness_relu_flip_max_gap=s64["max_gap"],
+                   loss_card_float64=abs(lg - l64) / abs(l64),
+                   loss_cpu_float64=abs(lc - l64) / abs(l64))
+    if abs(lg - lc) > 1e-5 * abs(lc) and (
+            g64 is None or abs(lg - l64) > WITNESS_K * abs(lc - l64)):
+        fail(f"rl: card loss {lg} != CPU loss {lc} ({out})")
+    return {**out, **compare_grads("rl", names, gg, gc, raw, relu, stats,
+                                   witness=g64)}
+
+
+@torch.no_grad()
+def check_top1(model32, tb) -> dict:
+    """float32, on the kernels: the top1 sampled NA and SA decodes equal
+    the greedy kernel decodes (plans and tokens; token log-probs within
+    RESCORE_TOL: the plain generator against the head kernel #3)."""
+    from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
+                                                     sa_decode)
+    src = tb["att_masks"].bool()
+    mem = fused_encode(model32, tb["att_feats"], tb["att_masks"])
+    out = {}
+    for name, dec in (("na", na_decode), ("sa", sa_decode)):
+        greedy = dec(model32, mem, src, fused_fill=True)
+        top1 = dec(model32, mem, src, fused_fill=True, sample_method="top1",
+                   generator=torch.Generator(device=DEV).manual_seed(SEED))
+        for k in ("phrase_num", "phrase_length", "phrase_syn", "seq"):
+            if not torch.equal(top1[k], greedy[k]):
+                fail(f"rl: top1 {name} decode's {k} differs from greedy")
+        err = (top1["tok_logprobs"] - greedy["tok_logprobs"]).abs().max()
+        if err.item() > RESCORE_TOL:
+            fail(f"rl: top1 {name} token log-probs differ by {err.item()}")
+        out[name] = {"words": int(greedy["phrase_length"].sum()),
+                     "tok_logprob_err": err.item()}
+    return out
+
+
+def check_sampling_law() -> dict:
+    """RL_DRAWS draws from one fixed row with a CUDA generator against the
+    closed form of each method at temperature RL_T (chi-square, fixed
+    seed)."""
+    from scipy import stats as sstats
+    from boficap_tpu_torch.decode import sampling
+    lp = torch.log(torch.tensor([0.3, 0.2, 0.15, 0.12, 0.1, 0.08, 0.05]))
+    out = {}
+    for method in ("sample", "gumbel", "top3", "top0.9"):
+        # the draw is over these log-probs: gumbel's argmax((lp + g) / T)
+        # is argmax(lp + g)
+        src = lp if method == "gumbel" else lp / RL_T
+        if method.startswith("top"):
+            num = float(method[3:])
+            src = (sampling.top_p_filter(src, num) if num < 1
+                   else sampling.top_k_filter(src, int(num)))
+        want = torch.softmax(src.double(), -1)
+        ids, _ = sampling.sample_next_word(
+            lp.to(DEV).expand(RL_DRAWS, -1), method, RL_T,
+            torch.Generator(device=DEV).manual_seed(SEED + 11))
+        counts = torch.bincount(ids.cpu(), minlength=lp.numel()).double()
+        live = want > 1e-9
+        if counts[~live].sum() > 0:
+            fail(f"rl: {method} drew a word of zero probability")
+        p = sstats.chisquare(counts[live].numpy(),
+                             (RL_DRAWS * want[live] / want[live].sum())
+                             .numpy()).pvalue
+        if not p > RL_P_MIN:
+            fail(f"rl: {method}'s draws fail the chi-square test (p {p})")
+        out[method] = {"p_value": p, "counts": counts.long().tolist()}
+    return out
+
+
+def host_scoring(samples, gts, opt) -> dict:
+    """rl_host_scores by the native scorer and by the Python one on the
+    same samples: the ms of each (median of 5) and the scores equal."""
+    import numpy as np
+    from boficap_tpu_torch.rewards import init_scorer
+    from boficap_tpu_torch.train import steps
+    out, scores = {}, {}
+    for name, native in (("native", True), ("python", False)):
+        init_scorer("corpus", use_native=native)
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            scores[name] = steps.rl_host_scores(samples, gts, opt)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name}_ms_median_of_5"] = sorted(ms)[2]
+    init_scorer("corpus")
+    for k in scores["native"]:
+        if not np.allclose(scores["native"][k], scores["python"][k],
+                           rtol=1e-5, atol=1e-6):
+            fail(f"rl: native and Python scores differ for {k}")
+    out["scores_equal"] = True
+    out["mean_score"] = {k: float(v.mean())
+                         for k, v in scores["native"].items()}
+    return out
+
+
+@torch.no_grad()
+def sampler_branches(model, tb, n, gen) -> dict:
+    """The bf16 sampler's parts timed alone (ms, the mean of 5 between CUDA
+    events): the encode, the SA and the NA decode of the B x n samples."""
+    from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
+                                                     sa_decode)
+    att, am = tb["att_feats"], tb["att_masks"]
+    mem = fused_encode(model, att, am)
+    mem_n = mem.repeat_interleave(n, 0)
+    src_n = am.bool().repeat_interleave(n, 0)
+    kw = dict(sample_method="sample", generator=gen, fused_fill=True)
+    parts = {"encode": lambda: fused_encode(model, att, am),
+             "sa": lambda: sa_decode(model, mem_n, src_n, **kw),
+             "na": lambda: na_decode(model, mem_n, src_n, **kw)}
+    return {k: timed(fn, reps=5, warm=1) for k, fn in parts.items()}
+
+
+def rl_cli(path: str) -> dict:
+    """The training CLI in a process of its own, resumed from phase train's
+    CLI checkpoint with structure_after 0 for one more epoch of the CLI's
+    corpus (its RL iterations), on the kernels: the files and the RL keys
+    in metrics.jsonl."""
+    from boficap_tpu_torch.train.state import load_infos
+    ck = os.path.join(path, "ckpt")
+    before = load_infos(ck, "smokecli")
+    cmd = [sys.executable, "-m", "boficap_tpu_torch.tools.train",
+           "--cfg", os.path.join(HERE, "configs", "uic_sd.yml"),
+           "--id", "smokecli", "--checkpoint_path", ck,
+           "--input_json", "synthetic", "--input_att_dir", "synthetic",
+           "--val_images_use", "6", "--save_checkpoint_every", "1000",
+           "--losses_log_every", "1", "--start_from", ck,
+           "--structure_after", "0", "--structure_loss_type",
+           "new_self_critical", "--train_sample_n", "5",
+           "--max_epochs", str(before["epoch"] + 1)]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=path, env=dict(os.environ, PYTHONPATH=HERE),
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        fail(f"rl CLI: exit {run.returncode}: {run.stderr[-2000:]}")
+    after = load_infos(ck, "smokecli")
+    with open(os.path.join(ck, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    rl = [r for r in recs if r["iter"] > before["iter"]]
+    keys = {"reward", "sa_struc_loss", "na_struc_loss", "loss"}
+    if not rl or any(not keys <= set(r) for r in rl):
+        fail(f"rl CLI: no RL metrics after iter {before['iter']}: {rl}")
+    if not all(math.isfinite(r["loss"]) for r in rl):
+        fail(f"rl CLI: a loss is not finite: {rl}")
+    return {"exit": 0, "wall_s": time.perf_counter() - t0,
+            "iter_before": before["iter"], "iter_after": after["iter"],
+            "rl_iterations": len(rl), "metrics": rl,
+            "files": sorted(os.listdir(ck))}
+
+
+def check_aic_scst() -> tuple:
+    """configs/transformer.yml at full width (bf16, random weights) with
+    use_pallas on: the SCST sampler (a sampled and a greedy AR decode) on
+    the encoder stack and the attention core (#9), the classic SCST reward
+    on the host, one make_scst_step update that launches no kernel.
+    Returns (result, the sampler's launch counts)."""
+    from boficap_tpu_torch.convert import flax_layout
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    from boficap_tpu_torch.rewards import init_scorer
+    from boficap_tpu_torch.train import optim, steps
+    opt = eval_opt("transformer.yml", id="smokeaic", train_sample_n=5,
+                   batch_size=10, seq_per_img=5)
+    aic = build(None, "transformer.yml")
+    aic.set_attention_core(True)
+    loader, batch = train_batch(opt)
+    tb = steps.to_device(batch, DEV)
+    layout = flax_layout(aic)
+    o = optim.Optimizer(optim.build_optimizer(opt, layout), aic, layout)
+    sampler = steps.make_rl_sample(aic, "sample", 1.0, 5)
+    init_scorer("corpus")
+    samples, counts = counted(lambda: sampler(
+        tb["att_feats"], tb["att_masks"],
+        torch.Generator(device=DEV).manual_seed(SEED)))
+    for k in AIC_KERNELS:
+        if not counts[k]:
+            fail(f"rl aic: the SCST sampler never launched {k}: {counts}")
+    rewards = steps.rl_host_scores(samples, batch["gts"], opt,
+                                   classic_scst=True)["scst_reward"]
+    reset_launch_counts()
+    m = steps.make_scst_step(aic, o, opt)(
+        tb["att_feats"], tb["att_masks"], samples,
+        torch.as_tensor(rewards, device=DEV))
+    torch.cuda.synchronize()
+    if any(launch_counts().values()):
+        fail(f"rl aic: the SCST step launched kernels: {launch_counts()}")
+    if not math.isfinite(float(m["loss"])):
+        fail(f"rl aic: the SCST loss is not finite: {m}")
+    return {"sampler_launches": {k: counts[k] for k in AIC_KERNELS},
+            "loss": float(m["loss"]), "reward": float(m["reward"]),
+            "samples": list(samples["sample"]["seq"].shape)}, counts
+
+
+def check_rl(model16, batch, tmp: str) -> tuple:
+    """Phase rl (see the module docstring): the trained bf16 model of phase
+    train through the structure-loss stage of configs/uic_sd_nscl.yml;
+    returns (result, the kernel launches of the bf16 sampler's run and the
+    AIC SCST sampler's)."""
+    import numpy as np
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    from boficap_tpu_torch.rewards import init_scorer
+    from boficap_tpu_torch.train import steps
+    t_phase = time.perf_counter()
+    opt16, opt32 = rl_opt(), rl_opt(dtype="float32")
+    n = opt16.train_sample_n
+    tb = steps.to_device(batch, DEV)
+    gts = batch["gts"]
+    state = {k: v.detach().clone() for k, v in model16.state_dict().items()}
+    init_scorer("corpus")
+    res = {"config": "uic_sd_nscl.yml",
+           "images": int(tb["att_feats"].shape[0]), "train_sample_n": n,
+           "structure_loss_type": opt16.structure_loss_type,
+           "learning_rate": opt16.learning_rate}
+
+    # the kernels in the bf16 sampler, none in the step
+    m16, sampler16, step16 = rl_model(opt16, state)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    samples, launches = counted(lambda: sampler16(
+        tb["att_feats"], tb["att_masks"], gen))
+    wide = bool((samples["sa"]["phrase_length"].max() > W_NARROW).item())
+    need = RL_KERNELS + (("window_wide_stack",) if wide else ())
+    if any(not launches[k] for k in need):
+        fail(f"rl: the bf16 sampler never launched {need}: {launches}")
+    res["sampler_launches"] = launches
+    res["sa_wide_round"] = wide
+    res["planned_words"] = {k: int(samples[k]["phrase_length"].sum())
+                            for k in ("sa", "na")}
+    if not min(res["planned_words"].values()):
+        fail(f"rl: the trained model planned no words: {res}")
+    sound = rescore_gap(m16, tb, samples, n)
+    control = control_gap(m16, sampler16, tb, n, CONTROL_ULPS)
+    res["rescore_bf16"] = {"limit": RESCORE_BF16, "sound": sound,
+                           "control_ulps": CONTROL_ULPS, "control": control}
+    for k in sound:
+        if sound[k]["max_abs_err"] > RESCORE_BF16:
+            fail(f"rl: bf16 {k} sampler log-probs {sound[k]['max_abs_err']} "
+                 f"off the re-score, above {RESCORE_BF16}")
+        if not control[k]["max_abs_err"] > RESCORE_BF16:
+            fail(f"rl: the bf16 {k} control ({CONTROL_ULPS} ulps) is only "
+                 f"{control[k]['max_abs_err']} off the re-score: the limit "
+                 f"{RESCORE_BF16} would not see it")
+    res["host_scoring"] = host_scoring(samples, gts, opt16)
+    print(f"rl: {json.dumps(res)}", file=sys.stderr, flush=True)
+
+    # float32: top1 against greedy, the sampler against the re-score, the
+    # step on the card against the CPU
+    m32, sampler32, step32 = rl_model(opt32, state)
+    res["top1_equals_greedy_float32"] = check_top1(m32, tb)
+    s32 = sampler32(tb["att_feats"], tb["att_masks"],
+                    torch.Generator(device=DEV).manual_seed(SEED))
+    res["rescore_float32"] = rescore_gap(m32, tb, s32, n)
+    for k, r in res["rescore_float32"].items():
+        if r["max_abs_err"] > RESCORE_TOL:
+            fail(f"rl: float32 {k} sampler log-probs {r['max_abs_err']} off "
+                 f"the re-score")
+    # the card against the CPU on the trained model's float32 samples and
+    # their CIDEr-D scores, a leaf beyond GRAD_TOL held to the float64
+    # witness
+    scores32 = steps.rl_host_scores(s32, gts, opt32)
+    res["cross_device_float32"] = {
+        "weights": "trained", "scores": "CIDEr-D of the samples",
+        **check_rl_cross_device(opt32, state, fixed_samples(tb, s32),
+                                scores32)}
+    # and on the seeded weights (heads nudged so that the plans are not
+    # empty) with seeded scores (their samples score near zero, which
+    # would leave no advantage and no gradient to compare), held to the
+    # CPU float32 step without the witness
+    seeded = {k: v.detach().clone()
+              for k, v in build("float32").state_dict().items()}
+    _, sampler_s, _ = rl_model(opt32, seeded)
+    s_s = sampler_s(tb["att_feats"], tb["att_masks"],
+                    torch.Generator(device=DEV).manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 3)
+    scores_s = {k: torch.rand((len(gts), n), generator=g).numpy()
+                for k in ("sa", "na")}
+    planned = {k: int(s_s[k]["phrase_length"].sum()) for k in ("sa", "na")}
+    if not min(planned.values()):
+        fail(f"rl: the seeded model planned no words: {planned}")
+    res["cross_device_float32_seeded"] = {
+        "weights": "seeded, heads nudged", "scores": "seeded uniform",
+        "planned_words": planned,
+        **check_rl_cross_device(opt32, seeded, fixed_samples(tb, s_s),
+                                scores_s, witness=False)}
+    del sampler_s, s_s
+    res["sampling_law"] = check_sampling_law()
+    print(f"rl: {json.dumps(res)}", file=sys.stderr, flush=True)
+
+    # steps: 3 warm-up + RL_STEPS at each dtype; the packs rebuilt after
+    # each, every loss finite, the parameters moved
+    for name, model, sampler, step in (("bfloat16", m16, sampler16, step16),
+                                       ("float32", m32, sampler32, step32)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p0 = [p.detach().clone() for p in model.parameters()]
+        losses, parts, digests = [], [], [pack_digest(model)]
+        for i in range(3 + RL_STEPS):
+            pack = model.packed_decoder("NA")
+            mt, _, ms = rl_step_once(sampler, step, tb, gts, opt16, gen)
+            losses.append(float(mt["loss"]))
+            parts.append(ms)
+            digests.append(pack_digest(model))
+            if model.packed_decoder("NA") is pack or \
+                    digests[-1] == digests[-2]:
+                fail(f"rl {name}: the packs were not rebuilt after step {i}")
+        moved = max((p - q).abs().max().item()
+                    for p, q in zip(model.parameters(), p0))
+        if not all(math.isfinite(x) for x in losses) or moved == 0:
+            fail(f"rl {name}: losses {losses}, parameters moved {moved}")
+        timed_parts = np.array(parts[3:])
+        totals = timed_parts.sum(1)
+        r = {"losses": losses, "max_param_change": moved,
+             "step_ms_median_of_10": float(np.median(totals)),
+             "step_ms": totals.tolist(),
+             "sampler_ms_median": float(np.median(timed_parts[:, 0])),
+             "host_scoring_ms_median": float(np.median(timed_parts[:, 1])),
+             "update_ms_median": float(np.median(timed_parts[:, 2])),
+             "samples_per_s": 2 * n * len(gts) / (
+                 float(np.median(timed_parts[:, 0])) / 1e3),
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+             "pack_digests": digests[:4],
+             "host_syncs_per_step": count_syncs(lambda: rl_step_once(
+                 sampler, step, tb, gts, opt16, gen)),
+             "profile_step": profile_decode(lambda: rl_step_once(
+                 sampler, step, tb, gts, opt16, gen))}
+        r["profile_step"].pop("top_kernels")
+        res[f"steps_{name}"] = r
+    res["sampler_parts_ms_bf16"] = sampler_branches(m16, tb, n, gen)
+    print(f"rl: {json.dumps(res)}", file=sys.stderr, flush=True)
+
+    # zero launches inside the step's autograd
+    samples = sampler16(tb["att_feats"], tb["att_masks"], gen)
+    scores = steps.rl_host_scores(samples, gts, opt16)
+    reset_launch_counts()
+    step16(tb["att_feats"], tb["att_masks"], samples,
+           {k: torch.as_tensor(v, device=DEV) for k, v in scores.items()},
+           rng=gen)
+    torch.cuda.synchronize()
+    if any(launch_counts().values()):
+        fail(f"rl: the RL step launched kernels: {launch_counts()}")
+    res["step_launches"] = 0
+    del m16, m32, sampler16, sampler32, step16, step32
+    torch.cuda.empty_cache()
+    res["aic_scst"], aic_launches = check_aic_scst()
+    res["cli"] = rl_cli(tmp)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res, {k: v + aic_launches[k] for k, v in launches.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -2477,21 +3087,29 @@ def profile_split(fn, parts, reps: int = 10, tries: int = 3):
     """torch.profiler over ``reps`` calls of fn: device ms and launches a
     call summed by the first of ``parts`` (label: kernel-name substring)
     each kernel's name holds, the rest as 'other'.  The profiler may miss
-    the first launches of a window, so a kernel's launches a call are its
-    recorded count over ``reps``, rounded, and its ms a call the mean of
-    its recorded launches times that; a window with no kernel recorded is
-    taken again, up to ``tries`` times."""
-    from torch.profiler import ProfilerActivity, profile
+    the first launches of a window, so ``reps`` calls run in a warm-up
+    cycle before the ``reps`` recorded ones, a kernel's launches a call
+    are its recorded count over ``reps``, rounded, and its ms a call the
+    mean of its recorded launches times that; a window with no kernel
+    recorded is taken again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        cycles = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: cycles.append(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         split = {k: 0.0 for k in (*parts, "other")}
         launches = {k: 0 for k in split}
-        for row in prof.key_averages():
+        for row in (cycles[-1] if cycles else []):
             dev_us = getattr(row, "self_device_time_total",
                              getattr(row, "self_cuda_time_total", 0.0))
             if not dev_us or not row.count or not str(
@@ -3034,7 +3652,7 @@ def main():
 
 
 def run_phases(smi: str):
-    """Phases 2-13; returns the {"kernels": [...]} list."""
+    """Phases 2-14; returns the {"kernels": [...]} list."""
     # the same random weights at both compute dtypes: float32 for the
     # decode comparisons, the default (bfloat16) for the main paths
     model = build("float32")
@@ -3078,8 +3696,12 @@ def run_phases(smi: str):
           "attention_core_expected": want, **aic_served})
     evaluated, eval_launches = check_eval(model16, aic16, aic)
     emit({"phase": "eval", "card": smi, **evaluated})
-    trained, train_launches = check_train()
-    emit({"phase": "train", "card": smi, **trained})
+    with tempfile.TemporaryDirectory(prefix="boficap_train_") as tmp:
+        trained, train_launches, model_t, batch_t = check_train(tmp)
+        emit({"phase": "train", "card": smi, **trained})
+        rl, rl_launches = check_rl(model_t, batch_t, tmp)
+        emit({"phase": "rl", "card": smi, **rl})
+    del model_t
     unforce_long([model, model16], long_shift)
     times = measure(model, model16)
     times["products_bf16"] = measure_products(torch.bfloat16)
@@ -3125,7 +3747,8 @@ def run_phases(smi: str):
                                                "bound_by", "library_ms")},
             "bf16_max_abs_err": errs["bfloat16"][name]["max_abs_err"],
             "eval_launches": eval_launches.get(name, 0),
-            "train_val_launches": train_launches.get(name, 0)})
+            "train_val_launches": train_launches.get(name, 0),
+            "rl_launches": rl_launches.get(name, 0)})
         if name in ("encoder_layer", "decoder_layer"):
             # #1 and #2 at bf16 run at B > 128: the B = 256 NA decode
             kernels[-1]["bf16"]["launches"] = bf16_dec[

@@ -16,7 +16,10 @@ decoder stack (#5), with its hoisted cross K/V and its chained launches,
 is held bitwise to a chain of #2 calls, for batch independence, and to
 itself over 50 calls back to back.  Evaluation: a checkpoint the port
 writes loads bitwise on the card, and ``eval_split`` on the kernels gives
-the plain path's captions at float32.
+the plain path's captions at float32.  The RL stage: the sampler on the
+kernels draws captions whose token log-probs are ``rl_rescore``'s plain
+values (float32, 1e-4), the re-score launches no kernel, and each sampling
+method's draws from a CUDA generator follow their closed form.
 """
 
 import pytest
@@ -1011,3 +1014,65 @@ def test_wrappers_refuse_tensors_that_require_grad(cuda):
                        torch.ones(2, 3, 3, dtype=torch.bool, device=cuda))
     with torch.no_grad():
         assert torch.isfinite(dl.fused_encoder_layer(x, mask, w, H)).all()
+
+
+# ---------------------------------------------------------------------------
+# the RL stage on the card: the sampler on the kernels, the draw law
+# ---------------------------------------------------------------------------
+
+def test_rl_sampler_on_kernels_matches_rescore(cuda):
+    """make_rl_sample on the card (the encoder, NA fill and SA round
+    kernels, float32) draws captions whose tok_logprobs are rl_rescore's
+    plain autograd values at the drawn words (1e-4), and the re-score
+    launches no kernel."""
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    from boficap_tpu_torch.train import steps
+    cfg, model = _eval_model(cuda)
+    batch = steps.to_device(_eval_loader(cfg).get_batch("train"), cuda)
+    att, am = batch["att_feats"], batch["att_masks"]
+    n = 3
+    reset_launch_counts()
+    samples = steps.make_rl_sample(model, "sample", 1.0, n)(
+        att, am, torch.Generator(device=cuda).manual_seed(0))
+    launched = dict(launch_counts())
+    assert launched.get("encoder_layer", 0) + launched.get(
+        "encoder_stack", 0) > 0
+    assert launched.get("decoder_layer", 0) + launched.get(
+        "decoder_stack", 0) > 0
+    reset_launch_counts()
+    lps = steps.rl_rescore(model, att, am, samples, n)
+    assert not any(launch_counts().values())
+    checked = 0
+    for key in ("sa", "na"):
+        d = samples[key]
+        got = torch.gather(lps[f"{key}_logprob"], -1,
+                           d["seq"][..., None])[..., 0].detach()
+        m = (torch.arange(d["seq"].shape[1], device=cuda)[None, :]
+             < d["phrase_length"].sum(-1)[:, None])
+        checked += int(m.sum())
+        assert (got[m] - d["tok_logprobs"][m]).abs().max().item() <= 1e-4
+    assert checked > 0
+
+
+@pytest.mark.parametrize("method", ["sample", "gumbel", "top3", "top0.9"])
+def test_sampling_law_on_card(cuda, method):
+    """20,000 draws from a fixed row with a CUDA generator against the
+    closed form (chi-square, fixed seed, p > 1e-4), temperature 0.7."""
+    from scipy import stats
+    from boficap_tpu_torch.decode import sampling
+    T, draws = 0.7, 20_000
+    lp = torch.log(torch.tensor([0.3, 0.2, 0.15, 0.12, 0.1, 0.08, 0.05]))
+    src = lp if method == "gumbel" else lp / T
+    if method.startswith("top"):
+        num = float(method[3:])
+        src = (sampling.top_p_filter(src, num) if num < 1
+               else sampling.top_k_filter(src, int(num)))
+    want = torch.softmax(src.double(), -1).numpy()
+    ids, _ = sampling.sample_next_word(
+        lp.to(cuda).expand(draws, -1), method, T,
+        torch.Generator(device=cuda).manual_seed(11))
+    counts = torch.bincount(ids.cpu(), minlength=lp.numel()).numpy()
+    live = want > 1e-9
+    assert counts[~live].sum() == 0
+    expected = want[live] / want[live].sum()
+    assert stats.chisquare(counts[live], draws * expected).pvalue > 1e-4

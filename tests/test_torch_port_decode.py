@@ -95,9 +95,12 @@ def test_bound_plan_finished_samples_are_frozen():
 
 
 def test_sampled_branches_not_ported():
+    """Greedy takes the first maximum; the sampled branches are ported now
+    (tests/test_torch_port_sampling.py) and refuse to draw without an
+    explicit generator."""
     from boficap_tpu_torch.decode.sampling import sample_next_word
     lp = torch.log_softmax(torch.randn(2, 5), -1)
     ids, tok = sample_next_word(lp, "greedy")
     assert torch.equal(ids, lp.argmax(-1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         sample_next_word(lp, "sample")

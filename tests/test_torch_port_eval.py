@@ -211,15 +211,32 @@ def uic_cpu():
     ({"train_mode": "NNAIC"}, "item 6"),
     ({"train_mode": "PB_pad"}, "item 7"),
     ({"train_mode": "NNAIC", "verbose_loss": 1}, "item 6"),
-    ({"train_mode": "AIC", "sample_n": 2}, "item 5"),
+    ({"train_mode": "AIC", "sample_n": 2}, "item 6"),
     ({"train_mode": "AIC", "beam_size": 2, "group_size": 2}, "item 6"),
-    ({"sample_method": "sample"}, "greedy"),
 ])
 def test_not_ported_options_raise(uic_cpu, kw, match):
     _, tdata = _loaders("UIC")
     base = {"split": "test", "verbose_loss": 0}
     with pytest.raises(NotImplementedError, match=match):
         teu.eval_split(uic_cpu, tdata, {**base, **kw}, inference_mode="SAIC")
+
+
+def test_sampled_eval_split(uic_cpu):
+    """A sampled eval_split runs from its seeded generator (the same seed
+    gives the same captions), and top1 gives the greedy captions."""
+    _, tdata = _loaders("UIC")
+    base = {"split": "test", "verbose_loss": 0}
+    for mode in ("SAIC", "NAIC"):
+        greedy = teu.eval_split(uic_cpu, tdata, base, inference_mode=mode)
+        top1 = teu.eval_split(uic_cpu, tdata, {**base, "sample_method":
+                                               "top1"}, inference_mode=mode)
+        assert top1["predictions"] == greedy["predictions"]
+        runs = [teu.eval_split(uic_cpu, tdata,
+                               {**base, "sample_method": "sample",
+                                "temperature": 2.0}, inference_mode=mode)
+                for _ in range(2)]
+        assert runs[0]["predictions"] == runs[1]["predictions"]
+        assert runs[0]["n_images"] == greedy["n_images"]
 
 
 def test_use_cuda_fill_on_cpu(uic_cpu):

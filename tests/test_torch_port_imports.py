@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of ``boficap_tpu_torch/``, nor
 ``chip_smoke.py`` or ``scripts/port_decode_ab.py``, imports jax, flax or
-the JAX package."""
+the JAX package; its C++ and CUDA sources (``native/``, ``csrc/``) include
+no header of the JAX package and no Python header."""
 
 import ast
 import os
@@ -37,6 +38,28 @@ def test_port_files_found():
     files = _port_files()
     assert len(files) >= 10
     assert all(os.path.exists(f) for f in files)
+    assert os.path.join(ROOT, "boficap_tpu_torch", "native",
+                        "__init__.py") in files
+
+
+def _native_sources():
+    out = []
+    for sub in ("native", "csrc"):
+        d = os.path.join(ROOT, "boficap_tpu_torch", sub)
+        out += [os.path.join(d, f) for f in sorted(os.listdir(d))
+                if f.endswith((".cpp", ".cu", ".cuh", ".h"))]
+    return out
+
+
+@pytest.mark.parametrize("path", _native_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_native_sources_include_no_jax_or_python(path):
+    includes = [ln.split("include", 1)[1].strip()
+                for ln in open(path).read().splitlines()
+                if ln.lstrip().startswith("#") and "include" in ln]
+    bad = [i for i in includes if "boficap_tpu/" in i or "Python.h" in i
+           or "torch/" in i]
+    assert not bad, f"{path} includes {bad}"
 
 
 @pytest.mark.parametrize("path", _port_files(),
