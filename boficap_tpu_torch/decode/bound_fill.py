@@ -27,6 +27,9 @@ launch per round) or ``ops/decoder_layer.py`` (one per layer).  The JAX package 
 narrow window and the wide (W = L) round and whether to go on; here both
 decisions read one small device tensor, so a round costs one host sync.
 
+NNAIC (``nnaic_decode``): one whole-caption length, then the same
+parallel fill through the A decoder stack and the greedy head.
+
 UIC_s / UIC_u AR (``uic_s_ar_decode``): the bounding plan, then the
 KV-cached AR step of ``decode/ar.py`` with the plan's syn ids, writing
 words only inside the planned length.
@@ -218,6 +221,48 @@ def na_decode(model, memory, src_mask, *, sample_method: str = "greedy",
     # fill tensor, so entropy / token logprob include the tail rows
     tok, ent = _tok_entropy(logprob, seq)
     return {"seq": seq, "tok_logprobs": tok, "entropy": ent, **plan}
+
+
+@torch.no_grad()
+def nnaic_decode(model, memory, src_mask, *, sample_method: str = "greedy",
+                 temperature: float = 1.0, fused_fill: bool = False,
+                 stacked: Optional[bool] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """Naive NA decode (reference core_NNAIC, TransformerModel.py:
+    1806-1822): one whole-caption length (``nnaic_length``), then one
+    parallel pass of the A decoder over BOS inputs, its keys masked to the
+    predicted length.  A length of 0 masks every key: each row's attention
+    is then the uniform softmax over all L keys.  With ``fused_fill`` the
+    pass runs on the decoder kernels and the greedy head (``stacked`` as in
+    ``fused_encode``).
+
+    Returns {'seq', 'tok_logprobs', 'entropy'} [B, L] and 'length' [B]:
+    seq is PAD past the length, where tok_logprobs holds lp[:, PAD] and
+    entropy the row's (the dense tensor's tail rows, as the reference's
+    seqLogprobs keeps them)."""
+    L = model.max_length
+    B = memory.shape[0]
+    length = model.nnaic_length(memory)
+    tgt = torch.full((B, L), BOS, dtype=torch.long, device=memory.device)
+    keep = torch.arange(L, device=memory.device)[None, :] < length[:, None]
+    if fused_fill:
+        x = model.posenc(model.word_embed(tgt))
+        head, logprob = _fused_parallel_fill(
+            model, x, memory, src_mask, keep[:, None, :].expand(B, L, L),
+            keep, role="A", sample_method=sample_method, stacked=stacked)
+        if head is not None:
+            seq, tok, ent = head
+            return {"seq": seq, "tok_logprobs": tok, "entropy": ent,
+                    "length": length}
+    else:
+        logprob = model.generate(model.decode_a(tgt, memory, src_mask,
+                                                keep[:, None, :]))
+    ids, _ = sample_next_word(logprob, sample_method, temperature, generator)
+    seq = torch.where(keep, ids, PAD)
+    tok, ent = _tok_entropy(logprob, seq)
+    return {"seq": seq, "tok_logprobs": tok, "entropy": ent,
+            "length": length}
 
 
 def _tok_entropy(logprob, seq, mask=None):

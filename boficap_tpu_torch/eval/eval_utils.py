@@ -7,9 +7,17 @@ selected by (train_mode, inference_mode) as ``_branch_for`` does:
   * ``NAIC``        -> ``na_decode``,
   * ``SAIC``        -> ``sa_decode``,
   * ``AIC``         -> ``ar_sample``, or ``ar_beam_search`` for
-    ``beam_size > 1`` (with the top-3 beams dumped to ``KD_file``),
+    ``beam_size > 1`` (``ar_diverse_beam_search`` with ``group_size > 1``;
+    the top-3 beams dumped to ``KD_file``),
+  * ``NNAIC``       -> ``nnaic_decode``,
   * ``UIC_s_SAIC``  -> ``sa_decode(predictor_use_syn=True)``,
   * ``UIC_s_AIC``   -> ``uic_s_ar_decode``.
+
+``sample_n > 1`` on the AIC branch adds ``sample_n`` captions an image
+(``sample_n_captions``: all beams of a beam search, a diverse beam search,
+diverse sampling or repeated sampling) to ``n_predictions``, and the
+multi-sample metrics (``eval/multi_metrics.py``) to ``lang_stats``; other
+branches ignore it and say so, as the JAX package does.
 
 The decoders are plain calls, with no compilation and no program cache.
 ``use_cuda_fill`` is the counterpart of the JAX package's
@@ -33,11 +41,11 @@ teacher-forced XE loss of each batch with labels (``train/steps.py``
 ``xe_loss_fn``, deterministic, glancing off), outside the timer; ``loss``
 is its mean over the batches.
 
-What is not ported raises ``NotImplementedError`` naming its ROADMAP item
-(section 1): the NNAIC and PB_pad branches, ``group_size > 1``,
-``sample_n > 1`` on the AIC branch.  A non-greedy ``sample_method`` draws
-from one ``torch.Generator`` on the model's device, seeded by
-``eval_kwargs['seed']`` (0 by default), as the JAX package seeds its key.
+The PB_pad branch is not ported: it raises ``NotImplementedError`` naming
+its ROADMAP item (section 1, item 7).  A non-greedy ``sample_method``, and
+a sampled ``sample_n_method``, draw from one ``torch.Generator`` on the
+model's device, seeded by ``eval_kwargs['seed']`` (0 by default), as the
+JAX package seeds its key.
 """
 
 from __future__ import annotations
@@ -55,9 +63,11 @@ from ..decode import bound_fill as bf
 from ..text import VOCAB_LOWER, decode_sequence
 from ..train.state import safe_load
 from .metrics import BAD_ENDINGS, language_eval
+from .multi_metrics import multi_sample_eval
 
-__all__ = ["decode_sequence", "eval_split", "make_decoders", "use_cuda_fill",
-           "cache_path", "save_cached", "load_cached"]
+__all__ = ["decode_sequence", "eval_split", "make_decoders",
+           "sample_n_captions", "use_cuda_fill", "cache_path", "save_cached",
+           "load_cached"]
 
 
 def not_ported(what: str, item: int):
@@ -88,13 +98,16 @@ def use_cuda_fill(flag, model) -> bool:
 
 def make_decoders(model, eval_kwargs: Dict[str, Any]) -> Dict[str, Any]:
     """Decode callables keyed by branch, each ``(memory, src_mask) ->
-    outputs``, and ``encode(att, am) -> memory``; the options are read
-    from ``eval_kwargs`` as the JAX package's ``_decode_cfg`` reads them."""
+    outputs``, ``encode(att, am) -> memory`` and ``sample_n(memory,
+    src_mask) -> ids [B, n, L]`` (``sample_n_captions``); the options are
+    read from ``eval_kwargs`` as the JAX package's ``_decode_cfg`` reads
+    them."""
     fused = use_cuda_fill(eval_kwargs.get("use_cuda_fill", "auto"), model)
     beam_size = int(eval_kwargs.get("beam_size", 1) or 1)
     sample_method = eval_kwargs.get("sample_method", "greedy")
     temperature = float(eval_kwargs.get("temperature", 1.0) or 1.0)
     group_size = int(eval_kwargs.get("group_size", 1) or 1)
+    diversity_lambda = float(eval_kwargs.get("diversity_lambda", 0.5) or 0.5)
     decoding_constraint = bool(eval_kwargs.get("decoding_constraint", 0))
     block_trigrams = bool(eval_kwargs.get("block_trigrams", 0))
     suppress_unk_idx = eval_kwargs.get("_suppress_unk_idx")
@@ -103,7 +116,7 @@ def make_decoders(model, eval_kwargs: Dict[str, Any]) -> Dict[str, Any]:
     # a sampled method draws from one generator on the model's device,
     # seeded as the JAX package's eval_split seeds its PRNGKey
     generator = None
-    if sample_method != "greedy":
+    if sample_method != "greedy" or int(eval_kwargs.get("sample_n", 1)) > 1:
         generator = torch.Generator(device=_model_device(model)).manual_seed(
             int(eval_kwargs.get("seed", 0) or 0))
     sampling = dict(sample_method=sample_method, temperature=temperature,
@@ -130,13 +143,22 @@ def make_decoders(model, eval_kwargs: Dict[str, Any]) -> Dict[str, Any]:
 
     def dec_beam(memory, src_mask):
         if group_size > 1:
-            not_ported("diverse beam search (group_size > 1, "
-                       "ar_diverse_beam_search)", 6)
+            return ar.ar_diverse_beam_search(
+                model, memory, src_mask, beam_size=beam_size,
+                group_size=group_size, diversity_lambda=diversity_lambda,
+                length_penalty=length_penalty,
+                suppress_unk_idx=suppress_unk_idx, temperature=temperature,
+                decoding_constraint=decoding_constraint,
+                bad_endings_ix=bad_endings_ix)
         return ar.ar_beam_search(
             model, memory, src_mask, beam_size=beam_size,
             length_penalty=length_penalty, suppress_unk_idx=suppress_unk_idx,
             temperature=temperature, decoding_constraint=decoding_constraint,
             bad_endings_ix=bad_endings_ix)
+
+    def dec_nnaic(memory, src_mask):
+        return bf.nnaic_decode(model, memory, src_mask, fused_fill=fused,
+                               **sampling)
 
     def dec_sa_syn(memory, src_mask):
         return bf.sa_decode(model, memory, src_mask, predictor_use_syn=True,
@@ -145,9 +167,65 @@ def make_decoders(model, eval_kwargs: Dict[str, Any]) -> Dict[str, Any]:
     def dec_uic_s_ar(memory, src_mask):
         return bf.uic_s_ar_decode(model, memory, src_mask, **sampling)
 
+    def dec_sample_n(memory, src_mask):
+        return sample_n_captions(model, memory, src_mask, eval_kwargs,
+                                 generator)
+
     return {"encode": encode, "NAIC": dec_na, "SAIC": dec_sa,
-            "AIC": dec_ar, "beam": dec_beam, "UIC_s_SAIC": dec_sa_syn,
-            "UIC_s_AIC": dec_uic_s_ar}
+            "AIC": dec_ar, "beam": dec_beam, "NNAIC": dec_nnaic,
+            "UIC_s_SAIC": dec_sa_syn, "UIC_s_AIC": dec_uic_s_ar,
+            "sample_n": dec_sample_n}
+
+
+def sample_n_captions(model, memory, src_mask, eval_kwargs,
+                      generator=None) -> torch.Tensor:
+    """``sample_n`` captions an image (reference eval_split_n,
+    eval_utils.py:671-722), by ``sample_n_method``: 'bs' all beams of an
+    n-wide beam search, 'dbs' a diverse beam search of n groups, 'd<m>'
+    diverse sampling of n groups by method m, else n sampled captions an
+    image (over the memory repeated n times), a sampled method drawing
+    from ``generator``.  The decode constraints apply as in the headline
+    decoders.  Returns ids [B, n, L]."""
+    n = int(eval_kwargs.get("sample_n", 1))
+    method = eval_kwargs.get("sample_n_method", "sample")
+    temperature = eval_kwargs.get("temperature", 1.0)
+    length_penalty = eval_kwargs.get("length_penalty", "")
+    suppress_unk_idx = eval_kwargs.get("_suppress_unk_idx")
+    bad_endings_ix = eval_kwargs.get("_bad_endings_ix")
+    decoding_constraint = bool(eval_kwargs.get("decoding_constraint", 0))
+    diversity_lambda = eval_kwargs.get("diversity_lambda", 0.5)
+    if method == "bs":
+        return ar.ar_beam_search(
+            model, memory, src_mask, beam_size=n,
+            length_penalty=length_penalty, suppress_unk_idx=suppress_unk_idx,
+            temperature=temperature, decoding_constraint=decoding_constraint,
+            bad_endings_ix=bad_endings_ix)["seq"]
+    if method == "dbs":
+        return ar.ar_diverse_beam_search(
+            model, memory, src_mask, beam_size=n, group_size=n,
+            diversity_lambda=diversity_lambda, length_penalty=length_penalty,
+            suppress_unk_idx=suppress_unk_idx, temperature=temperature,
+            decoding_constraint=decoding_constraint,
+            bad_endings_ix=bad_endings_ix)["seq"]
+    block_trigrams = bool(eval_kwargs.get("block_trigrams", 0))
+    if method.startswith("d"):
+        # dgreedy / dsample / dtopk / dtopp: diverse sampling, the method
+        # without its 'd' (reference eval_split_n's else branch, :713-719)
+        return ar.ar_diverse_sample(
+            model, memory, src_mask, group_size=n, sample_method=method[1:],
+            temperature=temperature, diversity_lambda=diversity_lambda,
+            decoding_constraint=decoding_constraint,
+            block_trigrams=block_trigrams, bad_endings_ix=bad_endings_ix,
+            generator=generator)["seq"]
+    B = memory.shape[0]
+    out = ar.ar_sample(
+        model, memory.repeat_interleave(n, 0),
+        None if src_mask is None else src_mask.repeat_interleave(n, 0),
+        sample_method=method, temperature=temperature,
+        decoding_constraint=decoding_constraint,
+        block_trigrams=block_trigrams, bad_endings_ix=bad_endings_ix,
+        generator=generator)
+    return out["seq"].reshape(B, n, -1)
 
 
 def eval_loss(model, data, device) -> float:
@@ -217,15 +295,12 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
     remove_bad = bool(eval_kwargs.get("remove_bad_endings", 0))
     KD_file = eval_kwargs.get("KD_file", "")
     branch = _branch_for(train_mode, inference_mode)
-    if branch == "NNAIC":
-        not_ported("the NNAIC branch (nnaic_decode)", 6)
     if branch == "PB_pad":
         not_ported("the PB_pad branch (decode/pb.py)", 7)
     verbose_loss = bool(eval_kwargs.get("verbose_loss", 1))
     sample_n = int(eval_kwargs.get("sample_n", 1))
-    if sample_n > 1 and branch == "AIC":
-        not_ported(f"sample_n={sample_n} (sample_n_captions)", 6)
-    if sample_n > 1:
+    multi = sample_n > 1 and branch == "AIC"
+    if sample_n > 1 and not multi:
         # the reference's eval_split_n has _sample branches only for the AR
         # train modes (AttModel.py:339-467); the JAX package skips, and says
         # so
@@ -244,8 +319,8 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
     def decode(att, am):
         memory = dec["encode"](att, am)
         if branch == "AIC" and beam_size > 1:
-            return dec["beam"](memory, am.bool())
-        return dec[branch](memory, am.bool())
+            return memory, dec["beam"](memory, am.bool())
+        return memory, dec[branch](memory, am.bool())
 
     loader.reset_iterator(split)
     ix_to_word = loader.ix_to_word
@@ -253,6 +328,7 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
     n = 0
     loss_sum, loss_evals = 0.0, 1e-8
     predictions: List[dict] = []
+    n_predictions: List[dict] = []
     gts_words: Dict[Any, List[str]] = {}
     decode_time = 0.0
     compile_time = 0.0
@@ -272,7 +348,7 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
 
         sync()
         t0 = time.perf_counter()
-        out = decode(att, am)
+        memory, out = decode(att, am)
         sync()
         dt = time.perf_counter() - t0
         if first:
@@ -333,6 +409,13 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
             if verbose:
                 print(f"image {img_id}: {sent}")
 
+        if multi:
+            ids = dec["sample_n"](memory, am.bool()).cpu().numpy()
+            for i, info in enumerate(data["infos"]):
+                for cap in decode_sequence(ix_to_word, ids[i]):
+                    n_predictions.append({"image_id": info["id"],
+                                          "caption": cap})
+
         if branch == "AIC" and beam_size > 1 and KD_file:
             for i, info in enumerate(data["infos"]):
                 seq_kd[info["id"]] = decode_sequence(
@@ -345,6 +428,9 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
             num_images = ix1
         for _ in range(n - ix1):
             predictions.pop()
+            # the popped image's sample_n captions go too
+            if multi:
+                del n_predictions[-sample_n:]
         n = min(n, ix1)
         if num_images >= 0 and n >= num_images:
             break
@@ -356,6 +442,12 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
     lang_stats = None
     if lang_eval_flag:
         lang_stats = language_eval(predictions, gts_words)
+        if n_predictions:
+            # the multi-sample block of the reference's language_eval
+            # (eval_utils.py:105-121)
+            lang_stats.update(multi_sample_eval(
+                n_predictions, gts_words,
+                eval_oracle=bool(eval_kwargs.get("eval_oracle", 1))))
 
     if KD_file and seq_kd:
         os.makedirs("KD_dataset", exist_ok=True)
@@ -377,7 +469,7 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
     return {
         "loss": loss_sum / loss_evals,
         "predictions": predictions,
-        "n_predictions": [],
+        "n_predictions": n_predictions,
         "lang_stats": lang_stats,
         "decode_time": decode_time,
         "compile_time": compile_time,

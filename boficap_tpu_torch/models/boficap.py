@@ -8,10 +8,11 @@ and the general ``bound_step``, the add | single | gate decoder-input mix
 ``decode_na``, ``decode_sa``, ``decode_a``, the KV-cached AR step
 (``init_ar_cache``, ``ar_step``) and the generator.
 
+NNAIC's whole-caption length head (``nnaic_logits``, ``nnaic_length``).
+
 Training: ``forward`` / ``decode_train``, the teacher-forced pass of every
-train_mode but NNAIC (ROADMAP item 6) and PB_pad (item 7), with the
-one-pass teacher-forced bounding (``bound_teacher``) and glancing training
-(GLAT).  Dropout follows the layers' rule (``layers.dropout``): ``rng``, a
+train_mode but PB_pad (ROADMAP item 7), with the one-pass teacher-forced
+bounding (``bound_teacher``) and glancing training (GLAT).  Dropout follows the layers' rule (``layers.dropout``): ``rng``, a
 ``torch.Generator`` on the model's device, or None for the deterministic
 pass that every decode takes.
 """
@@ -60,7 +61,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # train_modes whose flax tree holds no length/syntax predictor and no syn
 # embedding: their training forward never calls them
-NO_PREDICTOR = ("AIC", "auto")
+NO_PREDICTOR = ("AIC", "auto", "NNAIC")
 
 
 def decoder_roles(train_mode: str, role: Optional[str] = None):
@@ -463,6 +464,35 @@ class BoFiCap(nn.Module):
         h, cache = self._decoder("A").step(x, cache, pos, src_mask)
         return self.generate(h)[:, 0], cache
 
+    def nnaic_logits(self, memory, rng=None):
+        """NNAIC's whole-caption length logits [B, max_length], float32:
+        the memory zero-padded to ``max_boxes`` regions, ``relu(nn_len_l1)``
+        with dropout from ``rng``, flattened, then ``nn_len_l2``."""
+        B, R, d = memory.shape
+        if R > self.max_boxes:
+            # more regions than the head was built for would change
+            # nn_len_l2's flattened input width (reference asserts, :1240)
+            raise ValueError(
+                f"nnaic_length: {R} regions > max_boxes={self.max_boxes} "
+                f"(the length head is built at max_boxes*max_length); raise "
+                f"max_boxes in the config to cover the feature store")
+        if R < self.max_boxes:
+            memory = torch.cat([memory, memory.new_zeros(
+                (B, self.max_boxes - R, d))], dim=1)
+        x = dropout(torch.relu(self.nn_len_l1(memory)), self.dropout_rate,
+                    rng)
+        return widen(self.nn_len_l2(x.reshape(B, -1)))
+
+    def nnaic_length(self, memory, rng=None):
+        """NNAIC's whole-caption length [B] (int64): softmax of
+        ``nnaic_logits`` in float32, argmax (the first index on a tie).  The
+        reference argmaxes ``.data`` (LengthPredictor_NNAIC,
+        TransformerModel.py:1234-1250), so the head gets no gradient; it
+        runs under ``no_grad`` here."""
+        with torch.no_grad():
+            return torch.argmax(torch.softmax(self.nnaic_logits(memory, rng),
+                                              dim=-1), dim=-1)
+
     def generate(self, h):
         return self.generator(h)
 
@@ -513,9 +543,18 @@ class BoFiCap(nn.Module):
             out["logprob"] = self.generate(h)
             return out
         if mode == "NNAIC":
-            raise NotImplementedError(
-                "NNAIC training needs nnaic_length, which is not ported yet: "
-                "ROADMAP.md section 1, item 6")
+            # naive NA: every kept input is BOS, the keys are the non-EOS,
+            # non-PAD positions (reference _forward NNAIC branch,
+            # TransformerModel.py:1737-1748)
+            seq = labels[:, :-1]
+            keep = (seq != EOS) & (seq != PAD)
+            keep[:, 0] = True
+            new_seq = torch.where(keep, BOS, PAD)
+            h = self.decode_a(new_seq, mem_dec, srcm_dec, keep[:, None, :],
+                              **dec)
+            out["logprob"] = self.generate(h)
+            out["length_pred"] = self.nnaic_length(memory, rng)
+            return out
         if mode == "PB_pad":
             raise NotImplementedError(
                 "PB_pad training is not ported yet: ROADMAP.md section 1, "

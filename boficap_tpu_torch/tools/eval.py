@@ -10,7 +10,10 @@ It reads a checkpoint the JAX package wrote (``model.ckpt``, flax msgpack;
 ``build_eval_opt`` says, runs ``eval_split`` and writes
 ``eval_results/<id>_<split>.json`` (and ``vis/vis.json`` with
 ``--dump_json 1``) in the working directory; ``--only_lang_eval 1`` scores
-the cached predictions again.  ``--device`` is ``cuda`` by default;
+the cached predictions again, with the multi-sample metrics of cached
+``sample_n`` captions.  Every decoder of ``eval_split`` is reachable: NAIC,
+SAIC, NNAIC, AIC greedy, beam and diverse beam (``--group_size``), and
+``--sample_n`` captions (AIC).  ``--device`` is ``cuda`` by default;
 ``--device cpu`` runs the plain path.
 
 Not ported (``NotImplementedError``, naming the ROADMAP item):
@@ -32,6 +35,7 @@ from ..data.dataset import CaptionData
 from ..device import resolve_device
 from ..eval import eval_utils
 from ..eval.metrics import language_eval
+from ..eval.multi_metrics import multi_sample_eval
 from ..models import setup as models_setup
 from ..train.state import safe_load
 
@@ -132,6 +136,10 @@ def main(argv=None):
         cached = eval_utils.load_cached(eval_kwargs)
         if cached is not None:
             stats = language_eval(cached["predictions"], cached["gts_words"])
+            if cached.get("n_predictions"):
+                stats.update(multi_sample_eval(
+                    cached["n_predictions"], cached["gts_words"],
+                    eval_oracle=bool(opt.get("eval_oracle", 1))))
             print(stats)
             return stats
         print("no cached predictions; running full eval")

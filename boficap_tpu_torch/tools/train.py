@@ -40,8 +40,9 @@ the port follows the JAX package, the reference it is held against.
 
 Not ported (``NotImplementedError`` at parse time, naming the ROADMAP
 item, section 1): the mesh and multihost (item 11) and
-``--profile_steps`` (item 4's leftover); NNAIC and PB_pad training raise
-in the model's forward (items 6 and 7).
+``--profile_steps`` (item 4's leftover); PB_pad training raises in the
+model's forward (item 7).  NNAIC (``--cfg configs/nnaic.yml``) trains and
+validates as the other train modes do.
 """
 
 from __future__ import annotations

@@ -149,6 +149,12 @@ def xe_loss_fn(model, batch: Dict[str, torch.Tensor],
                                            label_smoothing, reduction)
         else:
             loss = Lm.lm_loss(out["logprob"], tgt, msk, reduction)
+    elif mode == "NNAIC":
+        tgt, msk = f["labels"][:, 1:], f["masks"][:, 1:]
+        d = Lm.nnaic_loss(out["length_pred"].detach().float(),
+                          out["logprob"], tgt, msk, reduction)
+        loss = d.pop("loss")
+        metrics.update(d)
     elif mode in ("NAIC", "SAIC"):
         p = "sa" if mode == "SAIC" else "na"
         d = Lm.naic_loss(out[f"{p}_len_logprob"], out[f"{p}_syn_logprob"],

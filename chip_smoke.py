@@ -111,7 +111,28 @@ Phases, each printing one JSON line:
               use_pallas on (#9 launched by the sampler); the training CLI
               resumed from phase train's checkpoint with structure_after
               0 (the RL keys in metrics.jsonl).
- 14. times    each kernel's time beside its plain version's, one PyTorch
+ 14. decoders  the remaining decoders on the card.  NNAIC
+              (configs/nnaic.yml at full width, random weights, the length
+              head's bias centred so the B = 64 lengths spread over 0..19,
+              0 and 19 among them): fused_encode + nnaic_decode on the
+              kernels against the plain path, float32 (#1, #2, #3; the rule
+              at 1e-3) and bfloat16 (#4, #5, #3; the rule at 0.1), the
+              length identical by the same rule, launch counts and ms of
+              each; eval_split NNAIC at both dtypes, kernels against plain;
+              one float32 XE step on the card against the CPU (loss to
+              1e-5 relative, every gradient leaf to 1e-4 of its largest
+              magnitude, the ReLU sides aligned) and 10 bf16 steps whose
+              losses stay finite and whose word loss falls.  The diverse AR decoders on
+              configs/transformer.yml (float32, B = 64) with use_pallas on
+              (#9) against off by the margin rule: ar_diverse_beam_search
+              (beam 4, groups 2), ar_old_beam_search (K 3, G 1, and K 4,
+              G 2 with decoding_constraint's exact -inf: the row
+              buffers' -inf entries equal, the rest within
+              1e-3, unaug_p within 1e-5 relative) and ar_diverse_sample
+              (dgreedy, 3 groups), #9's launches (6 x 20 a group) and ms
+              on and off; eval_split with sample_n 3 by bs, dbs and
+              sample, the multi-sample metrics in lang_stats.
+ 15. times    each kernel's time beside its plain version's, one PyTorch
               library call's (a yardstick the port never calls) and the
               least time the card could take (bound); decode times,
               launches and host syncs per decode; #9's host cost a call,
@@ -1087,12 +1108,14 @@ def plain_ar(model, decode, *args, **kw):
 
 
 def ar_agree(got, want, margin, what: str, noise: float = MARGIN_NOISE,
-             lp_tol=LOGPROB_TOL, plan: bool = False) -> dict:
+             lp_tol=LOGPROB_TOL, plan: bool = False,
+             keys=("tok_logprobs", "entropy")) -> dict:
     """The AR rule (the SA rule without rounds): seq identical, except in a
     sample whose first differing word lies where the plain run's top-2
     margin is below ``noise`` (the later words follow the other word);
-    tok_logprobs and entropy within ``lp_tol`` in every other sample (None:
-    reported only).  ``plan``: the phrase plan identical in every sample."""
+    ``keys`` (tok_logprobs and entropy) within ``lp_tol`` in every other
+    sample (None: reported only).  ``plan``: the phrase plan identical in
+    every sample."""
     if plan:
         for k in ("phrase_num", "phrase_length", "phrase_syn"):
             if not torch.equal(got[k], want[k]):
@@ -1105,7 +1128,7 @@ def ar_agree(got, want, margin, what: str, noise: float = MARGIN_NOISE,
         fail(f"{what}: seq differs above the noise margin {noise}")
     same = ~has
     errs = {k: (got[k][same] - want[k][same]).abs().max().item()
-            for k in ("tok_logprobs", "entropy")}
+            for k in keys}
     if lp_tol is not None and max(errs.values()) > lp_tol:
         fail(f"{what}: tok/entropy err {errs} > {lp_tol}")
     return {"excused_samples": int(loose.sum()),
@@ -1120,9 +1143,21 @@ def beam_margins(model, memory, src, K: int):
     gap between neighbouring entries of any top-K selection it made (the
     candidates and the done-pool merges; NEG_INF fillers left out)."""
     from boficap_tpu_torch.decode import ar
+    return topk_margins(lambda: ar.ar_beam_search(model, memory, src,
+                                                  beam_size=K),
+                        memory.shape[0])
+
+
+@torch.no_grad()
+def topk_margins(decode, n: int):
+    """decode()'s outputs and, for each of its ``n`` samples, the smallest
+    gap between neighbouring entries of any top-K selection it made (every
+    beam search's candidates and done-pool merges; NEG_INF and -inf
+    entries left out)."""
+    from boficap_tpu_torch.decode import ar
     from boficap_tpu_torch.decode.sampling import NEG_INF
     top_k = ar._top_k
-    mins = torch.full((memory.shape[0],), math.inf, device=memory.device)
+    mins = torch.full((n,), math.inf, device=DEV)
 
     def record(x, k):
         vals, idx = top_k(x, min(k + 1, x.shape[-1]))
@@ -1133,24 +1168,24 @@ def beam_margins(model, memory, src, K: int):
 
     ar._top_k = record
     try:
-        out = ar.ar_beam_search(model, memory, src, beam_size=K)
+        out = decode()
     finally:
         ar._top_k = top_k
     return out, mins
 
 
 def beam_agree(got, want, mins, what: str, noise: float = MARGIN_NOISE,
-               lp_tol=LOGPROB_TOL) -> dict:
-    """Beams, scores and token log-probs identical (within ``lp_tol``;
-    None: reported only), except in a sample whose selections had a gap
-    below ``noise``."""
+               lp_tol=LOGPROB_TOL, keys=("scores", "tok_logprobs")) -> dict:
+    """Beams identical, and ``keys`` (scores, token log-probs) within
+    ``lp_tol`` (None: reported only), except in a sample whose selections
+    had a gap below ``noise``."""
     diff = (got["seq"] != want["seq"]).flatten(1).any(-1)
     loose = diff & (mins < noise)
     if (diff & ~loose).any():
         fail(f"{what}: beams differ above the noise margin {noise}")
     same = ~diff
     errs = {k: (got[k][same] - want[k][same]).abs().max().item()
-            for k in ("scores", "tok_logprobs")}
+            for k in keys}
     if lp_tol is not None and max(errs.values()) > lp_tol:
         fail(f"{what}: score/logprob err {errs}")
     return {"excused_samples": int(loose.sum()),
@@ -1473,7 +1508,8 @@ def run_eval(model, loader, mode: str, flag: str, kw: dict):
                 log.append((memory, src_mask, out))
                 return out
             return g
-        return {k: v if k == "encode" else wrap(v) for k, v in dec.items()}
+        return {k: v if k in ("encode", "sample_n") else wrap(v)
+                for k, v in dec.items()}
 
     eval_utils.make_decoders = recording
     try:
@@ -1811,10 +1847,10 @@ def xe_grads(opt, batch, device, record=None, align=None):
             [None if g is None else g.detach().cpu() for g in grads], stats)
 
 
-def check_cross_device(batch) -> dict:
-    """float32, dropout off: one XE step on the card against the CPU, the
-    ReLU sides aligned (RELU_GAP)."""
-    opt = train_opt(dtype="float32", dropout=0.0, drop_prob_lm=0.0)
+def check_cross_device(batch, opt=None) -> dict:
+    """float32, dropout off: one XE step of uic_sd (or of ``opt``'s model)
+    on the card against the CPU, the ReLU sides aligned (RELU_GAP)."""
+    opt = opt or train_opt(dtype="float32", dropout=0.0, drop_prob_lm=0.0)
     relu = {}
     t0 = time.perf_counter()
     lc, names, gc, _ = xe_grads(opt, batch, "cpu", record=relu)
@@ -2588,6 +2624,342 @@ def check_rl(model16, batch, tmp: str) -> tuple:
     res["cli"] = rl_cli(tmp)
     res["phase_s"] = time.perf_counter() - t_phase
     return res, {k: v + aic_launches[k] for k, v in launches.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase decoders: NNAIC on the kernels, the diverse AR decoders
+# ---------------------------------------------------------------------------
+
+# the kernels NNAIC's decode runs at B = 64: float32 takes the per-layer
+# route, bfloat16 the whole stacks
+NNAIC_KERNELS = {"float32": ("encoder_layer", "decoder_layer", "greedy_head"),
+                 "bfloat16": NA_KERNELS}
+NNAIC_STEPS = 10              # bf16 XE steps on one repeated batch
+LEN_RAISE = 0.25              # the margin a planted length 0 / L - 1 wins by
+MULTI_KEYS = ("allspice", "allspice_approx", "div1", "div2", "mBLEU_4",
+              "oracle_CIDEr", "oracle_Bleu_4", "oracle_ROUGE_L", "self_cider")
+
+
+def nnaic_opt(**fields):
+    """configs/nnaic.yml over the synthetic corpus, a constant Adam rate."""
+    return eval_opt("nnaic.yml", id="smokennaic", noamopt=False,
+                    learning_rate=TRAIN_LR, learning_rate_decay_start=-1,
+                    **fields)
+
+
+@torch.no_grad()
+def spread_lengths(models, att, am) -> dict:
+    """Random weights predict one length for almost every image.  Centre
+    the length head's bias on the first model's mean logits over these
+    images, so each image's own deviation picks its length; then, where no
+    image takes length 0 (or L - 1), raise that class until the image
+    nearest it takes it by LEN_RAISE (the L - 1 raise spares the images at
+    0).  The same bias goes to every model."""
+    logits = models[0].nnaic_logits(models[0].encode(att, am))
+    nudge = -logits.mean(0)
+    for c in (0, L - 1):
+        z = logits + nudge
+        top = z.argmax(-1)
+        if (top == c).any():
+            continue
+        others = z.clone()
+        others[:, c] = -math.inf
+        gap = others.max(-1).values - z[:, c]
+        gap[top == 0] = math.inf
+        nudge[c] += gap.min() + LEN_RAISE
+    for m in models:
+        m.nn_len_l2.bias += nudge.to(m.nn_len_l2.bias.device)
+        m.invalidate_packed()
+    return {"bias_nudge": nudge.tolist(),
+            "logit_spread": (logits - logits.mean(0)).std().item()}
+
+
+@torch.no_grad()
+def plain_nnaic(model, memory, src):
+    """nnaic_decode on the plain path, each image's top-2 margin of the
+    length logits [B] and each position's top-2 log-prob margin of the
+    fill [B, L]."""
+    from boficap_tpu_torch.constants import BOS
+    from boficap_tpu_torch.decode.bound_fill import nnaic_decode
+    out = nnaic_decode(model, memory, src)
+    top2 = model.nnaic_logits(memory).topk(2, -1).values
+    keep = torch.arange(L, device=DEV)[None, :] < out["length"][:, None]
+    tgt = torch.full((memory.shape[0], L), BOS, device=DEV)
+    lp = model.generate(model.decode_a(tgt, memory, src, keep[:, None, :]))
+    fill = lp.topk(2, -1).values
+    return out, top2[:, 0] - top2[:, 1], fill[..., 0] - fill[..., 1]
+
+
+def nnaic_agree(got, want, len_margin, margin, what: str,
+                noise: float = MARGIN_NOISE, lp_tol=LOGPROB_TOL) -> dict:
+    """The NNAIC rule: length identical, except in an image whose plain
+    length logits' top-2 margin is below ``noise`` (it then decodes another
+    length, and its seq is not compared); seq identical except where the
+    plain fill's top-2 margin is below ``noise``; tok_logprobs (where seq
+    agrees, PAD past the length included) and entropy within ``lp_tol``
+    (None: reported only)."""
+    len_diff = got["length"] != want["length"]
+    if (len_diff & (len_margin >= noise)).any():
+        fail(f"{what}: length differs above the noise margin {noise}")
+    same = ~len_diff
+    diff = (got["seq"] != want["seq"]) & same[:, None]
+    if (diff & (margin >= noise)).any():
+        fail(f"{what}: seq differs above the noise margin {noise}")
+    e_tok = (got["tok_logprobs"] - want["tok_logprobs"])[
+        ~diff & same[:, None]].abs().max().item()
+    e_ent = (got["entropy"] - want["entropy"])[same].abs().max().item()
+    if lp_tol is not None and not max(e_tok, e_ent) <= lp_tol:
+        fail(f"{what}: tok/entropy err {e_tok} {e_ent}")
+    return {"length_excused_samples": int(len_diff.sum()),
+            "seq_differs_below_margin": int(diff.sum()),
+            "tok_logprob_err": e_tok, "entropy_err": e_ent}
+
+
+@torch.no_grad()
+def check_nnaic_decode(model, dtype_name: str, att, am) -> dict:
+    """fused_encode + nnaic_decode on the kernels against the plain path at
+    the model's dtype, by the NNAIC rule (1e-3 at float32, BF16_MARGIN_NOISE
+    at bf16); the kernels' launches around the kernel decode; both decodes'
+    ms (CUDA events, the mean of 3)."""
+    from boficap_tpu_torch.decode.bound_fill import fused_encode, nnaic_decode
+    src = am.bool()
+    want, len_margin, margin = plain_nnaic(model, model.encode(att, am), src)
+
+    def kernels():
+        return nnaic_decode(model, fused_encode(model, att, am), src,
+                            fused_fill=True)
+
+    got, launches = counted(kernels)
+    missing = [k for k in NNAIC_KERNELS[dtype_name] if not launches[k]]
+    if missing:
+        fail(f"nnaic {dtype_name}: {missing} never launched: {launches}")
+    bf16 = dtype_name == "bfloat16"
+    res = nnaic_agree(got, want, len_margin, margin, f"nnaic {dtype_name}",
+                      *((BF16_MARGIN_NOISE, None) if bf16 else ()))
+    if bf16 and (res["length_excused_samples"] > B // 4
+                 or res["seq_differs_below_margin"] > B * L // 4):
+        fail(f"nnaic bf16: {res} differs at over a quarter of the samples "
+             f"or positions")
+    lengths = want["length"]
+    if not ((lengths == 0).any() and (lengths == L - 1).any()):
+        fail(f"nnaic {dtype_name}: no length 0 or {L - 1}: {lengths}")
+    return {**res, "launches": launches,
+            "lengths_histogram": torch.bincount(lengths, minlength=L)
+            .tolist(),
+            "length_margin_min": len_margin.min().item(),
+            "ms": timed(kernels, reps=3, warm=0),
+            "plain_ms": timed(lambda: nnaic_decode(
+                model, model.encode(att, am), src), reps=3, warm=0)}
+
+
+def check_nnaic_train(loader_batch) -> dict:
+    """One NNAIC float32 XE step on the card against the CPU (the loss to
+    1e-5 relative, every gradient leaf to 1e-4 of its largest magnitude,
+    the ReLU sides aligned), and NNAIC_STEPS bf16 steps with dropout 0.1 on
+    one repeated batch: every loss finite, and the word loss's mean over
+    the last three below the first three's.  The length term is reported
+    only: the length head gets no gradient (the reference's), and its
+    dropout draws move the predicted lengths from step to step."""
+    from boficap_tpu_torch.train import steps
+    res = {"cross_device_float32": check_cross_device(
+        loader_batch, nnaic_opt(dtype="float32", dropout=0.0,
+                                drop_prob_lm=0.0))}
+    model, step = trainer(nnaic_opt(dropout=0.1))
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    tb = steps.to_device(loader_batch, DEV)
+    rows = []
+    for _ in range(NNAIC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(tb, gen)
+        torch.cuda.synchronize()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     **{k: float(m[k]) for k in ("loss", "word_loss",
+                                                 "length_loss")}})
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"nnaic train: a loss is not finite: {losses}")
+    words = [r["word_loss"] for r in rows]
+    if not sum(words[-3:]) < sum(words[:3]):
+        fail(f"nnaic train: the word loss did not fall: {words}")
+    res["steps_bfloat16"] = {"steps": rows, "step_ms_median": sorted(
+        r["ms"] for r in rows[3:])[3]}
+    return res
+
+
+def nnaic_eval_agree(model, bf16: bool):
+    def agree(got, want, memory, src):
+        _, len_margin, margin = plain_nnaic(model, memory, src)
+        return nnaic_agree(got, want, len_margin, margin, "eval NNAIC",
+                           *((BF16_MARGIN_NOISE, None) if bf16 else ()))
+    return agree
+
+
+@torch.no_grad()
+def sampled_margins(decode):
+    """decode()'s outputs and each AR step's top-2 margin of the log-probs
+    it picked from (after every constraint and penalty), the steps of the
+    calls concatenated [B, calls x L]."""
+    from boficap_tpu_torch.decode import ar
+    gaps = []
+    pick = ar.sample_next_word
+
+    def record(lp, *a, **kw):
+        top2 = lp.topk(2, -1).values
+        gaps.append(top2[:, 0] - top2[:, 1])
+        return pick(lp, *a, **kw)
+
+    ar.sample_next_word = record
+    try:
+        out = decode()
+    finally:
+        ar.sample_next_word = pick
+    return out, torch.stack(gaps, -1)
+
+
+def old_beam_agree(got, want, mins, what: str) -> dict:
+    """beam_agree on seq and scores; in the samples it holds, the row
+    buffers' -inf at the same places and their finite entries within
+    LOGPROB_TOL, unaug_p within 1e-5 of its magnitude (a sum of L x V
+    log-probs)."""
+    res = beam_agree(got, want, mins, what, keys=("scores",))
+    same = ~(got["seq"] != want["seq"]).flatten(1).any(-1)
+    errs = {}
+    for k in ("row_logprobs", "unaug_p"):
+        a, b = got[k][same], want[k][same]
+        if not torch.equal(torch.isneginf(a), torch.isneginf(b)):
+            fail(f"{what}: the {k} -inf entries differ")
+        fin = torch.isfinite(b)
+        if not torch.isfinite(a[fin]).all():
+            fail(f"{what}: {k} is not finite where the plain run's is")
+        d = (a[fin] - b[fin]).abs()
+        if k == "unaug_p":
+            d = d / b[fin].abs().clamp_min(1.0)
+        errs[k] = d.max().item() if d.numel() else 0.0
+    e_row, e_un = errs["row_logprobs"], errs["unaug_p"]
+    if not (e_row <= LOGPROB_TOL and e_un <= 1e-5):
+        fail(f"{what}: row err {e_row}, unaug_p rel err {e_un}")
+    return {**res, "row_logprob_err": e_row, "unaug_p_rel_err": e_un,
+            "neg_inf_entries": int(torch.isneginf(want["row_logprobs"])
+                                   .sum())}
+
+
+@torch.no_grad()
+def check_diverse(aic, att, am) -> dict:
+    """float32, B = 64: each diverse decode with use_pallas on (#9 on
+    every step's cross-attention) against off, on one encoder memory, by
+    the margin rule; #9's launches (N_dec x L a group) and each decode's
+    ms with the core on and off (CUDA events, the mean of 3)."""
+    from boficap_tpu_torch.decode import ar
+    from boficap_tpu_torch.decode.bound_fill import fused_encode
+    src = am.bool()
+    mem = fused_encode(aic, att, am)
+    res = {"margin_noise": MARGIN_NOISE}
+    cases = {
+        "diverse_beam_k4_g2": (
+            lambda: ar.ar_diverse_beam_search(aic, mem, src, beam_size=4,
+                                              group_size=2), 2),
+        "old_beam_k3_g1": (lambda: ar.ar_old_beam_search(
+            aic, mem, src, beam_size=3), 1),
+        "old_beam_k4_g2": (lambda: ar.ar_old_beam_search(
+            aic, mem, src, beam_size=4, group_size=2,
+            decoding_constraint=True), 2),
+        "diverse_sample_dgreedy_g3": (lambda: ar.ar_diverse_sample(
+            aic, mem, src, group_size=3), 3)}
+    for name, (decode, G) in cases.items():
+        sample = name.startswith("diverse_sample")
+        want, margin = (sampled_margins if sample else
+                        lambda f: topk_margins(f, B))(decode)
+        got, c = counted(lambda: with_core(aic, True, decode))
+        want_launches = aic.N_dec * L * G
+        if c["attention_core"] != want_launches:
+            fail(f"{name}: attention_core launched {c['attention_core']} "
+                 f"times, not {aic.N_dec} layers x {L} steps x {G} groups")
+        if sample:
+            flat = {k: want[k].flatten(1) for k in want}
+            r = ar_agree({k: got[k].flatten(1) for k in got}, flat, margin,
+                         name, keys=("tok_logprobs",))
+        elif name.startswith("old"):
+            r = old_beam_agree(got, want, margin, name)
+        else:
+            r = beam_agree(got, want, margin, name)
+        res[name] = {**r, "attention_core_launches": c["attention_core"],
+                     "ms": timed(lambda: with_core(aic, True, decode),
+                                 reps=3, warm=0),
+                     "plain_ms": timed(decode, reps=3, warm=0)}
+    return res
+
+
+def check_sample_n_eval(aic) -> dict:
+    """eval_split on transformer.yml (float32, B = 64, one batch) with
+    use_pallas on and sample_n 3 by 'bs', 'dbs' and 'sample': 3 captions
+    an image in n_predictions, the multi-sample keys in lang_stats, #9
+    launched; the eval's wall s."""
+    from boficap_tpu_torch.eval.eval_utils import eval_split
+    loader = eval_loader(eval_opt("transformer.yml", id="smoke_n",
+                                  batch_size=B))
+    out = {}
+    for method in ("bs", "dbs", "sample"):
+        kw = {"split": "test", "num_images": B, "language_eval": 1,
+              "verbose_loss": 0, "sample_n": 3, "sample_n_method": method}
+        t0 = time.perf_counter()
+        r, c = counted(lambda: with_core(aic, True, lambda: eval_split(
+            aic, loader, kw, "")))
+        wall = time.perf_counter() - t0
+        missing = [k for k in MULTI_KEYS if k not in r["lang_stats"]]
+        if missing or len(r["n_predictions"]) != 3 * r["n_images"]:
+            fail(f"eval sample_n {method}: missing {missing}, "
+                 f"{len(r['n_predictions'])} captions for {r['n_images']}")
+        if not c["attention_core"]:
+            fail(f"eval sample_n {method}: attention_core never launched")
+        out[method] = {"images": r["n_images"],
+                       "n_captions": len(r["n_predictions"]),
+                       "distinct_captions": len({p["caption"] for p in
+                                                 r["n_predictions"]}),
+                       "wall_s": wall, "images_per_s": r["images_per_s"],
+                       "attention_core_launches": c["attention_core"],
+                       **{k: r["lang_stats"][k] for k in MULTI_KEYS}}
+    return out
+
+
+def check_decoders(aic) -> tuple:
+    """Phase decoders (see the module docstring); returns (result, the
+    kernel launches of its decodes on the kernels)."""
+    t_phase = time.perf_counter()
+    models = {"float32": build("float32", "nnaic.yml"),
+              "bfloat16": build(None, "nnaic.yml")}
+    att, am = features(B, seed=31)
+    att, am = att.to(DEV), am.to(DEV)
+    res = {"config": "nnaic.yml",
+           "spread": spread_lengths(list(models.values()), att, am)}
+    launches = {}
+    for dtype_name, model in models.items():
+        r = check_nnaic_decode(model, dtype_name, att, am)
+        res[f"nnaic_{dtype_name}"] = r
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    loader = eval_loader(eval_opt("nnaic.yml", id="smoke_nnaic",
+                                  batch_size=B))
+    kw = {"split": "test", "num_images": -1, "language_eval": 1,
+          "verbose_loss": 0}
+    for dtype_name, model in models.items():
+        r = eval_pair(model, loader, "", dtype_name, kw,
+                      NNAIC_KERNELS[dtype_name],
+                      nnaic_eval_agree(model, dtype_name == "bfloat16"))
+        res[f"eval_nnaic_{dtype_name}"] = r
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    del models
+    res["train"] = check_nnaic_train(train_batch(nnaic_opt())[1])
+    datt, dam = features(B, seed=33)
+    res["diverse"] = check_diverse(aic, datt.to(DEV), dam.to(DEV))
+    for name, r in res["diverse"].items():
+        if isinstance(r, dict):
+            launches["attention_core"] = (launches.get("attention_core", 0)
+                                          + r["attention_core_launches"])
+    res["sample_n_eval"] = check_sample_n_eval(aic)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3652,7 +4024,7 @@ def main():
 
 
 def run_phases(smi: str):
-    """Phases 2-14; returns the {"kernels": [...]} list."""
+    """Phases 2-15; returns the {"kernels": [...]} list."""
     # the same random weights at both compute dtypes: float32 for the
     # decode comparisons, the default (bfloat16) for the main paths
     model = build("float32")
@@ -3702,6 +4074,8 @@ def run_phases(smi: str):
         rl, rl_launches = check_rl(model_t, batch_t, tmp)
         emit({"phase": "rl", "card": smi, **rl})
     del model_t
+    decoders, dec_launches = check_decoders(aic)
+    emit({"phase": "decoders", "card": smi, **decoders})
     unforce_long([model, model16], long_shift)
     times = measure(model, model16)
     times["products_bf16"] = measure_products(torch.bfloat16)
@@ -3748,7 +4122,8 @@ def run_phases(smi: str):
             "bf16_max_abs_err": errs["bfloat16"][name]["max_abs_err"],
             "eval_launches": eval_launches.get(name, 0),
             "train_val_launches": train_launches.get(name, 0),
-            "rl_launches": rl_launches.get(name, 0)})
+            "rl_launches": rl_launches.get(name, 0),
+            "decoders_launches": dec_launches.get(name, 0)})
         if name in ("encoder_layer", "decoder_layer"):
             # #1 and #2 at bf16 run at B > 128: the B = 256 NA decode
             kernels[-1]["bf16"]["launches"] = bf16_dec[

@@ -33,7 +33,8 @@ def make_pair(train_mode: str = "UIC", input_mode: str = "add",
     dropout, drop_prob_lm) set in both configs.  The length and syntax
     heads' biases (where the train_mode has them; AIC has none) are nudged
     (in numpy, before both models get them) so the random model plans
-    non-empty captions of varied length."""
+    non-empty captions of varied length; NNAIC's length head's too, so its
+    lengths spread over 0..L-1."""
     cfg = tiny_cfg(train_mode, N_len=n_len)
     cfg.max_length = L
     cfg.decoder_input_mode = input_mode
@@ -57,6 +58,12 @@ def make_pair(train_mode: str = "UIC", input_mode: str = "add",
         p["syn_head2"]["bias"] = (p["syn_head2"]["bias"]
                                   + np.array([0] * 4 + [2.0] * 3 + [0] * 3,
                                              np.float32))
+    if "nn_len_l2" in p:
+        # NNAIC's whole-caption length head: toward 0 and L - 1 and away
+        # from its random favourite, so lengths spread over 0..L-1
+        nudge = np.zeros(L, np.float32)
+        nudge[[0, 2, -1]] = (0.15, -0.12, 0.12)
+        p["nn_len_l2"]["bias"] = p["nn_len_l2"]["bias"] + nudge
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     tcfg = make_config(**{k: cfg[k] for k in (
         "train_mode", "N_enc", "N_dec", "N_len", "d_model", "d_ff",

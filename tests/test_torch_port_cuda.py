@@ -19,7 +19,10 @@ writes loads bitwise on the card, and ``eval_split`` on the kernels gives
 the plain path's captions at float32.  The RL stage: the sampler on the
 kernels draws captions whose token log-probs are ``rl_rescore``'s plain
 values (float32, 1e-4), the re-score launches no kernel, and each sampling
-method's draws from a CUDA generator follow their closed form.
+method's draws from a CUDA generator follow their closed form.  The
+remaining decoders: NNAIC on the kernels gives the plain path's captions
+at float32, its length-0 rows (every key masked) included; diverse beam
+search with the attention core gives the plain attend's beams.
 """
 
 import pytest
@@ -1076,3 +1079,81 @@ def test_sampling_law_on_card(cuda, method):
     assert counts[~live].sum() == 0
     expected = want[live] / want[live].sum()
     assert stats.chisquare(counts[live], draws * expected).pvalue > 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the remaining decoders on the card: NNAIC on the kernels, diverse beam
+# search with the attention core
+# ---------------------------------------------------------------------------
+
+def _small_model(device, train_mode, **fields):
+    from boficap_tpu_torch.config import make_config
+    from boficap_tpu_torch.convert import init_params
+    cfg = make_config(train_mode=train_mode, N_enc=2, N_dec=2, d_model=64,
+                      d_ff=128, num_att_heads=4, max_length=8, max_boxes=9,
+                      dtype="float32", **fields)
+    return init_params(cfg, 40, seed=0, device=device).eval()
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_nnaic_decode_kernels_match_plain(cuda, stacked):
+    """float32: nnaic_decode on the encoder, A-stack and head kernels (per
+    layer, or the whole stacks) against the plain path, with planted
+    lengths 0 (every key masked: the uniform softmax over all L keys) and
+    L - 1: seq and length identical, token log-prob and entropy within
+    1e-4, PAD past the length with lp[:, PAD]."""
+    from boficap_tpu_torch.decode import bound_fill as bf
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    model = _small_model(cuda, "NNAIC")
+    planted = torch.tensor([0, 7, 3, 0, 1, 5], device=cuda)
+    model.nnaic_length = lambda memory, rng=None: planted
+    g = torch.Generator().manual_seed(3)
+    att = torch.randn(6, 9, 2048, generator=g).to(cuda)
+    am = (torch.arange(9)[None, :] < torch.tensor([9, 4, 9, 2, 7, 9])[:, None]
+          ).float().to(cuda)
+    want = bf.nnaic_decode(model, model.encode(att, am), am.bool())
+    reset_launch_counts()
+    got = bf.nnaic_decode(model, bf.fused_encode(model, att, am,
+                                                 stacked=stacked),
+                          am.bool(), fused_fill=True, stacked=stacked)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    kind = "stack" if stacked else "layer"
+    assert counts[f"encoder_{kind}"] and counts[f"decoder_{kind}"]
+    assert counts["greedy_head"] == 1
+    assert torch.equal(got["length"], planted)
+    assert torch.equal(got["seq"], want["seq"])
+    for k in ("tok_logprobs", "entropy"):
+        assert (got[k] - want[k]).abs().max().item() <= 1e-4, k
+    past = torch.arange(8, device=cuda)[None, :] >= planted[:, None]
+    assert (got["seq"][past] == 0).all() and (got["seq"][~past] > 3).any()
+
+
+def test_diverse_beam_search_core_matches_plain(cuda):
+    """float32, beam 4 in 2 groups: the attention core (#9) on every step's
+    cross-attention against the plain attend, beams identical, scores and
+    token log-probs within 1e-4; #9 launched N_dec x L x G times."""
+    from boficap_tpu_torch.decode import ar
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    model = _small_model(cuda, "AIC")
+    with torch.no_grad():
+        model.generator.proj.bias += torch.randn(
+            44, generator=torch.Generator().manual_seed(7)).to(cuda)
+    g = torch.Generator().manual_seed(4)
+    att = torch.randn(5, 9, 2048, generator=g).to(cuda)
+    am = (torch.arange(9)[None, :] < torch.tensor([9, 3, 9, 6, 1])[:, None]
+          ).float().to(cuda)
+    mem, src = model.encode(att, am), am.bool()
+    kw = dict(beam_size=4, group_size=2, diversity_lambda=0.8)
+    want = ar.ar_diverse_beam_search(model, mem, src, **kw)
+    model.set_attention_core(True)
+    try:
+        reset_launch_counts()
+        got = ar.ar_diverse_beam_search(model, mem, src, **kw)
+        torch.cuda.synchronize()
+        assert launch_counts()["attention_core"] == 2 * 8 * 2
+    finally:
+        model.set_attention_core(False)
+    assert torch.equal(got["seq"], want["seq"])
+    for k in ("scores", "tok_logprobs"):
+        assert (got[k] - want[k]).abs().max().item() <= 1e-4, k

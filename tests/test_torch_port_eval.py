@@ -1,8 +1,11 @@
 """The port's evaluation (``eval/eval_utils.py``, ``tools/eval.py``,
 ``config.py``'s eval options) against the JAX package's, on the CPU:
 branch selection, option precedence, ``eval_split`` on shared weights for
-every ported branch, what raises because it is not ported, and the eval
-CLI against the JAX CLI on one checkpoint the JAX package wrote.
+every ported branch (NNAIC, diverse beam search and ``sample_n`` captions
+with the multi-sample metrics among them), what raises because it is not
+ported, the eval CLI against the JAX CLI on one checkpoint the JAX package
+wrote, and an NNAIC checkpoint of the port's training CLI read by the JAX
+package.
 
 Tolerances (ROADMAP rule (a)): captions and ids identical, perplexity and
 entropy to 1e-5, every other language metric equal (the same strings go
@@ -186,6 +189,98 @@ def test_eval_split_matches_jax(train_mode, inference_mode, beam):
     assert np.isfinite(got["images_per_s"]) and got["compile_time"] > 0
 
 
+def test_eval_split_nnaic_with_loss_matches_jax():
+    """The NNAIC branch (nnaic_decode), with the eval loss through the
+    NNAIC xe_loss_fn."""
+    jm, params, tm = make_pair("NNAIC", "add", seed=6)
+    jdata, tdata = _loaders("NNAIC")
+    kw = {"split": "test", "num_images": -1, "language_eval": 1,
+          "verbose_loss": 1}
+    want = jeu.eval_split(jm, params, jdata, dict(kw))
+    got = teu.eval_split(tm, tdata, dict(kw))
+    _same_result(got, want)
+    assert want["loss"] > 0
+    assert abs(got["loss"] - want["loss"]) <= TOL * want["loss"]
+    assert any(p["caption"] for p in got["predictions"])
+
+
+@pytest.mark.parametrize("kw", [
+    {"beam_size": 4, "group_size": 2},
+    {"sample_n": 3, "sample_n_method": "bs"},
+    {"sample_n": 3, "sample_n_method": "dbs", "diversity_lambda": 0.8}],
+    ids=["diverse_beam", "sample_n_bs", "sample_n_dbs"])
+def test_eval_split_diverse_matches_jax(kw):
+    """AIC with diverse beam search, and with sample_n captions an image:
+    predictions, n_predictions (the second batch's popped image drops its
+    samples too) and lang_stats with the multi-sample block."""
+    jm, params, tm = make_pair("AIC", "add", seed=6)
+    jdata, tdata = _loaders("AIC")
+    base = {"split": "test", "num_images": -1, "language_eval": 1,
+            "verbose_loss": 0, "remove_bad_endings": 1, **kw}
+    want = jeu.eval_split(jm, params, jdata, dict(base))
+    got = teu.eval_split(tm, tdata, dict(base))
+    _same_result(got, want)
+    assert got["n_predictions"] == want["n_predictions"]
+    n = kw.get("sample_n", 1)
+    assert len(got["n_predictions"]) == (5 * n if n > 1 else 0)
+    if n > 1:
+        assert "self_cider" in got["lang_stats"]
+        assert "oracle_CIDEr" in got["lang_stats"]
+
+
+def test_sample_n_elsewhere_prints_jax_notice(uic_cpu, capsys):
+    """sample_n on a branch other than AIC is ignored, with the JAX
+    package's notice."""
+    _, tdata = _loaders("UIC")
+    res = teu.eval_split(uic_cpu, tdata, {"split": "test", "verbose_loss": 0,
+                                          "sample_n": 2}, "NAIC")
+    assert "sample_n=2 is AR(AIC)-only; ignoring for branch NAIC" in (
+        capsys.readouterr().out)
+    assert res["n_predictions"] == [] and res["n_images"] == 5
+
+
+def test_nnaic_train_cli_checkpoint_reads_in_jax(tmp_path):
+    """The port's training CLI trains NNAIC (2 iterations, float32, CPU)
+    and writes a model.ckpt that the JAX package's eval reads to the
+    port's captions."""
+    from boficap_tpu.models.boficap import build_model as jax_build_model
+    from boficap_tpu_torch.convert import load_jax_checkpoint
+    ck = tmp_path / "ckpt"
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
+    out = subprocess.run(
+        [sys.executable, "-m", "boficap_tpu_torch.tools.train", "--cfg",
+         os.path.join(ROOT, "configs", "synthetic_smoke.yml"),
+         "--train_mode", "NNAIC", "--dtype", "float32", "--batch_size", "9",
+         "--save_checkpoint_every", "2", "--id", "nn", "--checkpoint_path",
+         str(ck), "--device", "cpu"], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "val[NNAIC]" in out.stdout
+    infos = jax_state.load_infos(str(ck), "nn")
+    assert infos["iter"] == 2
+    opt = jax_default_config()
+    opt.update(infos["opt"])
+    jax_finalize(opt)
+    jm = jax_build_model(opt, infos["opt"]["vocab_size"])
+    z = jax.numpy.zeros((2, opt.max_length + 2), jax.numpy.int32)
+    template = jm.init({"params": jax.random.PRNGKey(0)},
+                       jax.numpy.zeros((2, 3, opt.att_feat_size)),
+                       jax.numpy.ones((2, 3)), z, glat_p=-1.0)
+    params = jax_state.load_params(str(ck / "model.ckpt"), template)
+    kw = {"split": "test", "num_images": -1, "language_eval": 1,
+          "verbose_loss": 1}
+    want = jeu.eval_split(jm, params, jds.CaptionData(opt), dict(kw))
+    topt = tconfig.default_config()
+    topt.update(infos["opt"])
+    tconfig.finalize(topt)
+    tdata = tds.CaptionData(topt)
+    tm = load_jax_checkpoint(str(ck / "model.ckpt"),
+                             tsetup(topt, tdata.vocab_size, device="cpu"))
+    got = teu.eval_split(tm, tdata, dict(kw))
+    _same_result(got, want)
+    assert abs(got["loss"] - want["loss"]) <= TOL * want["loss"]
+
+
 def test_eval_split_num_images_and_single_batch_rate():
     """num_images cuts the scored set as JAX's does; a one-batch eval
     decodes its batch again for the rate."""
@@ -208,11 +303,7 @@ def uic_cpu():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"train_mode": "NNAIC"}, "item 6"),
     ({"train_mode": "PB_pad"}, "item 7"),
-    ({"train_mode": "NNAIC", "verbose_loss": 1}, "item 6"),
-    ({"train_mode": "AIC", "sample_n": 2}, "item 6"),
-    ({"train_mode": "AIC", "beam_size": 2, "group_size": 2}, "item 6"),
 ])
 def test_not_ported_options_raise(uic_cpu, kw, match):
     _, tdata = _loaders("UIC")
@@ -368,6 +459,30 @@ def test_eval_cli_matches_jax_cli(jax_checkpoint, tmp_path, monkeypatch,
     stats = teval.main(["--model", model, "--infos_path", infos,
                         "--device", "cpu", "--only_lang_eval", "1"])
     assert stats == result["lang_stats"]
+
+
+def test_only_lang_eval_scores_cached_samples(jax_checkpoint, tmp_path,
+                                             monkeypatch):
+    """--only_lang_eval 1 on a cache holding sample_n captions adds the
+    JAX package's multi-sample metrics to the language metrics."""
+    from boficap_tpu.eval.metrics import language_eval as jax_language_eval
+    from boficap_tpu.eval.multi_metrics import multi_sample_eval
+    model, infos = jax_checkpoint
+    monkeypatch.chdir(tmp_path)
+    gts = {1: ["a dog runs", "the dog runs fast"], 2: ["a red car"]}
+    preds = [{"image_id": 1, "caption": "a dog"},
+             {"image_id": 2, "caption": "a car"}]
+    n_preds = [{"image_id": i, "caption": c} for i, caps in
+               ((1, ("a dog", "dog runs", "a dog runs")),
+                (2, ("a red car", "red car", "a car"))) for c in caps]
+    teu.save_cached({"id": "cli", "split": "test"},
+                    {"predictions": preds, "n_predictions": n_preds,
+                     "gts_words": gts})
+    stats = teval.main(["--model", model, "--infos_path", infos,
+                        "--device", "cpu", "--only_lang_eval", "1"])
+    want = jax_language_eval(preds, gts)
+    want.update(multi_sample_eval(n_preds, gts))
+    assert stats == want and "div2" in stats
 
 
 @pytest.mark.parametrize("flag,match", [("--image_folder", "item 10"),

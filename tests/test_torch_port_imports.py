@@ -38,8 +38,8 @@ def test_port_files_found():
     files = _port_files()
     assert len(files) >= 10
     assert all(os.path.exists(f) for f in files)
-    assert os.path.join(ROOT, "boficap_tpu_torch", "native",
-                        "__init__.py") in files
+    for mod in (("native", "__init__.py"), ("eval", "multi_metrics.py")):
+        assert os.path.join(ROOT, "boficap_tpu_torch", *mod) in files
 
 
 def _native_sources():

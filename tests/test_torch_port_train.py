@@ -26,7 +26,8 @@ from tests._torch_port_train_util import (REL, SMOOTHING, built_cache, close,
 from tests._torch_port_util import L, VOCAB, make_pair
 from tests.oracles import random_phrase_row
 
-MODES = ("UIC", "SAIC", "NAIC", "AIC", "UIC_s")
+MODES = ("UIC", "SAIC", "NAIC", "AIC", "UIC_s", "NNAIC", "UIC_ds", "UIC_u",
+         "auto")
 
 
 @pytest.fixture(scope="module")
