@@ -61,10 +61,19 @@
 //
 // Padded key columns (up to the n8 / k16 tile, or the lanes past Lk) get
 // -inf, not -1e9, so they add exactly 0 to the softmax.  Nothing depends on
-// B: rows are bitwise batch-independent.  No online rescaling: a row's
-// scores are normalised, rounded, then multiplied by V, as the TPU kernel
-// does (pallas_attention.py:49-52), so Lk <= KEY_MAX and Dh <= DH_MAX (the
-// wrappers raise above them).  16-byte loads need 16-byte aligned bases,
+// B: rows are bitwise batch-independent.  Up to KEY_MAX keys no online
+// rescaling: a row's scores are normalised, rounded, then multiplied by V,
+// as the TPU kernel does (pallas_attention.py:49-52).  Past KEY_MAX keys
+// (the attention core only: the layer and stack kernels keep the bound,
+// launch_attention's kLong) the row path has no room and the query takes
+// the tile or ffma path at any Lq.  The ffma block keeps its score rows in
+// shared memory and so takes any Lk as it is.  The tile path goes over the
+// keys in chunks of KEY_MAX (attention_tile_long_kernel): an online
+// softmax, a running max and sum a query row, the partial context rescaled
+// at each chunk and divided by the sum at the end; p is rounded to bf16
+// before that division, not after it.  Every path needs Dh <= DH_MAX and
+// at most SMEM_MAX bytes of shared memory a block (the wrappers raise
+// above them).  16-byte loads need 16-byte aligned bases,
 // strides and head width (the attention-core wrapper requires them); the
 // layer kernels, which take any float32 width, read element by element in
 // the same lane layout where they are not.
@@ -86,15 +95,17 @@ constexpr int TILE_WARPS = 4;      // tile path: at most, one a 16 query rows
 constexpr int LQ_ROW = 1;          // row path up to this many query rows
 constexpr int KEY_MAX = 128;       // keys a score row holds in registers
 constexpr int DH_MAX = 128;        // head width
+constexpr int SMEM_MAX = 232448;   // shared memory a block may use (227 KB)
 constexpr float MASK_FILL = -1e9f;
 
 enum AttentionPath { kPathRow = 0, kPathTile = 1, kPathFfma = 2 };
 
-// the path of an Lq x Lk attention at dtype (BFC_DTYPE_*), -1 past the key
-// bound; ops/attention.py attention_path mirrors it
+// the path of an Lq x Lk attention at dtype (BFC_DTYPE_*), -1 without
+// keys: the row path up to LQ_ROW query rows and KEY_MAX keys, else tile
+// (bf16) or ffma (float32); ops/attention.py attention_path mirrors it
 inline int attention_path(int Lq, int Lk, int dtype) {
-  if (Lk < 1 || Lk > KEY_MAX) return -1;
-  if (Lq <= LQ_ROW) return kPathRow;
+  if (Lk < 1) return -1;
+  if (Lq <= LQ_ROW && Lk <= KEY_MAX) return kPathRow;
   return dtype == BFC_DTYPE_BF16 ? kPathTile : kPathFfma;
 }
 
@@ -687,6 +698,209 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
   }
 }
 
+// The tile path past KEY_MAX keys (one key source, no KvDst): Q, K and V
+// staged as in attention_tile_kernel, then each warp's query tiles go over
+// the keys in chunks of KEY_MAX (8 key tiles): S of the chunk on mma.sync,
+// the scale and the -1e9 fill, the chunk's row max m_c, the running max
+// m' = max(m, m_c), p = exp(s - m') rounded to bf16 as the A fragments of
+// P V, the running sum l' = l exp(m - m') + sum p and the context o' =
+// o exp(m - m') + P V; at the end o / l as the short path forms p / sum.
+// DP: the context's 16-column tiles a row holds (DhP / 16 <= DP).
+template <Scale S, int DP>
+__global__ void __launch_bounds__(TILE_WARPS * 32)
+    attention_tile_long_kernel(HeadView<const __nv_bfloat16> q,
+                               HeadView<const __nv_bfloat16> k,
+                               HeadView<const __nv_bfloat16> v, int Lk,
+                               const uint8_t* __restrict__ mask,
+                               long long mask_sb, long long mask_sq,
+                               HeadView<__nv_bfloat16> out, int H, int Lq,
+                               int Dh, bool vec) {
+  using T = __nv_bfloat16;
+  constexpr int KT = KEY_MAX / 16;            // key tiles a chunk
+  extern __shared__ uint4 smem_tile[];
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int LqP = round16(Lq), LkP = round16(Lk), DhP = round16(Dh);
+  const int ld = DhP + 8, ntiles = LkP / 16;
+  T* Qs = reinterpret_cast<T*>(smem_tile);    // [LqP][ld]
+  T* Ks = Qs + (size_t)LqP * ld;              // [LkP][ld]
+  T* Vs = Ks + (size_t)LkP * ld;              // [LkP][ld]
+
+  const int nch = DhP / 8;
+  for (int e = threadIdx.x; e < LqP * nch; e += blockDim.x) {
+    const int r = e / nch;
+    stage_chunk(Qs, ld, r, (e % nch) * 8, q, b, h, r, r < Lq, Dh, vec);
+  }
+  for (int e = threadIdx.x; e < LkP * nch; e += blockDim.x) {
+    const int r = e / nch, d = (e % nch) * 8;
+    stage_chunk(Ks, ld, r, d, k, b, h, r, r < Lk, Dh, vec);
+    stage_chunk(Vs, ld, r, d, v, b, h, r, r < Lk, Dh, vec);
+  }
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const int nwarps = blockDim.x / 32;
+  const int ndp = DhP / 16;
+  // bit 2 t + e: key j0 + t * 8 + 2 tig + e of query row qt * 16 + g + 8 hr
+  auto mask_bits = [=](int qt, int hr, int j0) {
+    const int i = min(qt * 16 + g + 8 * hr, Lq - 1);
+    const uint8_t* mr = mask + (size_t)b * mask_sb + (size_t)i * mask_sq;
+    uint32_t m = 0u;
+#pragma unroll
+    for (int t = 0; t < 2 * KT; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + t * 8 + 2 * tig + e;
+        if (j < Lk && mr[j]) m |= 1u << (2 * t + e);
+      }
+    return m;
+  };
+  auto quot = [](float p, float sum, float r) {
+    const float qv = p * r;
+    return fmaf(fmaf(-qv, sum, p), r, qv);
+  };
+  const float factor = score_factor<S>(Dh);
+  for (int qt = warp; qt < LqP / 16; qt += nwarps) {
+    const int i0 = qt * 16 + g, i1 = i0 + 8;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    float o[DP][2][4];
+#pragma unroll
+    for (int dp = 0; dp < DP; ++dp)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) o[dp][t][0] = o[dp][t][1] = o[dp][t][2] = o[dp][t][3] = 0.f;
+
+    for (int c0 = 0; c0 < ntiles; c0 += KT) {
+      const int nt = min(KT, ntiles - c0);        // key tiles of the chunk
+      const int j0 = c0 * 16;
+      const uint32_t mb0 = mask_bits(qt, 0, j0), mb1 = mask_bits(qt, 1, j0);
+      float acc[2 * KT][4];
+#pragma unroll
+      for (int t = 0; t < 2 * KT; ++t)
+        acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+      for (int ks = 0; ks < DhP / 16; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, Qs + (size_t)(qt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                       ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < KT; ++np) {
+          if (np < nt) {
+            uint32_t kb[4];
+            ldsm_x4(kb, Ks + (size_t)(j0 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * ld +
+                            ks * 16 + ((lane >> 3) & 1) * 8);
+            mma16816(acc[2 * np], a, kb[0], kb[1]);
+            mma16816(acc[2 * np + 1], a, kb[2], kb[3]);
+          }
+        }
+      }
+      float c_0 = -INFINITY, c_1 = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < 2 * KT; ++t) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + t * 8 + 2 * tig + e;
+          float s0 = scale_score<S>(acc[t][e], factor);
+          float s1 = scale_score<S>(acc[t][2 + e], factor);
+          if (j < Lk) {
+            if (!(mb0 >> (2 * t + e) & 1u)) s0 = MASK_FILL;
+            if (!(mb1 >> (2 * t + e) & 1u)) s1 = MASK_FILL;
+          } else {
+            s0 = s1 = -INFINITY;          // padded key columns add exactly 0
+          }
+          acc[t][e] = s0;
+          acc[t][2 + e] = s1;
+          c_0 = fmaxf(c_0, s0);
+          c_1 = fmaxf(c_1, s1);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        c_0 = fmaxf(c_0, __shfl_xor_sync(FULL, c_0, off));
+        c_1 = fmaxf(c_1, __shfl_xor_sync(FULL, c_1, off));
+      }
+      // every chunk holds a real key, so the new maxima are finite; the
+      // first chunk's rescale is exp(-inf) = 0 of a zero sum and context
+      const float n0 = fmaxf(m0, c_0), n1 = fmaxf(m1, c_1);
+      const float a0 = expf(m0 - n0), a1 = expf(m1 - n1);
+      m0 = n0;
+      m1 = n1;
+      float s_0 = 0.f, s_1 = 0.f;
+#pragma unroll
+      for (int t = 0; t < 2 * KT; ++t) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          acc[t][e] = expf(acc[t][e] - n0);
+          acc[t][2 + e] = expf(acc[t][2 + e] - n1);
+          s_0 += acc[t][e];
+          s_1 += acc[t][2 + e];
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        s_0 += __shfl_xor_sync(FULL, s_0, off);
+        s_1 += __shfl_xor_sync(FULL, s_1, off);
+      }
+      l0 = l0 * a0 + s_0;
+      l1 = l1 * a1 + s_1;
+      uint32_t pa[KT][4];
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        pa[kk][0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
+        pa[kk][1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
+        pa[kk][2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
+        pa[kk][3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < DP; ++dp) {
+        if (dp < ndp) {
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            o[dp][t][0] *= a0;
+            o[dp][t][1] *= a0;
+            o[dp][t][2] *= a1;
+            o[dp][t][3] *= a1;
+          }
+#pragma unroll
+          for (int kk = 0; kk < KT; ++kk) {
+            if (kk < nt) {
+              uint32_t vb[4];
+              ldsm_x4_t(vb, Vs + (size_t)(j0 + kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld +
+                                dp * 16 + (lane >> 4) * 8);
+              mma16816(o[dp][0], pa[kk], vb[0], vb[1]);
+              mma16816(o[dp][1], pa[kk], vb[2], vb[3]);
+            }
+          }
+        }
+      }
+    }
+
+    const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+#pragma unroll
+    for (int dp = 0; dp < DP; ++dp) {
+      if (dp >= ndp) continue;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int d = dp * 16 + t * 8 + 2 * tig;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = hr ? i1 : i0;
+          if (i >= Lq || d >= Dh) continue;
+          const float l = hr ? l1 : l0, r = hr ? r1 : r0;
+          const float x0 = quot(o[dp][t][2 * hr], l, r);
+          const float x1 = quot(o[dp][t][2 * hr + 1], l, r);
+          T* p = &out.at(b, h, i, d);
+          if (vec) {
+            *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+          } else {
+            p[0] = __float2bfloat16(x0);
+            if (d + 1 < Dh) p[1] = __float2bfloat16(x1);
+          }
+        }
+      }
+    }
+  }
+}
+
 // ---- ffma path (float32) ----------------------------------------------------
 
 template <typename T, Scale S, bool CH>
@@ -821,8 +1035,9 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 
 // path < 0: attention_path's; a path given must be one the dtype has
 // (row at both, tile at bf16, ffma at float32); CH: launched as a link of a
-// launch chain (common.cuh launch_kernel)
-template <typename T, Scale S, bool CH = false>
+// launch chain (common.cuh launch_kernel); kLong: takes more than KEY_MAX
+// keys (the attention core; the layer and stack kernels keep the bound)
+template <typename T, Scale S, bool CH = false, bool kLong = false>
 cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
                              HeadView<const T> va, int rows_a,
                              HeadView<const T> kc, HeadView<const T> vc,
@@ -840,6 +1055,9 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
   if (path > kPathFfma || (path == kPathTile && !bf16) ||
       (path == kPathFfma && bf16))
     return cudaErrorInvalidValue;
+  if (Lk > KEY_MAX && (!kLong || path == kPathRow || rows_c > 0 ||
+                       dst.k != nullptr))
+    return cudaErrorInvalidValue;
   const long long es = sizeof(T);
   const bool vec =
       (Dh * es) % 16 == 0 && att::aligned16(q, es) && att::aligned16(ka, es) &&
@@ -849,6 +1067,7 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
        (reinterpret_cast<uintptr_t>(dst.k) % 16 == 0 &&
         reinterpret_cast<uintptr_t>(dst.v) % 16 == 0 && (dst.ld * es) % 16 == 0));
   const size_t smem = attention_smem(path, Lq, Lk, Dh);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
 
   if (path == kPathRow) {
     const int BH = B * H;
@@ -870,6 +1089,20 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
     if (path == kPathTile) {
       const int tiles = att::round16(Lq) / 16;
       const int threads = 32 * (tiles < TILE_WARPS ? tiles : TILE_WARPS);
+      if constexpr (kLong) {
+        if (Lk > KEY_MAX) {
+#define BFC_TILE_LONG(DP)                                                     \
+  {                                                                           \
+    BFC_TRY(allow_smem(att::attention_tile_long_kernel<S, DP>, smem));        \
+    return launch_kernel<false>(att::attention_tile_long_kernel<S, DP>,       \
+                                B * H, threads, smem, stream, q, ka, va, Lk,  \
+                                mask, mask_sb, mask_sq, out, H, Lq, Dh, vec); \
+  }
+          if (att::round16(Dh) <= 64) BFC_TILE_LONG(4);
+          BFC_TILE_LONG(8);
+#undef BFC_TILE_LONG
+        }
+      }
 #define BFC_TILE(KT)                                                          \
   {                                                                           \
     BFC_TRY(allow_smem(att::attention_tile_kernel<S, KT, CH>, smem));         \

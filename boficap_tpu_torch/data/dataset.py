@@ -525,9 +525,14 @@ class CaptionData:
         if self.use_phrases:
             data.update(phrase_num=pnum, phrase_length=plen, phrase_syn=psyn)
             if self.train_mode == "PB_pad":
-                raise NotImplementedError(
-                    "PB_pad batches (data/pb_pack.py) are not ported yet: "
-                    "ROADMAP.md section 1, item 7")
+                from .pb_pack import pack_decoder_inputs, pack_gt
+                lab2 = labels.reshape(-1, L2)
+                pn2 = pnum.reshape(-1)
+                pl2 = plen.reshape(-1, L2)
+                packed, wmask = pack_gt(lab2, pn2, pl2)
+                ids_p, slot_p, mask_p = pack_decoder_inputs(lab2, pn2, pl2)
+                data.update(pb_labels=packed, pb_word_mask=wmask,
+                            pb_ids=ids_p, pb_slot=slot_p, pb_mask=mask_p)
         return data
 
     def reset_iterator(self, split: str):

@@ -11,7 +11,10 @@ selected by (train_mode, inference_mode) as ``_branch_for`` does:
     the top-3 beams dumped to ``KD_file``),
   * ``NNAIC``       -> ``nnaic_decode``,
   * ``UIC_s_SAIC``  -> ``sa_decode(predictor_use_syn=True)``,
-  * ``UIC_s_AIC``   -> ``uic_s_ar_decode``.
+  * ``UIC_s_AIC``   -> ``uic_s_ar_decode``,
+  * ``PB_pad``      -> ``decode/pb.py::pb_decode`` (``pb_packed_width``
+    raises its packed-width cap; the model's ``use_pallas`` puts its
+    attentions on the attention-core kernel).
 
 ``sample_n > 1`` on the AIC branch adds ``sample_n`` captions an image
 (``sample_n_captions``: all beams of a beam search, a diverse beam search,
@@ -39,10 +42,10 @@ processed.
 ``verbose_loss`` (on by default, as in the JAX package) adds the
 teacher-forced XE loss of each batch with labels (``train/steps.py``
 ``xe_loss_fn``, deterministic, glancing off), outside the timer; ``loss``
-is its mean over the batches.
+is its mean over the batches.  PB_pad has none, as in the JAX package
+(its packed layouts are not in the eval loader's batches).
 
-The PB_pad branch is not ported: it raises ``NotImplementedError`` naming
-its ROADMAP item (section 1, item 7).  A non-greedy ``sample_method``, and
+A non-greedy ``sample_method``, and
 a sampled ``sample_n_method``, draw from one ``torch.Generator`` on the
 model's device, seeded by ``eval_kwargs['seed']`` (0 by default), as the
 JAX package seeds its key.
@@ -60,6 +63,7 @@ import torch
 
 from ..decode import ar
 from ..decode import bound_fill as bf
+from ..decode import pb
 from ..text import VOCAB_LOWER, decode_sequence
 from ..train.state import safe_load
 from .metrics import BAD_ENDINGS, language_eval
@@ -113,6 +117,7 @@ def make_decoders(model, eval_kwargs: Dict[str, Any]) -> Dict[str, Any]:
     suppress_unk_idx = eval_kwargs.get("_suppress_unk_idx")
     bad_endings_ix = eval_kwargs.get("_bad_endings_ix")
     length_penalty = eval_kwargs.get("length_penalty", "") or ""
+    pb_width = int(eval_kwargs.get("pb_packed_width", 0) or 0) or None
     # a sampled method draws from one generator on the model's device,
     # seeded as the JAX package's eval_split seeds its PRNGKey
     generator = None
@@ -167,6 +172,10 @@ def make_decoders(model, eval_kwargs: Dict[str, Any]) -> Dict[str, Any]:
     def dec_uic_s_ar(memory, src_mask):
         return bf.uic_s_ar_decode(model, memory, src_mask, **sampling)
 
+    def dec_pb(memory, src_mask):
+        return pb.pb_decode(model, memory, src_mask, packed_width=pb_width,
+                            **sampling)
+
     def dec_sample_n(memory, src_mask):
         return sample_n_captions(model, memory, src_mask, eval_kwargs,
                                  generator)
@@ -174,7 +183,7 @@ def make_decoders(model, eval_kwargs: Dict[str, Any]) -> Dict[str, Any]:
     return {"encode": encode, "NAIC": dec_na, "SAIC": dec_sa,
             "AIC": dec_ar, "beam": dec_beam, "NNAIC": dec_nnaic,
             "UIC_s_SAIC": dec_sa_syn, "UIC_s_AIC": dec_uic_s_ar,
-            "sample_n": dec_sample_n}
+            "PB_pad": dec_pb, "sample_n": dec_sample_n}
 
 
 def sample_n_captions(model, memory, src_mask, eval_kwargs,
@@ -295,9 +304,8 @@ def eval_split(model, loader, eval_kwargs: Dict[str, Any],
     remove_bad = bool(eval_kwargs.get("remove_bad_endings", 0))
     KD_file = eval_kwargs.get("KD_file", "")
     branch = _branch_for(train_mode, inference_mode)
-    if branch == "PB_pad":
-        not_ported("the PB_pad branch (decode/pb.py)", 7)
-    verbose_loss = bool(eval_kwargs.get("verbose_loss", 1))
+    verbose_loss = (bool(eval_kwargs.get("verbose_loss", 1))
+                    and model.train_mode != "PB_pad")
     sample_n = int(eval_kwargs.get("sample_n", 1))
     multi = sample_n > 1 and branch == "AIC"
     if sample_n > 1 and not multi:

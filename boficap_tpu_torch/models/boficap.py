@@ -10,9 +10,14 @@ and the general ``bound_step``, the add | single | gate decoder-input mix
 
 NNAIC's whole-caption length head (``nnaic_logits``, ``nnaic_length``).
 
+PB_pad's phrase-based packed baseline: the compressed phrase embeddings
+(``pb_compress``), the per-slot next-length predictor
+(``pb_length_predict``) and the packed decode (``pb_decode``, norm modes
+copy | compress | complex); its inference loop is ``decode/pb.py``.
+
 Training: ``forward`` / ``decode_train``, the teacher-forced pass of every
-train_mode but PB_pad (ROADMAP item 7), with the one-pass teacher-forced
-bounding (``bound_teacher``) and glancing training (GLAT).  Dropout follows the layers' rule (``layers.dropout``): ``rng``, a
+train_mode, with the one-pass teacher-forced bounding (``bound_teacher``)
+and glancing training (GLAT).  Dropout follows the layers' rule (``layers.dropout``): ``rng``, a
 ``torch.Generator`` on the model's device, or None for the deterministic
 pass that every decode takes.
 """
@@ -58,6 +63,9 @@ DECODER_ROLES = {
 }
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# PB_pad's packed-decode inputs: copied words, compressed phrase
+# embeddings, or their sum
+NORM_MODES = ("copy", "compress", "complex")
 
 # train_modes whose flax tree holds no length/syntax predictor and no syn
 # embedding: their training forward never calls them
@@ -88,10 +96,13 @@ class BoFiCap(nn.Module):
                  max_boxes: int = 100, max_length: int = 20,
                  train_mode: str = "UIC", decoder_input_mode: str = "add",
                  dtype=torch.float32, device=None, dropout_rate: float = 0.1,
-                 drop_prob_lm: float = 0.5, self_dis: bool = False):
+                 drop_prob_lm: float = 0.5, self_dis: bool = False,
+                 norm_mode: str = "copy"):
         super().__init__()
         if decoder_input_mode not in ("add", "single", "gate"):
             raise ValueError(f"decoder_input_mode {decoder_input_mode!r}")
+        if norm_mode not in NORM_MODES:
+            raise ValueError(f"norm_mode {norm_mode!r} (known: {NORM_MODES})")
         self.tgt_vocab = tgt_vocab
         self.d_model = d_model
         self.d_ff = d_ff
@@ -102,6 +113,8 @@ class BoFiCap(nn.Module):
         self.max_length = max_length
         self.train_mode = train_mode
         self.decoder_input_mode = decoder_input_mode
+        # PB_pad's packed-decode input (pb_decode)
+        self.norm_mode = norm_mode
         self.dtype = dtype
         self.dropout_rate = dropout_rate
         self.drop_prob_lm = drop_prob_lm
@@ -123,7 +136,10 @@ class BoFiCap(nn.Module):
         # (the parameters are created in this order, which fixes the order
         # init_params draws them in)
         self.word_embed = TokenEmbed(tgt_vocab, d_model, **dd)
-        if self.n_lp:
+        # PB_pad's predictor reads words (its own table), not syn ids, and
+        # has no syntax head: its flax tree holds neither
+        pb = train_mode == "PB_pad"
+        if self.n_lp and not pb:
             self.syn_embed = TokenEmbed(SYN_DIM, d_model, **dd)
         self.posenc = PositionalEncoding(d_model, max(5000, L2), device,
                                          dropout_rate)
@@ -132,7 +148,7 @@ class BoFiCap(nn.Module):
         for i in range(self.n_lp):
             self.add_module(f"lp{i}",
                             DecoderLayer(d_model, d_ff, num_heads, **ddr))
-        if self.n_lp and N_len == 0:
+        if self.n_lp and N_len == 0 and not pb:
             # one cross-attention sublayer (DecoderLayer.cross_only); the
             # flax tree holds no parameters for the parts it never calls
             for name in ("self_attn", "ffn", "sub1", "sub2"):
@@ -141,10 +157,11 @@ class BoFiCap(nn.Module):
             self.lp_norm = RefLayerNorm(d_model, **dd)
             self.len_head1 = Dense(d_model, 100, **dd)
             self.len_head2 = Dense(100, LENGTH_DIM, **dd)
+        if self.n_lp and not pb:
             self.syn_head1 = Dense(d_model, 100, **dd)
             self.syn_head2 = Dense(100, SYN_DIM, **dd)
 
-        if train_mode == "PB_pad":
+        if pb:
             self.lp_word_embed = TokenEmbed(tgt_vocab, d_model, **dd)
         if train_mode == "NNAIC":
             self.nn_len_l1 = Dense(d_model, max_length, **dd)
@@ -493,6 +510,79 @@ class BoFiCap(nn.Module):
             return torch.argmax(torch.softmax(self.nnaic_logits(memory, rng),
                                               dim=-1), dim=-1)
 
+    # ---------------------------------------------------------------- PB_pad
+    def pb_compress(self, labels, phrase_length, predictor: bool = False):
+        """Per-slot compressed phrase embeddings [B, L2, d]: the sum of the
+        word embeddings inside each phrase (reference CompressEmbedding,
+        TransformerModel.py:994-1013), as the JAX package's one-hot segment
+        sum; slot 0 is the bos phrase, slots past phrase_num are zero.
+        ``predictor`` reads the length predictor's private table
+        ``lp_word_embed`` (reference :1085), else ``word_embed`` (:1168)."""
+        L2 = labels.shape[1]
+        table = self.lp_word_embed if predictor else self.word_embed
+        emb = table(labels)                                   # [B, L2, d]
+        ends = po.phrase_word_ends(phrase_length)             # [B, L2-1]
+        pos = torch.arange(L2, device=labels.device)[None, :]
+        # label position 0 -> slot 0; position p >= 1 -> 1 + the real slot
+        # of p - 1
+        k = ((pos[:, 1:, None] - 1) >= ends[:, None, :]).sum(-1)
+        slot = torch.cat([torch.zeros_like(k[:, :1]), 1 + k], dim=1)
+        total = po.total_words(phrase_length)
+        valid = (pos == 0) | (pos <= total[:, None])
+        onehot = (torch.nn.functional.one_hot(
+            torch.where(valid, slot, L2 - 1), L2).to(emb.dtype)
+            * valid[..., None].to(emb.dtype))
+        return torch.einsum("bld,blk->bkd", emb, onehot)
+
+    def pb_length_predict(self, labels, phrase_num, phrase_length, memory,
+                          src_mask, rng=None):
+        """Per-slot next-phrase length log-probs [B, L2, 20], float32
+        (reference LengthPredictorPB_pad, TransformerModel.py:1032-1090):
+        the compressed phrase embeddings with positions through the
+        predictor layers under a causal slot mask, keys past phrase_num
+        masked; slot j (having seen phrases 0..j) predicts phrase j+1's
+        length."""
+        L2 = labels.shape[1]
+        x = self.posenc(self.pb_compress(labels, phrase_length,
+                                         predictor=True), rng=rng)
+        slot = torch.arange(L2, device=labels.device)
+        pad_ok = slot[None, :] < phrase_num[:, None]
+        mask = pad_ok[:, None, :] & (slot[None, None, :]
+                                     <= slot[None, :, None])
+        for layer in self.lp_layers():
+            x = layer(x, memory, src_mask, mask, rng=rng)
+        h = self.lp_norm(x)
+        lh = dropout(torch.relu(self.len_head1(h)), self.dropout_rate, rng)
+        return torch.log_softmax(widen(self.len_head2(lh)), dim=-1)
+
+    def pb_decode(self, packed_ids, packed_slot, labels, phrase_length,
+                  memory, src_mask, packed_mask, rng=None,
+                  norm_mode: Optional[str] = None,
+                  return_hidden: bool = False, grouped: bool = False):
+        """Packed phrase-parallel decode (reference EncoderDecoderPB_pad
+        .decode, TransformerModel.py:1138-1213).  ``packed_ids``: the
+        copy-init word of each packed position; ``packed_slot``: its phrase
+        slot (norm modes compress and complex); ``packed_mask`` [B, Lp,
+        Lp]: key padding and the phrase-blockwise causal mask.  Returns
+        log-probs [B, Lp, V], or the decoder's hidden states [B, Lp, D]
+        with ``return_hidden`` (the decode loop applies the vocabulary head
+        to the new column's window only, decode/pb.py).  ``grouped``: the
+        caption rows are image-major over a memory of one row per image
+        (``layers.DecoderLayer._cross``)."""
+        norm_mode = norm_mode or self.norm_mode
+        if norm_mode == "copy":
+            x = self.word_embed(packed_ids)
+        else:
+            comp = self.pb_compress(labels, phrase_length)
+            idx = packed_slot.long()[..., None].expand(
+                -1, -1, comp.shape[-1])
+            x = torch.gather(comp, 1, idx)
+            if norm_mode == "complex":
+                x = x + self.word_embed(packed_ids)
+        h = self._decoder("PB")(self.posenc(x, rng=rng), memory, src_mask,
+                                packed_mask, rng, grouped)
+        return h if return_hidden else self.generate(h)
+
     def generate(self, h):
         return self.generator(h)
 
@@ -556,9 +646,19 @@ class BoFiCap(nn.Module):
             out["length_pred"] = self.nnaic_length(memory, rng)
             return out
         if mode == "PB_pad":
-            raise NotImplementedError(
-                "PB_pad training is not ported yet: ROADMAP.md section 1, "
-                "item 7")
+            # the packed layouts depend on the batch and are built on the
+            # host (data/pb_pack.py; the XE step feeds them, train/steps.py):
+            # this pass runs every PB module on a stand-in layout, as the
+            # JAX package's does
+            B = labels.shape[0]
+            out["pb_len_logprob"] = self.pb_length_predict(
+                labels, phrase_num, phrase_length, memory, src_mask, rng)
+            ids = labels[:, 1:-1]
+            out["pb_logprob"] = self.pb_decode(
+                ids, torch.zeros_like(ids), labels, phrase_length, mem_dec,
+                srcm_dec, torch.ones((B, L, L), dtype=torch.bool,
+                                     device=labels.device), **dec)
+            return out
 
         extend_syn = po.extend_syn_seq(phrase_length, phrase_syn, L)
         word_syn = extend_syn[:, 1:-1]                            # [B, L]
@@ -666,6 +766,7 @@ def build_model(cfg, vocab_size: int, device=None) -> BoFiCap:
         dropout_rate=cfg.get("dropout", 0.1),
         drop_prob_lm=cfg.get("drop_prob_lm", 0.5),
         self_dis=bool(cfg.get("self_dis", False)),
+        norm_mode=cfg.get("norm_mode", "copy") or "copy",
     )
     model.set_attention_core(bool(cfg.get("use_pallas", False)))
     return model

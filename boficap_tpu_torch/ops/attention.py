@@ -28,13 +28,17 @@ in float32 and cast to v's dtype.
 
 The kernel (csrc/attention.cuh) takes one of three paths, chosen by
 ``attention_path(Lq, Lk, dtype)`` as the C library chooses it: ``row`` for
-Lq <= LQ_ROW (the decode steps: one warp a (sample, head), K and V read
-with 16-byte loads), ``tile`` at bf16 above it (mma.sync tensor cores),
-``ffma`` at float32 above it.  The row and tile paths keep a query's whole
-score row in registers and read 16-byte chunks, so Lk <= KEY_MAX (and
-Dh <= DH_MAX) on every path, and every q, k and v view's base and strides,
-and the head width, must be 16-byte aligned: ``check_operands`` raises
-``ValueError`` otherwise, before any launch.
+Lq <= LQ_ROW and Lk <= KEY_MAX (the decode steps: one warp a (sample,
+head), K and V read with 16-byte loads, the score row in registers),
+``tile`` at bf16 otherwise (mma.sync tensor cores), ``ffma`` at float32
+otherwise.  The tile path holds KEY_MAX keys' scores in registers and goes
+over more in chunks of KEY_MAX with an online softmax (PB_pad's packed
+width reaches 211 keys); the ffma block keeps its score rows in shared
+memory.  Every path stages in at most the card's 227 KB of shared memory
+a block (``shared_bytes``) and takes heads of at most DH_MAX; every q, k
+and v view's base and strides, and the head width, must be 16-byte
+aligned: ``check_operands`` raises ``ValueError`` otherwise, before any
+launch.
 """
 
 from __future__ import annotations
@@ -60,11 +64,11 @@ PATHS = ("row", "tile", "ffma")     # csrc/attention.cuh AttentionPath
 def attention_path(Lq: int, Lk: int, dtype) -> Optional[str]:
     """The path of the attention block for an Lq x Lk attention at ``dtype``
     (the C library's ``bfc_attention_path``): 'row' up to LQ_ROW query
-    rows, then 'tile' at bf16 and 'ffma' at float32; None past the key
-    bound (no path: the wrappers raise)."""
-    if not 1 <= Lk <= KEY_MAX:
+    rows and KEY_MAX keys, else 'tile' at bf16 and 'ffma' at float32; None
+    without keys."""
+    if Lk < 1:
         return None
-    if Lq <= LQ_ROW:
+    if Lq <= LQ_ROW and Lk <= KEY_MAX:
         return "row"
     return "tile" if dtype == torch.bfloat16 else "ffma"
 
@@ -73,15 +77,15 @@ def _round16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def shared_bytes(Lq: int, Lk: int, Dh: int, dtype) -> int:
-    """Shared memory of one (sample, head) block on the path ``dtype``
-    takes (the C library's ``bfc_attention_core_scratch``): none on the row
-    path; the tile path's bf16 Q [16-row tiles][Dh + pad] and K, V [16-key
-    tiles][Dh + pad], rows padded to a multiple of 16 columns plus 8; the
-    ffma path's float32 K [Lk, Dh+1], V [Lk, Dh], Q [Lq, Dh] and a
-    probability row a warp (also past the key bound, where C has no
-    path)."""
-    path = attention_path(Lq, Lk, dtype)
+def shared_bytes(Lq: int, Lk: int, Dh: int, dtype,
+                 path: Optional[str] = None) -> int:
+    """Shared memory of one (sample, head) block on ``path`` (None: the one
+    ``attention_path`` gives; the C library's
+    ``bfc_attention_core_scratch``): none on the row path; the tile path's
+    bf16 Q [16-row tiles][Dh + pad] and K, V [16-key tiles][Dh + pad], rows
+    padded to a multiple of 16 columns plus 8; the ffma path's float32 K
+    [Lk, Dh+1], V [Lk, Dh], Q [Lq, Dh] and a probability row a warp."""
+    path = path or attention_path(Lq, Lk, dtype)
     if path == "row":
         return 0
     if path == "tile":
@@ -131,13 +135,14 @@ def _aligned16(t: torch.Tensor) -> bool:
         st * e % 16 == 0 for st in t.stride()[:-1])
 
 
-def check_operands(qh, kh, vh, mask) -> None:
+def check_operands(qh, kh, vh, mask, path: Optional[str] = None) -> None:
     """Raise on operands the kernel does not take: ranks, shapes, dtypes
     (q, k, v alike; a bool mask), devices, a last dimension that is not
-    dense, no keys, more keys than the key bound (KEY_MAX) or a head wider
-    than DH_MAX, a q, k or v view whose base, strides or head width is not
-    16-byte aligned (its 16-byte loads), or more shared memory than a block
-    has."""
+    dense, no keys, a head wider than DH_MAX, a q, k or v view whose base,
+    strides or head width is not 16-byte aligned (its 16-byte loads), a
+    ``path`` forced that the dtype lacks or the row path past the key
+    bound (KEY_MAX: its score row sits in registers), or more shared memory
+    than a block has on the path taken."""
     if qh.dim() != 4 or kh.dim() != 4 or vh.dim() != 4 or mask.dim() != 3:
         raise ValueError(f"attention_core takes q/k/v of rank 4 and a mask "
                          f"of rank 3, got {qh.dim()}, {kh.dim()}, "
@@ -164,9 +169,13 @@ def check_operands(qh, kh, vh, mask) -> None:
                              f"(stride {t.stride(-1)})")
     if Lk == 0 or Dh == 0:
         raise ValueError(f"attention_core needs keys: Lk {Lk}, Dh {Dh}")
-    if Lk > KEY_MAX:
-        raise ValueError(f"attention_core: {Lk} keys, over the key bound "
-                         f"{KEY_MAX} (a score row sits in registers)")
+    if path is not None and path not in ("row", "tile" if qh.dtype ==
+                                         torch.bfloat16 else "ffma"):
+        raise ValueError(f"no {path!r} path at {qh.dtype}")
+    if path == "row" and Lk > KEY_MAX:
+        raise ValueError(f"attention_core: {Lk} keys on the row path, over "
+                         f"the key bound {KEY_MAX} (its score row sits in "
+                         f"registers)")
     if Dh > DH_MAX:
         raise ValueError(f"attention_core: head width {Dh} over {DH_MAX}")
     if Dh * qh.element_size() % 16:
@@ -178,7 +187,7 @@ def check_operands(qh, kh, vh, mask) -> None:
                              f"aligned (base {t.data_ptr() % 16} bytes off, "
                              f"strides {t.stride()}): the kernel reads "
                              f"16-byte chunks")
-    smem = shared_bytes(Lq, Lk, Dh, qh.dtype)
+    smem = shared_bytes(Lq, Lk, Dh, qh.dtype, path)
     if smem > SMEM_LIMIT:
         raise ValueError(f"attention_core: Lq {Lq}, Lk {Lk}, Dh {Dh} need "
                          f"{smem} bytes of shared memory a block, over the "
@@ -195,10 +204,7 @@ def attention_core(qh, kh, vh, mask, path: Optional[str] = None):
     at float32) forces one, to time it."""
     if not _route(qh, kh, vh):
         return attention_core_plain(qh, kh, vh, mask)
-    check_operands(qh, kh, vh, mask)
-    if path is not None and path not in ("row", "tile" if qh.dtype ==
-                                         torch.bfloat16 else "ffma"):
-        raise ValueError(f"no {path!r} path at {qh.dtype}")
+    check_operands(qh, kh, vh, mask, path)
     B, H, Lq, Dh = qh.shape
     lib = _library()
     out = torch.empty((B, Lq, H, Dh), dtype=qh.dtype,

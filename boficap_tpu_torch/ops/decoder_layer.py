@@ -57,9 +57,10 @@ import torch
 
 MASK_FILL = -1e9
 NORM_EPS = 1e-6
-# the attention block (csrc/attention.cuh) holds a query's whole score row
-# in registers (no online rescaling): at most KEY_MAX keys, heads of at most
-# DH_MAX
+# the attention block (csrc/attention.cuh) of the layer and stack kernels
+# holds a query's whole score row in registers (no online rescaling): at
+# most KEY_MAX keys, heads of at most DH_MAX.  The attention core alone
+# (ops/attention.py) goes past KEY_MAX keys
 KEY_MAX = 128
 DH_MAX = 128
 

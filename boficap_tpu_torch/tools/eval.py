@@ -12,8 +12,9 @@ It reads a checkpoint the JAX package wrote (``model.ckpt``, flax msgpack;
 ``--dump_json 1``) in the working directory; ``--only_lang_eval 1`` scores
 the cached predictions again, with the multi-sample metrics of cached
 ``sample_n`` captions.  Every decoder of ``eval_split`` is reachable: NAIC,
-SAIC, NNAIC, AIC greedy, beam and diverse beam (``--group_size``), and
-``--sample_n`` captions (AIC).  ``--device`` is ``cuda`` by default;
+SAIC, NNAIC, PB_pad (``--pb_packed_width`` raises its packed-width cap),
+AIC greedy, beam and diverse beam (``--group_size``), and ``--sample_n``
+captions (AIC).  ``--device`` is ``cuda`` by default;
 ``--device cpu`` runs the plain path.
 
 Not ported (``NotImplementedError``, naming the ROADMAP item):

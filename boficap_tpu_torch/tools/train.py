@@ -40,9 +40,11 @@ the port follows the JAX package, the reference it is held against.
 
 Not ported (``NotImplementedError`` at parse time, naming the ROADMAP
 item, section 1): the mesh and multihost (item 11) and
-``--profile_steps`` (item 4's leftover); PB_pad training raises in the
-model's forward (item 7).  NNAIC (``--cfg configs/nnaic.yml``) trains and
-validates as the other train modes do.
+``--profile_steps`` (item 4's leftover).  NNAIC (``--cfg
+configs/nnaic.yml``) and PB_pad (``--cfg configs/pb.yml``: the batches
+carry the packed layouts, the validation decodes ``decode/pb.py``) train
+and validate as the other train modes do.  PB_pad has no RL sampler, as
+in the JAX package: its RL epochs sample no branch.
 """
 
 from __future__ import annotations

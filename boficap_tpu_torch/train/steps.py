@@ -3,7 +3,9 @@
 and the step body of tools/train.py:198-229).
 
 XE: one step is the teacher-forced forward of the model's train_mode
-(``BoFiCap.forward``), its loss (``losses.py``), the gradients by autograd
+(``BoFiCap.forward``; for PB_pad the length predictor and the packed
+decode over the batch's host-built layouts, the ``pb_*`` arrays of the
+loader's batch), its loss (``losses.py``), the gradients by autograd
 and one optimizer update (``train/optim.py``), plain PyTorch: no TPU
 kernel has a backward pass, and the kernel wrappers refuse tensors that
 require grad.  After the update the model's packed kernel weights are
@@ -50,6 +52,8 @@ from ..rewards.self_critical import _gts_dict, _native_ids, pack_refs
 
 PHRASE_MODES = ("NAIC", "SAIC", "UIC", "UIC_ds", "UIC_s", "UIC_u")
 LABEL_KEYS = ("labels", "masks", "phrase_num", "phrase_length", "phrase_syn")
+# PB_pad's packed layouts (data/pb_pack.py), one row a caption
+PB_KEYS = ("pb_labels", "pb_word_mask", "pb_ids", "pb_slot", "pb_mask")
 
 
 def _flat(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -60,14 +64,16 @@ def _flat(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """A loader batch's arrays as tensors on ``device`` (integers int64,
-    features float32); other entries (infos, gts, bounds) are left out."""
+    features float32, PB_pad's packed mask bool); other entries (infos,
+    gts, bounds) are left out."""
     out = {}
-    for k in ("att_feats", "att_masks") + LABEL_KEYS:
+    for k in ("att_feats", "att_masks") + LABEL_KEYS + PB_KEYS:
         v = batch.get(k)
         if v is None:
             continue
         t = torch.as_tensor(np.asarray(v))
-        t = t.long() if not t.is_floating_point() else t.float()
+        if t.dtype != torch.bool:
+            t = t.long() if not t.is_floating_point() else t.float()
         out[k] = t.to(device, non_blocking=True)
     return out
 
@@ -99,6 +105,30 @@ def ss_sa_forward(model, rng, att, am, labels, phrase_length, phrase_syn,
                                          loop["plan_len"], memory, src_mask,
                                          False, rng)
     return len_lp, syn_lp, word_lp, memory, src_mask
+
+
+def pb_loss(model, batch, f, rng, reduction: str):
+    """PB_pad's XE loss (JAX ``xe_loss_fn``'s PB branch): the memory
+    repeated to the caption rows, the per-slot length log-probs, the
+    packed decode over the batch's host-built layout, and
+    ``losses.pb_pad_loss``.  Returns (loss, metrics)."""
+    memory = model.encode(batch["att_feats"], batch["att_masks"], rng)
+    src_mask = batch["att_masks"].bool()
+    labels = f["labels"]
+    if labels.shape[0] != memory.shape[0]:
+        k = labels.shape[0] // memory.shape[0]
+        memory = memory.repeat_interleave(k, dim=0)
+        src_mask = src_mask.repeat_interleave(k, dim=0)
+    len_lp = model.pb_length_predict(labels, f["phrase_num"],
+                                     f["phrase_length"], memory, src_mask,
+                                     rng)
+    word_lp = model.pb_decode(batch["pb_ids"], batch["pb_slot"], labels,
+                              f["phrase_length"], memory, src_mask,
+                              batch["pb_mask"], rng)
+    d = Lm.pb_pad_loss(batch["pb_labels"][:, 1:], word_lp,
+                       batch["pb_word_mask"][:, 1:], f["phrase_num"],
+                       f["phrase_length"][:, 1:], len_lp, reduction)
+    return d.pop("loss"), d
 
 
 def xe_loss_fn(model, batch: Dict[str, torch.Tensor],
@@ -137,6 +167,13 @@ def xe_loss_fn(model, batch: Dict[str, torch.Tensor],
             loss = Lm.drop_worst(loss, drop_worst_rate)
         d["loss"] = loss
         return loss, d
+
+    if mode == "PB_pad":
+        loss, metrics = pb_loss(model, batch, f, rng, reduction)
+        if drop_worst_rate > 0:
+            loss = Lm.drop_worst(loss, drop_worst_rate)
+        metrics["loss"] = loss
+        return loss, metrics
 
     out = model(att, am, f["labels"], f.get("phrase_num"),
                 f.get("phrase_length"), f.get("phrase_syn"), glat_p=glat_p,
@@ -226,9 +263,13 @@ def make_xe_step(model, optimizer, label_smoothing: float = 0.0,
                 raise ValueError(f"batch {n} not divisible by grad_accum "
                                  f"{G}")
             m = n // G
+            # PB_pad's layouts have a row a caption: seq_per_img rows an
+            # image
+            S = batch["labels"].shape[1]
             acc, per = None, []
             for g in range(G):
-                mb = {k: v[g * m:(g + 1) * m] for k, v in batch.items()}
+                mb = {k: v[g * m * S:(g + 1) * m * S] if k in PB_KEYS
+                      else v[g * m:(g + 1) * m] for k, v in batch.items()}
                 _, metrics, grads = grads_of(mb, rng, glat_p, 0.0, ss_prob)
                 acc = grads if acc is None else torch._foreach_add(acc,
                                                                    grads)

@@ -132,7 +132,27 @@ Phases, each printing one JSON line:
               (dgreedy, 3 groups), #9's launches (6 x 20 a group) and ms
               on and off; eval_split with sample_n 3 by bs, dbs and
               sample, the multi-sample metrics in lang_stats.
- 15. times    each kernel's time beside its plain version's, one PyTorch
+ 15. pb       PB_pad (configs/pb.yml at full width, random weights from
+              the seed, the length head's bias centred so the B = 64 plans
+              hold 2-6 phrases): fused_encode + pb_decode with use_pallas
+              on (#9 on every attention of the predictor and the packed
+              decoder; #1 at float32, #4 at bf16) against the plain path,
+              float32 and bfloat16, at the default packed width 44 and the
+              lossless 211, by the first-divergence rule (the samples share
+              one packed layout); #9's launches (2 a predictor layer a
+              round, 2 N_dec a fill), the encode's, the rounds and host
+              syncs; the
+              predictor and the packed decoder with #9 against plain on
+              the same layout; each decode's ms (kernels and plain) on a
+              line of its own with the card.  #9 alone at Lq = Lk = 129,
+              211, 256 and at 211 x 36, both dtypes, against its twin
+              (the row path forced raises), with ms, bound and SDPA.  One
+              float32 PB XE step card vs CPU on a 10 x 5 batch and 10 bf16
+              steps whose loss falls; eval_split through model.ckpt at the
+              lossless width on the kernels against plain; the model as a
+              reference model.pth through the convert CLI, loaded bitwise
+              and evaluated to its source's captions.
+ 16. times    each kernel's time beside its plain version's, one PyTorch
               library call's (a yardstick the port never calls) and the
               least time the card could take (bound); decode times,
               launches and host syncs per decode; #9's host cost a call,
@@ -294,8 +314,9 @@ def build(dtype=None, config: str = "uic_sd.yml", vocab=None):
     if dtype is not None:
         cfg.dtype = dtype
     model = init_params(cfg, vocab or VOCAB, seed=SEED, device=DEV).eval()
-    if not model.n_lp:
-        return model                  # an AR model: no length predictor
+    if not model.n_lp or model.train_mode == "PB_pad":
+        # an AR model: no length predictor; PB_pad's: shape_pb_plans
+        return model
     # Random weights plan empty captions (the length head's argmax is
     # "stop" for every image), which would leave the fill and the head
     # nothing to decide.  Nudge the length head toward 1-3 word phrases and
@@ -2963,6 +2984,440 @@ def check_decoders(aic) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase pb: PB_pad (configs/pb.yml at full width) on the card
+# ---------------------------------------------------------------------------
+
+# pb.yml's default packed width, 2 (L + 2), and the lossless one, L (L + 1)
+# / 2 + 1: no batch's plans pass it, so no sample is clamped
+PB_WIDTHS = (2 * (L + 2), L * (L + 1) // 2 + 1)
+# the encode's kernel at B = 64: the stack (#4) at bf16, the layer (#1) at
+# float32
+PB_ENCODE = {"float32": "encoder_layer", "bfloat16": "encoder_stack"}
+# the length head favours 3-7 word phrases, so the plans of 20 words hold
+# 2-6 phrases
+PB_FAVOURED, PB_FAVOUR = range(3, 8), 2.0
+# #9 alone past the row path's 128 keys: (Lq, Lk), the packed decoder's
+# self-attention at 211 and its cross-attention over the regions among them
+PB_ATTENTION = ((129, 129), (211, 211), (256, 256), (211, R))
+PB_STEPS = 10                 # bf16 XE steps on one repeated batch
+
+
+def pb_opt(**fields):
+    """configs/pb.yml over the synthetic corpus, a constant Adam rate."""
+    return eval_opt("pb.yml", id="smokepb", noamopt=False,
+                    learning_rate=TRAIN_LR, learning_rate_decay_start=-1,
+                    **fields)
+
+
+def pb_start(n: int):
+    """The decode's first round: bos-framed words, phrase lengths (the bos
+    phrase) and phrase counts of ``n`` samples."""
+    from boficap_tpu_torch.constants import BOS
+    seq = torch.zeros((n, L + 2), dtype=torch.long, device=DEV)
+    seq[:, 0] = BOS
+    pl = torch.zeros_like(seq)
+    pl[:, 0] = 1
+    return seq, torch.ones(n, dtype=torch.long, device=DEV), pl
+
+
+@torch.no_grad()
+def shape_pb_plans(models, att, am) -> dict:
+    """Random weights predict one phrase length for almost every image.
+    Centre the length head's bias on the first model's mean log-probs of
+    the first round's prediction over these images and raise the
+    PB_FAVOURED lengths by PB_FAVOUR, so each image's own deviation picks
+    among them.  The same bias goes to every model."""
+    m = models[0]
+    seq, pn, pl = pb_start(att.shape[0])
+    lp = m.pb_length_predict(seq, pn, pl, m.encode(att, am), am.bool())[:, 0]
+    nudge = -lp.mean(0)
+    nudge[list(PB_FAVOURED)] += PB_FAVOUR
+    for model in models:
+        model.len_head2.bias += nudge.to(model.len_head2.bias.dtype)
+        model.invalidate_packed()
+    return {"bias_nudge": nudge.tolist(),
+            "logprob_spread": (lp - lp.mean(0)).std().item()}
+
+
+@torch.no_grad()
+def plain_pb(model, memory, src, W: int):
+    """pb_decode on the plain path, and the top-2 log-prob margins of its
+    decisions: the length head's at each sample's decision slot, [rounds,
+    B], and the head window's at each row, [fills, B, WG]."""
+    from boficap_tpu_torch.decode import pb
+    lens, words = [], []
+    predict, generate = model.pb_length_predict, model.generate
+
+    def rec_predict(seq, pn, pl, *a, **kw):
+        lp = predict(seq, pn, pl, *a, **kw)
+        top2 = lp[torch.arange(lp.shape[0], device=DEV), pn - 1].topk(
+            2, -1).values
+        lens.append(top2[:, 0] - top2[:, 1])
+        return lp
+
+    def rec_generate(h):
+        lp = generate(h)
+        top2 = lp.float().topk(2, -1).values
+        words.append(top2[..., 0] - top2[..., 1])
+        return lp
+
+    model.pb_length_predict, model.generate = rec_predict, rec_generate
+    try:
+        out = pb.pb_decode(model, memory, src, packed_width=W)
+    finally:
+        del model.pb_length_predict, model.generate
+    return out, torch.stack(lens), torch.stack(words)
+
+
+def pb_agree(got, want, len_m, word_m, W: int, what: str,
+             noise: float = MARGIN_NOISE, lp_tol=LOGPROB_TOL) -> dict:
+    """The first-divergence rule (PARITY.md) for PB_pad, whose samples
+    share one packed layout (a sample's phrase length moves its batchmates'
+    positions): the decisions are identical up to the first round in which
+    any sample's differs, and each sample that differs there differs at a
+    decision (its phrase length, else its first differing word of that
+    round's phrase) where the plain path's top-2 margin is below
+    ``noise``.  Past that round the layouts differ and nothing is
+    compared.  The token log-probs and entropies of the words decided
+    before it within ``lp_tol`` (None: reported only)."""
+    pl_w = want["phrase_length"]
+    ends = pl_w.cumsum(1)
+    starts = ends - pl_w
+    len_diff = got["phrase_length"] != pl_w
+    seq_diff = got["seq"] != want["seq"]
+    k_len = torch.where(len_diff.any(1), len_diff.int().argmax(1), L)
+    p_word = torch.where(seq_diff.any(1), seq_diff.int().argmax(1), L)
+    k_word = torch.where(seq_diff.any(1),
+                         (ends <= p_word[:, None]).sum(1), L)
+    first = torch.minimum(k_len, k_word)
+    R = int(first.min())
+    margins = []
+    if R < L:
+        col_max = pl_w.max(0).values
+        q0 = int(col_max[:R].sum())
+        WG = min(L + 1, W)
+        q0c = min(max(q0, 0), W - WG)
+        for b in torch.nonzero(first == R)[:, 0].tolist():
+            if k_len[b] == R:
+                at = (len_m[R, b].item() if R < len_m.shape[0]
+                      else math.inf)
+                kind = "length"
+            else:
+                idx = q0 - q0c + int(p_word[b] - starts[b, R])
+                at = (word_m[R, b, idx].item() if R < word_m.shape[0]
+                      else math.inf)
+                kind = "word"
+            margins.append({"sample": b, "decision": kind, "margin": at})
+            if not at < noise:
+                fail(f"{what}: sample {b}'s {kind} at round {R} differs "
+                     f"with the plain margin {at} >= {noise}")
+    before = (torch.arange(L, device=DEV)[None, :] < starts[:, R:R + 1]
+              if R < L else torch.ones_like(seq_diff))
+    e_tok = (got["tok_logprobs"] - want["tok_logprobs"]).abs()[before]
+    e_ent = (got["entropy"] - want["entropy"]).abs()[before]
+    e_tok = e_tok.max().item() if e_tok.numel() else 0.0
+    e_ent = e_ent.max().item() if e_ent.numel() else 0.0
+    if lp_tol is not None and not max(e_tok, e_ent) <= lp_tol:
+        fail(f"{what}: tok/entropy err {e_tok} {e_ent}")
+    return {"first_divergent_round": None if R == L else R,
+            "plain_rounds": len_m.shape[0],
+            "samples_differing": int((first < L).sum()),
+            "divergent_decisions": margins,
+            "tok_logprob_err": e_tok, "entropy_err": e_ent}
+
+
+@torch.no_grad()
+def pb_forward_err(model, memory, src, want, W: int) -> dict:
+    """The predictor's log-probs and the packed decoder's hidden states
+    over the plain decode's final plan and layout (the same inputs), with
+    the attention core (#9) against the plain attend: rel err each."""
+    from boficap_tpu_torch.decode import pb
+    n = want["seq"].shape[0]
+    seq, pn, pl = pb_start(n)
+    seq[:, 1:-1] = want["seq"]
+    pl[:, 1:-1] = want["phrase_length"]
+    pn = pn + want["phrase_num"]
+    ids, slot, mask, _ = pb.packed_layout(seq, pl, L + 1, W)
+
+    def run():
+        return (model.pb_length_predict(seq, pn, pl, memory, src),
+                model.pb_decode(ids, slot, seq, pl, memory, src, mask,
+                                return_hidden=True))
+
+    plain = run()
+    core = with_core(model, True, run)
+    return {"length_logprob_rel_err": rel_err(core[0], plain[0]),
+            "hidden_rel_err": rel_err(core[1], plain[1])}
+
+
+@torch.no_grad()
+def check_pb_decode(model, dtype_name: str, att, am, W: int) -> dict:
+    """fused_encode + pb_decode with use_pallas on (#9 on every attention
+    of the predictor and the packed decoder) against the plain path at the
+    model's dtype and packed width ``W``, by the first-divergence rule
+    (MARGIN_NOISE and LOGPROB_TOL at float32, BF16_MARGIN_NOISE at bf16,
+    where at most a quarter of the samples may diverge at the first
+    divergent round); #9's launches, 2 a predictor layer a round and 2
+    N_dec a fill, and the encode's kernel; rounds and host syncs; the
+    forward with and without #9 on the plain decode's layout; both
+    decodes' ms (CUDA events, the mean of 3)."""
+    from boficap_tpu_torch.decode import bound_fill as bf
+    from boficap_tpu_torch.decode import pb
+    src = am.bool()
+    memory = model.encode(att, am)
+    want, len_m, word_m = plain_pb(model, memory, src, W)
+    stats = {}
+
+    def kernels(st=None):
+        return pb.pb_decode(model, bf.fused_encode(model, att, am), src,
+                            packed_width=W, stats=st)
+
+    got, launches = with_core(model, True,
+                              lambda: counted(lambda: kernels(stats)))
+    what = f"pb {dtype_name} W={W}"
+    if stats["host_syncs"] != stats["rounds"]:
+        fail(f"{what}: {stats}")
+    want_core = (2 * model.n_lp * stats["rounds"]
+                 + 2 * model.N_dec * stats["fills"])
+    if launches["attention_core"] != want_core:
+        fail(f"{what}: attention_core launched "
+             f"{launches['attention_core']} times, not {want_core} "
+             f"({stats})")
+    enc = PB_ENCODE[dtype_name]
+    want_enc = 1 if enc == "encoder_stack" else model.N_enc
+    others = {k: v for k, v in launches.items()
+              if v and k not in ("attention_core", enc)}
+    if launches[enc] != want_enc or others:
+        fail(f"{what}: encode launches {launches}, not {want_enc} of {enc}")
+    bf16 = dtype_name == "bfloat16"
+    res = pb_agree(got, want, len_m, word_m, W, what,
+                   *((BF16_MARGIN_NOISE, None) if bf16 else ()))
+    if bf16 and len(res["divergent_decisions"]) > B // 4:
+        fail(f"{what}: {len(res['divergent_decisions'])} samples diverge "
+             f"at round {res['first_divergent_round']}")
+    fwd = pb_forward_err(model, memory, src, want, W)
+    tol = TOL[dtype_name]
+    if not max(fwd.values()) <= tol:
+        fail(f"{what}: forward with #9 against plain {fwd} > {tol}")
+    return {**res, "forward_with_core": fwd, "stats": stats,
+            "launches": launches, "attention_core_expected": want_core,
+            "phrase_num_histogram": torch.bincount(
+                want["phrase_num"], minlength=L + 1).tolist(),
+            "packed_width_used": int(want["phrase_length"].max(0).values
+                                     .sum()),
+            "ms": with_core(model, True, lambda: timed(kernels, 3, 0)),
+            "plain_ms": timed(lambda: pb.pb_decode(
+                model, model.encode(att, am), src, packed_width=W), 3, 0)}
+
+
+@torch.no_grad()
+def check_pb_attention() -> dict:
+    """#9 alone past the row path's key bound, B = 64, H = 8, Dh = 64:
+    the path attention_path gives (tile at bf16: its online softmax over
+    chunks of 128 keys; ffma at float32) and that path forced, against the
+    plain twin within TOL, a fully masked sample and row among the
+    operands; the row path forced raises ValueError.  Device ms of the
+    kernel, the plain twin and SDPA (the yardstick), and the byte bound."""
+    from boficap_tpu_torch.ops import attention as at
+    g = torch.Generator().manual_seed(41)
+    H, Dh = 8, D // 8
+    out = {}
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        for Lq, Lk in PB_ATTENTION:
+            def heads(rows):
+                return torch.randn((B, rows, H, Dh), generator=g).to(
+                    DEV, dtype).transpose(1, 2)
+            q, k, v = heads(Lq), heads(Lk), heads(Lk)
+            live = torch.randint(1, Lk + 1, (B,), generator=g)
+            live[0] = 0
+            m = (torch.arange(Lk)[None, None, :] < live[:, None, None]
+                 ).expand(B, Lq, Lk).contiguous()
+            m[1, 0] = False
+            m = m.to(DEV)
+            path = at.attention_path(Lq, Lk, dtype)
+            want = at.attention_core_plain(q, k, v, m)
+            errs = {}
+            for forced in (None, path):
+                got = at.attention_core(q, k, v, m, path=forced)
+                torch.cuda.synchronize()
+                e = rel_err(got, want)
+                if not torch.isfinite(got.float()).all() or e > TOL[
+                        dtype_name]:
+                    fail(f"attention_core {Lq}x{Lk} {dtype_name} path "
+                         f"{forced or path}: rel err {e}")
+                errs[forced or "auto"] = {
+                    "rel_err": e, "max_abs_err": (got.float() - want.float())
+                    .abs().max().item()}
+            if Lk > at.KEY_MAX:
+                try:
+                    at.attention_core(q, k, v, m, path="row")
+                    fail(f"attention_core {Lq}x{Lk}: the row path took "
+                         f"{Lk} keys")
+                except ValueError:
+                    pass
+            bound, by = attention_bound(q, k, v, m, dtype_name)
+            out[f"{dtype_name}_{Lq}x{Lk}"] = {
+                "path": path, **errs["auto"], "by_path": errs,
+                "shared_bytes": at.shared_bytes(Lq, Lk, Dh, dtype),
+                "ms": device_ms(lambda: at.attention_core(q, k, v, m)),
+                "plain_ms": device_ms(lambda: at.attention_core_plain(
+                    q, k, v, m)),
+                "library_ms": device_ms(lambda: library_attention(q, k, v,
+                                                                  m)),
+                "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def check_pb_train() -> dict:
+    """One PB_pad float32 XE step on the card against the CPU on a 10 x 5
+    batch with its packed layouts (the loss to 1e-5 relative, every
+    gradient leaf to 1e-4 of its largest magnitude, the ReLU sides
+    aligned), and PB_STEPS bf16 steps with dropout 0.1 on that batch:
+    every loss finite, the mean of the last three below the first three's."""
+    from boficap_tpu_torch.train import steps
+    _, batch = train_batch(pb_opt())
+    res = {"batch_captions": int(batch["labels"].shape[0]
+                                 * batch["labels"].shape[1]),
+           "packed_width": int(batch["pb_ids"].shape[1]),
+           "cross_device_float32": check_cross_device(
+               batch, pb_opt(dtype="float32", dropout=0.0,
+                             drop_prob_lm=0.0))}
+    model, step = trainer(pb_opt(dropout=0.1))
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    tb = steps.to_device(batch, DEV)
+    rows = []
+    for _ in range(PB_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(tb, gen)
+        torch.cuda.synchronize()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     **{k: float(m[k]) for k in ("loss", "phrase_loss",
+                                                 "length_loss")}})
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"pb train: a loss is not finite: {losses}")
+    if not sum(losses[-3:]) < sum(losses[:3]):
+        fail(f"pb train: the loss did not fall: {losses}")
+    res["steps_bfloat16"] = {"steps": rows, "step_ms_median": sorted(
+        r["ms"] for r in rows[3:])[3]}
+    return res
+
+
+def pb_eval_agree(model, W: int):
+    def agree(got, want, memory, src):
+        _, len_m, word_m = plain_pb(model, memory, src, W)
+        return pb_agree(got, want, len_m, word_m, W, "eval PB_pad float32")
+    return agree
+
+
+@torch.no_grad()
+def check_pb_eval_convert(model32, tmp: str) -> tuple:
+    """The float32 model through model.ckpt (the port's writer and reader,
+    bitwise), then eval_split at B = 64 and the lossless packed width on
+    the kernels (#1 and #9) against the plain path, by the first-divergence
+    rule.  Then the model as the original reference's model.pth (its key
+    schema, written by torch.save) through the port's convert CLI in a
+    subprocess: the converted model.ckpt loads bitwise, and its eval_split
+    on the kernels gives the captions of the model it came from.  Returns
+    (result, the kernel eval's launches)."""
+    from boficap_tpu_torch.convert import load_jax_checkpoint, to_jax_tree
+    from boficap_tpu_torch.eval import eval_utils
+    from boficap_tpu_torch.models import setup
+    from tests._torch_port_refschema import reference_state_dict
+    W = PB_WIDTHS[1]
+    opt = pb_opt(batch_size=B, dtype="float32")
+    loader = eval_loader(opt)
+    loaded, rt = round_trip(model32, opt, loader, os.path.join(tmp, "pb"))
+    kw = {"split": "test", "num_images": -1, "language_eval": 1,
+          "verbose_loss": 0, "pb_packed_width": W}
+    res = {"round_trip": rt, "eval_float32": eval_pair(
+        loaded, loader, "", "float32", kw, ("encoder_layer",
+                                            "attention_core"),
+        pb_eval_agree(loaded, W), core=True)}
+    launches = res["eval_float32"]["launches"]
+
+    sd = reference_state_dict(to_jax_tree(model32), "PB_pad")
+    pth = os.path.join(tmp, "model.pth")
+    torch.save(sd, pth)
+    vocab_json = os.path.join(tmp, "vocab.json")
+    with open(vocab_json, "w") as f:
+        json.dump({"ix_to_word": loader.ix_to_word}, f)
+    out_dir = os.path.join(tmp, "converted")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "boficap_tpu_torch.tools.convert", "--torch",
+         pth, "--train_mode", "PB_pad", "--input_json", vocab_json,
+         "--out_dir", out_dir, "--id", "converted"],
+        cwd=tmp, env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+        text=True, timeout=600)
+    if run.returncode != 0:
+        fail(f"convert CLI: exit {run.returncode}: {run.stderr[-2000:]}")
+    cli_s = time.perf_counter() - t0
+    conv = load_jax_checkpoint(os.path.join(out_dir, "model.ckpt"),
+                               setup(opt, VOCAB, DEV)).eval()
+    differ = [n for (n, a), (_, b) in zip(conv.named_parameters(),
+                                          model32.named_parameters())
+              if not torch.equal(a, b)]
+    if differ:
+        fail(f"convert: {len(differ)} parameters differ, e.g. {differ[:3]}")
+    conv.set_attention_core(True)
+    try:
+        got = eval_utils.eval_split(conv, loader,
+                                    {**kw, "use_cuda_fill": "auto"})
+    finally:
+        conv.set_attention_core(False)
+    orig = with_core(loaded, True, lambda: eval_utils.eval_split(
+        loaded, loader, {**kw, "use_cuda_fill": "auto"}))
+    caps = [p["caption"] for p in got["predictions"]]
+    if caps != [p["caption"] for p in orig["predictions"]]:
+        fail("convert: the converted model's captions differ from its "
+             "source's")
+    res["convert"] = {"reference_keys": len(sd), "cli_s": cli_s,
+                      "ckpt_bytes": os.path.getsize(
+                          os.path.join(out_dir, "model.ckpt")),
+                      "parameters_bitwise": True,
+                      "captions": len(caps), "captions_equal": len(caps),
+                      "captions_nonempty": sum(bool(c) for c in caps),
+                      "example": caps[0][:80]}
+    return res, launches
+
+
+def check_pb(smi: str) -> tuple:
+    """Phase pb (see the module docstring); returns (result, the kernel
+    launches of its decodes on the kernels and its eval, the #9 rows past
+    the key bound)."""
+    t_phase = time.perf_counter()
+    models = {"float32": build("float32", "pb.yml"),
+              "bfloat16": build(None, "pb.yml")}
+    att, am = features(B, seed=37)
+    att, am = att.to(DEV), am.to(DEV)
+    res = {"config": "pb.yml",
+           "plans": shape_pb_plans(list(models.values()), att, am)}
+    launches, times = {}, {}
+    for dtype_name, model in models.items():
+        for W in PB_WIDTHS:
+            r = check_pb_decode(model, dtype_name, att, am, W)
+            res[f"decode_{dtype_name}_w{W}"] = r
+            times[f"{dtype_name}_w{W}"] = {"ms": r["ms"],
+                                           "plain_ms": r["plain_ms"],
+                                           "rounds": r["stats"]["rounds"]}
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    emit({"phase": "pb_decode_ms", "card": smi, "B": B, **times})
+    res["attention_past_key_bound"] = check_pb_attention()
+    res["train"] = check_pb_train()
+    with tempfile.TemporaryDirectory(prefix="boficap_pb_") as tmp:
+        ev, ev_launches = check_pb_eval_convert(models["float32"], tmp)
+    res.update(ev)
+    for k, v in ev_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -3463,7 +3918,9 @@ def profile_split(fn, parts, reps: int = 10, tries: int = 3):
     cycle before the ``reps`` recorded ones, a kernel's launches a call
     are its recorded count over ``reps``, rounded, and its ms a call the
     mean of its recorded launches times that; a window with no kernel
-    recorded is taken again, up to ``tries`` times."""
+    recorded, or with a kernel whose count is not a whole number of calls
+    (the profiler lost launches of one), is taken again, up to ``tries``
+    times."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
@@ -3481,6 +3938,7 @@ def profile_split(fn, parts, reps: int = 10, tries: int = 3):
                 prof.step()
         split = {k: 0.0 for k in (*parts, "other")}
         launches = {k: 0 for k in split}
+        whole = True
         for row in (cycles[-1] if cycles else []):
             dev_us = getattr(row, "self_device_time_total",
                              getattr(row, "self_cuda_time_total", 0.0))
@@ -3490,9 +3948,10 @@ def profile_split(fn, parts, reps: int = 10, tries: int = 3):
             part = next((k for k, v in parts.items() if v in row.key),
                         "other")
             n = round(row.count / reps)
+            whole = whole and row.count == n * reps
             split[part] += dev_us / 1e3 / row.count * n
             launches[part] += n
-        if any(launches.values()):
+        if any(launches.values()) and whole:
             break
     return {**{f"{k}_ms": v for k, v in split.items()},
             "launches": launches}
@@ -4024,7 +4483,7 @@ def main():
 
 
 def run_phases(smi: str):
-    """Phases 2-15; returns the {"kernels": [...]} list."""
+    """Phases 2-16; returns the {"kernels": [...]} list."""
     # the same random weights at both compute dtypes: float32 for the
     # decode comparisons, the default (bfloat16) for the main paths
     model = build("float32")
@@ -4076,6 +4535,8 @@ def run_phases(smi: str):
     del model_t
     decoders, dec_launches = check_decoders(aic)
     emit({"phase": "decoders", "card": smi, **decoders})
+    pb_res, pb_launches = check_pb(smi)
+    emit({"phase": "pb", "card": smi, **pb_res})
     unforce_long([model, model16], long_shift)
     times = measure(model, model16)
     times["products_bf16"] = measure_products(torch.bfloat16)
@@ -4123,11 +4584,19 @@ def run_phases(smi: str):
             "eval_launches": eval_launches.get(name, 0),
             "train_val_launches": train_launches.get(name, 0),
             "rl_launches": rl_launches.get(name, 0),
-            "decoders_launches": dec_launches.get(name, 0)})
+            "decoders_launches": dec_launches.get(name, 0),
+            "pb_launches": pb_launches.get(name, 0)})
         if name in ("encoder_layer", "decoder_layer"):
             # #1 and #2 at bf16 run at B > 128: the B = 256 NA decode
             kernels[-1]["bf16"]["launches"] = bf16_dec[
                 "na_decode_b256_per_layer"]["launches"][name]
+        if name == "attention_core":
+            # past the row path's 128 keys: PB_pad's packed widths
+            kernels[-1]["pb_past_key_bound"] = {
+                case: {key: r[key] for key in (
+                    "path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}
+                for case, r in pb_res["attention_past_key_bound"].items()}
     return kernels
 
 

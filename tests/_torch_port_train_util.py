@@ -49,7 +49,8 @@ def train_loader(mode, batch_size=2):
 
 def jax_batch(b):
     return {k: jnp.asarray(np.asarray(b[k]))
-            for k in ("att_feats", "att_masks") + tsteps.LABEL_KEYS
+            for k in (("att_feats", "att_masks") + tsteps.LABEL_KEYS
+                      + tsteps.PB_KEYS)
             if b.get(k) is not None}
 
 

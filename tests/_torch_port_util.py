@@ -33,8 +33,8 @@ def make_pair(train_mode: str = "UIC", input_mode: str = "add",
     dropout, drop_prob_lm) set in both configs.  The length and syntax
     heads' biases (where the train_mode has them; AIC has none) are nudged
     (in numpy, before both models get them) so the random model plans
-    non-empty captions of varied length; NNAIC's length head's too, so its
-    lengths spread over 0..L-1."""
+    non-empty captions of varied length (PB_pad has no syntax head);
+    NNAIC's length head's too, so its lengths spread over 0..L-1."""
     cfg = tiny_cfg(train_mode, N_len=n_len)
     cfg.max_length = L
     cfg.decoder_input_mode = input_mode
@@ -51,10 +51,15 @@ def make_pair(train_mode: str = "UIC", input_mode: str = "add",
     rs = np.random.RandomState(seed + 100)
     p = tree["params"]
     if "len_head2" in p:
+        # PB_pad stops at a predicted length 0 (the others' plans stop on
+        # the syntax head): away from it, toward 1-4 word phrases
+        lead = ([-1.0] + [1.5] * 4 if train_mode == "PB_pad"
+                else [1.0] + [1.5] * 3)
         p["len_head2"]["bias"] = (p["len_head2"]["bias"]
-                                  + np.array([1.0] + [1.5] * 3 + [0.0] * 16,
+                                  + np.array(lead + [0.0] * (20 - len(lead)),
                                              np.float32)
                                   + rs.randn(20).astype(np.float32) * 0.5)
+    if "syn_head2" in p:
         p["syn_head2"]["bias"] = (p["syn_head2"]["bias"]
                                   + np.array([0] * 4 + [2.0] * 3 + [0] * 3,
                                              np.float32))

@@ -146,19 +146,21 @@ def test_check_operands_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_check_operands_key_bound_and_alignment(dtype):
-    """Past the key bound (a score row sits in registers), and on a q, k or
-    v view whose base, row stride or head width is not 16-byte aligned, the
-    wrapper raises ValueError before any launch; the bound itself and the
-    aligned views attend hands over pass."""
+    """The row path forced past the key bound (its score row sits in
+    registers), and a q, k or v view whose base, row stride or head width
+    is not 16-byte aligned, raise ValueError before any launch; the bound
+    itself on the row path, more keys on the path attention_path gives
+    (tile or ffma), and the aligned views attend hands over pass."""
     B, H, Lq, Dh = 2, 2, 1, 32
     q = torch.zeros(B, H, Lq, Dh, dtype=dtype)
     edge = torch.zeros(B, H, at.KEY_MAX, Dh, dtype=dtype)
     at.check_operands(q, edge, edge, torch.ones(B, Lq, at.KEY_MAX,
-                                                dtype=torch.bool))
+                                                dtype=torch.bool), "row")
     over = torch.zeros(B, H, at.KEY_MAX + 1, Dh, dtype=dtype)
+    m_over = torch.ones(B, Lq, at.KEY_MAX + 1, dtype=torch.bool)
+    at.check_operands(q, over, over, m_over)
     with pytest.raises(ValueError, match="key bound"):
-        at.check_operands(q, over, over, torch.ones(B, Lq, at.KEY_MAX + 1,
-                                                    dtype=torch.bool))
+        at.check_operands(q, over, over, m_over, "row")
     Lk = 5
     k = torch.zeros(B, H, Lk, Dh, dtype=dtype)
     m = torch.ones(B, Lq, Lk, dtype=torch.bool)
@@ -195,7 +197,15 @@ CALLERS = {
     "narrow_cross": (8, 36, "ffma", "tile"),
     "wide_self": (20, 20, "ffma", "tile"),
     "wide_cross": (20, 36, "ffma", "tile"),
-    "past_the_key_bound": (1, 129, None, None),
+    "past_the_key_bound": (1, 129, "ffma", "tile"),
+    # PB_pad: the predictor's self-attention over L + 2 slots, the packed
+    # decoder's self-attention at the default and the lossless width, and
+    # its cross-attention
+    "pb_predictor": (22, 22, "ffma", "tile"),
+    "pb_self_default": (44, 44, "ffma", "tile"),
+    "pb_self_lossless": (211, 211, "ffma", "tile"),
+    "pb_cross_lossless": (211, 36, "ffma", "tile"),
+    "no_keys": (3, 0, None, None),
 }
 
 
@@ -219,6 +229,13 @@ def test_attention_path_for_every_caller(caller, dtype):
      4 * (20 * 65 + 20 * 64 + 20 * 64 + 4 * 20)),
     (3, 500, 64, torch.float32,                        # past the key bound
      4 * (500 * 65 + 500 * 64 + 3 * 64 + 4 * 500)),
+    # PB_pad's lossless packed width, and 256 keys: past 48 KB on both
+    # paths (the kernels opt in to the larger carve-out)
+    (211, 211, 64, torch.float32, 166268),
+    (211, 211, 64, torch.bfloat16, 96768),
+    (256, 256, 64, torch.float32, 201728),
+    (256, 256, 64, torch.bfloat16, 110592),
+    (1, 129, 64, torch.bfloat16, 2 * (16 + 2 * 144) * 72),  # no row path
 ])
 def test_shared_bytes_follow_the_staging(Lq, Lk, Dh, dtype, want):
     """A block's shared memory on each path: none on the row path; bf16 Q,

@@ -22,7 +22,10 @@ values (float32, 1e-4), the re-score launches no kernel, and each sampling
 method's draws from a CUDA generator follow their closed form.  The
 remaining decoders: NNAIC on the kernels gives the plain path's captions
 at float32, its length-0 rows (every key masked) included; diverse beam
-search with the attention core gives the plain attend's beams.
+search with the attention core gives the plain attend's beams.  The
+attention core past 128 keys (129, 211 and 256) on the tile and ffma paths
+against its twin, and the PB_pad decode with the core against the plain
+path at a packed width of 211.
 """
 
 import pytest
@@ -1157,3 +1160,72 @@ def test_diverse_beam_search_core_matches_plain(cuda):
     assert torch.equal(got["seq"], want["seq"])
     for k in ("scores", "tok_logprobs"):
         assert (got[k] - want[k]).abs().max().item() <= 1e-4, k
+
+
+@pytest.mark.parametrize("Lq,Lk", [(129, 129), (211, 211), (256, 256),
+                                   (1, 211), (211, 36)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_past_key_bound_against_plain(cuda, dtype, Lq, Lk):
+    """The attention core past the row path's 128 keys (PB_pad's lossless
+    packed width is 211): the path attention_path gives (tile at bf16, with
+    its online softmax over chunks of 128 keys; ffma at float32), and that
+    path forced, against the plain twin, with a fully masked sample and
+    row; the row path forced raises ValueError before any launch."""
+    from boficap_tpu_torch.ops import attention as at
+    q, k, v, m = _attention_operands(cuda, dtype, 6, Lq, Lk)
+    want = at.attention_core_plain(q, k, v, m)
+    path = at.attention_path(Lq, Lk, dtype)
+    assert path == ("tile" if dtype == torch.bfloat16 else "ffma")
+    at.attention_core.launches = 0
+    for forced in (None, path):
+        got = at.attention_core(q, k, v, m, path=forced)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got, want) < TOL[dtype], forced
+    if Lk > at.KEY_MAX:
+        with pytest.raises(ValueError, match="key bound"):
+            at.attention_core(q, k, v, m, path="row")
+    assert at.attention_core.launches == 2
+
+
+@pytest.mark.parametrize("width", [44, 211])
+def test_pb_decode_core_matches_plain(cuda, width):
+    """float32: pb_decode with the attention core (#9) on the predictor's
+    and the packed decoder's attentions, and the encoder kernels, against
+    the plain path at packed widths 44 and 211 (pb.yml's default and
+    lossless widths, L = 20; this model's L = 8, so #9 attends over 211
+    keys and nothing clamps): tokens and plans identical, token log-probs
+    and entropies within 1e-4; #9 launched 2 a round for the predictor and
+    2 a layer a fill."""
+    from boficap_tpu_torch.decode import bound_fill as bf
+    from boficap_tpu_torch.decode import pb
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    model = _small_model(cuda, "PB_pad")
+    with torch.no_grad():
+        model.len_head2.bias += torch.tensor(
+            [-2.0] + [1.5] * 4 + [0.0] * 15, device=cuda)
+    g = torch.Generator().manual_seed(6)
+    att = torch.randn(7, 9, 2048, generator=g).to(cuda)
+    am = (torch.arange(9)[None, :] < torch.tensor([9, 4, 9, 2, 7, 9, 1])
+          [:, None]).float().to(cuda)
+    want = pb.pb_decode(model, model.encode(att, am), am.bool(),
+                        packed_width=width)
+    model.set_attention_core(True)
+    try:
+        reset_launch_counts()
+        st = {}
+        got = pb.pb_decode(model, bf.fused_encode(model, att, am), am.bool(),
+                           packed_width=width, stats=st)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        model.set_attention_core(False)
+    assert counts["attention_core"] == (2 * model.n_lp * st["rounds"]
+                                        + 2 * model.N_dec * st["fills"])
+    assert counts["encoder_layer"] == model.N_enc
+    assert st["host_syncs"] == st["rounds"] > 1
+    for k in ("seq", "phrase_num", "phrase_length"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("tok_logprobs", "entropy"):
+        assert (got[k] - want[k]).abs().max().item() <= 1e-4, k
+    assert (want["phrase_num"] > 1).any()

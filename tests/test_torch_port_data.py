@@ -1,8 +1,8 @@
 """The port's data layer (``data/readers.py``, ``data/dataset.py``) against
 the JAX package's on the same configuration: the synthetic corpus and
 features, every batch key bitwise for train (with and without the
-prefetcher), val and test across a wrap, sampler state round trips, and
-the label files the JAX package writes (CPU)."""
+prefetcher), val and test across a wrap, PB_pad's packed layouts, sampler
+state round trips, and the label files the JAX package writes (CPU)."""
 
 import numpy as np
 import pytest
@@ -142,7 +142,18 @@ def test_directory_feature_reader_equals_jax(tmp_path):
             assert a.get(str(i)).tobytes() == b.get(str(i)).tobytes()
 
 
-def test_pb_pad_batches_raise():
-    _, tcfg = _cfgs(train_mode="PB_pad", data_prefetch=0)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tds.CaptionData(tcfg).get_batch("train")
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_pb_pad_batches_match_jax(prefetch):
+    """PB_pad batches carry the packed layouts (pb_labels, pb_word_mask,
+    pb_ids, pb_slot, pb_mask) bitwise as the JAX package's, train (with
+    and without the prefetcher) and test across a wrap."""
+    jcfg, tcfg = _cfgs(train_mode="PB_pad", data_prefetch=prefetch)
+    jd, td = jds.CaptionData(jcfg), tds.CaptionData(tcfg)
+    try:
+        for split in ("train", "train", "test", "test"):
+            got, want = td.get_batch(split), jd.get_batch(split)
+            assert "pb_mask" in got and got["pb_mask"].dtype == bool
+            _same_batch(got, want)
+    finally:
+        jd._close_prefetcher()
+        td._close_prefetcher()

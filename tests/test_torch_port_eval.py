@@ -1,9 +1,9 @@
 """The port's evaluation (``eval/eval_utils.py``, ``tools/eval.py``,
 ``config.py``'s eval options) against the JAX package's, on the CPU:
 branch selection, option precedence, ``eval_split`` on shared weights for
-every ported branch (NNAIC, diverse beam search and ``sample_n`` captions
-with the multi-sample metrics among them), what raises because it is not
-ported, the eval CLI against the JAX CLI on one checkpoint the JAX package
+every branch (NNAIC, PB_pad, diverse beam search and ``sample_n``
+captions with the multi-sample metrics among them), what raises because it
+is not ported, the eval CLI against the JAX CLI on one checkpoint the JAX package
 wrote, and an NNAIC checkpoint of the port's training CLI read by the JAX
 package.
 
@@ -302,14 +302,22 @@ def uic_cpu():
     return tm
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"train_mode": "PB_pad"}, "item 7"),
-])
-def test_not_ported_options_raise(uic_cpu, kw, match):
-    _, tdata = _loaders("UIC")
-    base = {"split": "test", "verbose_loss": 0}
-    with pytest.raises(NotImplementedError, match=match):
-        teu.eval_split(uic_cpu, tdata, {**base, **kw}, inference_mode="SAIC")
+@pytest.mark.parametrize("width", [0, 6, L * (L + 1) // 2 + 1],
+                         ids=["default", "clamping", "lossless"])
+def test_eval_split_pb_pad_matches_jax(width):
+    """The PB_pad branch (decode/pb.py) at the default packed width, one
+    that clamps and the lossless one (``pb_packed_width``), with
+    verbose_loss on: PB_pad has no eval loss in either package."""
+    jm, params, tm = make_pair("PB_pad", "add", seed=6)
+    jdata, tdata = _loaders("PB_pad")
+    kw = {"split": "test", "num_images": -1, "language_eval": 1,
+          "verbose_loss": 1, "pb_packed_width": width}
+    want = jeu.eval_split(jm, params, jdata, dict(kw))
+    got = teu.eval_split(tm, tdata, dict(kw))
+    _same_result(got, want)
+    assert got["loss"] == want["loss"] == 0.0
+    assert got["n_images"] == 5
+    assert any(p["caption"] for p in got["predictions"])
 
 
 def test_sampled_eval_split(uic_cpu):
