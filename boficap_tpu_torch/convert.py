@@ -7,7 +7,12 @@ The port's parameter names mirror the flax tree, so a flax leaf
 
   * Dense ``kernel`` [in, out] -> ``weight`` [out, in] (transposed),
   * ``Embed_0/embedding`` -> ``Embed_0.weight``,
-  * RefLayerNorm ``scale`` / ``bias`` and Dense ``bias`` map as they are.
+  * RefLayerNorm and LayerNorm ``scale`` / ``bias`` and Dense ``bias`` map
+    as they are.
+
+The LSTM captioners' trees map the same way (``core/cell/if/kernel`` is
+``core.cell.if.weight``), so ``load_jax_params``, ``to_jax_tree`` and
+``init_params`` take any model ``models.setup`` builds.
 
 ``load_jax_checkpoint`` reads a ``model.ckpt`` the JAX package wrote
 (``flax.serialization.to_bytes``, read by ``utils/flax_msgpack.py``);
@@ -55,7 +60,7 @@ import numpy as np
 import torch
 
 from .config import Config
-from .models.boficap import BoFiCap, build_model
+from .models import setup
 from .models.layers import Dense, Embed
 from .utils.flax_msgpack import msgpack_restore
 
@@ -72,7 +77,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
-    """Fill ``model`` (a BoFiCap, or any of the port's layer modules) from
+    """Fill ``model`` (any model ``models.setup`` builds, or any of the
+    port's layer modules) from
     the matching flax parameter tree given as nested dicts of numpy arrays
     (``{"params": {...}}`` or its inner dict).  Every parameter of the model
     must be present and every leaf used; shapes must agree."""
@@ -85,9 +91,15 @@ def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
                 raise ValueError(f"{name}: shape {arr.shape} != port "
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(arr))
-    if isinstance(model, BoFiCap):
-        model.invalidate_packed()
+    _invalidate(model)
     return model
+
+
+def _invalidate(model) -> None:
+    """Drop a model's packed kernel weights after its parameters were
+    written in place (a layer module has none)."""
+    if hasattr(model, "invalidate_packed"):
+        model.invalidate_packed()
 
 
 def load_jax_checkpoint(path: str, model: torch.nn.Module):
@@ -167,9 +179,10 @@ def to_jax_tree(model: torch.nn.Module) -> Dict[str, Any]:
 
 
 def init_params(cfg: Config, vocab_size: int, seed: int = 0,
-                device=None) -> BoFiCap:
-    """A model with random weights made from ``seed`` (``fill_random``)."""
-    return fill_random(build_model(cfg, vocab_size, device), seed)
+                device=None) -> torch.nn.Module:
+    """The model the config names (``models.setup``) with random weights
+    made from ``seed`` (``fill_random``)."""
+    return fill_random(setup(cfg, vocab_size, device), seed)
 
 
 def fill_random(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
@@ -189,8 +202,7 @@ def fill_random(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
                 bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
                 w = torch.rand(p.shape, generator=gen) * (2 * bound) - bound
                 p.copy_(w)
-    if isinstance(model, BoFiCap):
-        model.invalidate_packed()
+    _invalidate(model)
     return model
 
 

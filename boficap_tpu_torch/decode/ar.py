@@ -2,10 +2,14 @@
 (KV-cached sampling loop and batched beam search; reference
 captioning/models/AttModel.py:307-430 and CaptionModel.py:48-222).
 
-  * The step is ``BoFiCap.ar_step``: per-layer KV caches (written in place)
-    and cross-attention K/V projected once per sequence.  With the model's
-    ``use_pallas`` set, every step's cross-attentions take the
-    attention-core kernel (``ops/attention.py``), as in the JAX package.
+  * The step is the model's ``ar_step``: BoFiCap's per-layer KV caches
+    (written in place) with the cross-attention K/V projected once per
+    sequence, or an LSTM captioner's carry (``models/lstm_caption.py``).
+    With the model's ``use_pallas`` set, every step's cross-attentions
+    (AoANet's decoder attention) take the attention-core kernel
+    (``ops/attention.py``), as in the JAX package.  A beam search reorders
+    the cache by the model's ``gather_ar_cache``; each beam group starts
+    from its own ``copy_ar_cache`` of one ``init_ar_cache``.
   * ``ar_sample`` runs a fixed ``n_steps`` loop with per-sample
     ``unfinished`` masks and no host sync: a finished row writes PAD and
     zero log-prob / entropy, so the result equals the JAX package's
@@ -164,15 +168,12 @@ def _gather_beams(x, beam_ix):
     return torch.gather(x, 1, ix.expand(beam_ix.shape + x.shape[2:]))
 
 
-def _gather_cache(cache, beam_ix, B: int, K: int):
-    """Reorder the flat [B*K, ...] self-attention K/V caches by each row's
-    parent beam.  The cross-attention K/V are left as they are: the K rows
-    of an image hold the same memory, so their K/V are equal and the
-    reorder would not change them."""
+def _gather_cache(model, cache, beam_ix, B: int, K: int):
+    """The flat [B*K, ...] AR cache reordered by each row's parent beam
+    (the model's ``gather_ar_cache``)."""
     flat_ix = (torch.arange(B, device=beam_ix.device)[:, None] * K
                + beam_ix).reshape(-1)
-    return [{**c, "ks": c["ks"][flat_ix], "vs": c["vs"][flat_ix]}
-            for c in cache]
+    return model.gather_ar_cache(cache, flat_ix)
 
 
 def _merge_done_pool(done_p, cand_p, K: int, payloads):
@@ -228,7 +229,7 @@ def _make_beam_step(model, mask_k, B: int, K: int, V: int, L: int, penalty,
         seq[:, :, pos] = word
         tok_lp = _gather_beams(state["tok_lp"], beam_ix)
         tok_lp[:, :, pos] = torch.gather(lp_unaug.reshape(B, K * V), 1, idx)
-        cache = _gather_cache(cache, beam_ix, B, K)
+        cache = _gather_cache(model, cache, beam_ix, B, K)
 
         is_end = _ends(word, pos, L)
         cand_p = torch.where(is_end, penalty(pos + 1, scores), NEG_INF)
@@ -277,13 +278,11 @@ def _staggered_groups_scan(step, states, G: int, B: int, V: int, L: int):
 
 
 def _group_caches(model, mem_k, L: int, G: int):
-    """G AR caches over one memory: each group writes its own
-    self-attention K/V in place; the cross-attention K/V, projected once,
-    are shared (they are never written)."""
+    """G AR caches over one memory, each group's its own copy of the one
+    ``init_ar_cache`` made (the model's ``copy_ar_cache``): every group
+    starts from the same state."""
     cache = model.init_ar_cache(mem_k, L + 1)
-    return [cache] + [[{**c, "ks": torch.zeros_like(c["ks"]),
-                        "vs": torch.zeros_like(c["vs"])} for c in cache]
-                      for _ in range(G - 1)]
+    return [cache] + [model.copy_ar_cache(cache) for _ in range(G - 1)]
 
 
 def _groups(beam_size: int, group_size: int) -> int:
@@ -460,7 +459,7 @@ def ar_old_beam_search(model, memory, src_mask, *, beam_size: int,
         seq[:, :, pos] = word
         row_lp = _gather_beams(state["row_lp"], beam_ix)
         row_lp[:, :, pos] = _gather_beams(lp_unaug, beam_ix)
-        cache = _gather_cache(cache, beam_ix, B, K)
+        cache = _gather_cache(model, cache, beam_ix, B, K)
 
         cand_p = torch.where(_ends(word, pos, L), penalty(pos + 1, scores),
                              NEG_INF)

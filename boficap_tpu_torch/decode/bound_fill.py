@@ -48,6 +48,7 @@ from typing import Dict, Optional
 import torch
 
 from ..constants import BOS, LEN, PAD, SYN_LOWER, SYN_UPPER
+from ..models.boficap import BoFiCap
 from ..ops.decoder_layer import (fused_decoder_forward, fused_encoder_forward,
                                  fused_greedy_head,
                                  fused_window_decoder_forward,
@@ -72,7 +73,11 @@ def fused_encode(model, att_feats, att_masks,
     """``model.encode`` with the encoder stack on the kernel wrappers
     (inference only, so under ``no_grad``); att_embed stays plain.  ``stacked``: the whole-stack
     kernel (True) or one launch per layer (False); None follows
-    ``use_stacked``."""
+    ``use_stacked``.  A model without an encoder stack (an LSTM
+    captioner) runs its own ``encode``, whose attentions take the
+    attention core under ``use_pallas``."""
+    if not isinstance(model, BoFiCap):
+        return model.encode(att_feats, att_masks)
     x = model.embed_att(att_feats)
     src_mask = None if att_masks is None else att_masks.bool()
     pack = model.packed_encoder()

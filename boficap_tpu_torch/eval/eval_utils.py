@@ -8,7 +8,8 @@ selected by (train_mode, inference_mode) as ``_branch_for`` does:
   * ``SAIC``        -> ``sa_decode``,
   * ``AIC``         -> ``ar_sample``, or ``ar_beam_search`` for
     ``beam_size > 1`` (``ar_diverse_beam_search`` with ``group_size > 1``;
-    the top-3 beams dumped to ``KD_file``),
+    the top-3 beams dumped to ``KD_file``); the LSTM captioners' only
+    branch, their attentions on the attention core under ``use_pallas``,
   * ``NNAIC``       -> ``nnaic_decode``,
   * ``UIC_s_SAIC``  -> ``sa_decode(predictor_use_syn=True)``,
   * ``UIC_s_AIC``   -> ``uic_s_ar_decode``,
@@ -64,6 +65,7 @@ import torch
 from ..decode import ar
 from ..decode import bound_fill as bf
 from ..decode import pb
+from ..models.boficap import BoFiCap
 from ..text import VOCAB_LOWER, decode_sequence
 from ..train.state import safe_load
 from .metrics import BAD_ENDINGS, language_eval
@@ -86,7 +88,12 @@ def _model_device(model) -> torch.device:
 def use_cuda_fill(flag, model) -> bool:
     """``use_cuda_fill``: 'auto' = the model is on a CUDA device; '1' / True
     forces the kernels (``ValueError`` on the CPU, where they cannot run);
-    '0' / False runs the plain path."""
+    '0' / False runs the plain path.  False for a model that is not a
+    BoFiCap (an LSTM captioner has no encoder stack or fill; the JAX
+    package's ``_resolve_pallas_fill``): its attentions follow its own
+    ``use_pallas``."""
+    if not isinstance(model, BoFiCap):
+        return False
     on_card = _model_device(model).type == "cuda"
     if isinstance(flag, str) and flag.lower() == "auto":
         return on_card

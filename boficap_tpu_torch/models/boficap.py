@@ -24,7 +24,6 @@ pass that every decode takes.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -33,12 +32,12 @@ from torch import nn
 from ..constants import BOS, EOS, LEN, LENGTH_DIM, PAD, SYN_DIM
 from ..data import phrase_ops as po
 from .layers import (
+    AttentionRouting,
     Decoder,
     DecoderLayer,
     Dense,
     Encoder,
     Generator,
-    MultiHeadAttention,
     PositionalEncoding,
     RefLayerNorm,
     TokenEmbed,
@@ -89,7 +88,7 @@ def decoder_roles(train_mode: str, role: Optional[str] = None):
     return roles[role]
 
 
-class BoFiCap(nn.Module):
+class BoFiCap(AttentionRouting, nn.Module):
     def __init__(self, tgt_vocab: int, d_model: int = 512, d_ff: int = 2048,
                  N_enc: int = 6, N_dec: int = 6, N_len: int = 1,
                  num_heads: int = 8, att_feat_size: int = 2048,
@@ -189,32 +188,6 @@ class BoFiCap(nn.Module):
 
     def lp_layers(self):
         return [getattr(self, f"lp{i}") for i in range(self.n_lp)]
-
-    def set_attention_core(self, enabled: bool) -> None:
-        """Route (or stop routing) every attention of the model whose mask
-        has rank 2 or 3 through the attention-core kernel
-        (``MultiHeadAttention.use_core``): the config's ``use_pallas``, as
-        the JAX package's ``models.setup`` reads it."""
-        for m in self.modules():
-            if isinstance(m, MultiHeadAttention):
-                m.use_core = bool(enabled)
-
-    @contextlib.contextmanager
-    def plain_attention(self):
-        """Every attention on the plain path inside the block, the
-        attention-core setting restored after it: for a forward that
-        autograd records (the RL re-score), since the kernel has no
-        backward and its wrapper refuses operands that require grad."""
-        mods = [m for m in self.modules()
-                if isinstance(m, MultiHeadAttention)]
-        was = [m.use_core for m in mods]
-        for m in mods:
-            m.use_core = False
-        try:
-            yield
-        finally:
-            for m, w in zip(mods, was):
-                m.use_core = w
 
     def packed_encoder(self):
         """The encoder's weights for the kernels (``ops.stack.StackPack``)."""
@@ -480,6 +453,23 @@ class BoFiCap(nn.Module):
         x = self.posenc(x, offset=pos)
         h, cache = self._decoder("A").step(x, cache, pos, src_mask)
         return self.generate(h)[:, 0], cache
+
+    @staticmethod
+    def gather_ar_cache(cache, flat_ix):
+        """The AR cache's rows reordered by ``flat_ix`` (a beam search's
+        parents, [B*K]): the self-attention K/V.  The cross-attention K/V
+        are left as they are: the K rows of an image hold the same memory,
+        so their K/V are equal and the reorder would not change them."""
+        return [{**c, "ks": c["ks"][flat_ix], "vs": c["vs"][flat_ix]}
+                for c in cache]
+
+    @staticmethod
+    def copy_ar_cache(cache):
+        """Another AR cache over the same memory, for a beam group: zeroed
+        self-attention K/V of its own; the cross-attention K/V, never
+        written, are shared."""
+        return [{**c, "ks": torch.zeros_like(c["ks"]),
+                 "vs": torch.zeros_like(c["vs"])} for c in cache]
 
     def nnaic_logits(self, memory, rng=None):
         """NNAIC's whole-caption length logits [B, max_length], float32:

@@ -36,6 +36,7 @@ them.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional
@@ -73,20 +74,22 @@ def widen(x):
 
 class Dense(nn.Module):
     """``y = cast(x) @ cast(W).T`` rounded to the compute dtype, then
-    ``+ cast(b)``; ``weight`` is [out, in] as in ``nn.Linear``."""
+    ``+ cast(b)``; ``weight`` is [out, in] as in ``nn.Linear``.
+    ``use_bias=False`` has no ``bias`` (flax ``use_bias=False``)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(
             torch.zeros(out_features, in_features, device=device))
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if use_bias else None)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = self.compute_dtype
         y = torch.matmul(x.to(dt), self.weight.to(dt).t())
-        return y + self.bias.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Embed(nn.Module):
@@ -103,10 +106,13 @@ class Embed(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Scaled dot-product MHA (reference TransformerModel.py:1421-1467);
-    heads are column slices ``h*Dh:(h+1)*Dh`` of the projections."""
+    heads are column slices ``h*Dh:(h+1)*Dh`` of the projections.
+    ``q_in``: the query's width, when it is not ``d_model`` (AoANet's
+    decoder attention reads the LSTM's hidden state)."""
 
     def __init__(self, num_heads: int, d_model: int, dtype=torch.float32,
-                 device=None, dropout_rate: float = 0.1):
+                 device=None, dropout_rate: float = 0.1,
+                 q_in: Optional[int] = None):
         super().__init__()
         self.num_heads = num_heads
         self.d_model = d_model
@@ -114,7 +120,8 @@ class MultiHeadAttention(nn.Module):
         self.dropout_rate = dropout_rate
         # route rank-2/3-masked calls through the attention-core kernel
         self.use_core = False
-        for name in ("wq", "wk", "wv", "wo"):
+        self.wq = Dense(q_in or d_model, d_model, dtype, device)
+        for name in ("wk", "wv", "wo"):
             setattr(self, name, Dense(d_model, d_model, dtype, device))
 
     def _heads(self, x):
@@ -166,6 +173,38 @@ class MultiHeadAttention(nn.Module):
         return self.attend(qh, kh, vh, mask, rng)
 
 
+class AttentionRouting:
+    """The attention-core switch of a whole model (a mixin of its
+    ``nn.Module``): every ``MultiHeadAttention`` it holds."""
+
+    def set_attention_core(self, enabled: bool) -> None:
+        """Route (or stop routing) every attention of the model whose mask
+        has rank 2 or 3 through the attention-core kernel
+        (``MultiHeadAttention.use_core``): the config's ``use_pallas``, as
+        the JAX package's ``models.setup`` reads it."""
+        for m in self.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.use_core = bool(enabled)
+
+    @contextlib.contextmanager
+    def plain_attention(self):
+        """Every attention on the plain path inside the block, the
+        attention-core setting restored after it: for a forward that
+        autograd records (the XE step, the RL re-score), since the kernel
+        has no backward and its wrapper refuses operands that require
+        grad."""
+        mods = [m for m in self.modules()
+                if isinstance(m, MultiHeadAttention)]
+        was = [m.use_core for m in mods]
+        for m in mods:
+            m.use_core = False
+        try:
+            yield
+        finally:
+            for m, w in zip(mods, was):
+                m.use_core = w
+
+
 class PositionwiseFFN(nn.Module):
     """d -> d_ff -> relu -> dropout -> d (reference :1469-1478)."""
 
@@ -204,6 +243,29 @@ class RefLayerNorm(nn.Module):
         var = torch.clamp(m2 - m1 * m1, min=0.0) * (d / max(d - 1, 1))
         y = (xs - m1) / (torch.sqrt(var) + self.eps)
         return (y * self.scale + self.bias).to(self.compute_dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` (not the reference's norm, ``RefLayerNorm``):
+    float32 moments in one pass, ``var = max(0, E[x^2] - E[x]^2)`` (flax's
+    ``use_fast_variance``), ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``, output in the compute dtype."""
+
+    def __init__(self, d: int, eps: float = 1e-6, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, device=device))
+        self.eps = eps
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        xf = widen(x)
+        mu = xf.mean(-1, keepdim=True)
+        mu2 = (xf * xf).mean(-1, keepdim=True)
+        var = torch.clamp(mu2 - mu * mu, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((xf - mu) * mul + self.bias).to(self.compute_dtype)
 
 
 class PreNormResidual(nn.Module):

@@ -15,7 +15,8 @@ construction, never per request).  The decode runs ``fused_encode``, then
 ``na_decode(fused_fill=True)`` for mode 'NAIC',
 ``sa_decode(fused_fill=True)`` for mode 'SAIC' or the KV-cached
 ``ar_sample`` for mode 'AIC' (the JAX server's choice for AIC, on a UIC_s
-model too): on the card through the hand-written kernels, routed as the
+model and on the LSTM captioners too, which encode with their own
+``encode``): on the card through the hand-written kernels, routed as the
 JAX package routes them (the whole-stack kernels for a bf16 model at
 B <= 128; the attention core on the AR and bounding steps when the model's
 ``use_pallas`` is set), on the CPU through their plain twins.  With

@@ -3,12 +3,13 @@
 and the step body of tools/train.py:198-229).
 
 XE: one step is the teacher-forced forward of the model's train_mode
-(``BoFiCap.forward``; for PB_pad the length predictor and the packed
-decode over the batch's host-built layouts, the ``pb_*`` arrays of the
-loader's batch), its loss (``losses.py``), the gradients by autograd
-and one optimizer update (``train/optim.py``), plain PyTorch: no TPU
-kernel has a backward pass, and the kernel wrappers refuse tensors that
-require grad.  After the update the model's packed kernel weights are
+(``BoFiCap.forward``, or an LSTM captioner's, always AIC; for PB_pad the
+length predictor and the packed decode over the batch's host-built
+layouts, the ``pb_*`` arrays of the loader's batch), its loss
+(``losses.py``), the gradients by autograd and one optimizer update
+(``train/optim.py``), plain PyTorch with every attention on the plain
+path (``plain_attention``): no TPU kernel has a backward pass, and the
+kernel wrappers refuse tensors that require grad.  After the update the model's packed kernel weights are
 dropped (``BoFiCap.invalidate_packed``), so the next decode on the kernels
 packs the new weights.  Dropout and GLAT draw from one ``torch.Generator``
 on the model's device; ``rng=None`` is the deterministic pass of the eval
@@ -29,8 +30,9 @@ rewards.py:86-117):
      the sampled captions by the teacher-forced forward (``rl_rescore``,
      plain autograd, no kernel), which gives the sampling pass's values
      because the blockwise and causal masks make each position depend only
-     on already final inputs, then the loss (``rl_loss_fn``,
-     ``scst_loss_fn``) and one update.
+     on already final inputs (an LSTM captioner's re-score is its full
+     forward over the sampled rows, as in the JAX package), then the loss
+     (``rl_loss_fn``, ``scst_loss_fn``) and one update.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from ..constants import BOS, EOS, PAD
 from ..data import phrase_ops as po
 from ..decode import ar as ar_mod
 from ..decode import bound_fill as bf
+from ..models.boficap import BoFiCap
 from ..models.layers import causal_mask
 from ..rewards import (get_scores, get_self_cider_scores,
                        get_self_critical_reward)
@@ -243,8 +246,10 @@ def make_xe_step(model, optimizer, label_smoothing: float = 0.0,
     params = optimizer.params
 
     def grads_of(batch, rng, glat_p, drop_worst, ss_prob):
-        loss, metrics = xe_loss_fn(model, batch, rng, glat_p, drop_worst,
-                                   label_smoothing, ss_prob)
+        # autograd records the forward: every attention on the plain path
+        with model.plain_attention():
+            loss, metrics = xe_loss_fn(model, batch, rng, glat_p,
+                                       drop_worst, label_smoothing, ss_prob)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
@@ -380,6 +385,15 @@ def rl_rescore(model, att_feats, att_masks, samples, sample_n: int,
     flag, loss_wrapper.py:158-160)."""
     with model.plain_attention():
         L = model.max_length
+        if not isinstance(model, BoFiCap):
+            # an LSTM captioner has no decode_a: its full teacher-forced
+            # forward over the sampled rows (always log-softmax, as in the
+            # JAX package)
+            seq = samples["sample"]["seq"]
+            labels = torch.cat([torch.full_like(seq[:, :1], BOS), seq,
+                                torch.zeros_like(seq[:, :1])], dim=1)
+            out = model(att_feats, att_masks, labels, rng=rng)
+            return {"a_logprob": out["logprob"][:, :L]}
         memory = model.encode(att_feats, att_masks, rng)
         src_mask = att_masks.bool()
         mem = memory.repeat_interleave(sample_n, dim=0)

@@ -170,6 +170,28 @@ Phases, each printing one JSON line:
               refnorm at 512 and 2304 rows against its byte bound; host µs
               of a layer, a stack and a window-stack call at bf16 and
               float32.
+ 17. lstm     the LSTM captioners at full width (configs/fc.yml,
+              updown.yml, a2i2.yml, aoa.yml; random weights from the seed,
+              the logit scaled up so the words depend on the image), B =
+              64.  AoANet with use_pallas on (#9 on the refiner's six
+              self-attentions and every step's decoder attention) against
+              off, float32 and bfloat16: the encode's error, ar_sample
+              greedy and ar_beam_search (K = 3) by the margin rule, #9
+              launched N_enc + L times a decode.  Every model at float32 on
+              the card against the CPU on the same weights: greedy and
+              beam 3 by the margin rule (seq identity reported), one XE
+              step with dropout off on a 10 x 5 batch (the loss to 1e-5
+              relative, every gradient leaf to 1e-4 of its largest
+              magnitude, the ReLU sides aligned).  bf16: 10 AoANet XE steps
+              whose loss falls, one classic SCST step (aoa_sc.yml: the
+              sampler on #9, the update on no kernel) and one
+              structure-loss step (updown/updown_nsc.yml on UpDown).  The
+              AoANet checkpoint written and read back bitwise; eval_split
+              AIC greedy at B = 64 with #9 against plain at float32; the
+              AIC server on AoANet (#9 N_enc + L times a batch) and on
+              UpDown (no kernel), 80 requests each against a direct decode.
+              Each model's decode ms at both dtypes (AoANet with #9 off and
+              on), XE step ms and peak memory, AoANet's busy share.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed phase raises: the script exits
@@ -1117,7 +1139,8 @@ def plain_ar(model, decode, *args, **kw):
     def record(h):
         lp = generate(h)
         top2 = lp.topk(2, dim=-1).values
-        gaps.append(top2[..., 0] - top2[..., 1])
+        # [B, 1] a step: a transformer's h is [B, 1, D], an LSTM's [B, D]
+        gaps.append((top2[..., 0] - top2[..., 1]).reshape(h.shape[0], -1))
         return lp
 
     model.generate = record
@@ -1166,19 +1189,19 @@ def beam_margins(model, memory, src, K: int):
     from boficap_tpu_torch.decode import ar
     return topk_margins(lambda: ar.ar_beam_search(model, memory, src,
                                                   beam_size=K),
-                        memory.shape[0])
+                        memory.shape[0], memory.device)
 
 
 @torch.no_grad()
-def topk_margins(decode, n: int):
+def topk_margins(decode, n: int, device=DEV):
     """decode()'s outputs and, for each of its ``n`` samples, the smallest
     gap between neighbouring entries of any top-K selection it made (every
     beam search's candidates and done-pool merges; NEG_INF and -inf
-    entries left out)."""
+    entries left out), on ``device`` (the decode's)."""
     from boficap_tpu_torch.decode import ar
     from boficap_tpu_torch.decode.sampling import NEG_INF
     top_k = ar._top_k
-    mins = torch.full((n,), math.inf, device=DEV)
+    mins = torch.full((n,), math.inf, device=device)
 
     def record(x, k):
         vals, idx = top_k(x, min(k + 1, x.shape[-1]))
@@ -3418,6 +3441,378 @@ def check_pb(smi: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the LSTM captioners
+# ---------------------------------------------------------------------------
+
+LSTM_CONFIGS = {"fc": "fc.yml", "updown": "updown.yml",
+                "att2in2": "a2i2.yml", "aoa": "aoa.yml"}
+LSTM_LOGIT_SCALE = 8.0        # a random model's words barely depend on it
+LSTM_STEPS = 10               # bf16 XE steps of AoANet on one batch
+
+
+def lstm_build(name: str, dtype=None, device=None):
+    """An LSTM captioner at its config's full width over VOCAB words,
+    random weights from SEED; ``dtype`` overrides the compute dtype
+    (None: the default, bfloat16).  The logit is scaled up, the bias
+    noised, the other control ids lowered and EOS raised, so the greedy
+    words depend on the image and some captions end early (the same
+    change on every device)."""
+    from boficap_tpu_torch.config import load_config
+    from boficap_tpu_torch.convert import init_params
+    device = device or DEV
+    cfg = load_config(os.path.join(HERE, "configs", LSTM_CONFIGS[name]))
+    if dtype is not None:
+        cfg.dtype = dtype
+    model = init_params(cfg, VOCAB, seed=SEED, device=device).eval()
+    g = torch.Generator().manual_seed(SEED + 2)
+    with torch.no_grad():
+        model.logit.weight.mul_(LSTM_LOGIT_SCALE)
+        bias = 0.5 * torch.randn(model.tgt_vocab, generator=g)
+        bias[[0, 1, 3]] -= 6.0
+        bias[2] += 1.0
+        model.logit.bias.add_(bias.to(device))
+    return model
+
+
+def lstm_opt(name: str, config: str = None, **fields):
+    """An LSTM config as the trainer reads it, over the synthetic corpus,
+    a constant Adam rate."""
+    return eval_opt(config or LSTM_CONFIGS[name], id=f"smoke{name}",
+                    noamopt=False, learning_rate=TRAIN_LR,
+                    learning_rate_decay_start=-1, **fields)
+
+
+def encode_decode(model, att, am, decode, **kw):
+    """The main path's encode (the server's: ``fused_encode``, the
+    model's own encode for an LSTM) and ``decode``."""
+    from boficap_tpu_torch.decode.bound_fill import fused_encode
+    return decode(model, fused_encode(model, att, am), am.bool(), **kw)
+
+
+@torch.no_grad()
+def check_aoa_core(aoa, dtype_name: str, att, am) -> dict:
+    """AoANet with use_pallas on (#9 on the refiner's self-attentions and
+    every step's decoder attention) against off, on the same features:
+    the encode's output, ar_sample greedy and ar_beam_search K_BEAM by the
+    margin rule (float32 at MARGIN_NOISE with the token log-probs within
+    LOGPROB_TOL; bf16 at BF16_MARGIN_NOISE, at most a quarter of the
+    shared-context positions excused); #9's launches: N_enc an encode
+    and one a step."""
+    from boficap_tpu_torch.decode.ar import ar_beam_search, ar_sample
+    src = am.bool()
+    bf16 = dtype_name == "bfloat16"
+    noise, tol = ((BF16_MARGIN_NOISE, None) if bf16
+                  else (MARGIN_NOISE, LOGPROB_TOL))
+    want_launches = aoa.N_enc + L
+    mem = aoa.encode(att, am)
+    mem_core, c = counted(lambda: with_core(aoa, True,
+                                            lambda: aoa.encode(att, am)))
+    if c["attention_core"] != aoa.N_enc:
+        fail(f"lstm aoa {dtype_name}: the encode launched #9 "
+             f"{c['attention_core']} times, not N_enc {aoa.N_enc}")
+    res = {"encode_max_abs_err": (mem_core.float() - mem.float()).abs()
+           .max().item(), "encode_rel_err": rel_err(mem_core, mem)}
+    if res["encode_rel_err"] > TOL[dtype_name]:
+        fail(f"lstm aoa {dtype_name}: encode with #9 off by "
+             f"{res['encode_rel_err']}")
+
+    want, margin = plain_ar(aoa, ar_sample, mem, src)
+    got, c = counted(lambda: with_core(aoa, True, lambda: encode_decode(
+        aoa, att, am, ar_sample)))
+    if c["attention_core"] != want_launches:
+        fail(f"lstm aoa {dtype_name} greedy: #9 launched "
+             f"{c['attention_core']} times, not {aoa.N_enc} + {L}")
+    greedy = ar_agree(got, want, margin, f"lstm aoa greedy {dtype_name}",
+                      noise, tol)
+    shared = shared_context(got, want)
+    if bf16 and greedy["excused_samples"] > shared // 4:
+        fail(f"lstm aoa greedy bf16: {greedy} in {shared} positions")
+    res["ar_sample"] = {**greedy, "shared_context_positions": shared,
+                        "seq_identical_samples": int(
+                            (got["seq"] == want["seq"]).all(-1).sum()),
+                        "attention_core_launches": c["attention_core"]}
+
+    want, mins = beam_margins(aoa, mem, src, K_BEAM)
+    got, c = counted(lambda: with_core(aoa, True, lambda: encode_decode(
+        aoa, att, am, ar_beam_search, beam_size=K_BEAM)))
+    if c["attention_core"] != want_launches:
+        fail(f"lstm aoa {dtype_name} beam: #9 launched "
+             f"{c['attention_core']} times, not {aoa.N_enc} + {L}")
+    res["ar_beam_search"] = {
+        "beam_size": K_BEAM, **beam_agree(got, want, mins,
+                                          f"lstm aoa beam {dtype_name}",
+                                          noise, tol),
+        "top_beam_differs": int((got["seq"][:, 0] != want["seq"][:, 0])
+                                .any(-1).sum()),
+        "attention_core_launches": c["attention_core"]}
+    res["attention_core_expected"] = want_launches
+    return res
+
+
+@torch.no_grad()
+def lstm_card_cpu_decodes(name: str, cpu, card, att, am) -> dict:
+    """float32, the same weights on the card and the CPU: greedy and beam
+    K_BEAM seq identical, by the margin rule (the card's rounding against
+    the CPU's, MARGIN_NOISE), the token log-probs within LOGPROB_TOL."""
+    from boficap_tpu_torch.decode.ar import ar_beam_search, ar_sample
+    a, m = att.cpu(), am.cpu()
+    mem = cpu.encode(a, m)
+    want, margin = plain_ar(cpu, ar_sample, mem, m.bool())
+    got = {k: v.cpu() for k, v in encode_decode(card, att, am,
+                                                ar_sample).items()}
+    res = {"greedy": {**ar_agree(got, want, margin.cpu(),
+                                 f"lstm {name} card vs cpu greedy"),
+                      "seq_identical": bool(torch.equal(got["seq"],
+                                                        want["seq"]))}}
+    want, mins = beam_margins(cpu, mem, m.bool(), K_BEAM)
+    got = {k: v.cpu() for k, v in encode_decode(
+        card, att, am, ar_beam_search, beam_size=K_BEAM).items()}
+    res["beam"] = {**beam_agree(got, want, mins.cpu(),
+                                f"lstm {name} card vs cpu beam"),
+                   "seq_identical": bool(torch.equal(got["seq"],
+                                                     want["seq"]))}
+    return res
+
+
+def lstm_xe_grads(model, batch, record=None, align=None):
+    """One deterministic XE step's loss and gradients (no dropout: AoANet's
+    refiner drops at a fixed 0.1 under a generator), the ReLU inputs
+    recorded or aligned as ``relu_hooks`` does."""
+    from boficap_tpu_torch.train import steps
+    dev = next(model.parameters()).device
+    handles, stats = relu_hooks(model, record, align)
+    try:
+        loss, _ = steps.xe_loss_fn(model, steps.to_device(batch, dev), None)
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+    finally:
+        for h in handles:
+            h.remove()
+    return (float(loss.detach()), [n for n, _ in model.named_parameters()],
+            [None if g is None else g.detach().cpu() for g in grads], stats)
+
+
+def lstm_cross_device(name: str, cpu, card, batch) -> dict:
+    """float32, dropout off: one XE step on the card against the CPU (the
+    loss to 1e-5 relative, every gradient leaf to GRAD_TOL of its largest
+    magnitude, the ReLU sides aligned)."""
+    relu = {}
+    lc, names, gc, _ = lstm_xe_grads(cpu, batch, record=relu)
+    _, _, raw, _ = lstm_xe_grads(card, batch)
+    lg, _, gg, stats = lstm_xe_grads(card, batch, align=relu)
+    if abs(lg - lc) > 1e-5 * abs(lc):
+        fail(f"lstm {name}: card loss {lg} != CPU loss {lc}")
+    return {"loss_card": lg, "loss_cpu": lc,
+            "loss_rel_err": abs(lg - lc) / abs(lc),
+            **compare_grads(f"lstm {name}", names, gg, gc, raw, relu,
+                            stats)}
+
+
+def lstm_trainer(model, opt):
+    from boficap_tpu_torch.convert import flax_layout
+    from boficap_tpu_torch.train import optim, steps
+    layout = flax_layout(model)
+    o = optim.Optimizer(optim.build_optimizer(opt, layout), model, layout)
+    return o, steps.make_xe_step(model, o)
+
+
+def check_lstm_train(aoa16, updown16) -> dict:
+    """bf16: LSTM_STEPS XE steps of AoANet (use_pallas on, dropout at the
+    config's rate, a constant Adam rate) on one repeated 10 x 5 batch, the
+    loss falling and no kernel launched; one classic SCST step of
+    aoa_sc.yml (the sampler on #9: N_enc + 2 x L launches; the update
+    none) and one structure-loss step of updown/updown_nsc.yml (no kernel
+    anywhere); then each model's XE step ms (median of 10 after 3
+    warm-ups) and peak memory."""
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    from boficap_tpu_torch.rewards import init_scorer
+    from boficap_tpu_torch.train import steps
+    opt = lstm_opt("aoa")
+    _, batch = train_batch(opt)
+    tb = steps.to_device(batch, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    aoa16.set_attention_core(True)
+    o, step = lstm_trainer(aoa16, opt)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = [float(step(tb, gen)["loss"]) for _ in range(LSTM_STEPS)]
+    torch.cuda.synchronize()
+    if any(launch_counts().values()):
+        fail(f"lstm train: the XE steps launched kernels: {launch_counts()}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"lstm train: a loss is not finite: {losses}")
+    if not sum(losses[-3:]) < sum(losses[:3]):
+        fail(f"lstm train: the loss did not fall: {losses}")
+    res = {"xe_bfloat16_aoa": {"losses": losses, "launches": 0}}
+
+    init_scorer("corpus")
+    sc_opt = lstm_opt("aoa", "aoa_sc.yml", self_critical_after=0,
+                      train_sample_n=5)
+    sampler = steps.make_rl_sample(aoa16, "sample", 1.0, 5)
+    samples, c = counted(lambda: sampler(tb["att_feats"], tb["att_masks"],
+                                         gen))
+    want = aoa16.N_enc + 2 * L
+    if c["attention_core"] != want:
+        fail(f"lstm scst: the sampler launched #9 {c['attention_core']} "
+             f"times, not {aoa16.N_enc} + 2 x {L}")
+    rewards = steps.rl_host_scores(samples, batch["gts"], sc_opt,
+                                   classic_scst=True)["scst_reward"]
+    reset_launch_counts()
+    m = steps.make_scst_step(aoa16, o, sc_opt)(
+        tb["att_feats"], tb["att_masks"], samples,
+        torch.as_tensor(rewards, device=DEV))
+    torch.cuda.synchronize()
+    if any(launch_counts().values()) or not math.isfinite(float(m["loss"])):
+        fail(f"lstm scst: step launches {launch_counts()}, loss {m}")
+    res["scst_aoa"] = {"sampler_launches": c["attention_core"],
+                       "step_launches": 0, "loss": float(m["loss"]),
+                       "reward": float(m["reward"])}
+
+    nsc_opt = lstm_opt("updown", "updown/updown_nsc.yml", structure_after=0,
+                       train_sample_n=5)
+    uo, _ = lstm_trainer(updown16, nsc_opt)
+    sampler = steps.make_rl_sample(updown16, "sample", 1.0, 5)
+    samples, c = counted(lambda: sampler(tb["att_feats"], tb["att_masks"],
+                                         gen))
+    scores = {k: torch.as_tensor(v, device=DEV) for k, v in
+              steps.rl_host_scores(samples, batch["gts"], nsc_opt).items()}
+    reset_launch_counts()
+    m = steps.make_rl_step(updown16, uo, nsc_opt)(
+        tb["att_feats"], tb["att_masks"], samples, scores, rng=gen)
+    torch.cuda.synchronize()
+    if (any(c.values()) or any(launch_counts().values())
+            or not math.isfinite(float(m["loss"]))):
+        fail(f"lstm structure loss: sampler {c}, step {launch_counts()}, "
+             f"loss {m}")
+    res["structure_loss_updown"] = {
+        "loss": float(m["loss"]), "reward": float(m["reward"]),
+        "sampler_launches": 0, "step_launches": 0}
+    aoa16.set_attention_core(False)
+    return res
+
+
+def lstm_step_times(models16) -> dict:
+    """Each model's bf16 XE step (dropout at the config's rate) on a 10 x 5
+    batch: ms, the median of 10 after 3 warm-ups; the peak memory of the
+    steps over what was resident before them (the phase's other models)."""
+    from boficap_tpu_torch.train import steps
+    out = {}
+    for name, model in models16.items():
+        opt = lstm_opt(name)
+        _, batch = train_batch(opt)
+        tb = steps.to_device(batch, DEV)
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        _, step = lstm_trainer(model, opt)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = timed_steps(step, tb, gen, 10)
+        peak = torch.cuda.max_memory_allocated()
+        out[name] = {"step_ms_median": sorted(ms)[len(ms) // 2],
+                     "step_ms": ms, "peak_memory_bytes": peak,
+                     "resident_bytes": resident,
+                     "step_peak_bytes": peak - resident,
+                     "losses_finite": all(map(math.isfinite, losses))}
+    return out
+
+
+def check_lstm_eval_serve(aoa32, aoa16, updown16, tmp: str) -> tuple:
+    """The bf16 AoANet through the port's checkpoint writer and reader
+    (bitwise); eval_split AIC greedy at B = 64 on the float32 AoANet with
+    use_pallas on against off (the margin rule; the captions counted
+    equal); CaptionServer(mode="AIC") on the bf16 AoANet (use_pallas on:
+    #9 N_enc + L times a batch) and UpDown (no kernel), 80 requests
+    each, every answer a direct decode of its batch.  Returns
+    (result, the AoANet server's launch counts)."""
+    opt = lstm_opt("aoa", batch_size=B)
+    loader = eval_loader(opt)
+    _, rt = round_trip(aoa16, opt, loader, os.path.join(tmp, "aoa"))
+    kw = {"split": "test", "num_images": -1, "language_eval": 1,
+          "verbose_loss": 1, "beam_size": 1}
+    res = {"checkpoint": rt, "eval_aic_float32": eval_pair(
+        aoa32, eval_loader(lstm_opt("aoa", batch_size=B, dtype="float32")),
+        "", "float32", kw, ("attention_core",), ar_eval_agree(aoa32, False),
+        core=True)}
+    aoa16.set_attention_core(True)
+    try:
+        served = check_serve(aoa16, "AIC", ("attention_core",))
+    finally:
+        aoa16.set_attention_core(False)
+    n_batches = len(served["batch_sizes"])
+    want = (aoa16.N_enc + L) * n_batches
+    if served["launches"]["attention_core"] != want:
+        fail(f"lstm serve aoa: #9 launched "
+             f"{served['launches']['attention_core']} times, not "
+             f"({aoa16.N_enc} + {L}) x {n_batches} batches")
+    res["serve_aoa"] = {**served, "attention_core_expected": want}
+    res["serve_updown"] = check_serve(updown16, "AIC", ())
+    if any(res["serve_updown"]["launches"].values()):
+        fail(f"lstm serve updown: kernels launched "
+             f"{res['serve_updown']['launches']}")
+    return res, served["launches"]
+
+
+def lstm_decode_times(models, att, am) -> dict:
+    """Each model's B = 64 greedy decode (encode + ar_sample), the mean of
+    3 after a warm-up by CUDA events, at both dtypes; AoANet with
+    use_pallas off and on; AoANet's device-busy share in one profiled bf16
+    decode with #9."""
+    from boficap_tpu_torch.decode.ar import ar_sample
+    out = {}
+    for (name, dtype_name), model in models.items():
+        for core in ((False, True) if name == "aoa" else (False,)):
+            key = f"{name}_{dtype_name}" + ("_core" if core else "")
+            out[key] = with_core(model, core, lambda: timed(
+                lambda: encode_decode(model, att, am, ar_sample), reps=3,
+                warm=1))
+    aoa = models[("aoa", "bfloat16")]
+    out["aoa_bfloat16_core_profile"] = with_core(
+        aoa, True, lambda: profile_decode(
+            lambda: encode_decode(aoa, att, am, ar_sample)))
+    return out
+
+
+def check_lstm(smi: str) -> tuple:
+    """Phase lstm (see the module docstring).  Returns (result, #9's
+    launches on the AoANet server's run)."""
+    t_phase = time.perf_counter()
+    att, am = features(B, seed=23)
+    att, am = att.to(DEV), am.to(DEV)
+    models = {(n, d): lstm_build(n, None if d == "bfloat16" else d)
+              for n in LSTM_CONFIGS for d in ("float32", "bfloat16")}
+    res = {"card": smi, "configs": LSTM_CONFIGS,
+           "aoa_core": {d: check_aoa_core(models[("aoa", d)], d, att, am)
+                        for d in ("float32", "bfloat16")}}
+    # every model on the card against the CPU, the weights carried across
+    from boficap_tpu_torch.convert import load_jax_params, to_jax_tree
+    res["card_vs_cpu_float32"] = {}
+    for name in LSTM_CONFIGS:
+        card = models[(name, "float32")]
+        cpu = lstm_build(name, "float32", "cpu")
+        load_jax_params(card, to_jax_tree(cpu))
+        _, batch = train_batch(lstm_opt(name, dtype="float32"))
+        res["card_vs_cpu_float32"][name] = {
+            **lstm_card_cpu_decodes(name, cpu, card, att, am),
+            "xe_step": lstm_cross_device(name, cpu, card, batch)}
+        del cpu
+    res["train"] = check_lstm_train(models[("aoa", "bfloat16")],
+                                    models[("updown", "bfloat16")])
+    # the training moved the bf16 weights: fresh ones for what follows
+    for name in ("aoa", "updown"):
+        models[(name, "bfloat16")] = lstm_build(name)
+    with tempfile.TemporaryDirectory(prefix="boficap_lstm_") as tmp:
+        ev, launches = check_lstm_eval_serve(
+            models[("aoa", "float32")], models[("aoa", "bfloat16")],
+            models[("updown", "bfloat16")], tmp)
+    res.update(ev)
+    res["xe_step_bfloat16"] = lstm_step_times(
+        {n: lstm_build(n) for n in LSTM_CONFIGS})
+    res["decode_ms"] = lstm_decode_times(models, att, am)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -4483,7 +4878,7 @@ def main():
 
 
 def run_phases(smi: str):
-    """Phases 2-16; returns the {"kernels": [...]} list."""
+    """Phases 2-17; returns the {"kernels": [...]} list."""
     # the same random weights at both compute dtypes: float32 for the
     # decode comparisons, the default (bfloat16) for the main paths
     model = build("float32")
@@ -4549,6 +4944,8 @@ def run_phases(smi: str):
     times["host_us_per_call"] = host_costs(model)
     times["ar"] = measure_ar(aic, aic16, model16)
     emit({"phase": "times", "card": smi, "long_bias_shift": 0.0, **times})
+    lstm, lstm_launches = check_lstm(smi)
+    emit({"phase": "lstm", **lstm})
     errs["float32"]["attention_core"] = att_errs["float32"]["ar_cross"]
     errs["bfloat16"]["attention_core"] = att_errs["bfloat16"]["ar_cross"]
 
@@ -4585,7 +4982,8 @@ def run_phases(smi: str):
             "train_val_launches": train_launches.get(name, 0),
             "rl_launches": rl_launches.get(name, 0),
             "decoders_launches": dec_launches.get(name, 0),
-            "pb_launches": pb_launches.get(name, 0)})
+            "pb_launches": pb_launches.get(name, 0),
+            "lstm_launches": lstm_launches.get(name, 0)})
         if name in ("encoder_layer", "decoder_layer"):
             # #1 and #2 at bf16 run at B > 128: the B = 256 NA decode
             kernels[-1]["bf16"]["launches"] = bf16_dec[

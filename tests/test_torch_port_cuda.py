@@ -25,7 +25,9 @@ at float32, its length-0 rows (every key masked) included; diverse beam
 search with the attention core gives the plain attend's beams.  The
 attention core past 128 keys (129, 211 and 256) on the tile and ffma paths
 against its twin, and the PB_pad decode with the core against the plain
-path at a packed width of 211.
+path at a packed width of 211.  AoANet: its greedy decode with the core
+(#9 on the refiner's self-attentions and every step's decoder attention)
+against the plain path at float32, with the launch count.
 """
 
 import pytest
@@ -1229,3 +1231,52 @@ def test_pb_decode_core_matches_plain(cuda, width):
     for k in ("tok_logprobs", "entropy"):
         assert (got[k] - want[k]).abs().max().item() <= 1e-4, k
     assert (want["phrase_num"] > 1).any()
+
+
+def _small_aoa(cuda):
+    """A small AoANet at float32 (d 64, rnn 96, 2 heads of 32, 2 refiner
+    layers) with seeded random weights, its logit widened so the greedy
+    words depend on the image."""
+    from boficap_tpu_torch.config import make_config
+    from boficap_tpu_torch.convert import init_params
+    cfg = make_config(caption_model="aoa", input_encoding_size=64,
+                      rnn_size=96, num_att_heads=2, N_enc=2, max_length=8,
+                      max_boxes=9, dtype="float32")
+    model = init_params(cfg, 40, seed=3, device=cuda).eval()
+    with torch.no_grad():
+        model.logit.weight *= 8
+    return model
+
+
+@pytest.mark.parametrize("R", [9, 36])
+def test_aoa_greedy_core_matches_plain(cuda, R):
+    """float32: AoANet's encode and greedy decode with the attention core
+    against the plain path: the memory within 1e-4 relative, seq
+    identical, token log-probs within 1e-4; #9 launched N_enc times by the
+    encode and once a step."""
+    from boficap_tpu_torch.decode import ar
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    model = _small_aoa(cuda)
+    g = torch.Generator().manual_seed(5)
+    att = torch.randn(6, R, 2048, generator=g).to(cuda)
+    n_live = torch.tensor([R, 3, R, R // 2, 1, R - 1])
+    am = (torch.arange(R)[None, :] < n_live[:, None]).float().to(cuda)
+    with torch.no_grad():
+        mem = model.encode(att, am)
+        want = ar.ar_sample(model, mem, am.bool())
+        model.set_attention_core(True)
+        try:
+            reset_launch_counts()
+            mem_core = model.encode(att, am)
+            torch.cuda.synchronize()
+            n_enc = launch_counts()["attention_core"]
+            got = ar.ar_sample(model, mem_core, am.bool())
+            torch.cuda.synchronize()
+            n_all = launch_counts()["attention_core"]
+        finally:
+            model.set_attention_core(False)
+    assert n_enc == model.N_enc
+    assert n_all - n_enc == model.max_length
+    assert _rel(mem_core, mem) <= TOL[torch.float32]
+    assert torch.equal(got["seq"], want["seq"])
+    assert (got["tok_logprobs"] - want["tok_logprobs"]).abs().max() <= 1e-4

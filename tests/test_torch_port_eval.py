@@ -355,9 +355,17 @@ def test_setup_registry():
     cfg = tconfig.make_config(train_mode="UIC", N_enc=1, N_dec=1, N_len=1,
                               d_model=32, d_ff=64, num_att_heads=4)
     assert tsetup(cfg, 20, device="cpu").tgt_vocab == 24
-    cfg.caption_model = "updown"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsetup(cfg, 20, device="cpu")
+    from boficap_tpu_torch.models import LSTM_MODELS, LSTMCaptioner
+    kinds = {}
+    for cm in LSTM_MODELS:
+        cfg.caption_model = cm
+        m = tsetup(cfg, 20, device="cpu")
+        assert isinstance(m, LSTMCaptioner) and m.tgt_vocab == 24
+        kinds.setdefault(type(m).__name__, []).append(cm)
+    assert kinds == {"FCModel": ["fc", "show_tell"],
+                     "UpDownModel": ["updown", "topdown"],
+                     "Att2in2Model": ["att2in2", "att2in"],
+                     "AoANet": ["aoa"]}
     cfg.caption_model = "nonesuch"
     with pytest.raises(ValueError):
         tsetup(cfg, 20, device="cpu")
