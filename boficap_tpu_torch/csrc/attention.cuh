@@ -64,14 +64,16 @@
 // B: rows are bitwise batch-independent.  Up to KEY_MAX keys no online
 // rescaling: a row's scores are normalised, rounded, then multiplied by V,
 // as the TPU kernel does (pallas_attention.py:49-52).  Past KEY_MAX keys
-// (the attention core only: the layer and stack kernels keep the bound,
-// launch_attention's kLong) the row path has no room and the query takes
-// the tile or ffma path at any Lq.  The ffma block keeps its score rows in
-// shared memory and so takes any Lk as it is.  The tile path goes over the
-// keys in chunks of KEY_MAX (attention_tile_long_kernel): an online
-// softmax, a running max and sum a query row, the partial context rescaled
-// at each chunk and divided by the sum at the end; p is rounded to bf16
-// before that division, not after it.  Every path needs Dh <= DH_MAX and
+// (one key source and no KvDst: the attention core, the encoder layers'
+// self-attention over the regions and every cross-attention over the
+// memory; a 14 x 14 image grid is 196 regions) the row path has no room
+// and the query takes the tile or ffma path at any Lq.  The ffma block
+// keeps its score rows in shared memory and so takes any Lk as it is.  The
+// tile path goes over the keys in chunks of KEY_MAX
+// (attention_tile_long_kernel): an online softmax, a running max and sum a
+// query row, the partial context rescaled at each chunk and divided by the
+// sum at the end; p is rounded to bf16 before that division, not after
+// it.  Every path needs Dh <= DH_MAX and
 // at most SMEM_MAX bytes of shared memory a block (the wrappers raise
 // above them).  16-byte loads need 16-byte aligned bases,
 // strides and head width (the attention-core wrapper requires them); the
@@ -705,8 +707,9 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
 // m' = max(m, m_c), p = exp(s - m') rounded to bf16 as the A fragments of
 // P V, the running sum l' = l exp(m - m') + sum p and the context o' =
 // o exp(m - m') + P V; at the end o / l as the short path forms p / sum.
-// DP: the context's 16-column tiles a row holds (DhP / 16 <= DP).
-template <Scale S, int DP>
+// DP: the context's 16-column tiles a row holds (DhP / 16 <= DP).  CH: a
+// link of a launch chain, as attention_tile_kernel (#5's cross-attention).
+template <Scale S, int DP, bool CH>
 __global__ void __launch_bounds__(TILE_WARPS * 32)
     attention_tile_long_kernel(HeadView<const __nv_bfloat16> q,
                                HeadView<const __nv_bfloat16> k,
@@ -719,6 +722,7 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
   constexpr int KT = KEY_MAX / 16;            // key tiles a chunk
   extern __shared__ uint4 smem_tile[];
   const int b = blockIdx.x / H, h = blockIdx.x % H;
+  grid_wait<CH>();   // q, k, v: a predecessor's outputs (common.cuh)
   const int LqP = round16(Lq), LkP = round16(Lk), DhP = round16(Dh);
   const int ld = DhP + 8, ntiles = LkP / 16;
   T* Qs = reinterpret_cast<T*>(smem_tile);    // [LqP][ld]
@@ -737,6 +741,7 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
   }
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
+  grid_launch_dependents<CH>();   // the operands are staged
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tig = lane & 3;
@@ -1035,9 +1040,11 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 
 // path < 0: attention_path's; a path given must be one the dtype has
 // (row at both, tile at bf16, ffma at float32); CH: launched as a link of a
-// launch chain (common.cuh launch_kernel); kLong: takes more than KEY_MAX
-// keys (the attention core; the layer and stack kernels keep the bound)
-template <typename T, Scale S, bool CH = false, bool kLong = false>
+// launch chain (common.cuh launch_kernel).  More than KEY_MAX keys only
+// from one source with no KvDst, off the row path (the tile path's chunked
+// kernel takes one source; ops/decoder_layer.py check_attention_shape
+// mirrors this and attention_smem)
+template <typename T, Scale S, bool CH = false>
 cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
                              HeadView<const T> va, int rows_a,
                              HeadView<const T> kc, HeadView<const T> vc,
@@ -1055,8 +1062,7 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
   if (path > kPathFfma || (path == kPathTile && !bf16) ||
       (path == kPathFfma && bf16))
     return cudaErrorInvalidValue;
-  if (Lk > KEY_MAX && (!kLong || path == kPathRow || rows_c > 0 ||
-                       dst.k != nullptr))
+  if (Lk > KEY_MAX && (path == kPathRow || rows_c > 0 || dst.k != nullptr))
     return cudaErrorInvalidValue;
   const long long es = sizeof(T);
   const bool vec =
@@ -1089,19 +1095,17 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
     if (path == kPathTile) {
       const int tiles = att::round16(Lq) / 16;
       const int threads = 32 * (tiles < TILE_WARPS ? tiles : TILE_WARPS);
-      if constexpr (kLong) {
-        if (Lk > KEY_MAX) {
+      if (Lk > KEY_MAX) {
 #define BFC_TILE_LONG(DP)                                                     \
   {                                                                           \
-    BFC_TRY(allow_smem(att::attention_tile_long_kernel<S, DP>, smem));        \
-    return launch_kernel<false>(att::attention_tile_long_kernel<S, DP>,       \
-                                B * H, threads, smem, stream, q, ka, va, Lk,  \
-                                mask, mask_sb, mask_sq, out, H, Lq, Dh, vec); \
+    BFC_TRY(allow_smem(att::attention_tile_long_kernel<S, DP, CH>, smem));    \
+    return launch_kernel<CH>(att::attention_tile_long_kernel<S, DP, CH>,      \
+                             B * H, threads, smem, stream, q, ka, va, Lk,     \
+                             mask, mask_sb, mask_sq, out, H, Lq, Dh, vec);    \
   }
-          if (att::round16(Dh) <= 64) BFC_TILE_LONG(4);
-          BFC_TILE_LONG(8);
+        if (att::round16(Dh) <= 64) BFC_TILE_LONG(4);
+        BFC_TILE_LONG(8);
 #undef BFC_TILE_LONG
-        }
       }
 #define BFC_TILE(KT)                                                          \
   {                                                                           \

@@ -60,7 +60,7 @@ cudaError_t attention_core_entry(const BfcAttentionCoreArgs& a,
     return HeadView<const T>{static_cast<const T*>(p), sb, sh, sl};
   };
   const HeadView<const T> none{nullptr, 0, 0, 0};
-  return launch_attention<T, Scale::kMulInvSqrt, false, true>(
+  return launch_attention<T, Scale::kMulInvSqrt>(
       view(a.q, a.q_sb, a.q_sh, a.q_sl), view(a.k, a.k_sb, a.k_sh, a.k_sl),
       view(a.v, a.v_sb, a.v_sh, a.v_sl), a.Lk, none, none, 0,
       static_cast<const uint8_t*>(a.mask), a.mask_sb, a.mask_sq,
@@ -75,7 +75,7 @@ extern "C" int bfc_attention_core_args_size() {
 }
 
 // the path an Lq x Lk attention at dtype takes (attention.cuh
-// AttentionPath), -1 past the key bound
+// AttentionPath), -1 without keys
 extern "C" int bfc_attention_path(int Lq, int Lk, int dtype) {
   return bfc::attention_path(Lq, Lk, dtype);
 }

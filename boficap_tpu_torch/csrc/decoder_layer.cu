@@ -45,8 +45,10 @@
 //    writes activations only after griddepcontrol.wait.  Every block of
 //    every kernel waits before it exits, so the chain keeps stream order
 //    (a residual read two launches back included); the outputs are
-//    bitwise those of plain launches.  float32 launches plainly (slower
-//    chained on the H100; PERF.md).
+//    bitwise those of plain launches.  A cross-attention over more than
+//    128 regions (196: a 14 x 14 image grid) takes attention.cuh's
+//    chunked tile kernel, a link of the same chain.  float32 launches
+//    plainly (slower chained on the H100; PERF.md).
 //
 // bfc_gemm runs one product alone, C = epilogue(A @ W + bias), on the same
 // route, and bfc_refnorm one RefLayerNorm (refnorm.cuh): ways to time the

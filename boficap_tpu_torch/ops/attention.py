@@ -50,47 +50,13 @@ from typing import Optional
 
 import torch
 
+# the attention block's constants, path choice and staging size live
+# beside the layer kernels that share the block; re-exported here
 from .decoder_layer import (_DTYPE_CODE, _I, _LL, _P, DH_MAX, KEY_MAX,
-                            _kernels, _route)
+                            LQ_ROW, PATHS, SMEM_LIMIT, _kernels, _route,
+                            attention_path, shared_bytes)
 
 MASK_FILL = -1e9
-# shared memory a block may use on the H100 (227 KB)
-SMEM_LIMIT = 232448
-ATT_WARPS = 4                       # csrc/attention.cuh: ffma path warps
-LQ_ROW = 1                          # csrc/attention.cuh: row path up to here
-PATHS = ("row", "tile", "ffma")     # csrc/attention.cuh AttentionPath
-
-
-def attention_path(Lq: int, Lk: int, dtype) -> Optional[str]:
-    """The path of the attention block for an Lq x Lk attention at ``dtype``
-    (the C library's ``bfc_attention_path``): 'row' up to LQ_ROW query
-    rows and KEY_MAX keys, else 'tile' at bf16 and 'ffma' at float32; None
-    without keys."""
-    if Lk < 1:
-        return None
-    if Lq <= LQ_ROW and Lk <= KEY_MAX:
-        return "row"
-    return "tile" if dtype == torch.bfloat16 else "ffma"
-
-
-def _round16(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
-def shared_bytes(Lq: int, Lk: int, Dh: int, dtype,
-                 path: Optional[str] = None) -> int:
-    """Shared memory of one (sample, head) block on ``path`` (None: the one
-    ``attention_path`` gives; the C library's
-    ``bfc_attention_core_scratch``): none on the row path; the tile path's
-    bf16 Q [16-row tiles][Dh + pad] and K, V [16-key tiles][Dh + pad], rows
-    padded to a multiple of 16 columns plus 8; the ffma path's float32 K
-    [Lk, Dh+1], V [Lk, Dh], Q [Lq, Dh] and a probability row a warp."""
-    path = path or attention_path(Lq, Lk, dtype)
-    if path == "row":
-        return 0
-    if path == "tile":
-        return 2 * (_round16(Lq) + 2 * _round16(Lk)) * (_round16(Dh) + 8)
-    return 4 * (Lk * (Dh + 1) + Lk * Dh + Lq * Dh + ATT_WARPS * Lk)
 
 
 def attention_core_plain(qh, kh, vh, mask):

@@ -29,9 +29,11 @@ and is not ported: attention runs per (sample, head).
 Numerics (pallas_decoder_layer.py:63-121): RefLayerNorm in float32 with
 the unbiased variance and eps added to the std; scores / sqrt(Dh), masked
 with the finite -1e9, softmax in float32, probabilities cast to the compute
-dtype; every product sums in float32, casts to the compute dtype, then adds
-its bias in that dtype, then ReLU or the residual.  Norm scales and biases
-stay float32, as the flax modules hold them.
+dtype (at bf16 past KEY_MAX keys, the attention block's online softmax over
+chunks of KEY_MAX keys, which rounds p before the division by the sum:
+``online_context``); every product sums in float32, casts to the compute
+dtype, then adds its bias in that dtype, then ReLU or the residual.  Norm
+scales and biases stay float32, as the flax modules hold them.
 
 Bounds on the H100 at the serving batch (B = 64, D = 512, d_ff = 2048,
 R = 36, L = 20, V = 9491): the layers and the head are bound by operations
@@ -57,12 +59,17 @@ import torch
 
 MASK_FILL = -1e9
 NORM_EPS = 1e-6
-# the attention block (csrc/attention.cuh) of the layer and stack kernels
-# holds a query's whole score row in registers (no online rescaling): at
-# most KEY_MAX keys, heads of at most DH_MAX.  The attention core alone
-# (ops/attention.py) goes past KEY_MAX keys
+# the attention block (csrc/attention.cuh) of every kernel: a score row of
+# at most KEY_MAX keys sits in registers (the row path), past it the tile
+# path goes over chunks of KEY_MAX keys with an online softmax and the ffma
+# block keeps its score rows in shared memory; heads of at most DH_MAX, at
+# most SMEM_LIMIT bytes of shared memory a block (the H100's 227 KB)
 KEY_MAX = 128
 DH_MAX = 128
+SMEM_LIMIT = 232448
+ATT_WARPS = 4                       # csrc/attention.cuh: ffma path warps
+LQ_ROW = 1                          # csrc/attention.cuh: row path up to here
+PATHS = ("row", "tile", "ffma")     # csrc/attention.cuh AttentionPath
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -178,8 +185,34 @@ def linear_plain(a, w, b, relu: bool = False, res=None):
     return y
 
 
+def online_context(s, vh, dtype):
+    """The tile path past KEY_MAX keys (csrc/attention.cuh
+    attention_tile_long_kernel): float32 scores s [B,H,Lq,Lk] and values
+    vh [B,Lk,H,Dh] -> the context [B,Lq,H,Dh] in ``dtype``, over chunks of
+    KEY_MAX keys with a running max m and sum l a query row: p = exp(s -
+    m') rounded to ``dtype`` for P V, l and the float32 context rescaled by
+    exp(m - m') at each chunk, and the context divided by l at the end."""
+    B, H, Lq, Lk = s.shape
+    m = s.new_full((B, H, Lq, 1), -math.inf)
+    l = s.new_zeros((B, H, Lq, 1))
+    o = s.new_zeros((B, H, Lq, vh.shape[-1]))
+    for j0 in range(0, Lk, KEY_MAX):
+        sc = s[..., j0:j0 + KEY_MAX]
+        n = torch.maximum(m, sc.amax(-1, keepdim=True))
+        a = torch.exp(m - n)
+        p = torch.exp(sc - n)
+        l = l * a + p.sum(-1, keepdim=True)
+        o = o * a + torch.einsum("bhqk,bkhd->bhqd", p.to(dtype).float(),
+                                 vh[:, j0:j0 + KEY_MAX])
+        m = n
+    return (o / l).to(dtype).transpose(1, 2)
+
+
 def attention_plain(q, k, v, mask, num_heads: int):
-    """q [B,Lq,D], k/v [B,Lk,D], bool mask [B,Lk] | [B,Lq,Lk] -> [B,Lq,D]."""
+    """q [B,Lq,D], k/v [B,Lk,D], bool mask [B,Lk] | [B,Lq,Lk] -> [B,Lq,D].
+    The probabilities are normalised, rounded, then multiplied by V; at
+    bf16 past KEY_MAX keys, as the kernels' tile path does there,
+    ``online_context``."""
     B, Lq, D = q.shape
     Lk = k.shape[1]
     H = num_heads
@@ -190,6 +223,8 @@ def attention_plain(q, k, v, mask, num_heads: int):
     s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(Dh)
     m = mask[:, None, None, :] if mask.dim() == 2 else mask[:, None]
     s = torch.where(m, s, MASK_FILL)
+    if q.dtype == torch.bfloat16 and Lk > KEY_MAX:
+        return online_context(s, vh, q.dtype).reshape(B, Lq, D)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     ctx = torch.einsum("bhqk,bkhd->bqhd", p.float(), vh).to(q.dtype)
     return ctx.reshape(B, Lq, D)
@@ -457,20 +492,63 @@ def check_product_shape(dtype, widths: Dict[str, int],
                              f"tensor-core product reads it with TMA")
 
 
-def check_attention_shape(keys: Dict[str, int], Dh: int) -> None:
-    """Raise ValueError unless the attention block (csrc/attention.cuh)
-    takes these key counts (``keys``: name -> keys a query attends over)
-    and head width: it keeps a query's whole score row in registers, so at
-    most KEY_MAX keys, and a head of at most DH_MAX."""
-    for name, n in keys.items():
-        if n > KEY_MAX:
-            raise ValueError(
-                f"{name} = {n} keys: the attention block keeps a score row "
-                f"in registers and takes at most {KEY_MAX} keys (the key "
-                f"bound)")
+def attention_path(Lq: int, Lk: int, dtype) -> Optional[str]:
+    """The path of the attention block for an Lq x Lk attention at ``dtype``
+    (the C library's ``bfc_attention_path``): 'row' up to LQ_ROW query
+    rows and KEY_MAX keys, else 'tile' at bf16 and 'ffma' at float32; None
+    without keys."""
+    if Lk < 1:
+        return None
+    if Lq <= LQ_ROW and Lk <= KEY_MAX:
+        return "row"
+    return "tile" if dtype == torch.bfloat16 else "ffma"
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def shared_bytes(Lq: int, Lk: int, Dh: int, dtype,
+                 path: Optional[str] = None) -> int:
+    """Shared memory of one (sample, head) block on ``path`` (None: the one
+    ``attention_path`` gives; csrc/attention.cuh ``attention_smem``): none
+    on the row path; the tile path's bf16 Q [16-row tiles][Dh + pad] and
+    K, V [16-key tiles][Dh + pad], rows padded to a multiple of 16 columns
+    plus 8; the ffma path's float32 K [Lk, Dh+1], V [Lk, Dh], Q [Lq, Dh]
+    and a probability row a warp."""
+    path = path or attention_path(Lq, Lk, dtype)
+    if path == "row":
+        return 0
+    if path == "tile":
+        return 2 * (_round16(Lq) + 2 * _round16(Lk)) * (_round16(Dh) + 8)
+    return 4 * (Lk * (Dh + 1) + Lk * Dh + Lq * Dh + ATT_WARPS * Lk)
+
+
+def check_attention_shape(attentions: Dict[str, Tuple[int, int, bool]],
+                          Dh: int, dtype) -> None:
+    """Raise ValueError unless the attention block (csrc/attention.cuh
+    ``launch_attention``) takes these attentions (``attentions``: name ->
+    (query rows, keys, whether the keys are a cache and fresh rows copied
+    out, as the window layers' self-attention)) at head width ``Dh`` and
+    ``dtype``: heads of at most DH_MAX; past KEY_MAX keys only one key
+    source with no copy (the tile path's chunked kernel takes one); and at
+    most SMEM_LIMIT bytes of shared memory a block on the path taken
+    (``shared_bytes``)."""
     if Dh > DH_MAX:
         raise ValueError(f"head width {Dh}: the attention block takes heads "
                          f"of at most {DH_MAX}")
+    for name, (Lq, Lk, cached) in attentions.items():
+        if Lk > KEY_MAX and cached:
+            raise ValueError(
+                f"{name} = {Lk} keys from a cache and fresh rows: the "
+                f"attention block takes more than {KEY_MAX} keys (the key "
+                f"bound) only from one source")
+        smem = shared_bytes(Lq, Lk, Dh, dtype)
+        if smem > SMEM_LIMIT:
+            raise ValueError(
+                f"{name}: {Lq} x {Lk} at head width {Dh} needs {smem} bytes "
+                f"of shared memory a block, over the {SMEM_LIMIT} the card "
+                f"gives")
 
 
 # the window layer's product weights, read with TMA
@@ -499,7 +577,8 @@ def encoder_call(entry: str, x, mask, w, num_heads: int,
     lead = () if NL is None else (NL,)
     _check_weights(w, weight_shapes(_ENC_KEYS, D, F, lead), dt, dev)
     check_product_shape(dt, {"D": D, "d_ff": F}, {"x": x})
-    check_attention_shape({"R": R}, D // num_heads)
+    check_attention_shape({"self-attention": (R, R, False)}, D // num_heads,
+                          dt)
     lib = _kernels().encoder_layer
     n_scratch = getattr(lib, f"bfc_{entry}_scratch")(B, R, D, F)
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
@@ -528,7 +607,9 @@ def decoder_call(entry: str, x, memory, tgt_mask, src_mask, w,
     lead = () if NL is None else (NL,)
     _check_weights(w, weight_shapes(_DEC_KEYS, D, F, lead), dt, dev)
     check_product_shape(dt, {"D": D, "d_ff": F}, {"x": x, "memory": memory})
-    check_attention_shape({"L": L, "R": R}, D // num_heads)
+    check_attention_shape({"self-attention": (L, L, False),
+                           "cross-attention": (L, R, False)},
+                          D // num_heads, dt)
     ptrs = _pointers(w, _DEC_KEYS)
     if NL is not None:
         # the stack projects every layer's cross K|V in one product, on
@@ -669,7 +750,9 @@ def window_layer_call(x_win, k_cache, v_cache, k2, v2, tgt_mask, src_mask, w,
     ssb, ssq = _mask_strides(src_mask, B, W, R, dev, "src_mask")
     _check_weights(w, weight_shapes(_WIN_KEYS, D, F), dt, dev)
     check_window_products(dt, D, F, x_win, w)
-    check_attention_shape({"L + W": L + W, "R": R}, D // num_heads)
+    check_attention_shape({"self-attention": (W, L + W, True),
+                           "cross-attention": (W, R, False)},
+                          D // num_heads, dt)
     n_scratch = _kernels().window_layer.bfc_window_layer_scratch(B, W, D, F)
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
     out = torch.empty_like(x_win)

@@ -258,7 +258,9 @@ def _launch_stack(entry: str, x_win, k_caches, v_caches, k2s, v2s, w_start,
     ssb, ssq = _mask_strides(src_mask, B, W, R, dev, "src_mask")
     _check_weights(stacked, weight_shapes(_WIN_KEYS, D, F, (NL,)), dt, dev)
     check_window_products(dt, D, F, x_win, stacked)
-    check_attention_shape({"self-attention keys": Lk, "R": R}, D // num_heads)
+    check_attention_shape({"self-attention": (W, Lk, True),
+                           "cross-attention": (W, R, False)},
+                          D // num_heads, dt)
     n_scratch = _kernels().window_stack.bfc_window_stack_scratch(B, W, D, F)
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
     out = torch.empty_like(x_win)

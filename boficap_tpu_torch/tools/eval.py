@@ -17,9 +17,18 @@ AIC greedy, beam and diverse beam (``--group_size``), and ``--sample_n``
 captions (AIC).  ``--device`` is ``cuda`` by default;
 ``--device cpu`` runs the plain path.
 
+``--image_folder DIR`` captions a folder of images (``data/raw.py``'s
+``DataLoaderRaw``, ``--coco_json`` and ``--cnn_model`` as in the JAX
+package): on the card each image goes through the ResNet-101 trunk
+(``models/resnet.py``; ``$BOFICAP_CNN_WEIGHTS`` names a torchvision
+state dict, random weights otherwise) to a 14 x 14 = 196-region memory,
+on the CPU through the patch extractor.  The vocabulary comes from the
+infos, language_eval is off (no ground truth) and ``image_root``
+defaults to the folder (``--dump_images``, ``--dump_path``).
+
 Not ported (``NotImplementedError``, naming the ROADMAP item):
-``--image_folder`` (raw images), ``--dump_attention``, ``--report_flops``
-(XLA cost analysis has no counterpart yet).
+``--dump_attention``, ``--report_flops`` (XLA cost analysis has no
+counterpart yet).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from ..config import (Config, add_eval_options, default_config, finalize,
                       load_yaml_with_base, restore_saved_opt)
 from ..convert import load_jax_checkpoint
 from ..data.dataset import CaptionData
+from ..data.raw import DataLoaderRaw
 from ..device import resolve_device
 from ..eval import eval_utils
 from ..eval.metrics import language_eval
@@ -145,9 +155,6 @@ def main(argv=None):
             return stats
         print("no cached predictions; running full eval")
 
-    if opt.get("image_folder"):
-        eval_utils.not_ported("eval over a raw image folder (--image_folder:"
-                              " models/resnet.py, data/raw.py)", 10)
     if opt.get("dump_attention"):
         eval_utils.not_ported("--dump_attention (attention maps of a "
                               "teacher-forced pass)", 12)
@@ -155,7 +162,25 @@ def main(argv=None):
         eval_utils.not_ported("--report_flops (XLA cost analysis of the "
                               "decode programs has no counterpart yet)", 12)
     device = resolve_device(opt.get("device") or None)
-    loader = CaptionData(opt)
+    if opt.get("image_folder"):
+        # a folder of raw images (reference tools/eval.py:109-118): the
+        # features are made on the fly; the vocabulary comes from the
+        # train infos, and without gt captions language_eval is off
+        loader = DataLoaderRaw(
+            opt.image_folder,
+            batch_size=int(opt.get("batch_size", 10) or 10),
+            coco_json=opt.get("coco_json") or "",
+            cnn_model=opt.get("cnn_model", "resnet101"), device=device)
+        loader.ix_to_word = infos["vocab"]
+        loader.vocab_size = len(infos["vocab"])
+        loader.seq_length = int(opt.get("max_length", 20) or 20)
+        if eval_kwargs.get("language_eval"):
+            print("--image_folder has no gt captions; language_eval -> 0")
+        eval_kwargs["language_eval"] = 0
+        if not eval_kwargs.get("image_root"):
+            eval_kwargs["image_root"] = opt.image_folder
+    else:
+        loader = CaptionData(opt)
     model = models_setup(opt, loader.vocab_size, device)
     load_jax_checkpoint(args.model, model)
     model.eval()

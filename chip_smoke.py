@@ -152,7 +152,27 @@ Phases, each printing one JSON line:
               lossless width on the kernels against plain; the model as a
               reference model.pth through the convert CLI, loaded bitwise
               and evaluated to its source's captions.
- 16. times    each kernel's time beside its plain version's, one PyTorch
+ 16. raw      the raw-image eval path over 196 regions (a 14 x 14 grid):
+              64 binary PPM images of seeded noise, sides 300-640, in a
+              temp folder; the ResNet-101 trunk (random He-init from the
+              seed, float32) through DataLoaderRaw on the card with cuDNN's
+              TF32 switched on around it (every convolution must see it
+              off, and it must come back on), the first two images' fc and
+              att against the same trunk on the CPU within 1e-4 relative,
+              the features' scale (random He-init features are large:
+              reported as they are), ms an image; #1, #2, #4, #5, #8, #6
+              and #7 at B = 64 over 196 regions against their twins,
+              float32 and bf16, with padded regions and a fully masked
+              sample (#5 20 times back to back, bitwise equal), and #9 at
+              1 x 196; the eval CLI (tools.eval main, in process) over the
+              folder through model.ckpt: NAIC and SAIC on uic_sd at bf16
+              (the whole-stack route: #4, #5, #6, #7, #3) and at float32
+              (per layer: #1, #2, #8, #3), AIC on transformer.yml at bf16
+              with use_pallas on (#4, #9), each on the kernels against the
+              plain path on the card by the margin rules, each route's
+              launch counts read around its run; the module in a process
+              of its own (NAIC, the images copied to vis/imgs).
+ 17. times    each kernel's time beside its plain version's, one PyTorch
               library call's (a yardstick the port never calls) and the
               least time the card could take (bound); decode times,
               launches and host syncs per decode; #9's host cost a call,
@@ -169,8 +189,10 @@ Phases, each printing one JSON line:
               SDPA) and on each path at 1, 2, 4 and 8 query rows; one
               refnorm at 512 and 2304 rows against its byte bound; host µs
               of a layer, a stack and a window-stack call at bf16 and
-              float32.
- 17. lstm     the LSTM captioners at full width (configs/fc.yml,
+              float32; #1, #2, #4-#8 and #9 over 196 regions (ms, bound,
+              plain, SDPA + matmul), the trunk's ms an image and the raw
+              eval's images/s, kernels against plain.
+ 18. lstm     the LSTM captioners at full width (configs/fc.yml,
               updown.yml, a2i2.yml, aoa.yml; random weights from the seed,
               the logit scaled up so the words depend on the image), B =
               64.  AoANet with use_pallas on (#9 on the refiner's six
@@ -356,7 +378,7 @@ def build(dtype=None, config: str = "uic_sd.yml", vocab=None):
 
 
 @torch.no_grad()
-def shape_plans(models, share: float = 0.2):
+def shape_plans(models, share: float = 0.2, feats=None, long: int = LONG):
     """Random weights plan SA captions that mostly stop at once, and never
     a phrase wider than the narrow window.  Shift the length head's "stop"
     bias down and the syntax head's VP/NP/CP biases up by STOP_SHIFT, so
@@ -364,14 +386,16 @@ def shape_plans(models, share: float = 0.2):
     until about ``share`` of the images open their SA plan with one (read
     on the first model's first SA round): such a round is wider than the
     window, so SA decodes run both the narrow and the wide kernels.  The
-    same shifts go to every model.  Returns the LONG shift."""
+    same shifts go to every model.  ``feats``: the (att, am) to read the
+    plans on (None: ``features(B, seed=9)``); ``long``: the phrase length
+    raised (LONG).  Returns its shift."""
     from boficap_tpu_torch.constants import LEN, PAD
     for m in models:
         m.len_head2.bias[0] -= STOP_SHIFT
         m.syn_head2.bias[4:7] += STOP_SHIFT
         m.invalidate_packed()
     model = models[0]
-    att, am = features(B, seed=9)
+    att, am = feats if feats is not None else features(B, seed=9)
     att, am = att.to(DEV), am.to(DEV)
     mem = model.encode(att, am)
     ids = torch.full((B, L + 2), PAD, dtype=torch.long, device=DEV)
@@ -381,11 +405,11 @@ def shape_plans(models, share: float = 0.2):
         torch.ones(B, dtype=torch.long, device=DEV), am.bool(),
         use_syn=False)
     others = len_lp.clone()
-    others[:, LONG] = -math.inf
-    gap = others.max(-1).values - len_lp[:, LONG]
+    others[:, long] = -math.inf
+    gap = others.max(-1).values - len_lp[:, long]
     long_shift = torch.quantile(gap.float(), 1.0 - share).item() + 1e-3
     for m in models:
-        m.len_head2.bias[LONG] += long_shift
+        m.len_head2.bias[long] += long_shift
         m.invalidate_packed()
     return long_shift
 
@@ -413,15 +437,15 @@ def features(n: int, seed: int):
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def layer_inputs(dtype, seed: int):
+def layer_inputs(dtype, seed: int, regions: int = R):
     g = torch.Generator().manual_seed(seed)
     dev = DEV
-    x_enc = torch.randn((B, R, D), generator=g).to(dev, dtype)
-    n_live = torch.randint(1, R + 1, (B,), generator=g)
+    x_enc = torch.randn((B, regions, D), generator=g).to(dev, dtype)
+    n_live = torch.randint(1, regions + 1, (B,), generator=g)
     n_live[0] = 0                                      # fully masked sample
-    src = (torch.arange(R)[None, :] < n_live[:, None]).to(dev)
+    src = (torch.arange(regions)[None, :] < n_live[:, None]).to(dev)
     x_dec = torch.randn((B, L, D), generator=g).to(dev, dtype)
-    mem = torch.randn((B, R, D), generator=g).to(dev, dtype)
+    mem = torch.randn((B, regions, D), generator=g).to(dev, dtype)
     total = torch.randint(0, L + 1, (B,), generator=g)
     total[1] = 0                                       # empty plan
     tgt = (torch.arange(L)[None, None, :] < total[:, None, None]).expand(
@@ -430,7 +454,10 @@ def layer_inputs(dtype, seed: int):
     return x_enc, src, x_dec, mem, tgt, h
 
 
-def check_kernels(model):
+def check_kernels(model, regions: int = R, head: bool = True):
+    """#1, #2, #4 and #5 (and, with ``head``, #3) against their plain
+    twins at B = 64 over ``regions`` regions, float32 and bfloat16; #5
+    called STACK_REPEATS times back to back, bitwise equal."""
     from boficap_tpu_torch.ops import decoder_layer as dl
     from boficap_tpu_torch.ops import stack as st
     res = {}
@@ -439,8 +466,8 @@ def check_kernels(model):
         tol = TOL[dtype_name]
         enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
         dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
-        head = dl.pack_head_weights(model.generator.proj, dtype)
-        x_enc, src, x_dec, mem, tgt, h = layer_inputs(dtype, 1)
+        hpack = dl.pack_head_weights(model.generator.proj, dtype)
+        x_enc, src, x_dec, mem, tgt, h = layer_inputs(dtype, 1, regions)
         H = model.num_heads
 
         got = dl.fused_encoder_layer(x_enc, src, enc_w, H)
@@ -493,19 +520,20 @@ def check_kernels(model):
                  f"{STACK_REPEATS} back to back differ from the first")
         stacks["decoder_stack"]["repeats_bitwise_equal"] = STACK_REPEATS
 
-        # the head at an NA fill's rows (B * L) and a narrow SA round's
-        # (B * W)
-        heads = {f"n{B * T}": check_head(h[:, :T].contiguous(), head,
-                                         dtype_name)
-                 for T in (L, W_NARROW)}
         res[dtype_name] = {
             "encoder_layer": {"rel_err": e_enc, "max_abs_err": a_enc},
             "decoder_layer": {"rel_err": e_dec, "max_abs_err": a_dec},
-            "greedy_head": {
-                "max_abs_err": max(v["max_abs_err"] for v in heads.values()),
-                **heads},
             **stacks,
         }
+        if head:
+            # the head at an NA fill's rows (B * L) and a narrow SA
+            # round's (B * W)
+            heads = {f"n{B * T}": check_head(h[:, :T].contiguous(), hpack,
+                                             dtype_name)
+                     for T in (L, W_NARROW)}
+            res[dtype_name]["greedy_head"] = {
+                "max_abs_err": max(v["max_abs_err"]
+                                   for v in heads.values()), **heads}
     return res
 
 
@@ -615,9 +643,11 @@ def check_products(dtype):
     return res
 
 
-def window_inputs(dtype, W: int, seed: int, wide: bool = False):
+def window_inputs(dtype, W: int, seed: int, wide: bool = False,
+                  regions: int = R):
     """Operands of the window kernels at the serving shapes: x_win
-    [B, W, D], caches [NL, B, L, D], cross K/V [NL, B, R, D], window starts
+    [B, W, D], caches [NL, B, L, D], cross K/V [NL, B, regions, D], window
+    starts
     (eight clipped at L - W), tgt [B, W, L + W] (narrow) or [B, L, L]
     (wide) with an empty plan (sample 1: every row masked) and rows past
     the slot (masked), src [B, R] with padded regions."""
@@ -628,7 +658,7 @@ def window_inputs(dtype, W: int, seed: int, wide: bool = False):
 
     x = rnd(B, W, D)
     kc, vc = rnd(NL, B, L, D), rnd(NL, B, L, D)
-    k2, v2 = rnd(NL, B, R, D), rnd(NL, B, R, D)
+    k2, v2 = rnd(NL, B, regions, D), rnd(NL, B, regions, D)
     w_start = torch.randint(0, L - W + 1, (B,), generator=g)
     w_start[:8] = L - W
     n_keys = W if wide else L + W
@@ -636,15 +666,18 @@ def window_inputs(dtype, W: int, seed: int, wide: bool = False):
     live = torch.randint(0, W + 1, (B,), generator=g)
     tgt &= (torch.arange(W)[None, :] < live[:, None])[:, :, None]
     tgt[1] = False
-    n_live = torch.randint(1, R + 1, (B,), generator=g)
-    src = torch.arange(R)[None, :] < n_live[:, None]
+    n_live = torch.randint(1, regions + 1, (B,), generator=g)
+    if regions != R:
+        n_live[2] = 0          # past phase 2's inputs: a fully masked sample
+    src = torch.arange(regions)[None, :] < n_live[:, None]
     return (x, kc, vc, k2, v2, w_start.to(DEV, torch.int32),
             tgt.to(DEV), src.to(DEV))
 
 
-def check_window_kernels(model):
+def check_window_kernels(model, regions: int = R):
     """#8, #6 and #7 against their plain twins, float32 and bfloat16: a
-    narrow window (W = 8) and the wide round (W = L)."""
+    narrow window (W = 8) and the wide round (W = L), their
+    cross-attentions over ``regions`` regions."""
     from boficap_tpu_torch.ops import decoder_layer as dl
     from boficap_tpu_torch.ops import stack as st
     H = model.num_heads
@@ -666,7 +699,8 @@ def check_window_kernels(model):
                                    for gt, wt in zip(got, want))}
 
         for W in (W_NARROW, L):
-            x, kc, vc, k2, v2, ws, tgt, src = window_inputs(dtype, W, 11)
+            x, kc, vc, k2, v2, ws, tgt, src = window_inputs(dtype, W, 11,
+                                                          regions=regions)
             args = (x, kc[0], vc[0], k2[0], v2[0], tgt, src, pack.layers[0],
                     H)
             got = dl.fused_window_decoder_layer(*args)
@@ -676,7 +710,8 @@ def check_window_kernels(model):
 
         # narrow round: caches updated in place; rows outside each window
         # bit-identical, in-window rows the fresh K/V
-        x, kc, vc, k2, v2, ws, tgt, src = window_inputs(dtype, W_NARROW, 12)
+        x, kc, vc, k2, v2, ws, tgt, src = window_inputs(dtype, W_NARROW, 12,
+                                                     regions=regions)
         kc_k, vc_k, kc_p, vc_p = kc.clone(), vc.clone(), kc.clone(), vc.clone()
         h, _, _ = st.fused_window_decoder_stack(
             x, ws, kc_k, vc_k, k2, v2, tgt, src, pack.stack, pack.final_norm,
@@ -695,7 +730,8 @@ def check_window_kernels(model):
         agree("window_stack", (h, kc_k[:, inside], vc_k[:, inside]),
               (hp, kc_p[:, inside], vc_p[:, inside]))
 
-        x, _, _, k2, v2, _, tgt, src = window_inputs(dtype, L, 13, wide=True)
+        x, _, _, k2, v2, _, tgt, src = window_inputs(dtype, L, 13, wide=True,
+                                                   regions=regions)
         got = st.fused_window_wide_stack(x, k2, v2, tgt, src, pack.stack,
                                          pack.final_norm, H)
         want = st.window_wide_stack_plain(x, k2, v2, tgt, src, pack.stack,
@@ -1035,7 +1071,7 @@ def check_bf16_per_layer(model):
 # phase 8: the attention core against its plain version
 # ---------------------------------------------------------------------------
 
-def attention_cases(dtype, seed: int = 21):
+def attention_cases(dtype, seed: int = 21, regions: int = R):
     """#9's operands as MultiHeadAttention.attend hands them over (views of
     [B, L, H, Dh] projections, masks expanded over the query rows), by
     case: (q, k, v, mask).  Padded regions, and a fully masked sample or
@@ -1062,8 +1098,8 @@ def attention_cases(dtype, seed: int = 21):
     BK = B * K_BEAM
     cases = {
         # the AR step's cross-attention: one query row over 36 regions
-        "ar_cross": (heads(B, 1), heads(B, R), heads(B, R),
-                     rows2(padded(B, R), 1)),
+        "ar_cross": (heads(B, 1), heads(B, regions), heads(B, regions),
+                     rows2(padded(B, regions), 1)),
         # the bounding step's self-attention: the [LEN] query broadcast over
         # the batch (sample stride 0), keys < prefix visible
         "bound_self": (q1.expand(B, 1, H, Dh), heads(B, L + 2),
@@ -1534,16 +1570,13 @@ def round_trip(model, opt, loader, path: str):
         "write_s": w["write_s"], "read_s": read_s, "bitwise": True}
 
 
-@torch.no_grad()
-def run_eval(model, loader, mode: str, flag: str, kw: dict):
-    """eval_split with use_cuda_fill=flag; returns its result, each decode
-    call's (memory, src_mask, outputs) and the launch counts of the run."""
-    from boficap_tpu_torch.eval import eval_utils
-    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
-    log = []
-    make = eval_utils.make_decoders
-
-    def recording(m, kwargs):
+def recording(make, log, models=None):
+    """``eval_utils.make_decoders`` wrapped: each decode call's (memory,
+    src_mask, outputs) appended to ``log``, and each model it is made for
+    to ``models``."""
+    def make_recording(m, kwargs):
+        if models is not None:
+            models.append(m)
         dec = make(m, kwargs)
 
         def wrap(f):
@@ -1554,8 +1587,18 @@ def run_eval(model, loader, mode: str, flag: str, kw: dict):
             return g
         return {k: v if k in ("encode", "sample_n") else wrap(v)
                 for k, v in dec.items()}
+    return make_recording
 
-    eval_utils.make_decoders = recording
+
+@torch.no_grad()
+def run_eval(model, loader, mode: str, flag: str, kw: dict):
+    """eval_split with use_cuda_fill=flag; returns its result, each decode
+    call's (memory, src_mask, outputs) and the launch counts of the run."""
+    from boficap_tpu_torch.eval import eval_utils
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    log = []
+    make = eval_utils.make_decoders
+    eval_utils.make_decoders = recording(make, log)
     try:
         torch.cuda.synchronize()
         reset_launch_counts()                       # the eval path starts
@@ -3813,6 +3856,325 @@ def check_lstm(smi: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase raw: a folder of images through the ResNet-101 trunk and the eval
+# CLI, the layer and stack kernels past 128 keys
+# ---------------------------------------------------------------------------
+
+GRID = 196                    # a 14 x 14 image grid: the raw path's regions
+RAW_SIDES = (300, 640)        # each image side drawn from this range
+RAW_CPU_IMAGES = 2            # images of the trunk's card-vs-CPU check
+# the trunk's features, card against CPU on the same weights, both in full
+# float32 (no TF32): relative to the largest magnitude, sums in other
+# orders through 104 layers
+TRUNK_TOL = 1e-4
+# the layer and stack kernels (and #9) whose attentions see the 196 keys
+GRID_KERNELS = ("attention_core", "encoder_layer", "decoder_layer",
+                "encoder_stack", "decoder_stack", "window_layer",
+                "window_stack", "window_wide_stack")
+# the phrase length raised in the raw CLI's model: the random trunk's
+# features differ little between images, and every image took the same
+# SA plan (at LONG = 10, two wide rounds and no narrow one on the H100); a
+# first phrase of 15 words is a wide round, and any second phrase, clamped
+# to the 5 positions left, a narrow one
+RAW_LONG = 15
+# the eval CLI's runs over the folder: (mode, dtype, model)
+RAW_RUNS = (("NAIC", "bfloat16", "uic_sd"), ("SAIC", "bfloat16", "uic_sd"),
+            ("NAIC", "float32", "uic_sd"), ("SAIC", "float32", "uic_sd"),
+            ("AIC", "bfloat16", "aic"))
+
+
+def write_raw_images(folder: str, n: int, seed: int) -> list:
+    """n binary PPM images (P6, maxval 255) of seeded noise, each side drawn
+    from RAW_SIDES: the raw path's input, readable without PIL."""
+    g = torch.Generator().manual_seed(seed)
+    os.makedirs(folder)
+    names = []
+    for i in range(n):
+        h, w = torch.randint(RAW_SIDES[0], RAW_SIDES[1] + 1, (2,),
+                             generator=g).tolist()
+        pixels = torch.randint(0, 256, (h, w, 3), generator=g,
+                               dtype=torch.uint8)
+        names.append(f"img{i:03d}.ppm")
+        with open(os.path.join(folder, names[-1]), "wb") as f:
+            f.write(f"P6\n{w} {h}\n255\n".encode() + pixels.numpy().tobytes())
+    return names
+
+
+@torch.no_grad()
+def check_trunk(folder: str, names: list) -> tuple:
+    """The ResNet-101 trunk (random He-init from SEED, float32) on the
+    card through DataLoaderRaw over the folder, with cuDNN's TF32 switched
+    on around it: every convolution must see TF32 off and the setting must
+    come back on; the first RAW_CPU_IMAGES images' features against the
+    same trunk on the CPU; the features' scale; ms an image.  Returns the
+    result and the batch's (att, am) on the card."""
+    from boficap_tpu_torch.data.raw import (DataLoaderRaw, read_image,
+                                            resize_image, trunk_extractor)
+    from boficap_tpu_torch.models.resnet import (IMAGENET_MEAN,
+                                                 IMAGENET_STD, init_resnet,
+                                                 resnet_features)
+    seen = []
+
+    def conv_tf32(module, args):
+        if isinstance(module, torch.nn.Conv2d):
+            seen.append(torch.backends.cudnn.allow_tf32)
+
+    prev = torch.backends.cudnn.allow_tf32
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        conv_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        loader = DataLoaderRaw(folder, B, extractor=trunk_extractor(
+            device=DEV, seed=SEED))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = loader.get_batch("test")
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t0
+        after = torch.backends.cudnn.allow_tf32
+    finally:
+        hook.remove()
+        torch.backends.cudnn.allow_tf32 = prev
+    if not seen or any(seen) or not after:
+        fail(f"raw trunk: TF32 inside the forward {sorted(set(seen))}, "
+             f"after it {after} (the caller's True must come back)")
+    fc, att = batch["fc_feats"], batch["att_feats"]
+    if att.shape != (B, GRID, 2048) or not batch["att_masks"].all():
+        fail(f"raw trunk: att {att.shape}, masks {batch['att_masks'].sum()}")
+    cpu = init_resnet(seed=SEED, device="cpu")
+    mean, std = torch.from_numpy(IMAGENET_MEAN), torch.from_numpy(IMAGENET_STD)
+    errs = []
+    for i in range(RAW_CPU_IMAGES):
+        img = torch.from_numpy(read_image(os.path.join(folder, names[i]))
+                               .astype("float32") / 255.0)
+        x = (resize_image(img, 448) - mean) / std
+        cfc, catt = resnet_features(cpu, x[None])
+        e = {"fc": rel_err(torch.from_numpy(fc[i]), cfc[0]),
+             "att": rel_err(torch.from_numpy(att[i]), catt[0])}
+        if max(e.values()) > TRUNK_TOL:
+            fail(f"raw trunk: image {i} card vs CPU rel err {e} > "
+                 f"{TRUNK_TOL}")
+        errs.append(e)
+    del cpu
+    card = init_resnet(seed=SEED, device=DEV)
+    x = torch.randn((1, 448, 448, 3), device=DEV)
+    res = {
+        "images": len(names), "sides": list(RAW_SIDES),
+        "tf32": {"caller_set": True, "inside_forward": sorted(set(seen)),
+                 "restored": after,
+                 "global_for_the_decodes": prev},
+        "card_vs_cpu_rel_err": errs, "tolerance_rel": TRUNK_TOL,
+        "feature_scale": {"att_max_abs": float(abs(att).max()),
+                          "att_mean_abs": float(abs(att).mean()),
+                          "fc_max_abs": float(abs(fc).max())},
+        "extract_ms_per_image": extract_s / B * 1e3,
+        "forward_ms_b1": timed(lambda: resnet_features(card, x), reps=10)}
+    del card
+    return res, (torch.from_numpy(att).to(DEV),
+                 torch.from_numpy(batch["att_masks"]).to(DEV))
+
+
+@torch.no_grad()
+def check_grid_kernels(model) -> dict:
+    """#1, #2, #4, #5 (check_kernels) and #8, #6, #7
+    (check_window_kernels) over GRID regions at B = 64, float32 and
+    bfloat16, padded regions and a fully masked sample among them, #5
+    called STACK_REPEATS times bitwise equal; #9 at the AR step's
+    cross-attention over GRID keys (tile at bf16, ffma at float32)."""
+    from boficap_tpu_torch.ops import attention as at
+    errs = check_kernels(model, GRID, head=False)
+    werrs = check_window_kernels(model, GRID)
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        q, k, v, m = attention_cases(dtype, regions=GRID)["ar_cross"]
+        got = at.attention_core(q, k, v, m)
+        want = at.attention_core_plain(q, k, v, m)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        if not torch.isfinite(got.float()).all() or e > TOL[dtype_name]:
+            fail(f"attention_core {dtype_name} 1 x {GRID}: rel err {e}")
+        errs[dtype_name].update(werrs[dtype_name])
+        errs[dtype_name]["attention_core"] = {
+            "path": at.attention_path(1, GRID, dtype), "rel_err": e,
+            "max_abs_err": (got.float() - want.float()).abs().max().item()}
+    return errs
+
+
+def raw_yaml(path: str, **fields) -> str:
+    """A flat YAML of ``fields`` for the eval CLI's --cfg."""
+    with open(path, "w") as f:
+        for k, v in fields.items():
+            f.write(f"{k}: {v}\n")
+    return path
+
+
+@torch.no_grad()
+def raw_cli_run(argv: list, cwd: str) -> dict:
+    """``boficap_tpu_torch.tools.eval.main(argv)`` in ``cwd``, its output
+    captured, each decode call recorded (``recording``) and the launch
+    counts read around the run."""
+    import contextlib
+    import io
+    from boficap_tpu_torch.eval import eval_utils
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    from boficap_tpu_torch.tools import eval as teval
+    log, models = [], []
+    make = eval_utils.make_decoders
+    eval_utils.make_decoders = recording(make, log, models)
+    here = os.getcwd()
+    os.makedirs(cwd)
+    os.chdir(cwd)
+    out = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()                       # the CLI's run starts
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = teval.main(argv)
+        torch.cuda.synchronize()
+        counts = launch_counts()                    # ... and ends
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(here)
+        eval_utils.make_decoders = make
+    return {"result": result, "log": log, "model": models[0],
+            "counts": counts, "stdout": out.getvalue(), "wall_s": wall}
+
+
+def raw_cli(folder: str, tmp: str, feats, aic16) -> tuple:
+    """The eval CLI over the folder on the card through model.ckpt: the
+    uic_sd model (bf16, random weights, its plans shaped on the folder's
+    trunk features) NAIC and SAIC at bf16 (the whole-stack route) and, the
+    same file read at float32, on the per-layer route; AIC on
+    transformer.yml at bf16 with use_pallas on.  Each run on the kernels
+    (use_cuda_fill auto) against the plain path on the card
+    (use_cuda_fill 0, use_pallas off) by the margin rules, each route's
+    kernels launched; then the module in a process of its own."""
+    import re
+    from boficap_tpu_torch.data.raw import IMAGE_EXTS
+    uic = build()
+    long_shift = shape_plans([uic], feats=feats, long=RAW_LONG)
+    ckpts = {}
+    for key, config, model in (("uic_sd", "uic_sd.yml", uic),
+                               ("aic", "transformer.yml", aic16)):
+        opt = eval_opt(config, id=f"raw_{key}", batch_size=B)
+        ck = os.path.join(tmp, key)
+        write_checkpoint(model, opt, eval_loader(opt), ck)
+        ckpts[key] = [os.path.join(ck, "model.ckpt"),
+                      os.path.join(ck, f"infos_raw_{key}.pkl")]
+    del uic
+    res = {"long_bias_shift": long_shift, "margin_noise": {
+        "float32": MARGIN_NOISE, "bfloat16": BF16_MARGIN_NOISE}}
+    launches = {}
+    for mode, dtype_name, key in RAW_RUNS:
+        bf16 = dtype_name == "bfloat16"
+        runs = {}
+        for route in ("plain", "kernels"):
+            core = key == "aic" and route == "kernels"
+            yml = raw_yaml(os.path.join(tmp, f"{key}_{mode}_{dtype_name}_"
+                                             f"{route}.yml"),
+                           dtype=dtype_name, use_pallas=core,
+                           use_cuda_fill=0 if route == "plain" else "auto")
+            argv = ["--model", ckpts[key][0], "--infos_path", ckpts[key][1],
+                    "--cfg", yml, "--image_folder", folder,
+                    "--device", DEV, "--inference_mode", mode,
+                    "--num_images", "-1",
+                    "--language_eval", "1", "--dump_images", "0"]
+            runs[route] = raw_cli_run(argv, os.path.join(
+                tmp, f"cli_{key}_{mode}_{dtype_name}_{route}"))
+        plain, kern = runs["plain"], runs["kernels"]
+        what = f"raw CLI {mode} {dtype_name}"
+        if any(plain["counts"].values()):
+            fail(f"{what} plain: kernels launched: {plain['counts']}")
+        missing = [k for k in EVAL_KERNELS[mode, dtype_name]
+                   if kern["counts"][k] == 0]
+        if missing:
+            fail(f"{what}: {missing} never launched: {kern['counts']}")
+        for r in (plain, kern):
+            if f"ResNet-101 trunk extractor on {DEV}" not in r["stdout"]:
+                fail(f"{what}: the loader did not take the trunk on the "
+                     f"card: {r['stdout'][:500]}")
+            if "language_eval -> 0" not in r["stdout"]:
+                fail(f"{what}: no language_eval notice")
+            preds = r["result"]["predictions"]
+            if (len(preds) != B
+                    or not all(isinstance(p["caption"], str) for p in preds)
+                    or not math.isfinite(r["result"]["images_per_s"])):
+                fail(f"{what}: {len(preds)} predictions, images/s "
+                     f"{r['result']['images_per_s']}")
+        if len(kern["log"]) != len(plain["log"]) or not kern["log"]:
+            fail(f"{what}: {len(kern['log'])} kernel decodes, "
+                 f"{len(plain['log'])} plain")
+        if any(m.shape[1] != GRID for m, _, _ in plain["log"]):
+            fail(f"{what}: a memory is not {GRID} regions")
+        agree = {"NAIC": na_eval_agree, "SAIC": sa_eval_agree,
+                 "AIC": ar_eval_agree}[mode](plain["model"], bf16)
+        batches = [agree(out_k, out_p, mem_p, src) for (_, src, out_k),
+                   (mem_p, _, out_p) in zip(kern["log"], plain["log"])]
+        same = sum(a["caption"] == b["caption"] for a, b in zip(
+            kern["result"]["predictions"], plain["result"]["predictions"]))
+        res[f"{mode}_{dtype_name}"] = {
+            "route": "use_pallas" if key == "aic" else (
+                "stacked" if bf16 else "per_layer"),
+            "images_per_s": kern["result"]["images_per_s"],
+            "plain_images_per_s": plain["result"]["images_per_s"],
+            "wall_s": kern["wall_s"], "plain_wall_s": plain["wall_s"],
+            "launches": kern["counts"], "captions_equal": same,
+            "captions_nonempty": sum(bool(p["caption"]) for p in
+                                     kern["result"]["predictions"]),
+            "example": kern["result"]["predictions"][0]["caption"][:80],
+            "batches": batches}
+        for k, v in kern["counts"].items():
+            launches[k] = launches.get(k, 0) + v
+        del runs, plain, kern
+    # the module as a user runs it, in a process of its own (bf16, the
+    # checkpoint's dtype; the images copied to vis/imgs from the folder)
+    cwd = os.path.join(tmp, "cli_process")
+    os.makedirs(cwd)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "boficap_tpu_torch.tools.eval",
+         "--model", ckpts["uic_sd"][0], "--infos_path", ckpts["uic_sd"][1],
+         "--image_folder", folder, "--device", DEV,
+         "--inference_mode", "NAIC", "--num_images", "-1", "--dump_path",
+         "1"],
+        cwd=cwd, env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"raw CLI process: exit {run.returncode}: {run.stderr[-2000:]}")
+    line = re.search(CLI_DECODE_LINE, run.stdout)
+    with open(os.path.join(cwd, "vis", "vis.json")) as f:
+        vis = json.load(f)
+    names = sorted(f for f in os.listdir(folder)
+                   if f.lower().endswith(IMAGE_EXTS))
+    if (line is None or [p["file_name"] for p in vis] != names
+            or len(os.listdir(os.path.join(cwd, "vis", "imgs"))) != B):
+        fail(f"raw CLI process: decode line {line}, {len(vis)} captions, "
+             f"stdout {run.stdout[-1000:]!r}")
+    res["process"] = {"exit": 0, "wall_s": wall,
+                      "decode_line": line.group(0), "captions": len(vis),
+                      "images_copied": B}
+    return res, launches
+
+
+def check_raw(model, aic16, smi: str) -> tuple:
+    """Phase raw: 64 images of mixed sizes through the trunk (card vs CPU,
+    TF32 off), the layer and stack kernels over 196 regions against their
+    twins, and the eval CLI over the folder on every route."""
+    t_phase = time.perf_counter()
+    res = {"card": smi, "regions": GRID, "tolerance_rel": TOL}
+    with tempfile.TemporaryDirectory(prefix="boficap_raw_") as tmp:
+        folder = os.path.join(tmp, "images")
+        names = write_raw_images(folder, B, SEED + 41)
+        res["trunk"], feats = check_trunk(folder, names)
+        res["kernels"] = check_grid_kernels(model)
+        res["cli"], launches = raw_cli(folder, tmp, feats, aic16)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -3968,9 +4330,9 @@ def library_head(h, weight_vd, b):
     return ids, tok, ent, lp[..., 0]
 
 
-def bounds(dtype_name: str, esize: int):
-    """Least time (ms) for each kernel's work at the serving shapes, and
-    which of bytes or operations bounds it."""
+def bounds(dtype_name: str, esize: int, R: int = R):
+    """Least time (ms) for each kernel's work at the serving shapes (over
+    ``R`` regions), and which of bytes or operations bounds it."""
     F, H, V = 4 * D, 8, VOCAB + 4
     Dh = D // H
     peak = PEAK_FLOPS[dtype_name]
@@ -4041,98 +4403,113 @@ def bounds(dtype_name: str, esize: int):
 
 
 @torch.no_grad()
+def kernel_table(model, dtype, regions: int = R) -> dict:
+    """Each kernel's calls at B = 64 over ``regions`` regions, by name:
+    (the kernel, its plain twin, its library yardstick); ``model`` gives
+    the weights (float32), cast to ``dtype``."""
+    from boficap_tpu_torch.ops import attention as at
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    from boficap_tpu_torch.ops import stack as st
+    H = model.num_heads
+    enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
+    dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
+    head = dl.pack_head_weights(model.generator.proj, dtype)
+    wvd = model.generator.proj.weight.detach().to(dtype)
+    hbv = model.generator.proj.bias.detach().to(dtype)
+    x_enc, src, x_dec, mem, tgt, h = layer_inputs(dtype, 4, regions)
+    enc = st.pack_encoder_stack(model.encoder, dtype)
+    dec = st.pack_decoder_stack(model._decoder("NA"), dtype)
+    pack = st.pack_window_weights(model._decoder("SA"), dtype)
+    w0, ws_, fn = pack.layers[0], pack.stack, pack.final_norm
+    xn, wkc, wvc, wk2, wv2, wst, tgn, srn = window_inputs(
+        dtype, W_NARROW, 14, regions=regions)
+    xw, _, _, _, _, _, tgw, srw = window_inputs(dtype, L, 15, wide=True,
+                                                regions=regions)
+    aq, ak, av, amk = attention_cases(dtype, regions=regions)["ar_cross"]
+    return {
+        "attention_core": (
+            lambda: at.attention_core(aq, ak, av, amk),
+            lambda: at.attention_core_plain(aq, ak, av, amk),
+            lambda: library_attention(aq, ak, av, amk)),
+        "encoder_layer": (
+            lambda: dl.fused_encoder_layer(x_enc, src, enc_w, H),
+            lambda: dl.encoder_layer_plain(x_enc, src, enc_w, H),
+            lambda: library_layer(x_enc, src, enc_w, H)),
+        "decoder_layer": (
+            lambda: dl.fused_decoder_layer(x_dec, mem, tgt, src, dec_w,
+                                           H),
+            lambda: dl.decoder_layer_plain(x_dec, mem, tgt, src, dec_w,
+                                           H),
+            lambda: library_layer(x_dec, tgt, dec_w, H,
+                                  cross=(mem, src))),
+        "greedy_head": (
+            lambda: dl.fused_greedy_head(h, *head),
+            lambda: dl.greedy_head_plain(h, *head),
+            lambda: library_head(h, wvd, hbv)),
+        "encoder_stack": (
+            lambda: st.fused_encoder_stack_forward(
+                x_enc, src, enc.stack, enc.final_norm, H),
+            lambda: st.encoder_stack_plain(
+                x_enc, src, enc.stack, enc.final_norm, H),
+            lambda: library_stack(x_enc, src, enc, H)),
+        "decoder_stack": (
+            lambda: st.fused_decoder_stack_forward(
+                x_dec, mem, tgt, src, dec.stack, dec.final_norm, H),
+            lambda: st.decoder_stack_plain(
+                x_dec, mem, tgt, src, dec.stack, dec.final_norm, H),
+            lambda: library_stack(x_dec, tgt, dec, H, cross=(mem, src))),
+        "window_layer": (
+            lambda: dl.fused_window_decoder_layer(
+                xn, wkc[0], wvc[0], wk2[0], wv2[0], tgn, srn, w0, H),
+            lambda: dl.window_layer_plain(
+                xn, wkc[0], wvc[0], wk2[0], wv2[0], tgn, srn, w0, H),
+            lambda: library_window_layer(
+                xn, wkc[0], wvc[0], wk2[0], wv2[0], tgn, srn, w0, H)),
+        "window_stack": (
+            lambda: st.fused_window_decoder_stack(
+                xn, wst, wkc, wvc, wk2, wv2, tgn, srn, ws_, fn, H),
+            lambda: st.window_stack_plain(
+                xn, wst, wkc, wvc, wk2, wv2, tgn, srn, ws_, fn, H),
+            lambda: library_window_stack(
+                xn, wst, wkc, wvc, wk2, wv2, tgn, srn, ws_, fn, H)),
+        "window_wide_stack": (
+            lambda: st.fused_window_wide_stack(
+                xw, wk2, wv2, tgw, srw, ws_, fn, H),
+            lambda: st.window_wide_stack_plain(
+                xw, wk2, wv2, tgw, srw, ws_, fn, H),
+            lambda: library_window_stack(
+                xw, None, None, None, wk2, wv2, tgw, srw, ws_, fn, H)),
+    }
+
+
+def time_table(table: dict, bnd: dict) -> dict:
+    """device_ms of each entry of ``kernel_table``: kernel, plain, library,
+    then the kernel again (the two kernel readings bracket the others on
+    the same card), beside its bound."""
+    out = {}
+    for name, (kern, plain, lib) in table.items():
+        k1 = device_ms(kern)
+        p = device_ms(plain)
+        lb = device_ms(lib)
+        k2 = device_ms(kern)
+        out[name] = {"ms": min(k1, k2), "ms_first": k1, "ms_last": k2,
+                     "plain_ms": p, "library_ms": lb, **bnd[name]}
+    return out
+
+
+@torch.no_grad()
 def measure(model, model16):
     """Times at B = 64; ``model`` is float32, ``model16`` the default
     (bfloat16) model of the main paths."""
     from boficap_tpu_torch.decode.bound_fill import (fused_encode, na_decode,
                                                      use_stacked)
-    from boficap_tpu_torch.ops import attention as at
-    from boficap_tpu_torch.ops import decoder_layer as dl
     from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
-    from boficap_tpu_torch.ops import stack as st
     res = {}
-    H = model.num_heads
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
-        enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
-        dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
-        head = dl.pack_head_weights(model.generator.proj, dtype)
-        wvd = model.generator.proj.weight.detach().to(dtype)
-        hbv = model.generator.proj.bias.detach().to(dtype)
-        x_enc, src, x_dec, mem, tgt, h = layer_inputs(dtype, 4)
-        enc = st.pack_encoder_stack(model.encoder, dtype)
-        dec = st.pack_decoder_stack(model._decoder("NA"), dtype)
-        pack = st.pack_window_weights(model._decoder("SA"), dtype)
-        w0, ws_, fn = pack.layers[0], pack.stack, pack.final_norm
-        xn, wkc, wvc, wk2, wv2, wst, tgn, srn = window_inputs(dtype, W_NARROW, 14)
-        xw, _, _, _, _, _, tgw, srw = window_inputs(dtype, L, 15, wide=True)
-        aq, ak, av, amk = attention_cases(dtype)["ar_cross"]
-        t = {
-            "attention_core": (
-                lambda: at.attention_core(aq, ak, av, amk),
-                lambda: at.attention_core_plain(aq, ak, av, amk),
-                lambda: library_attention(aq, ak, av, amk)),
-            "encoder_layer": (
-                lambda: dl.fused_encoder_layer(x_enc, src, enc_w, H),
-                lambda: dl.encoder_layer_plain(x_enc, src, enc_w, H),
-                lambda: library_layer(x_enc, src, enc_w, H)),
-            "decoder_layer": (
-                lambda: dl.fused_decoder_layer(x_dec, mem, tgt, src, dec_w,
-                                               H),
-                lambda: dl.decoder_layer_plain(x_dec, mem, tgt, src, dec_w,
-                                               H),
-                lambda: library_layer(x_dec, tgt, dec_w, H,
-                                      cross=(mem, src))),
-            "greedy_head": (
-                lambda: dl.fused_greedy_head(h, *head),
-                lambda: dl.greedy_head_plain(h, *head),
-                lambda: library_head(h, wvd, hbv)),
-            "encoder_stack": (
-                lambda: st.fused_encoder_stack_forward(
-                    x_enc, src, enc.stack, enc.final_norm, H),
-                lambda: st.encoder_stack_plain(
-                    x_enc, src, enc.stack, enc.final_norm, H),
-                lambda: library_stack(x_enc, src, enc, H)),
-            "decoder_stack": (
-                lambda: st.fused_decoder_stack_forward(
-                    x_dec, mem, tgt, src, dec.stack, dec.final_norm, H),
-                lambda: st.decoder_stack_plain(
-                    x_dec, mem, tgt, src, dec.stack, dec.final_norm, H),
-                lambda: library_stack(x_dec, tgt, dec, H, cross=(mem, src))),
-            "window_layer": (
-                lambda: dl.fused_window_decoder_layer(
-                    xn, wkc[0], wvc[0], wk2[0], wv2[0], tgn, srn, w0, H),
-                lambda: dl.window_layer_plain(
-                    xn, wkc[0], wvc[0], wk2[0], wv2[0], tgn, srn, w0, H),
-                lambda: library_window_layer(
-                    xn, wkc[0], wvc[0], wk2[0], wv2[0], tgn, srn, w0, H)),
-            "window_stack": (
-                lambda: st.fused_window_decoder_stack(
-                    xn, wst, wkc, wvc, wk2, wv2, tgn, srn, ws_, fn, H),
-                lambda: st.window_stack_plain(
-                    xn, wst, wkc, wvc, wk2, wv2, tgn, srn, ws_, fn, H),
-                lambda: library_window_stack(
-                    xn, wst, wkc, wvc, wk2, wv2, tgn, srn, ws_, fn, H)),
-            "window_wide_stack": (
-                lambda: st.fused_window_wide_stack(
-                    xw, wk2, wv2, tgw, srw, ws_, fn, H),
-                lambda: st.window_wide_stack_plain(
-                    xw, wk2, wv2, tgw, srw, ws_, fn, H),
-                lambda: library_window_stack(
-                    xw, None, None, None, wk2, wv2, tgw, srw, ws_, fn, H)),
-        }
-        bnd = bounds(dtype_name, 4 if dtype_name == "float32" else 2)
-        res[dtype_name] = {}
-        for name, (kern, plain, lib) in t.items():
-            # kernel, plain, library, then the kernel again: the two kernel
-            # readings bracket the others on the same card
-            k1 = device_ms(kern)
-            p = device_ms(plain)
-            lb = device_ms(lib)
-            k2 = device_ms(kern)
-            res[dtype_name][name] = {"ms": min(k1, k2), "ms_first": k1,
-                                     "ms_last": k2, "plain_ms": p,
-                                     "library_ms": lb, **bnd[name]}
+        res[dtype_name] = time_table(
+            kernel_table(model, dtype),
+            bounds(dtype_name, 4 if dtype_name == "float32" else 2))
     # one full NA decode at B = 64 in each dtype, on the route each takes
     # (bfloat16: the whole-stack kernels; float32: the per-layer ones)
     att, am = features(B, seed=5)
@@ -4162,6 +4539,21 @@ def measure(model, model16):
                           fused_fill=True)["seq"])
     res["sa"] = measure_sa(model, model16, att, am)
     return res
+
+
+@torch.no_grad()
+def measure_grid(model) -> dict:
+    """GRID_KERNELS over a 196-region memory at B = 64 (#9 at the AR
+    step's cross-attention, 1 x 196), each beside its bound, its plain
+    twin and its library yardstick, float32 and bfloat16."""
+    out = {}
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        table = kernel_table(model, dtype, GRID)
+        out[dtype_name] = time_table(
+            {name: table[name] for name in GRID_KERNELS},
+            bounds(dtype_name, 4 if dtype_name == "float32" else 2, GRID))
+    return out
 
 
 @torch.no_grad()
@@ -4878,7 +5270,7 @@ def main():
 
 
 def run_phases(smi: str):
-    """Phases 2-17; returns the {"kernels": [...]} list."""
+    """Phases 2-18; returns the {"kernels": [...]} list."""
     # the same random weights at both compute dtypes: float32 for the
     # decode comparisons, the default (bfloat16) for the main paths
     model = build("float32")
@@ -4932,6 +5324,8 @@ def run_phases(smi: str):
     emit({"phase": "decoders", "card": smi, **decoders})
     pb_res, pb_launches = check_pb(smi)
     emit({"phase": "pb", "card": smi, **pb_res})
+    raw, raw_launches = check_raw(model, aic16, smi)
+    emit({"phase": "raw", **raw})
     unforce_long([model, model16], long_shift)
     times = measure(model, model16)
     times["products_bf16"] = measure_products(torch.bfloat16)
@@ -4943,6 +5337,14 @@ def run_phases(smi: str):
     times["refnorm"] = measure_refnorm()
     times["host_us_per_call"] = host_costs(model)
     times["ar"] = measure_ar(aic, aic16, model16)
+    times["past_key_bound_196"] = measure_grid(model)
+    times["raw"] = {
+        "trunk_extract_ms_per_image": raw["trunk"]["extract_ms_per_image"],
+        "trunk_forward_ms_b1": raw["trunk"]["forward_ms_b1"],
+        "images_per_s": {run: {"kernels": r["images_per_s"],
+                               "plain": r["plain_images_per_s"]}
+                         for run, r in raw["cli"].items()
+                         if isinstance(r, dict) and "images_per_s" in r}}
     emit({"phase": "times", "card": smi, "long_bias_shift": 0.0, **times})
     lstm, lstm_launches = check_lstm(smi)
     emit({"phase": "lstm", **lstm})
@@ -4983,7 +5385,17 @@ def run_phases(smi: str):
             "rl_launches": rl_launches.get(name, 0),
             "decoders_launches": dec_launches.get(name, 0),
             "pb_launches": pb_launches.get(name, 0),
-            "lstm_launches": lstm_launches.get(name, 0)})
+            "lstm_launches": lstm_launches.get(name, 0),
+            "raw_launches": raw_launches.get(name, 0)})
+        if name in GRID_KERNELS:
+            # past the row path's 128 keys: the 196-region memory of a
+            # 14 x 14 image grid (phase raw's check, phase times' numbers)
+            kernels[-1]["past_key_bound_196"] = {
+                dt: {"max_abs_err": raw["kernels"][dt][name]["max_abs_err"],
+                     **{key: times["past_key_bound_196"][dt][name][key]
+                        for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}}
+                for dt in ("float32", "bfloat16")}
         if name in ("encoder_layer", "decoder_layer"):
             # #1 and #2 at bf16 run at B > 128: the B = 256 NA decode
             kernels[-1]["bf16"]["launches"] = bf16_dec[

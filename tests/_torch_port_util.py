@@ -70,10 +70,10 @@ def make_pair(train_mode: str = "UIC", input_mode: str = "add",
         nudge[[0, 2, -1]] = (0.15, -0.12, 0.12)
         p["nn_len_l2"]["bias"] = p["nn_len_l2"]["bias"] + nudge
     params = jax.tree_util.tree_map(jnp.asarray, tree)
-    tcfg = make_config(**{k: cfg[k] for k in (
+    tcfg = make_config(**{**{k: cfg[k] for k in (
         "train_mode", "N_enc", "N_dec", "N_len", "d_model", "d_ff",
         "num_att_heads", "max_length", "decoder_input_mode",
-        "att_feat_size", "max_boxes", "dtype")}, **fields)
+        "att_feat_size", "max_boxes", "dtype")}, **fields})
     tm = torch_build_model(tcfg, vocab, device="cpu")
     load_jax_params(tm, tree)
     return jm, params, tm

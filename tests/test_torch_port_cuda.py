@@ -1280,3 +1280,107 @@ def test_aoa_greedy_core_matches_plain(cuda, R):
     assert _rel(mem_core, mem) <= TOL[torch.float32]
     assert torch.equal(got["seq"], want["seq"])
     assert (got["tok_logprobs"] - want["tok_logprobs"]).abs().max() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# past the row path's 128 keys: a 14 x 14 image grid, 196 regions
+# ---------------------------------------------------------------------------
+
+GRID = 196
+
+
+def _grid_src(cuda, B):
+    """A [B, 196] region mask: every region, 150, 3, one, none (a fully
+    masked sample), repeating past B = 5."""
+    live = torch.tensor(_cycle([GRID, 150, 3, 1, 0], B))
+    return (torch.arange(GRID)[None, :] < live[:, None]).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_kernels_at_196_regions(cuda, dtype):
+    """#1 and #4 over a 196-region memory (the self-attention is 196 x 196:
+    the chunked tile kernel at bf16, the ffma block at float32) against
+    their twins, padded and fully masked samples among them."""
+    from boficap_tpu_torch.ops import stack as st
+    D, F, H, B, NL = 512, 1024, 8, 5, 2
+    enc = _layer(tl.Encoder, NL, D, F, H).to(cuda)
+    pack = st.pack_encoder_stack(enc, dtype)
+    x = torch.randn(B, GRID, D, device=cuda).to(dtype)
+    src = _grid_src(cuda, B)
+    got = dl.fused_encoder_layer(x, src, pack.layers[0], H)
+    want = dl.encoder_layer_plain(x, src, pack.layers[0], H)
+    got_s = st.fused_encoder_stack_forward(x, src, pack.stack,
+                                           pack.final_norm, H)
+    want_s = st.encoder_stack_plain(x, src, pack.stack, pack.final_norm, H)
+    torch.cuda.synchronize()
+    for g, w in ((got, want), (got_s, want_s)):
+        assert torch.isfinite(g.float()).all()
+        assert _rel(g, w) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoder_kernels_at_196_regions(cuda, dtype):
+    """#2 and #5 with the cross-attention over 196 regions (20 x 196; at
+    bf16 #5's chunked tile kernel is a link of its launch chain): each
+    against its twin, #5 bitwise a chain of #2 calls, and 20 calls of #5
+    back to back bitwise equal."""
+    from boficap_tpu_torch.ops import stack as st
+    NL, B, L, H = 6, 5, 20, 8
+    pack, x, mem, tgt, _ = _decoder_operands(cuda, dtype, NL, B, L, GRID)
+    src = _grid_src(cuda, B)
+    got = dl.fused_decoder_layer(x, mem, tgt, src, pack.layers[0], H)
+    want = dl.decoder_layer_plain(x, mem, tgt, src, pack.layers[0], H)
+    outs = [st.fused_decoder_stack_forward(x, mem, tgt, src, pack.stack,
+                                           pack.final_norm, H)
+            for _ in range(20)]
+    chain = dl.fused_decoder_forward(x, mem, tgt, src, pack.layers,
+                                     pack.final_norm, H)
+    want_s = st.decoder_stack_plain(x, mem, tgt, src, pack.stack,
+                                    pack.final_norm, H)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < TOL[dtype]
+    assert torch.isfinite(outs[0].float()).all()
+    assert _rel(outs[0], want_s) < TOL[dtype]
+    assert torch.equal(outs[0], chain)
+    for i, o in enumerate(outs[1:], 1):
+        assert torch.equal(o, outs[0]), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_kernels_at_196_regions(cuda, dtype):
+    """#8, #6 and #7 with their cross-attentions over 196 regions (W x 196
+    and 20 x 196) against their twins; the caches outside each window
+    untouched."""
+    from boficap_tpu_torch.ops import stack as st
+    D, F, H, B, W, L, NL = 512, 1024, 8, 5, 8, 20, 2
+    layers, stacked, x, kc, vc, k2, v2, ws, tgt, _, norm = _window_operands(
+        cuda, dtype, NL, B, W, L, GRID, D, F, H)
+    src = _grid_src(cuda, B)
+    args = (x, kc[0], vc[0], k2[0], v2[0], tgt, src, layers[0], H)
+    for g, w in zip(dl.fused_window_decoder_layer(*args),
+                    dl.window_layer_plain(*args)):
+        assert _rel(g, w) < TOL[dtype]
+    kc_k, vc_k, kc_p, vc_p = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    h, _, _ = st.fused_window_decoder_stack(x, ws, kc_k, vc_k, k2, v2, tgt,
+                                            src, stacked, norm, H)
+    hp, _, _ = st.window_stack_plain(x, ws, kc_p, vc_p, k2, v2, tgt, src,
+                                     stacked, norm, H)
+    torch.cuda.synchronize()
+    assert _rel(h, hp) < TOL[dtype]
+    pos = torch.arange(L, device=cuda)[None, :]
+    inside = (pos >= ws.long()[:, None]) & (pos < ws.long()[:, None] + W)
+    assert torch.equal(kc_k[:, ~inside], kc[:, ~inside])
+    assert _rel(kc_k[:, inside], kc_p[:, inside]) < TOL[dtype]
+    xw = torch.randn(B, L, D, device=cuda).to(dtype)
+    wide_tgt = (torch.arange(L, device=cuda)[None, None, :]
+                < torch.tensor(_cycle([L, 0, 7, 3, 12], B),
+                               device=cuda)[:, None, None]).expand(
+                                   B, L, L).contiguous()
+    got = st.fused_window_wide_stack(xw, k2, v2, wide_tgt, src, stacked,
+                                     norm, H)
+    want = st.window_wide_stack_plain(xw, k2, v2, wide_tgt, src, stacked,
+                                      norm, H)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        assert _rel(g, w) < TOL[dtype]

@@ -321,17 +321,20 @@ def test_window_width_check_before_launch(monkeypatch, D, F):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_key_bound_check_before_launch(monkeypatch, dtype):
-    """The layer and stack wrappers' launch paths raise ValueError when an
-    attention would have more keys than the attention block's key bound
-    (dl.KEY_MAX: a score row sits in registers), before they reach the
-    kernel libraries; at the bound they go on to them."""
+    """The layer and stack wrappers' launch paths hand attentions past the
+    row path's KEY_MAX keys to the kernel libraries (196: a 14 x 14 image
+    grid; the encoder's self-attention and every cross-attention), and
+    raise ValueError before they reach them where a block's staging would
+    exceed the card's shared memory (dl.SMEM_LIMIT), or where the window
+    layers' self-attention (a cache and fresh rows) would pass KEY_MAX."""
     def no_launch():
         raise AssertionError("reached the kernel libraries")
 
     monkeypatch.setattr(dl, "_kernels", no_launch)
     monkeypatch.setattr(st, "_kernels", no_launch)
     rs = np.random.RandomState(4)
-    d, f, hn, B = 16, 24, 2, 2
+    d, f, hn, B, Lq = 16, 24, 2, 2, 3
+    over = 3000          # regions whose staging exceeds SMEM_LIMIT
 
     def t(*shape):
         return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dtype)
@@ -340,22 +343,36 @@ def test_key_bound_check_before_launch(monkeypatch, dtype):
         return {k: (torch.ones(sh) if k in dl._NORM_KEYS else t(*sh))
                 for k, sh in dl.weight_shapes(keys, d, f).items()}
 
+    for rows in (196, over):
+        fits = all(dl.shared_bytes(q, rows, d // hn, dtype) <= dl.SMEM_LIMIT
+                   for q in (rows, Lq))
+        assert fits == (rows == 196)
     enc, dec = weights(dl._ENC_KEYS), weights(dl._DEC_KEYS)
-    for rows, err in ((dl.KEY_MAX + 1, ValueError),
-                      (dl.KEY_MAX, AssertionError)):
+    for rows, err in ((196, AssertionError), (over, ValueError)):
         x = t(B, rows, d)
         mask = torch.ones(B, rows, dtype=torch.bool)
-        with pytest.raises(err, match="key bound" if err is ValueError
+        with pytest.raises(err, match="shared memory" if err is ValueError
                            else "kernel libraries"):
             dl.encoder_call("encoder_layer", x, mask, enc, hn)
-        with pytest.raises(err):
-            dl.decoder_call("decoder_layer", t(B, 3, d), x,
-                            torch.ones(B, 3, 3, dtype=torch.bool), mask, dec,
-                            hn)
+        with pytest.raises(err, match="shared memory" if err is ValueError
+                           else "kernel libraries"):
+            dl.decoder_call("decoder_layer", t(B, Lq, d), x,
+                            torch.ones(B, Lq, Lq, dtype=torch.bool), mask,
+                            dec, hn)
     stacked, norm, x, kc, vc, k2, v2, ws, tgt, src = _window_operands(dtype)
     W = x.shape[1]
-    big = torch.zeros(kc.shape[0], B, dl.KEY_MAX + 1 - W, d, dtype=dtype)
     w0 = {k: v[0] for k, v in stacked.items()}
+    # the cross-attention over 196 regions goes on to the libraries
+    k2r = torch.zeros(k2.shape[0], B, 196, d, dtype=dtype)
+    src_r = torch.ones(B, 196, dtype=torch.bool)
+    with pytest.raises(AssertionError, match="kernel libraries"):
+        dl.window_layer_call(x, kc[0], vc[0], k2r[0], k2r[0], tgt, src_r, w0,
+                             hn)
+    with pytest.raises(AssertionError, match="kernel libraries"):
+        st._launch_stack("window_stack", x, kc, vc, k2r, k2r, ws, tgt, src_r,
+                         stacked, hn, kc.shape[2] + W)
+    # the self-attention over a cache and the window: at most KEY_MAX keys
+    big = torch.zeros(kc.shape[0], B, dl.KEY_MAX + 1 - W, d, dtype=dtype)
     tgt_big = torch.ones(B, W, dl.KEY_MAX + 1, dtype=torch.bool)
     with pytest.raises(ValueError, match="key bound"):
         dl.window_layer_call(x, big[0], big[0], k2[0], v2[0], tgt_big, src,
@@ -470,3 +487,49 @@ def test_args_struct_mirrors_c(entry, mirror):
     kinds = {ctypes.c_void_p: "ptr", ctypes.c_longlong: "ll",
              ctypes.c_int: "int"}
     assert fields == [(n, kinds[t]) for n, t in mirror._fields_]
+
+
+@pytest.mark.parametrize("Lq", [1, 20, 196])
+def test_online_context_is_the_softmax(Lq):
+    """``online_context``, the layer twins' form of the tile path past
+    KEY_MAX keys, over 196 keys (two chunks) with padded keys and a fully
+    masked sample: with float32 rounding it is the softmax context within
+    float32 noise (1e-6); at bf16 (p rounded before the division) within
+    bf16's noise (3e-2 of the largest magnitude) of the normalised form.
+    attention_plain takes it at bf16 past KEY_MAX keys, and the normalised
+    form at KEY_MAX keys."""
+    rs = np.random.RandomState(Lq)
+    B, Hn, Dh, Lk = 3, 2, 16, 196
+    bf = torch.bfloat16
+
+    def t(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(bf)
+
+    q, k, v = t(B, Lq, Hn * Dh), t(B, Lk, Hn * Dh), t(B, Lk, Hn * Dh)
+    mask = torch.arange(Lk)[None, :] < torch.tensor([Lk, 150, 0])[:, None]
+
+    def scores(keys):
+        s = torch.einsum("bqhd,bkhd->bhqk",
+                         q.float().reshape(B, Lq, Hn, Dh),
+                         k[:, :keys].float().reshape(B, keys, Hn, Dh))
+        return torch.where(mask[:, None, None, :keys], s / math.sqrt(Dh),
+                           dl.MASK_FILL)
+
+    vh = v.float().reshape(B, Lk, Hn, Dh)
+    s = scores(Lk)
+    exact = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vh)
+    np.testing.assert_allclose(dl.online_context(s, vh, torch.float32),
+                               exact, rtol=0, atol=1e-6)
+    online = dl.online_context(s, vh, bf).reshape(B, Lq, -1)
+    assert torch.equal(dl.attention_plain(q, k, v, mask, Hn), online)
+    normalised = torch.einsum("bhqk,bkhd->bqhd",
+                              torch.softmax(s, -1).to(bf).float(), vh)
+    normalised = normalised.reshape(B, Lq, -1)
+    assert ((online.float() - normalised).abs().max()
+            <= 3e-2 * normalised.abs().max())
+    p = torch.softmax(scores(dl.KEY_MAX), -1).to(bf).float()
+    short = torch.einsum("bhqk,bkhd->bqhd", p, vh[:, :dl.KEY_MAX])
+    assert torch.equal(
+        dl.attention_plain(q, k[:, :dl.KEY_MAX], v[:, :dl.KEY_MAX],
+                           mask[:, :dl.KEY_MAX], Hn),
+        short.to(bf).reshape(B, Lq, -1))
