@@ -69,11 +69,10 @@
 // memory; a 14 x 14 image grid is 196 regions) the row path has no room
 // and the query takes the tile or ffma path at any Lq.  The ffma block
 // keeps its score rows in shared memory and so takes any Lk as it is.  The
-// tile path goes over the keys in chunks of KEY_MAX
-// (attention_tile_long_kernel): an online softmax, a running max and sum a
-// query row, the partial context rescaled at each chunk and divided by the
-// sum at the end; p is rounded to bf16 before that division, not after
-// it.  Every path needs Dh <= DH_MAX and
+// tile path goes over the keys in chunks of KEY_MAX twice
+// (attention_tile_long_kernel): a running max and sum a query row first,
+// then p normalised, rounded to bf16 and multiplied by V, in the short
+// path's order.  Every path needs Dh <= DH_MAX and
 // at most SMEM_MAX bytes of shared memory a block (the wrappers raise
 // above them).  16-byte loads need 16-byte aligned bases,
 // strides and head width (the attention-core wrapper requires them); the
@@ -702,13 +701,20 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
 
 // The tile path past KEY_MAX keys (one key source, no KvDst): Q, K and V
 // staged as in attention_tile_kernel, then each warp's query tiles go over
-// the keys in chunks of KEY_MAX (8 key tiles): S of the chunk on mma.sync,
-// the scale and the -1e9 fill, the chunk's row max m_c, the running max
-// m' = max(m, m_c), p = exp(s - m') rounded to bf16 as the A fragments of
-// P V, the running sum l' = l exp(m - m') + sum p and the context o' =
-// o exp(m - m') + P V; at the end o / l as the short path forms p / sum.
-// DP: the context's 16-column tiles a row holds (DhP / 16 <= DP).  CH: a
-// link of a launch chain, as attention_tile_kernel (#5's cross-attention).
+// the keys in chunks of KEY_MAX (8 key tiles), twice, so that p is
+// normalised before it is rounded, as the short path and the TPU kernel do
+// (pallas_attention.py:49-52).  Pass 1: S of the chunk on mma.sync, the
+// scale, the -1e9 fill and -inf past Lk, the chunk's row max m_c; a running
+// max m' = max(m, m_c) and sum l' = l exp(m - m') + sum exp(s - m') a query
+// row (the running pair, not a sweep for the max and another for the sum:
+// l differs from the short path's sum by float32 rounding only, and S is
+// formed twice, not three times).  Pass 2: S of each chunk again (the same
+// instructions, so the same bits), p = exp(s - m) / l formed as the short
+// path forms p / sum (quot), rounded to bf16 as the A fragments of P V, and
+// the float32 context summed over the chunks with no rescale and no division
+// at the end.  DP: the context's 16-column tiles a row holds (DhP / 16 <=
+// DP).  CH: a link of a launch chain, as attention_tile_kernel (#5's
+// cross-attention).
 template <Scale S, int DP, bool CH>
 __global__ void __launch_bounds__(TILE_WARPS * 32)
     attention_tile_long_kernel(HeadView<const __nv_bfloat16> q,
@@ -766,57 +772,61 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
     return fmaf(fmaf(-qv, sum, p), r, qv);
   };
   const float factor = score_factor<S>(Dh);
-  for (int qt = warp; qt < LqP / 16; qt += nwarps) {
-    const int i0 = qt * 16 + g, i1 = i0 + 8;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-    float o[DP][2][4];
+  // the scores of query tile qt against the nt key tiles from c0: rows
+  // i0 (acc[t][0..1]) and i0 + 8 (acc[t][2..3]), columns j0 + t * 8 +
+  // 2 tig + {0, 1}; scaled, -1e9 where masked, -inf past Lk
+  auto chunk_scores = [&](int qt, int c0, int nt, float (&acc)[2 * KT][4]) {
+    const int j0 = c0 * 16;
+    const uint32_t mb0 = mask_bits(qt, 0, j0), mb1 = mask_bits(qt, 1, j0);
 #pragma unroll
-    for (int dp = 0; dp < DP; ++dp)
+    for (int t = 0; t < 2 * KT; ++t)
+      acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    for (int ks = 0; ks < DhP / 16; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, Qs + (size_t)(qt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                     ks * 16 + (lane >> 4) * 8);
 #pragma unroll
-      for (int t = 0; t < 2; ++t) o[dp][t][0] = o[dp][t][1] = o[dp][t][2] = o[dp][t][3] = 0.f;
-
-    for (int c0 = 0; c0 < ntiles; c0 += KT) {
-      const int nt = min(KT, ntiles - c0);        // key tiles of the chunk
-      const int j0 = c0 * 16;
-      const uint32_t mb0 = mask_bits(qt, 0, j0), mb1 = mask_bits(qt, 1, j0);
-      float acc[2 * KT][4];
-#pragma unroll
-      for (int t = 0; t < 2 * KT; ++t)
-        acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-      for (int ks = 0; ks < DhP / 16; ++ks) {
-        uint32_t a[4];
-        ldsm_x4(a, Qs + (size_t)(qt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
-                       ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < KT; ++np) {
-          if (np < nt) {
-            uint32_t kb[4];
-            ldsm_x4(kb, Ks + (size_t)(j0 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * ld +
-                            ks * 16 + ((lane >> 3) & 1) * 8);
-            mma16816(acc[2 * np], a, kb[0], kb[1]);
-            mma16816(acc[2 * np + 1], a, kb[2], kb[3]);
-          }
+      for (int np = 0; np < KT; ++np) {
+        if (np < nt) {
+          uint32_t kb[4];
+          ldsm_x4(kb, Ks + (size_t)(j0 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * ld +
+                          ks * 16 + ((lane >> 3) & 1) * 8);
+          mma16816(acc[2 * np], a, kb[0], kb[1]);
+          mma16816(acc[2 * np + 1], a, kb[2], kb[3]);
         }
       }
+    }
+#pragma unroll
+    for (int t = 0; t < 2 * KT; ++t) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + t * 8 + 2 * tig + e;
+        float s0 = scale_score<S>(acc[t][e], factor);
+        float s1 = scale_score<S>(acc[t][2 + e], factor);
+        if (j < Lk) {
+          if (!(mb0 >> (2 * t + e) & 1u)) s0 = MASK_FILL;
+          if (!(mb1 >> (2 * t + e) & 1u)) s1 = MASK_FILL;
+        } else {
+          s0 = s1 = -INFINITY;          // padded key columns add exactly 0
+        }
+        acc[t][e] = s0;
+        acc[t][2 + e] = s1;
+      }
+    }
+  };
+  for (int qt = warp; qt < LqP / 16; qt += nwarps) {
+    const int i0 = qt * 16 + g, i1 = i0 + 8;
+    float acc[2 * KT][4];
+
+    // pass 1: each row's max m and sum l over every chunk
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    for (int c0 = 0; c0 < ntiles; c0 += KT) {
+      chunk_scores(qt, c0, min(KT, ntiles - c0), acc);
       float c_0 = -INFINITY, c_1 = -INFINITY;
 #pragma unroll
       for (int t = 0; t < 2 * KT; ++t) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = j0 + t * 8 + 2 * tig + e;
-          float s0 = scale_score<S>(acc[t][e], factor);
-          float s1 = scale_score<S>(acc[t][2 + e], factor);
-          if (j < Lk) {
-            if (!(mb0 >> (2 * t + e) & 1u)) s0 = MASK_FILL;
-            if (!(mb1 >> (2 * t + e) & 1u)) s1 = MASK_FILL;
-          } else {
-            s0 = s1 = -INFINITY;          // padded key columns add exactly 0
-          }
-          acc[t][e] = s0;
-          acc[t][2 + e] = s1;
-          c_0 = fmaxf(c_0, s0);
-          c_1 = fmaxf(c_1, s1);
-        }
+        c_0 = fmaxf(c_0, fmaxf(acc[t][0], acc[t][1]));
+        c_1 = fmaxf(c_1, fmaxf(acc[t][2], acc[t][3]));
       }
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
@@ -824,7 +834,7 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
         c_1 = fmaxf(c_1, __shfl_xor_sync(FULL, c_1, off));
       }
       // every chunk holds a real key, so the new maxima are finite; the
-      // first chunk's rescale is exp(-inf) = 0 of a zero sum and context
+      // first chunk's rescale is exp(-inf) = 0 of a zero sum
       const float n0 = fmaxf(m0, c_0), n1 = fmaxf(m1, c_1);
       const float a0 = expf(m0 - n0), a1 = expf(m1 - n1);
       m0 = n0;
@@ -834,10 +844,8 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
       for (int t = 0; t < 2 * KT; ++t) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          acc[t][e] = expf(acc[t][e] - n0);
-          acc[t][2 + e] = expf(acc[t][2 + e] - n1);
-          s_0 += acc[t][e];
-          s_1 += acc[t][2 + e];
+          s_0 += expf(acc[t][e] - n0);
+          s_1 += expf(acc[t][2 + e] - n1);
         }
       }
 #pragma unroll
@@ -847,6 +855,26 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
       }
       l0 = l0 * a0 + s_0;
       l1 = l1 * a1 + s_1;
+    }
+
+    // pass 2: P = bf16(exp(s - m) / l) chunk by chunk into P V
+    const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+    float o[DP][2][4];
+#pragma unroll
+    for (int dp = 0; dp < DP; ++dp)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) o[dp][t][0] = o[dp][t][1] = o[dp][t][2] = o[dp][t][3] = 0.f;
+    for (int c0 = 0; c0 < ntiles; c0 += KT) {
+      const int nt = min(KT, ntiles - c0), j0 = c0 * 16;
+      chunk_scores(qt, c0, nt, acc);
+#pragma unroll
+      for (int t = 0; t < 2 * KT; ++t) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          acc[t][e] = quot(expf(acc[t][e] - m0), l0, r0);
+          acc[t][2 + e] = quot(expf(acc[t][2 + e] - m1), l1, r1);
+        }
+      }
       uint32_t pa[KT][4];
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) {
@@ -858,13 +886,6 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
 #pragma unroll
       for (int dp = 0; dp < DP; ++dp) {
         if (dp < ndp) {
-#pragma unroll
-          for (int t = 0; t < 2; ++t) {
-            o[dp][t][0] *= a0;
-            o[dp][t][1] *= a0;
-            o[dp][t][2] *= a1;
-            o[dp][t][3] *= a1;
-          }
 #pragma unroll
           for (int kk = 0; kk < KT; ++kk) {
             if (kk < nt) {
@@ -879,7 +900,6 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
       }
     }
 
-    const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
 #pragma unroll
     for (int dp = 0; dp < DP; ++dp) {
       if (dp >= ndp) continue;
@@ -890,15 +910,13 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
         for (int hr = 0; hr < 2; ++hr) {
           const int i = hr ? i1 : i0;
           if (i >= Lq || d >= Dh) continue;
-          const float l = hr ? l1 : l0, r = hr ? r1 : r0;
-          const float x0 = quot(o[dp][t][2 * hr], l, r);
-          const float x1 = quot(o[dp][t][2 * hr + 1], l, r);
           T* p = &out.at(b, h, i, d);
           if (vec) {
-            *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+            *reinterpret_cast<__nv_bfloat162*>(p) =
+                __floats2bfloat162_rn(o[dp][t][2 * hr], o[dp][t][2 * hr + 1]);
           } else {
-            p[0] = __float2bfloat16(x0);
-            if (d + 1 < Dh) p[1] = __float2bfloat16(x1);
+            p[0] = __float2bfloat16(o[dp][t][2 * hr]);
+            if (d + 1 < Dh) p[1] = __float2bfloat16(o[dp][t][2 * hr + 1]);
           }
         }
       }

@@ -131,8 +131,13 @@ def resnet_extractor(cnn_model: str = "resnet101", device=None):
     ``cnn_model``: resnet101 (default) or resnet152, the reference's
     --cnn_model (tools/eval.py:28-29).  Its ImageNet weights must already
     be in the torch hub cache: the extractor raises FileNotFoundError
-    rather than download them."""
+    rather than download them.  Its convolutions run in full float32
+    (``full_float32_convs``: cuDNN's TF32 off around the forward, the
+    caller's setting restored), as the trunk's do and as the JAX package
+    runs this extractor on the CPU."""
     import torchvision
+
+    from ..models.resnet import full_float32_convs
 
     device = resolve_device(device)
     url = torchvision.models.get_model_weights(cnn_model).IMAGENET1K_V1.url
@@ -151,8 +156,9 @@ def resnet_extractor(cnn_model: str = "resnet101", device=None):
     @torch.no_grad()
     def extract(img: np.ndarray):
         x = torch.from_numpy(((img - mean) / std).transpose(2, 0, 1))[None]
-        x = cnn.maxpool(cnn.relu(cnn.bn1(cnn.conv1(x.to(device)))))
-        x = cnn.layer4(cnn.layer3(cnn.layer2(cnn.layer1(x))))
+        with full_float32_convs():
+            x = cnn.maxpool(cnn.relu(cnn.bn1(cnn.conv1(x.to(device)))))
+            x = cnn.layer4(cnn.layer3(cnn.layer2(cnn.layer1(x))))
         fc = x.mean((2, 3))[0].cpu().numpy()
         att = F.adaptive_avg_pool2d(x, (14, 14))
         return fc, att[0].permute(1, 2, 0).cpu().numpy()

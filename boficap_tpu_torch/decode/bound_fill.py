@@ -59,6 +59,17 @@ from ..ops.stack import (fused_decoder_stack_forward,
 from .sampling import sample_next_word
 
 
+# sa_decode's narrow round: window positions a round
+SA_WINDOW = 8
+# The greedy head kernel (#3) runs on every greedy fill.  The JAX package
+# gates it at 256 rows (B * L), a threshold tuned on a v5e (its
+# decode/bound_fill.py:131).  On an H100 at 700 W #3 was the faster at
+# every count from 20 to 1280 rows at both dtypes, a call's host launches
+# included (chip_smoke.py phase times, ``head_gate``, which fails should
+# the crossover ever come out above 0; PERF.md section 6), so the port
+# has no gate.
+
+
 def use_stacked(model, batch: int) -> bool:
     """The JAX package's routing rule (``_use_stacked`` without its
     interpret-mode term): the whole-stack kernels for bf16 models with a
@@ -308,7 +319,7 @@ def _copy_phrase(seq, seq_last, prev, cur, phrase_last, L2: int):
 def sa_decode(model, memory, src_mask, *, sample_method: str = "greedy",
               temperature: float = 1.0, max_steps: Optional[int] = None,
               predictor_use_syn: bool = False, fused_fill: bool = False,
-              stacked: Optional[bool] = None, window: int = 8,
+              stacked: Optional[bool] = None, window: int = SA_WINDOW,
               generator: Optional[torch.Generator] = None,
               stats: Optional[Dict[str, int]] = None
               ) -> Dict[str, torch.Tensor]:

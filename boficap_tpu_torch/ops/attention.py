@@ -32,8 +32,9 @@ Lq <= LQ_ROW and Lk <= KEY_MAX (the decode steps: one warp a (sample,
 head), K and V read with 16-byte loads, the score row in registers),
 ``tile`` at bf16 otherwise (mma.sync tensor cores), ``ffma`` at float32
 otherwise.  The tile path holds KEY_MAX keys' scores in registers and goes
-over more in chunks of KEY_MAX with an online softmax (PB_pad's packed
-width reaches 211 keys); the ffma block keeps its score rows in shared
+over more in chunks of KEY_MAX twice, for each row's max and sum and then
+for p, normalised before it is rounded (PB_pad's packed width reaches 211
+keys); the ffma block keeps its score rows in shared
 memory.  Every path stages in at most the card's 227 KB of shared memory
 a block (``shared_bytes``) and takes heads of at most DH_MAX; every q, k
 and v view's base and strides, and the head width, must be 16-byte

@@ -29,9 +29,10 @@ and is not ported: attention runs per (sample, head).
 Numerics (pallas_decoder_layer.py:63-121): RefLayerNorm in float32 with
 the unbiased variance and eps added to the std; scores / sqrt(Dh), masked
 with the finite -1e9, softmax in float32, probabilities cast to the compute
-dtype (at bf16 past KEY_MAX keys, the attention block's online softmax over
-chunks of KEY_MAX keys, which rounds p before the division by the sum:
-``online_context``); every product sums in float32, casts to the compute
+dtype (at every key count: past KEY_MAX keys the bf16 attention block goes
+over chunks of KEY_MAX keys twice, for the row's max and sum and then for
+p, normalised before it is rounded); every product sums in float32, casts
+to the compute
 dtype, then adds its bias in that dtype, then ReLU or the residual.  Norm
 scales and biases stay float32, as the flax modules hold them.
 
@@ -61,7 +62,7 @@ MASK_FILL = -1e9
 NORM_EPS = 1e-6
 # the attention block (csrc/attention.cuh) of every kernel: a score row of
 # at most KEY_MAX keys sits in registers (the row path), past it the tile
-# path goes over chunks of KEY_MAX keys with an online softmax and the ffma
+# path goes over chunks of KEY_MAX keys in two passes and the ffma
 # block keeps its score rows in shared memory; heads of at most DH_MAX, at
 # most SMEM_LIMIT bytes of shared memory a block (the H100's 227 KB)
 KEY_MAX = 128
@@ -185,34 +186,10 @@ def linear_plain(a, w, b, relu: bool = False, res=None):
     return y
 
 
-def online_context(s, vh, dtype):
-    """The tile path past KEY_MAX keys (csrc/attention.cuh
-    attention_tile_long_kernel): float32 scores s [B,H,Lq,Lk] and values
-    vh [B,Lk,H,Dh] -> the context [B,Lq,H,Dh] in ``dtype``, over chunks of
-    KEY_MAX keys with a running max m and sum l a query row: p = exp(s -
-    m') rounded to ``dtype`` for P V, l and the float32 context rescaled by
-    exp(m - m') at each chunk, and the context divided by l at the end."""
-    B, H, Lq, Lk = s.shape
-    m = s.new_full((B, H, Lq, 1), -math.inf)
-    l = s.new_zeros((B, H, Lq, 1))
-    o = s.new_zeros((B, H, Lq, vh.shape[-1]))
-    for j0 in range(0, Lk, KEY_MAX):
-        sc = s[..., j0:j0 + KEY_MAX]
-        n = torch.maximum(m, sc.amax(-1, keepdim=True))
-        a = torch.exp(m - n)
-        p = torch.exp(sc - n)
-        l = l * a + p.sum(-1, keepdim=True)
-        o = o * a + torch.einsum("bhqk,bkhd->bhqd", p.to(dtype).float(),
-                                 vh[:, j0:j0 + KEY_MAX])
-        m = n
-    return (o / l).to(dtype).transpose(1, 2)
-
-
 def attention_plain(q, k, v, mask, num_heads: int):
     """q [B,Lq,D], k/v [B,Lk,D], bool mask [B,Lk] | [B,Lq,Lk] -> [B,Lq,D].
-    The probabilities are normalised, rounded, then multiplied by V; at
-    bf16 past KEY_MAX keys, as the kernels' tile path does there,
-    ``online_context``."""
+    The probabilities are normalised, rounded, then multiplied by V, at
+    every key count."""
     B, Lq, D = q.shape
     Lk = k.shape[1]
     H = num_heads
@@ -223,8 +200,6 @@ def attention_plain(q, k, v, mask, num_heads: int):
     s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(Dh)
     m = mask[:, None, None, :] if mask.dim() == 2 else mask[:, None]
     s = torch.where(m, s, MASK_FILL)
-    if q.dtype == torch.bfloat16 and Lk > KEY_MAX:
-        return online_context(s, vh, q.dtype).reshape(B, Lq, D)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     ctx = torch.einsum("bhqk,bkhd->bqhd", p.float(), vh).to(q.dtype)
     return ctx.reshape(B, Lq, D)

@@ -11,22 +11,41 @@ its batchmates.  Padding rows keep one live region (``am[n:, 0] = 1``) so
 their masks stay sane.
 
 The weights are resident on the device once (the model is moved at
-construction, never per request).  The decode runs ``fused_encode``, then
-``na_decode(fused_fill=True)`` for mode 'NAIC',
-``sa_decode(fused_fill=True)`` for mode 'SAIC' or the KV-cached
-``ar_sample`` for mode 'AIC' (the JAX server's choice for AIC, on a UIC_s
-model and on the LSTM captioners too, which encode with their own
-``encode``): on the card through the hand-written kernels, routed as the
-JAX package routes them (the whole-stack kernels for a bf16 model at
-B <= 128; the attention core on the AR and bounding steps when the model's
-``use_pallas`` is set), on the CPU through their plain twins.  With
-``pipeline=True`` the
-worker thread uploads and launches a batch while a completion thread waits
-for the previous batch's result, so the next upload overlaps the decode in
-flight.
+construction, never per request).  Each bucket has one decode program,
+chosen at its first batch (or at construction with ``warm``) among two, as
+the JAX server chooses (its ``route``):
 
-The JAX server's ``route='auto'`` (timing plain against fused programs)
-and ``mesh`` (data-parallel serving) are not ported.
+  * the kernel program: ``fused_encode``, then ``na_decode(fused_fill=
+    True)`` for mode 'NAIC' or ``sa_decode(fused_fill=True)`` for mode
+    'SAIC': on the card through the hand-written kernels, routed as the
+    JAX package routes them (the whole-stack kernels for a bf16 model at
+    B <= 128), on the CPU through their plain twins;
+  * the plain program: ``model.encode`` and the decode with
+    ``fused_fill=False``.
+
+``route='auto'`` (the default) runs each program once to warm it, then
+three times, each ended by a synchronize, and keeps the plain program for
+the server's lifetime only where its least time beats the kernel
+program's by more than the spread of the repeats (the larger of the two
+programs' max - min), else the kernel program; it prints the choice.
+``'fused'`` and ``'unfused'`` force one, which is then not timed.  On the
+card, ``'auto'`` and ``'fused'`` need the wrappers to take the model's
+shapes (``_kernel_refusal``: the bf16 products' widths, the attention
+block's heads and shared memory at R regions and L words, the
+counterpart of JAX's TPU and 128-lane test): where they do not, the
+server raises their ValueError at construction and never serves the
+plain program in the kernels' place; ``'unfused'`` asks for it.
+``routes`` holds each bucket's choice and, under 'auto', both times and
+the spread in ms.  Mode
+'AIC' has one program, as in the JAX server (``ar_sample`` takes no
+``fused_fill``): ``fused_encode`` and the KV-cached ``ar_sample`` (the
+attention core on every step when the model's ``use_pallas`` is set; on a
+UIC_s model and on the LSTM captioners too, which encode with their own
+``encode``).  With ``pipeline=True`` the worker thread uploads and
+launches a batch while a completion thread waits for the previous batch's
+result, so the next upload overlaps the decode in flight.
+
+The JAX server's ``mesh`` (data-parallel serving) is not ported.
 """
 
 from __future__ import annotations
@@ -36,7 +55,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -45,7 +64,12 @@ from .decode import ar
 from .decode import bound_fill as bf
 from .device import resolve_device
 from .models.boficap import DECODER_ROLES, DTYPES
+from .ops import decoder_layer as dl
 from .text import decode_sequence
+
+
+# the JAX server's routes: time both programs a bucket, or force one
+ROUTES = ("auto", "fused", "unfused")
 
 
 def _buckets(max_batch: int) -> List[int]:
@@ -79,9 +103,11 @@ class CaptionServer:
                  max_wait_ms: float = 2.0, max_steps: Optional[int] = None,
                  max_regions: Optional[int] = None,
                  feature_dtype: str = "float32", pipeline: bool = True,
-                 warm: bool = False, device=None):
+                 warm: bool = False, route: str = "auto", device=None):
         if mode not in ("NAIC", "SAIC", "AIC"):
             raise ValueError(f"mode {mode!r}")
+        if route not in ROUTES:
+            raise ValueError(f"route {route!r}: one of {ROUTES}")
         role = {"NAIC": "NA", "SAIC": "SA", "AIC": "A"}[mode]
         roles = DECODER_ROLES.get(getattr(model, "train_mode", ""), {})
         if role not in roles:
@@ -92,18 +118,29 @@ class CaptionServer:
             raise ValueError(f"feature_dtype must be one of "
                              f"{sorted(DTYPES)}")
         self.device = resolve_device(device)
+        # the feature store's region width (36 for bottom-up features)
+        self.R = int(max_regions or model.max_boxes)
+        if mode != "AIC" and route != "unfused":
+            refusal = self._kernel_refusal(model)
+            if refusal is not None:
+                raise ValueError(
+                    f"route={route!r}: the kernels refuse this model's "
+                    f"shapes ({refusal}); route='unfused' serves the plain "
+                    f"program") from refusal
         # the weights move to the device once, here
         self.model = model.to(self.device).eval()
         self.ix_to_word = ix_to_word
         self.mode = mode
         self.max_steps = max_steps
-        # the feature store's region width (36 for bottom-up features)
-        self.R = int(max_regions or model.max_boxes)
         self.buckets = _buckets(max_batch)
         self.max_wait_s = max_wait_ms / 1e3
         # transport dtype: 'bfloat16' halves host->device bytes at the cost
         # of quantising the features; 'float32' is exact
         self.feat_dtype = DTYPES[feature_dtype]
+        self.route = route
+        # bucket -> the program kept, and its choice with both times
+        self._programs: Dict[int, Callable] = {}
+        self.routes: Dict[int, Dict[str, Any]] = {}
         self._q: "queue.Queue[_Request]" = queue.Queue()
         self._done_q: "queue.Queue[tuple]" = queue.Queue()
         # requests handed to a worker/completer and not yet resolved: close()
@@ -117,12 +154,9 @@ class CaptionServer:
         if warm:
             for b in self.buckets:
                 t0 = time.perf_counter()
-                feat = self.model.att_feat_size
-                att = torch.zeros((b, self.R, feat), dtype=self.feat_dtype,
-                                  device=self.device)
-                am = torch.ones((b, self.R), device=self.device)
-                self._decode(att, am)["seq"].cpu()
-                print(f"serve warm: bucket {b} ready "
+                self._program(b)
+                print(f"serve warm: bucket {b} ready, "
+                      f"{self.routes[b]['route']} "
                       f"({time.perf_counter() - t0:.1f}s)", flush=True)
         self.pipeline = pipeline
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -133,17 +167,99 @@ class CaptionServer:
                                                daemon=True)
             self._completer.start()
 
-    # ---- decode -----------------------------------------------------------
+    # ---- decode programs --------------------------------------------------
 
-    @torch.no_grad()
+    def _make(self, fused: bool) -> Callable:
+        """The kernel program (``fused``) or the plain one: (att, am) ->
+        the decode's outputs, launched asynchronously on the card."""
+        model, mode, max_steps = self.model, self.mode, self.max_steps
+
+        @torch.no_grad()
+        def program(att, am):
+            if fused:
+                memory = bf.fused_encode(model, att, am)
+            else:
+                memory = model.encode(att, am)
+            src = am.bool()
+            if mode == "AIC":
+                return ar.ar_sample(model, memory, src, max_steps=max_steps)
+            decode = bf.sa_decode if mode == "SAIC" else bf.na_decode
+            return decode(model, memory, src, max_steps=max_steps,
+                          fused_fill=fused)
+
+        return program
+
+    def _kernel_refusal(self, m) -> Optional[ValueError]:
+        """The wrappers' ValueError where they refuse model ``m``'s shapes
+        on the card, else None (on the CPU they run their plain twins,
+        which take any)."""
+        if self.device.type != "cuda":
+            return None
+        dtype, D, H = m.dtype, m.d_model, m.num_heads
+        W, L, R = bf.SA_WINDOW, m.max_length, self.R
+        try:
+            dl.check_product_shape(dtype, {"d_model": D, "d_ff": m.d_ff})
+            dl.check_attention_shape(
+                {"encoder_self": (R, R, False), "self": (L, L, False),
+                 "cross": (L, R, False), "window_self": (W, L + W, True),
+                 "window_cross": (W, R, False)}, D // H, dtype)
+        except ValueError as e:
+            return e
+        return None
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _time_program(self, fused: bool, prog: Callable, att,
+                      am) -> List[float]:
+        """Seconds of three calls of ``prog`` (the kernel program if
+        ``fused``) once warm: one call to warm it, then three, each ended
+        by a synchronize."""
+        prog(att, am)
+        self._sync()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            prog(att, am)
+            self._sync()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    def _program(self, bucket: int) -> Callable:
+        """The bucket's program, kept for the server's lifetime: under
+        'auto' the plain one only where it wins by more than the repeats'
+        spread (both timed, the choice printed), else the kernel one; the
+        one asked for, or AIC's only one, untimed."""
+        if bucket in self._programs:
+            return self._programs[bucket]
+        fused = self.mode == "AIC" or self.route != "unfused"
+        choice = {"route": "fused" if fused else "unfused",
+                  "fused_ms": None, "unfused_ms": None, "spread_ms": None}
+        if self.mode != "AIC" and self.route == "auto":
+            att = torch.zeros((bucket, self.R, self.model.att_feat_size),
+                              dtype=self.feat_dtype, device=self.device)
+            am = torch.ones((bucket, self.R), device=self.device)
+            t = {f: self._time_program(f, self._make(f), att, am)
+                 for f in (True, False)}
+            spread = max(max(v) - min(v) for v in t.values())
+            fused = min(t[False]) >= min(t[True]) - spread
+            choice = {"route": "fused" if fused else "unfused",
+                      "fused_ms": min(t[True]) * 1e3,
+                      "unfused_ms": min(t[False]) * 1e3,
+                      "spread_ms": spread * 1e3}
+            print(f"serve route: bucket {bucket} {choice['route']} "
+                  f"(kernels {choice['fused_ms']:.4f} ms, plain "
+                  f"{choice['unfused_ms']:.4f} ms, spread "
+                  f"{choice['spread_ms']:.4f} ms)", flush=True)
+        self.routes[bucket] = choice
+        self._programs[bucket] = self._make(fused)
+        return self._programs[bucket]
+
     def _decode(self, att: torch.Tensor, am: torch.Tensor):
-        memory = bf.fused_encode(self.model, att, am)
-        if self.mode == "AIC":
-            return ar.ar_sample(self.model, memory, am.bool(),
-                                max_steps=self.max_steps)
-        decode = bf.sa_decode if self.mode == "SAIC" else bf.na_decode
-        return decode(self.model, memory, am.bool(), max_steps=self.max_steps,
-                      fused_fill=True)
+        """A padded batch (att [bucket, R, feat]) through its bucket's
+        program."""
+        return self._program(att.shape[0])(att, am)
 
     def _bind_thread(self):
         if self.device.type == "cuda":

@@ -23,7 +23,10 @@ from the infos, as the JAX package's ``tools/serve.py`` reads them.
 NAIC (bound then fill, the default), SAIC (per-phrase) or AIC (word by
 word, KV-cached).  ``--use_pallas 0|1`` routes the eligible attentions
 through the attention-core kernel; without it the config's ``use_pallas``
-holds.
+holds.  Each batch size's decode program is CaptionServer's default
+``route='auto'``: the kernel program, unless the plain one, timed beside
+it at warm-up, wins by more than the spread of the repeats
+(``CaptionServer.routes``), as the JAX package's server times both.
 """
 
 from __future__ import annotations

@@ -39,7 +39,12 @@ smoke's timed decodes), it prints one line ``AB {...}`` with:
                         chip_smoke.PRODUCTS (seeded operands, through
                         fused_linear) its device ms and a hash of its output,
                         and a hash of the head's ids: equal digests across
-                        two checkouts mean bitwise equal outputs.
+                        two checkouts mean bitwise equal outputs;
+  grid                  past the row path's 128 keys, a 14 x 14 image grid
+                        (196 regions): by dtype, chip_smoke.measure_grid's
+                        row of #1, #2, #4-#9 (ms, plain, bound, library),
+                        each with its error against its plain twin
+                        (chip_smoke.check_grid_kernels, float32 weights).
 
 To compare two commits, run it in turns on both checkouts in one call on
 one card (parent, change, change, parent): the decodes are bound by the
@@ -285,6 +290,12 @@ def main(root: str, label: str) -> int:
         out["kernel_split"] = kernel_split(cs, model)
         out["digest"] = digests(cs, model)
         out["products"] = products(cs, model)
+        grid_model = cs.build("float32")
+        errs = cs.check_grid_kernels(grid_model)
+        out["grid"] = cs.measure_grid(grid_model)
+        for dt, rows in out["grid"].items():
+            for name, row in rows.items():
+                row["rel_err"] = errs[dt][name]["rel_err"]
     print("AB " + json.dumps(out), flush=True)
     return 0
 

@@ -752,6 +752,26 @@ def test_attention_rows_batch_independent(cuda, Lq, Lk):
         assert torch.equal(full[:37], part), path
 
 
+@pytest.mark.parametrize("Lq,Lk", [(1, 196), (20, 196), (211, 211)])
+def test_attention_past_key_bound_rows_batch_independent(cuda, Lq, Lk):
+    """bf16 past 128 keys (the chunked tile kernel: a pass for each row's
+    max and sum, a pass for P V): the first 37 samples of a B = 64 call
+    equal a 37-sample call bitwise, 20 calls back to back are bitwise
+    equal, and the output is within TOL of the normalise-then-round
+    twin."""
+    from boficap_tpu_torch.ops import attention as at
+    q, k, v, m = _attention_operands(cuda, torch.bfloat16, 64, Lq, Lk)
+    full = at.attention_core(q, k, v, m)
+    part = at.attention_core(q[:37], k[:37], v[:37], m[:37])
+    again = [at.attention_core(q, k, v, m) for _ in range(20)]
+    want = at.attention_core_plain(q, k, v, m)
+    torch.cuda.synchronize()
+    assert torch.equal(full[:37], part)
+    for i, o in enumerate(again):
+        assert torch.equal(o, full), i
+    assert _rel(full, want) < TOL[torch.bfloat16]
+
+
 def test_attention_path_choice_matches_c(cuda):
     """The C library's path (bfc_attention_path) is ops.attention's
     attention_path at every query and key count around the edges."""
@@ -1170,7 +1190,7 @@ def test_diverse_beam_search_core_matches_plain(cuda):
 def test_attention_past_key_bound_against_plain(cuda, dtype, Lq, Lk):
     """The attention core past the row path's 128 keys (PB_pad's lossless
     packed width is 211): the path attention_path gives (tile at bf16, with
-    its online softmax over chunks of 128 keys; ffma at float32), and that
+    two passes over chunks of 128 keys; ffma at float32), and that
     path forced, against the plain twin, with a fully masked sample and
     row; the row path forced raises ValueError before any launch."""
     from boficap_tpu_torch.ops import attention as at

@@ -10,6 +10,10 @@ import pytest
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "boficap_tpu")
+# the dataset-building CLIs, one for each of the JAX package's scripts
+PREPRO_TOOLS = ("prepro_labels", "prepro_labels_stanford", "stanford_cut",
+                "phrase_encoding", "prep_h5", "KD_coco", "prepro_ngrams",
+                "make_synth_corpus")
 
 
 def _port_files():
@@ -38,7 +42,9 @@ def test_port_files_found():
     files = _port_files()
     assert len(files) >= 10
     assert all(os.path.exists(f) for f in files)
-    for mod in (("native", "__init__.py"), ("eval", "multi_metrics.py")):
+    for mod in (("native", "__init__.py"), ("eval", "multi_metrics.py"),
+                ("prepro", "labels.py"), ("prepro", "phrase_pairs.py"),
+                *(("tools", f"{name}.py") for name in PREPRO_TOOLS)):
         assert os.path.join(ROOT, "boficap_tpu_torch", *mod) in files
 
 

@@ -490,14 +490,12 @@ def test_args_struct_mirrors_c(entry, mirror):
 
 
 @pytest.mark.parametrize("Lq", [1, 20, 196])
-def test_online_context_is_the_softmax(Lq):
-    """``online_context``, the layer twins' form of the tile path past
-    KEY_MAX keys, over 196 keys (two chunks) with padded keys and a fully
-    masked sample: with float32 rounding it is the softmax context within
-    float32 noise (1e-6); at bf16 (p rounded before the division) within
-    bf16's noise (3e-2 of the largest magnitude) of the normalised form.
-    attention_plain takes it at bf16 past KEY_MAX keys, and the normalised
-    form at KEY_MAX keys."""
+def test_attention_plain_normalises_before_rounding_past_key_max(Lq):
+    """``attention_plain`` at bf16 over 196 keys (two of the kernels'
+    KEY_MAX chunks) with padded keys and a fully masked sample is the
+    reference's form bitwise: the float32 softmax, normalised, rounded to
+    bf16, then multiplied by V (pallas_decoder_layer.py:117); and so it is
+    at KEY_MAX keys."""
     rs = np.random.RandomState(Lq)
     B, Hn, Dh, Lk = 3, 2, 16, 196
     bf = torch.bfloat16
@@ -507,29 +505,16 @@ def test_online_context_is_the_softmax(Lq):
 
     q, k, v = t(B, Lq, Hn * Dh), t(B, Lk, Hn * Dh), t(B, Lk, Hn * Dh)
     mask = torch.arange(Lk)[None, :] < torch.tensor([Lk, 150, 0])[:, None]
-
-    def scores(keys):
+    assert Lk > dl.KEY_MAX
+    for keys in (Lk, dl.KEY_MAX):
         s = torch.einsum("bqhd,bkhd->bhqk",
                          q.float().reshape(B, Lq, Hn, Dh),
                          k[:, :keys].float().reshape(B, keys, Hn, Dh))
-        return torch.where(mask[:, None, None, :keys], s / math.sqrt(Dh),
-                           dl.MASK_FILL)
-
-    vh = v.float().reshape(B, Lk, Hn, Dh)
-    s = scores(Lk)
-    exact = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vh)
-    np.testing.assert_allclose(dl.online_context(s, vh, torch.float32),
-                               exact, rtol=0, atol=1e-6)
-    online = dl.online_context(s, vh, bf).reshape(B, Lq, -1)
-    assert torch.equal(dl.attention_plain(q, k, v, mask, Hn), online)
-    normalised = torch.einsum("bhqk,bkhd->bqhd",
-                              torch.softmax(s, -1).to(bf).float(), vh)
-    normalised = normalised.reshape(B, Lq, -1)
-    assert ((online.float() - normalised).abs().max()
-            <= 3e-2 * normalised.abs().max())
-    p = torch.softmax(scores(dl.KEY_MAX), -1).to(bf).float()
-    short = torch.einsum("bhqk,bkhd->bqhd", p, vh[:, :dl.KEY_MAX])
-    assert torch.equal(
-        dl.attention_plain(q, k[:, :dl.KEY_MAX], v[:, :dl.KEY_MAX],
-                           mask[:, :dl.KEY_MAX], Hn),
-        short.to(bf).reshape(B, Lq, -1))
+        s = torch.where(mask[:, None, None, :keys], s / math.sqrt(Dh),
+                        dl.MASK_FILL)
+        p = torch.softmax(s, -1).to(bf).float()
+        want = torch.einsum("bhqk,bkhd->bqhd", p,
+                            v[:, :keys].float().reshape(B, keys, Hn, Dh))
+        got = dl.attention_plain(q, k[:, :keys], v[:, :keys],
+                                 mask[:, :keys], Hn)
+        assert torch.equal(got, want.to(bf).reshape(B, Lq, -1)), keys

@@ -255,6 +255,72 @@ def test_dataloader_raw_chooses_extractor(tmp_path, monkeypatch, capsys):
         traw.DataLoaderRaw(folder, 2, device="cpu")
 
 
+def _stub_torchvision(trunk, url, seen):
+    """A ``torchvision`` whose ``models.resnet101(weights=None)`` is the
+    port's trunk architecture under torchvision's attribute names (stem
+    conv, BN, ReLU, ceil-mode max pool, layer1-4), recording cuDNN's TF32
+    flag in ``seen`` at each stage of its forward, and whose
+    ``get_model_weights`` names ``url``."""
+    import types
+
+    from torch import nn
+
+    class Net(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv1, self.bn1 = trunk.conv1, trunk.bn1
+            self.relu = nn.ReLU()
+            self.maxpool = nn.MaxPool2d(3, 2, padding=0, ceil_mode=True)
+            for i in range(1, 5):
+                setattr(self, f"layer{i}", getattr(trunk, f"layer{i}"))
+            for m in (self.conv1, *(getattr(self, f"layer{i}")
+                                    for i in range(1, 5))):
+                m.register_forward_pre_hook(lambda *_: seen.append(
+                    torch.backends.cudnn.allow_tf32))
+
+    weights = types.SimpleNamespace(
+        IMAGENET1K_V1=types.SimpleNamespace(url=url))
+    models = types.SimpleNamespace(
+        resnet101=lambda weights=None: Net(),
+        get_model_weights=lambda name: weights)
+    return types.SimpleNamespace(models=models)
+
+
+@pytest.mark.parametrize("caller_tf32", [True, False])
+def test_resnet_extractor_full_float32(tmp_path, monkeypatch, caller_tf32):
+    """``resnet_extractor`` with no download: a stub torchvision and a
+    seeded state dict written into a temporary torch hub cache.  At the
+    image's own size its fc and att equal ``resnet_features`` on the same
+    weights within 1e-5 relative; every stage of its forward sees cuDNN's
+    TF32 off, and the caller's setting is back after it; without the file
+    it raises FileNotFoundError."""
+    trunk = trn.init_resnet(LAYERS, seed=7)
+    url = "https://download.invalid/models/resnet101-stub.pth"
+    ckpt = tmp_path / "checkpoints"
+    seen = []
+    monkeypatch.setitem(sys.modules, "torchvision",
+                        _stub_torchvision(trn.init_resnet(LAYERS, seed=1),
+                                          url, seen))
+    monkeypatch.setattr(torch.hub, "get_dir", lambda: str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="hub cache"):
+        traw.resnet_extractor(device="cpu")
+    ckpt.mkdir()
+    torch.save(trunk.state_dict(), ckpt / "resnet101-stub.pth")
+    extract = traw.resnet_extractor(device="cpu")
+    img = np.random.RandomState(3).rand(70, 90, 3).astype(np.float32)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", caller_tf32)
+    fc, att = extract(img)
+    assert seen == [False] * 5
+    assert torch.backends.cudnn.allow_tf32 is caller_tf32
+    mean = np.array([0.485, 0.456, 0.406], np.float32)
+    std = np.array([0.229, 0.224, 0.225], np.float32)
+    wfc, watt = trn.resnet_features(
+        trunk, torch.from_numpy((img - mean) / std)[None])
+    assert fc.shape == (2048,) and att.shape == (14, 14, 2048)
+    assert _rel(fc, wfc[0].numpy()) <= 1e-5
+    assert _rel(att.reshape(GRID, -1), watt[0].numpy()) <= 1e-5
+
+
 # ---------------------------------------------------------------------------
 # tools/eval.py --image_folder
 # ---------------------------------------------------------------------------
@@ -441,3 +507,297 @@ def test_ar_decode_at_196_regions_matches_jax():
         for k in KEYS_CLOSE:
             np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                        err_msg=k, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the same decodes at bf16: the margin rule (PARITY.md, "Random-init tensor
+# parity" and tests/test_torch_port_sa.py BF16_MARGIN_NOISE)
+# ---------------------------------------------------------------------------
+
+# a word (or a plan slot) may differ only where the port's plain path's
+# top-2 logprob margin is below this: two bf16 roundings apart, ~2**-7
+# relative on logits of size ~1, compounded over the layers
+BF16_MARGIN = 0.1
+# bf16 memories: each package rounds its float32 sums to bf16 at its own
+# boundaries, so elements differ by an ulp or two of their own size
+# (2**-7 relative), relative to the largest magnitude
+BF16_MEM_TOL = 3e-2
+# token log-probs and entropies where the words agree: logits round at
+# 2**-8 relative in each package, so a log-prob of a few nats moves by
+# ~0.05; the bound leaves room for the words' context to round apart
+BF16_LP_TOL = 0.5
+
+
+def _margins(lp):
+    top2 = lp.float().topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+@torch.no_grad()
+def _plain_na_margins(tm, mem, src):
+    """The port's plain NA decode: the bounding loop's top-2 margin at
+    each step (the smaller of the length and syntax heads'), [B, L], and
+    the fill's at each position, [B, L]."""
+    gaps, step = [], tm.bound_step_cached
+
+    def record(*a, **kw):
+        out = step(*a, **kw)
+        gaps.append(torch.minimum(*(_margins(lp) for lp in out)))
+        return out
+
+    tm.bound_step_cached = record
+    try:
+        s = tbf.bound_plan(tm, mem, src, L, L)
+    finally:
+        del tm.bound_step_cached
+    total = s["last"] - 1
+    na_mask = (torch.arange(L)[None, None, :]
+               < total[:, None, None]).expand(-1, L, L)
+    lp = tm.generate(tm.decode_na(s["extend_syn"][:, 1:-1], mem, src,
+                                  na_mask))
+    return torch.stack(gaps, -1), _margins(lp)
+
+
+@torch.no_grad()
+def _plain_last_margins(tm, decode, *args, **kw):
+    """Run ``decode`` with the model's plain generator recorded: every
+    call's top-2 margins, [B, calls * rows] (an AR decode: one column a
+    step) and the last call's alone (an SA decode: every position as it
+    was decoded)."""
+    gaps, generate = [], tm.generate
+
+    def record(h):
+        lp = generate(h)
+        gaps.append(_margins(lp).reshape(h.shape[0], -1))
+        return lp
+
+    tm.generate = record
+    try:
+        decode(*args, **kw)
+    finally:
+        del tm.generate
+    return torch.cat(gaps, -1), gaps[-1]
+
+
+def _first_divergence_agree(got, want, margin):
+    """A sample may differ only from a word whose margin is below
+    BF16_MARGIN on (the later words and plan follow the other word); every
+    other sample is identical, its log-probs and entropies within
+    BF16_LP_TOL.  Returns the excused samples."""
+    diff = got["seq"].numpy() != np.asarray(want["seq"])
+    has = diff.any(-1)
+    first = diff.argmax(-1)
+    at = margin.numpy()[np.arange(len(first)), first]
+    assert not (has & (at >= BF16_MARGIN)).any(), at[has]
+    same = ~has
+    for k in ("phrase_num", "phrase_length", "phrase_syn"):
+        if k in want:
+            np.testing.assert_array_equal(got[k].numpy()[same],
+                                          np.asarray(want[k])[same],
+                                          err_msg=k)
+    for k in KEYS_CLOSE:
+        np.testing.assert_allclose(got[k].float().numpy()[same],
+                                   np.asarray(want[k], np.float32)[same],
+                                   atol=BF16_LP_TOL, rtol=0, err_msg=k)
+    return int(has.sum())
+
+
+@pytest.fixture(scope="module")
+def uic32_bf16():
+    """The UIC pair of ``uic32`` at bf16 on its 196-region batch."""
+    jm, params, tm = make_pair("UIC", "add", seed=4, dtype="bfloat16",
+                               **WIDTHS)
+    att, am = _feats196(5)
+    return jm, params, tm, att, am
+
+
+def _bf16_encodes(uic, stacked):
+    """#4 (``stacked``) or #1 at bf16: the JAX Pallas kernel in interpret
+    mode and the port's twin, within BF16_MEM_TOL."""
+    jm, params, tm, att, am = uic
+    jmem = jbf.fused_encode(jm, params, jnp.asarray(att), jnp.asarray(am),
+                            interpret=True, stacked=stacked)
+    with torch.no_grad():
+        tmem = tbf.fused_encode(tm, torch.from_numpy(att),
+                                torch.from_numpy(am), stacked=stacked)
+    want = np.asarray(jmem.astype(jnp.float32))
+    assert _rel(tmem.float().numpy(), want) <= BF16_MEM_TOL
+    return jmem, tmem
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+def test_na_decode_at_196_regions_bf16_matches_jax(uic32_bf16, stacked):
+    """bf16 ``fused_encode`` and ``na_decode`` with the fused fill, every
+    attention over 196 keys normalised before it is rounded: the port's
+    twins of #4 / #5 (#1 / #2 per layer) and #3 against the JAX Pallas
+    kernels in interpret mode, by the margin rule: a sample's plan may
+    differ only from a slot where the port's plain bounding loop's margin
+    is below BF16_MARGIN (its words are then not compared); a word only
+    where the plain fill's is, at most a quarter of the words; log-probs
+    and entropies where the words agree within BF16_LP_TOL."""
+    jm, params, tm, att, am = uic32_bf16
+    jmem, tmem = _bf16_encodes(uic32_bf16, stacked)
+    jsrc, tsrc = jnp.asarray(am).astype(bool), torch.from_numpy(am).bool()
+    want = jbf.na_decode(jm, params, jax.random.PRNGKey(0), jmem, jsrc,
+                         fused_fill=True, fused_interpret=True,
+                         stacked=stacked)
+    got = tbf.na_decode(tm, tmem, tsrc, fused_fill=True, stacked=stacked)
+    assert np.asarray(want["phrase_num"]).max() > 0
+    plan_m, fill_m = _plain_na_margins(tm, tmem, tsrc)
+    slot_diff = np.zeros((B, L), bool)
+    for k in ("phrase_length", "phrase_syn"):
+        slot_diff |= got[k].numpy() != np.asarray(want[k])
+    plan_diff = slot_diff.any(-1)
+    first = slot_diff.argmax(-1)
+    at = plan_m.numpy()[np.arange(B), first]
+    assert not (plan_diff & (at >= BF16_MARGIN)).any(), at[plan_diff]
+    same = ~plan_diff
+    diff = (got["seq"].numpy() != np.asarray(want["seq"])) & same[:, None]
+    assert not (diff & (fill_m.numpy() >= BF16_MARGIN)).any()
+    assert diff.sum() <= diff[same].size // 4
+    keep = ~diff & same[:, None]
+    for k in KEYS_CLOSE:
+        np.testing.assert_allclose(
+            got[k].float().numpy()[keep],
+            np.asarray(want[k], np.float32)[keep], atol=BF16_LP_TOL,
+            rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+def test_sa_decode_at_196_regions_bf16_matches_jax(uic32_bf16, stacked):
+    """bf16 ``sa_decode`` with the fused fill at window 2 (narrow and wide
+    rounds): the port's twins of #6 and #7 (#8 per layer) against the JAX
+    Pallas kernels in interpret mode, every cross-attention over 196 keys,
+    by the first-divergence margin rule against the port's plain SA
+    decode's margins."""
+    jm, params, tm, att, am = uic32_bf16
+    jmem, tmem = _bf16_encodes(uic32_bf16, stacked)
+    want = jbf.sa_decode(jm, params, jax.random.PRNGKey(0), jmem,
+                         jnp.asarray(am).astype(bool), fused_fill=True,
+                         fused_interpret=True, stacked=stacked, window=2)
+    stats = {}
+    tsrc = torch.from_numpy(am).bool()
+    got = tbf.sa_decode(tm, tmem, tsrc, fused_fill=True, stacked=stacked,
+                        window=2, stats=stats)
+    assert np.asarray(want["phrase_num"]).max() > 0
+    assert stats["narrow"] > 0 and stats["wide"] > 0
+    _, margin = _plain_last_margins(tm, tbf.sa_decode, tm, tmem, tsrc,
+                                    window=2)
+    _first_divergence_agree(got, want, margin)
+
+
+def test_ar_decode_at_196_regions_bf16_matches_jax():
+    """bf16 ``ar_sample`` of an AIC model with use_pallas on: every step's
+    cross-attention (1 x 196) on the attention core's twin against the JAX
+    kernel in interpret mode, and off against the JAX plain decode, by
+    the first-divergence margin rule against the port's plain steps'
+    margins."""
+    jm, params, tm = make_pair("AIC", seed=2, dtype="bfloat16", **WIDTHS)
+    att, am = _feats196(6)
+    jmem = jm.apply(params, jnp.asarray(att), jnp.asarray(am),
+                    deterministic=True, method="encode")
+    with torch.no_grad():
+        tmem = tm.encode(torch.from_numpy(att), torch.from_numpy(am))
+    assert _rel(tmem.float().numpy(),
+                np.asarray(jmem.astype(jnp.float32))) <= BF16_MEM_TOL
+    jsrc, tsrc = jnp.asarray(am).astype(bool), torch.from_numpy(am).bool()
+    margin, _ = _plain_last_margins(tm, tar.ar_sample, tm, tmem, tsrc)
+    for core in (True, False):
+        with pallas(tm, core):
+            want = jar.ar_sample(jm, params, jax.random.PRNGKey(0), jmem,
+                                 jsrc)
+            got = tar.ar_sample(tm, tmem, tsrc)
+        assert (np.asarray(want["seq"]) > 3).any()
+        _first_divergence_agree(got, want, margin)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(1, 196), (211, 211)])
+def test_attention_core_bf16_past_key_bound_matches_jax(Lq, Lk):
+    """The attention core's twin at bf16 past 128 keys (AIC's step over a
+    14 x 14 grid; PB_pad's lossless packed width) against the JAX kernel
+    in interpret mode, padded keys and a fully masked sample among them:
+    each element within one bf16 ulp of itself or, where the context is a
+    sum that nearly cancels, of its row's largest magnitude (both packages
+    round the normalised p and the context to bf16, their float32 sums in
+    other orders)."""
+    from boficap_tpu.ops.pallas_attention import attention_core as jcore
+    from boficap_tpu_torch.ops import attention as at
+    rs = np.random.RandomState(Lk)
+    Bq, H, Dh = 3, 2, 64
+    q, k, v = (rs.randn(Bq, H, n, Dh).astype(np.float32)
+               for n in (Lq, Lk, Lk))
+    mask = np.broadcast_to(
+        np.arange(Lk)[None, None, :] < np.array([Lk, 150, 0])[:, None, None],
+        (Bq, Lq, Lk)).copy()
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = at.attention_core(tq, tk, tv, torch.from_numpy(mask)).float()
+    want = np.asarray(jcore(*(jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16) for t in (tq, tk, tv)), jnp.asarray(mask),
+        interpret=True).astype(jnp.float32))
+
+    def ulp(x):
+        _, e = np.frexp(np.maximum(np.abs(x), 1e-30))
+        return np.ldexp(np.ones_like(x), e - 8)
+
+    err = np.abs(got.numpy() - want)
+    row = np.abs(want).max(-1, keepdims=True)
+    assert ((err <= ulp(want)) | (err <= ulp(row))).all(), err.max()
+
+
+def _bf16_ulp_agree(got, want):
+    """Each element within one bf16 ulp of itself or, where it is a sum
+    that nearly cancels, of its row's largest magnitude (the rule of the
+    attention core's test above)."""
+    def ulp(x):
+        _, e = np.frexp(np.maximum(np.abs(x), 1e-30))
+        return np.ldexp(np.ones_like(x), e - 8)
+
+    err = np.abs(got - want)
+    row = np.abs(want).max(-1, keepdims=True)
+    ok = (err <= ulp(want)) | (err <= ulp(row))
+    assert ok.all(), (int((~ok).sum()), float(err.max()))
+
+
+
+@pytest.mark.parametrize("kind", ["encoder", "decoder"])
+def test_layer_attention_bf16_past_key_bound_matches_jax(kind):
+    """The layer twins' attention sublayer at bf16 past 128 keys (the
+    q/k/v products of ``linear_plain``, then ``attention_plain``: what #1,
+    #2 and #4-#8's twins run) against ``_mha``, the attention that the JAX
+    package's ``_enc_kernel`` and ``_kernel`` run, with an identity output
+    projection so that JAX returns the bf16 context itself: #1's encoder
+    self-attention over 196 regions and #2's cross-attention from 20 words
+    over a 196-region memory, padded regions and a fully masked sample
+    among them: element by element within the bf16-ulp rule, and fewer
+    than 1% of the elements other than JAX's at all.  Both normalise p
+    before rounding it, so only a float32 sum that lands on a bf16
+    rounding boundary parts them (4 of the encoder's 37,632 elements
+    here); rounding p first, the order the kernels' chunked path had,
+    keeps within the ulp rule but moves a third of the elements (12,261),
+    so the count is what sees the order."""
+    from boficap_tpu.ops import pallas_decoder_layer as pdl
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    D, H, Bn = 64, 4, 3
+    Lq = GRID if kind == "encoder" else L
+    rs = np.random.RandomState(196)
+    b16 = lambda *shape: torch.from_numpy(
+        rs.randn(*shape).astype(np.float32)).to(torch.bfloat16)
+    n_q, kv = b16(Bn, Lq, D), b16(Bn, GRID, D)
+    ws = [b16(D, D) * 0.2 for _ in range(3)]
+    bs = [b16(D) * 0.1 for _ in range(3)]
+    live = np.array([GRID, 150, 0])
+    mask = np.broadcast_to(np.arange(GRID)[None, None, :]
+                           < live[:, None, None], (Bn, Lq, GRID)).copy()
+    q, k, v = (dl.linear_plain(a, w, b)
+               for a, w, b in zip((n_q, kv, kv), ws, bs))
+    got = dl.attention_plain(q, k, v, torch.from_numpy(mask), H)
+    assert got.dtype == torch.bfloat16
+    j = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    eye = jnp.eye(D, dtype=jnp.bfloat16)
+    want = np.stack([np.asarray(pdl._mha(
+        j(n_q[i]), j(kv[i]), j(ws[0]), j(bs[0]), j(ws[1]), j(bs[1]),
+        j(ws[2]), j(bs[2]), eye, jnp.asarray(mask[i]), Lq, GRID,
+        jnp.bfloat16, H)) for i in range(Bn)])
+    got = got.float().numpy()
+    _bf16_ulp_agree(got, want)
+    assert (got != want).mean() < 0.01, int((got != want).sum())

@@ -16,7 +16,7 @@ import torch
 from boficap_tpu_torch.decode import bound_fill as tbf
 from boficap_tpu_torch.serve import CaptionServer, _buckets, _Future, _Request
 from boficap_tpu_torch.text import decode_sequence
-from tests._torch_port_util import R, VOCAB, make_feats, make_pair
+from tests._torch_port_util import L, R, VOCAB, make_feats, make_pair
 
 IX_TO_WORD = {str(i): f"w{i}" for i in range(4, VOCAB + 4)}
 
@@ -258,3 +258,123 @@ def test_serve_http_endpoints(pair):
     finally:
         httpd.shutdown()
         srv.close()
+
+
+# ---------------------------------------------------------------------------
+# route: the kernel program or the plain one, a bucket at a time (the JAX
+# server's route='auto' | 'fused' | 'unfused')
+# ---------------------------------------------------------------------------
+
+def _bucket_decode(tm, att, am, bucket, mode, fused):
+    """What the server runs on a batch: padded to ``bucket`` rows as the
+    server pads it, then the kernel program (fused_encode and the fused
+    fill: on the CPU their plain twins) or the plain one."""
+    n = att.shape[0]
+    a = torch.zeros((bucket,) + att.shape[1:])
+    m = torch.zeros((bucket, att.shape[1]))
+    a[:n], m[:n] = torch.from_numpy(att), torch.from_numpy(am)
+    m[n:, 0] = 1.0
+    decode = tbf.sa_decode if mode == "SAIC" else tbf.na_decode
+    with torch.no_grad():
+        mem = tbf.fused_encode(tm, a, m) if fused else tm.encode(a, m)
+        return decode(tm, mem, m.bool(), fused_fill=fused)["seq"][:n].numpy()
+
+
+@pytest.mark.parametrize("mode", ["NAIC", "SAIC"])
+@pytest.mark.parametrize("route", ["fused", "unfused", "auto"])
+def test_serve_route_answers_with_its_program(pair, route, mode):
+    """Each route answers with the direct decode of the program it kept
+    for the bucket (the forced one, untimed, or under 'auto' the kernel
+    program unless the plain one wins by more than the repeats' spread on
+    this host), and reports its choice with the times it took."""
+    _, _, tm = pair
+    att, am = make_feats(B=3, seed=16)
+    srv = CaptionServer(tm, IX_TO_WORD, mode=mode, max_batch=4,
+                        max_wait_ms=30.0, max_regions=R, route=route,
+                        device="cpu")
+    try:
+        outs = [f.wait(timeout=120) for f in
+                [srv.submit(att[i], am[i]) for i in range(3)]]
+    finally:
+        srv.close()
+    bucket = outs[0]["bucket"]
+    assert {o["bucket"] for o in outs} == {bucket} == set(srv.routes)
+    chosen = srv.routes[bucket]
+    if route != "auto":
+        assert chosen == {"route": route, "fused_ms": None,
+                          "unfused_ms": None, "spread_ms": None}
+    else:
+        assert chosen["fused_ms"] > 0 and chosen["unfused_ms"] > 0
+        plain_wins = (chosen["unfused_ms"]
+                      < chosen["fused_ms"] - chosen["spread_ms"])
+        assert chosen["route"] == ("unfused" if plain_wins else "fused")
+    want = _bucket_decode(tm, att, am, bucket, mode,
+                          chosen["route"] == "fused")
+    np.testing.assert_array_equal(np.stack([o["seq"] for o in outs]), want)
+
+
+def test_serve_auto_keeps_the_faster_program(pair, monkeypatch):
+    """With the server's timer patched so that one program is slower,
+    'auto' keeps the other in every bucket, warmed at construction, but
+    keeps the kernel program where the plain one wins by less than the
+    repeats' spread; AIC has one program (ar_sample takes no fused_fill),
+    the kernel one, kept untimed whatever the route; a route outside
+    ROUTES raises."""
+    jm, params, tm = pair
+    timed = []
+
+    def timer(fused_s, plain_s):
+        def time_program(self, fused, prog, att, am):
+            timed.append((att.shape[0], fused))
+            return list(fused_s if fused else plain_s)
+        return time_program
+
+    for fused_s, plain_s, kept in (
+            ((2.0, 2.0, 2.0), (1.0, 1.0, 1.0), "unfused"),
+            ((1.0, 1.0, 1.0), (2.0, 2.0, 2.0), "fused"),
+            # plain 0.1 s ahead, inside the kernel repeats' 0.4 s spread
+            ((1.1, 1.5, 1.3), (1.0, 1.0, 1.0), "fused")):
+        monkeypatch.setattr(CaptionServer, "_time_program",
+                            timer(fused_s, plain_s))
+        timed.clear()
+        srv = CaptionServer(tm, IX_TO_WORD, max_batch=2, max_regions=R,
+                            warm=True, device="cpu")
+        srv.close()
+        assert sorted(timed) == [(1, False), (1, True), (2, False),
+                                 (2, True)]
+        assert {b: r["route"] for b, r in srv.routes.items()} == {
+            1: kept, 2: kept}
+        assert srv.routes[1]["fused_ms"] == min(fused_s) * 1e3
+        assert srv.routes[1]["unfused_ms"] == min(plain_s) * 1e3
+        assert srv.routes[1]["spread_ms"] == pytest.approx(
+            max(max(fused_s) - min(fused_s), max(plain_s) - min(plain_s))
+            * 1e3)
+    aic = make_pair("AIC", seed=2)[2]
+    timed.clear()
+    srv = CaptionServer(aic, IX_TO_WORD, mode="AIC", max_batch=1,
+                        max_regions=R, warm=True, route="unfused",
+                        device="cpu")
+    srv.close()
+    assert timed == []
+    assert srv.routes[1] == {"route": "fused", "fused_ms": None,
+                             "unfused_ms": None, "spread_ms": None}
+    with pytest.raises(ValueError, match="route"):
+        CaptionServer(tm, IX_TO_WORD, route="tpu", device="cpu")
+
+
+@pytest.mark.parametrize("route", ["fused", "auto"])
+def test_serve_refused_shapes_raise_on_the_card(pair, monkeypatch, route):
+    """On a CUDA device, where the wrappers refuse the model's shapes,
+    'fused' and 'auto' raise the wrappers' ValueError at construction,
+    before the weights move, and never serve the plain program in the
+    kernels' place."""
+    import boficap_tpu_torch.serve as serve_mod
+    _, _, tm = pair
+    monkeypatch.setattr(serve_mod, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    monkeypatch.setattr(CaptionServer, "_kernel_refusal",
+                        lambda self, m: ValueError("head width 7"))
+    with pytest.raises(ValueError, match="head width 7") as err:
+        CaptionServer(tm, IX_TO_WORD, route=route, max_regions=R)
+    assert "route='unfused'" in str(err.value)
+    assert next(tm.parameters()).device.type == "cpu"
