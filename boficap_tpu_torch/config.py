@@ -411,9 +411,21 @@ def add_eval_options(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--report_flops", type=int, default=0)
 
 
+def _mesh_shape(v: str):
+    """--mesh_shape: an int ("8") or a dict literal ("{'data': 8}"), as the
+    JAX package's opts.py:294-302 parses it."""
+    import ast
+    try:
+        return ast.literal_eval(v)
+    except (ValueError, SyntaxError):
+        raise argparse.ArgumentTypeError(
+            f"--mesh_shape wants an int or a dict literal, got {v!r}")
+
+
 # the training CLI's flags of the JAX package's opts.py (every DEFAULTS key)
 # whose DEFAULTS value is None and so carries no type
-_NONE_FLAG_TYPES = {"N_enc": int, "N_dec": int, "d_model": int, "d_ff": int}
+_NONE_FLAG_TYPES = {"N_enc": int, "N_dec": int, "d_model": int, "d_ff": int,
+                    "mesh_shape": _mesh_shape}
 
 
 def _str2bool(v: str) -> bool:
@@ -432,8 +444,6 @@ def _build_parser() -> argparse.ArgumentParser:
                         help="override config keys: --set_cfgs k1 v1 k2 v2")
     for name, default in DEFAULTS.items():
         flag = "--" + name
-        if name == "mesh_shape":
-            continue            # the mesh is not ported (ROADMAP item 11)
         if isinstance(default, bool):
             parser.add_argument(flag, type=_str2bool, nargs="?", const=True,
                                 default=None)
@@ -453,18 +463,6 @@ def merge_cli(cfg: Config, args: argparse.Namespace) -> Config:
     return cfg
 
 
-def check_train_opt(cfg: Config) -> Config:
-    """Options of the JAX trainer the port does not run yet raise here, at
-    parse time, naming their ROADMAP item (section 1)."""
-    for key, item in (("multihost", 11), ("mesh_shape", 11),
-                      ("profile_steps", 4)):
-        if cfg.get(key):
-            raise NotImplementedError(
-                f"{key}={cfg[key]!r} is not ported: ROADMAP.md section 1, "
-                f"item {item}")
-    return cfg
-
-
 def parse_opt(argv=None) -> Config:
     """The training CLI's options: DEFAULTS < ``--cfg`` file <
     ``--set_cfgs`` < explicit flags, finalized; ``device`` is ``cuda``
@@ -479,7 +477,7 @@ def parse_opt(argv=None) -> Config:
     finalize(cfg)
     if not cfg.get("device"):
         cfg.device = "cuda"
-    return check_train_opt(cfg)
+    return cfg
 
 
 def make_config(**fields) -> Config:

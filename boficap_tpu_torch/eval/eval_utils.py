@@ -61,6 +61,9 @@ import time
 from typing import Any, Dict, List
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import FlopCounterMode
 
 from ..decode import ar
 from ..decode import bound_fill as bf
@@ -73,12 +76,7 @@ from .multi_metrics import multi_sample_eval
 
 __all__ = ["decode_sequence", "eval_split", "make_decoders",
            "sample_n_captions", "use_cuda_fill", "cache_path", "save_cached",
-           "load_cached"]
-
-
-def not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md "
-                              f"section 1, item {item}")
+           "load_cached", "report_flops"]
 
 
 def _model_device(model) -> torch.device:
@@ -275,6 +273,73 @@ def _stash_decode_constraints(model, ix_to_word, eval_kwargs
         if bad_ix:
             eval_kwargs = dict(eval_kwargs, _bad_endings_ix=bad_ix)
     return eval_kwargs
+
+
+class _Bytes(TorchDispatchMode):
+    """Bytes of every op's tensor inputs and outputs, summed."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten((args, kwargs, out))[0]:
+            if isinstance(t, torch.Tensor):
+                self.bytes += t.numel() * t.element_size()
+        return out
+
+
+@torch.no_grad()
+def report_flops(model, example_batch, eval_kwargs: Dict[str, Any],
+                 inference_mode: str = "",
+                 ix_to_word=None) -> Dict[str, Dict[str, float]]:
+    """The work of the programs this eval would run, on the example
+    batch, where the model is: the counterpart of the JAX package's
+    ``report_flops`` (its XLA cost analysis of the compiled encode and
+    branch-decode programs; the reference's commented-out thop hooks).
+    The same programs are chosen, by the branch and beam dispatch and the
+    decode constraints ``eval_split`` shares (``_branch_for``,
+    ``_stash_decode_constraints``): ``encode`` and the branch, or
+    ``encode`` and ``beam``.
+
+    Each program runs once on the plain path (``use_cuda_fill`` 0, the
+    attention core off): the kernels are ctypes calls that PyTorch's
+    dispatcher never sees, so what is counted is the plain function they
+    compute.  ``flops``: matmul-like ops as 2 M N K
+    (``torch.utils.flop_counter``); ``bytes_accessed``: each op's input
+    and output bytes.  A decode loop counts every step it runs (XLA costs
+    a while-loop body once).  Returns {program: {'flops',
+    'bytes_accessed', 'per_image_gflops'}}."""
+    train_mode = eval_kwargs.get("train_mode", model.train_mode)
+    branch = _branch_for(train_mode, inference_mode)
+    beam_size = int(eval_kwargs.get("beam_size", 1) or 1)
+    if not ix_to_word and (eval_kwargs.get("suppress_UNK", 0)
+                           or eval_kwargs.get("remove_bad_endings", 0)):
+        raise ValueError(
+            "report_flops: suppress_UNK/remove_bad_endings require "
+            "ix_to_word (the vocab) to build the same constrained "
+            "programs eval_split runs; pass ix_to_word=infos['vocab']")
+    eval_kwargs = _stash_decode_constraints(model, ix_to_word, eval_kwargs)
+    dec = make_decoders(model, dict(eval_kwargs, use_cuda_fill="0"))
+    dev = _model_device(model)
+    att = torch.as_tensor(example_batch["att_feats"]).to(dev)
+    am = torch.as_tensor(example_batch["att_masks"]).to(dev)
+    B = int(att.shape[0])
+    name = "beam" if branch == "AIC" and beam_size > 1 else branch
+    out: Dict[str, Dict[str, float]] = {}
+    memory = None
+    with model.plain_attention():
+        for prog in ("encode", name):
+            with FlopCounterMode(display=False) as fc, _Bytes() as nb:
+                if prog == "encode":
+                    memory = dec["encode"](att, am)
+                else:
+                    dec[prog](memory, am.bool())
+            flops = float(fc.get_total_flops())
+            out[prog] = {"flops": flops, "bytes_accessed": float(nb.bytes),
+                         "per_image_gflops": flops / B / 1e9}
+    return out
 
 
 def _branch_for(train_mode: str, inference_mode: str) -> str:

@@ -9,17 +9,63 @@ Conventions shared by every function:
     values,
   * the per-sample masking loops of the reference are the closed-form
     masks of ``data/phrase_ops.py``.
+
+Data parallelism (``sharded``): inside ``with sharded(group)`` each rank
+holds its shard of the batch, and every batch-wide normaliser (a token
+mean's word count, a mean over rows, drop-worst's ranking) is taken over
+the whole group: the counts are all-reduced (``global_count``) before the
+shard's sums are divided by them, and ``drop_worst`` ranks the gathered
+per-sample losses.  A rank's loss is then its share of the global loss;
+the shares, and their gradients, sum over the group to the single-device
+values on the global batch (``train/steps.py`` sums them).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from .constants import PAD
 from .data import phrase_ops as po
+
+
+# the data-parallel group of ``sharded``, else None
+_SHARD_GROUP = None
+
+
+@contextlib.contextmanager
+def sharded(group):
+    """Batch-wide normalisers over ``group``'s shards inside the block
+    (None: this rank's batch is the whole batch)."""
+    global _SHARD_GROUP
+    prev, _SHARD_GROUP = _SHARD_GROUP, group
+    try:
+        yield
+    finally:
+        _SHARD_GROUP = prev
+
+
+def global_count(x: torch.Tensor) -> torch.Tensor:
+    """A count (a mask's sum, a number of rows) summed over the shards of
+    ``sharded``, no gradient; ``x`` itself outside it."""
+    if _SHARD_GROUP is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, group=_SHARD_GROUP)
+    return x
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x.mean()`` over the whole batch: the shard's sum over the count of
+    elements in every shard."""
+    if _SHARD_GROUP is None:
+        return x.mean()
+    return x.sum() / global_count(torch.tensor(float(x.numel()),
+                                               device=x.device))
 
 
 def _gather_logprob(logprob, ids):
@@ -32,12 +78,12 @@ def _reduce(per_pos, mask, reduction: str):
     per_pos = per_pos * mask
     if reduction == "none":
         return per_pos.sum(-1) / mask.sum(-1).clamp_min(1e-8)
-    return per_pos.sum() / mask.sum().clamp_min(1e-8)
+    return per_pos.sum() / global_count(mask.sum()).clamp_min(1e-8)
 
 
 def _denom(mask, reduction: str):
-    return (mask.sum(-1) if reduction == "none" else mask.sum()
-            ).clamp_min(1e-8)
+    return (mask.sum(-1) if reduction == "none"
+            else global_count(mask.sum())).clamp_min(1e-8)
 
 
 # ---------------------------------------------------------------------------
@@ -293,20 +339,20 @@ def structure_loss(logprob, seq, scores, loss_type: str,
 
     def xent(scores_mat, target):
         lsm = torch.log_softmax(scores_mat, dim=-1)
-        return -torch.gather(lsm, -1, target[:, None]).mean()
+        return -batch_mean(torch.gather(lsm, -1, target[:, None]))
 
     target = torch.argmin(costs, dim=-1)
     if loss_type == "seqnll":
         out["loss"] = xent(per_seq, target)
     elif loss_type == "risk":
         probs = torch.softmax(torch.exp(per_seq), dim=-1)
-        out["loss"] = (probs * costs).sum(-1).mean()
+        out["loss"] = batch_mean((probs * costs).sum(-1))
     elif loss_type in ("max_margin", "multi_margin"):
         costs_star = costs.min(-1, keepdim=True).values
         input_star = torch.gather(per_seq, -1, target[:, None])
         viol = torch.relu(costs - costs_star - input_star + per_seq)
-        out["loss"] = ((viol.max(-1).values / 2).mean()
-                       if loss_type == "max_margin" else viol.mean())
+        out["loss"] = batch_mean(viol.max(-1).values / 2
+                                 if loss_type == "max_margin" else viol)
     elif loss_type in ("softmax_margin", "real_softmax_margin"):
         out["loss"] = xent(per_seq + costs, target)
     else:
@@ -316,11 +362,23 @@ def structure_loss(logprob, seq, scores, loss_type: str,
 
 def drop_worst(per_sample_loss, drop_rate: float):
     """Mean of the (1 - rate) lowest per-sample losses (reference
-    tools/train.py:216-220, topk largest=False)."""
-    B = per_sample_loss.shape[0]
-    k = max(int(B * (1 - drop_rate)), 1)
-    vals, _ = torch.topk(-per_sample_loss, k)
-    return -vals.mean()
+    tools/train.py:216-220, topk largest=False).  Inside ``sharded`` the
+    ranking is over the whole batch (the shards' losses gathered in rank
+    order) and a rank returns its kept losses' sum over the kept count."""
+    if _SHARD_GROUP is None:
+        B = per_sample_loss.shape[0]
+        k = max(int(B * (1 - drop_rate)), 1)
+        vals, _ = torch.topk(-per_sample_loss, k)
+        return -vals.mean()
+    from .parallel.tensor_parallel import all_gather
+    b = per_sample_loss.shape[0]
+    everyone = torch.cat(all_gather(per_sample_loss, _SHARD_GROUP))
+    k = max(int(everyone.shape[0] * (1 - drop_rate)), 1)
+    _, idx = torch.topk(-everyone, k)
+    keep = torch.zeros_like(everyone, dtype=torch.bool)
+    keep[idx] = True
+    off = dist.get_rank(_SHARD_GROUP) * b
+    return torch.where(keep[off:off + b], per_sample_loss, 0.0).sum() / k
 
 
 def pb_pad_loss(packed_labels, word_logprob, packed_mask, phrase_num,

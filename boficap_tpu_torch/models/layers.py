@@ -19,6 +19,18 @@ kernel (``ops/attention.py``), as the JAX package's ``use_pallas`` routes
 them to its TPU kernel; here it is a per-module attribute, not a process
 global.
 
+``AttentionRouting.capture_attention`` is the JAX package's
+``set_capture_attention`` (its layers.py:34-38): inside it every
+``attend`` takes the plain branch, whatever ``use_core`` says (the kernel
+never forms the probabilities), and records its post-softmax
+probabilities [B, H, Lq, Lk], before dropout, under the key that JAX's
+``tree_flatten_with_path`` gives the sown value: the module's flax path
+and the sow index, ``['decoder0']/['layer0']/['self_attn']/['attn']/[1]``.
+
+``Dense.tp`` is None but on a tensor-parallel slice of the layer
+(``parallel/mesh.py::shard_params``): then the slice's forward runs with
+the collectives of ``parallel/tensor_parallel.py``.
+
 Dropout sits at every site of the flax modules (attention
 probabilities, the FFN's inner activation, each residual branch, the
 positional encoding) and follows flax's law (``dropout``).  Every forward
@@ -85,8 +97,12 @@ class Dense(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
                      if use_bias else None)
         self.compute_dtype = dtype
+        # a parallel.tensor_parallel slice rule, set by shard_params
+        self.tp = None
 
     def forward(self, x):
+        if self.tp is not None:
+            return self.tp.forward(self, x)
         dt = self.compute_dtype
         y = torch.matmul(x.to(dt), self.weight.to(dt).t())
         return y if self.bias is None else y + self.bias.to(dt)
@@ -120,6 +136,10 @@ class MultiHeadAttention(nn.Module):
         self.dropout_rate = dropout_rate
         # route rank-2/3-masked calls through the attention-core kernel
         self.use_core = False
+        # capture_attention's (store, key prefix), else None
+        self.capture = None
+        # ranks of the 'model' axis the heads are split over (shard_params)
+        self.tp_size = 1
         self.wq = Dense(q_in or d_model, d_model, dtype, device)
         for name in ("wk", "wv", "wo"):
             setattr(self, name, Dense(d_model, d_model, dtype, device))
@@ -143,8 +163,11 @@ class MultiHeadAttention(nn.Module):
         package); the views it is handed are read in place.  With ``rng``
         the probabilities take dropout, on the plain path."""
         B, Lq, H, Dh = qh.shape
-        if (self.use_core and rng is None and mask is not None
-                and mask.dim() in (2, 3)):
+        if self.use_core and self.tp_size > 1:
+            raise ValueError("a tensor-parallel slice runs the plain "
+                             "attention: turn use_pallas off")
+        if (self.use_core and self.capture is None and rng is None
+                and mask is not None and mask.dim() in (2, 3)):
             Lk = kh.shape[1]
             m3 = mask[:, None, :] if mask.dim() == 2 else mask
             out = attention_core(qh.transpose(1, 2), kh.transpose(1, 2),
@@ -161,6 +184,10 @@ class MultiHeadAttention(nn.Module):
             # host-to-device copy, a stream sync on every call
             scores = torch.where(mask, scores, MASK_FILL)
         probs = torch.softmax(scores, dim=-1).to(self.compute_dtype)
+        if self.capture is not None:
+            store, prefix = self.capture
+            n = sum(k.startswith(prefix) for k in store)
+            store[f"{prefix}/[{n}]"] = probs.detach()
         probs = dropout(probs, self.dropout_rate, rng)
         out = torch.einsum("bhqk,bkhd->bqhd", widen(probs), widen(vh))
         out = out.to(self.compute_dtype).reshape(B, Lq, self.d_model)
@@ -203,6 +230,32 @@ class AttentionRouting:
         finally:
             for m, w in zip(mods, was):
                 m.use_core = w
+
+    @contextlib.contextmanager
+    def capture_attention(self):
+        """Attention-map capture (the JAX package's
+        ``set_capture_attention``, the reference's ``glo`` accumulator fed
+        at TransformerModel.py:1461-1462): yields a dict that every
+        ``attend`` inside the block fills with its probabilities, on the
+        plain path, keyed as JAX's ``tree_flatten_with_path`` keys the sown
+        'intermediates' (the flax path from the weight bridge's
+        ``flax_layout``, then ``['attn']/[i]``, i the call's index at that
+        module)."""
+        from ..convert import flax_layout
+        layout = flax_layout(self)
+        store = {}
+        mods = []
+        for name, m in self.named_modules():
+            if isinstance(m, MultiHeadAttention):
+                path = layout[f"{name}.wq.weight"][0][:-2]
+                m.capture = (store, "/".join(f"['{p}']" for p in path)
+                             + "/['attn']")
+                mods.append(m)
+        try:
+            yield store
+        finally:
+            for m in mods:
+                m.capture = None
 
 
 class PositionwiseFFN(nn.Module):

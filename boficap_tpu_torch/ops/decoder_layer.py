@@ -80,7 +80,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # ---------------------------------------------------------------------------
 
 def _kernel_of(dense, dtype) -> torch.Tensor:
-    """nn weight [out, in] -> [in, out] in the compute dtype, contiguous."""
+    """nn weight [out, in] -> [in, out] in the compute dtype, contiguous.
+    A tensor-parallel slice (``parallel.shard_params``) raises: the kernels
+    take whole layers, and tensor parallelism runs the plain path."""
+    if dense.tp is not None:
+        raise ValueError("the kernels take whole layers, not a "
+                         "tensor-parallel slice: run the plain path")
     return dense.weight.detach().t().to(dtype).contiguous()
 
 

@@ -45,12 +45,20 @@ UIC_s model and on the LSTM captioners too, which encode with their own
 launches a batch while a completion thread waits for the previous batch's
 result, so the next upload overlaps the decode in flight.
 
-The JAX server's ``mesh`` (data-parallel serving) is not ported.
+``mesh`` (the JAX server's data-parallel serving, its serve.py:96-124):
+a sequence of devices, one replica of the model on each, with its own
+kernel packs there; replicas on one device share one copy of the weights
+(a mesh may name a device more than once: two replicas of one card).
+Each bucket's batch splits evenly over the replicas, in order, and the
+answers come back in order; the buckets are the multiples of the mesh
+size, and a ``max_batch`` the mesh size does not divide raises
+``ValueError``.  Every replica's launches count in ``ops.launch_counts``.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import queue
 import threading
 import time
@@ -103,7 +111,8 @@ class CaptionServer:
                  max_wait_ms: float = 2.0, max_steps: Optional[int] = None,
                  max_regions: Optional[int] = None,
                  feature_dtype: str = "float32", pipeline: bool = True,
-                 warm: bool = False, route: str = "auto", device=None):
+                 warm: bool = False, route: str = "auto", device=None,
+                 mesh=None):
         if mode not in ("NAIC", "SAIC", "AIC"):
             raise ValueError(f"mode {mode!r}")
         if route not in ROUTES:
@@ -117,7 +126,14 @@ class CaptionServer:
         if feature_dtype not in DTYPES:
             raise ValueError(f"feature_dtype must be one of "
                              f"{sorted(DTYPES)}")
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.devices = [resolve_device(device)]
+        else:
+            self.devices = [resolve_device(d) for d in mesh]
+            if not self.devices or max_batch % len(self.devices):
+                raise ValueError(f"max_batch {max_batch} must be a multiple "
+                                 f"of the mesh size {len(self.devices)}")
+        self.device = self.devices[0]
         # the feature store's region width (36 for bottom-up features)
         self.R = int(max_regions or model.max_boxes)
         if mode != "AIC" and route != "unfused":
@@ -127,12 +143,18 @@ class CaptionServer:
                     f"route={route!r}: the kernels refuse this model's "
                     f"shapes ({refusal}); route='unfused' serves the plain "
                     f"program") from refusal
-        # the weights move to the device once, here
+        # the weights move to each device once, here: one replica a device
         self.model = model.to(self.device).eval()
+        on = {self.device: self.model}
+        for d in self.devices[1:]:
+            if d not in on:
+                on[d] = copy.deepcopy(self.model).to(d).eval()
+        self.replicas = [on[d] for d in self.devices]
         self.ix_to_word = ix_to_word
         self.mode = mode
         self.max_steps = max_steps
-        self.buckets = _buckets(max_batch)
+        n_rep = len(self.devices)
+        self.buckets = [b for b in _buckets(max_batch) if b % n_rep == 0]
         self.max_wait_s = max_wait_ms / 1e3
         # transport dtype: 'bfloat16' halves host->device bytes at the cost
         # of quantising the features; 'float32' is exact
@@ -171,8 +193,26 @@ class CaptionServer:
 
     def _make(self, fused: bool) -> Callable:
         """The kernel program (``fused``) or the plain one: (att, am) ->
-        the decode's outputs, launched asynchronously on the card."""
-        model, mode, max_steps = self.model, self.mode, self.max_steps
+        the decode's outputs, launched asynchronously on the card; over a
+        mesh, each replica's even share of the rows on its device, the
+        ids gathered in order."""
+        progs = [self._make_one(fused, m) for m in self.replicas]
+        if len(progs) == 1:
+            return progs[0]
+        devices = self.devices
+
+        def program(att, am):
+            outs = [p(a.to(d, non_blocking=True), m.to(d, non_blocking=True))
+                    for p, d, a, m in zip(progs, devices,
+                                          att.chunk(len(progs)),
+                                          am.chunk(len(progs)))]
+            return {"seq": torch.cat([o["seq"].to(self.device)
+                                      for o in outs])}
+
+        return program
+
+    def _make_one(self, fused: bool, model) -> Callable:
+        mode, max_steps = self.mode, self.max_steps
 
         @torch.no_grad()
         def program(att, am):
@@ -193,7 +233,7 @@ class CaptionServer:
         """The wrappers' ValueError where they refuse model ``m``'s shapes
         on the card, else None (on the CPU they run their plain twins,
         which take any)."""
-        if self.device.type != "cuda":
+        if all(d.type != "cuda" for d in self.devices):
             return None
         dtype, D, H = m.dtype, m.d_model, m.num_heads
         W, L, R = bf.SA_WINDOW, m.max_length, self.R
@@ -208,8 +248,9 @@ class CaptionServer:
         return None
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in dict.fromkeys(self.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def _time_program(self, fused: bool, prog: Callable, att,
                       am) -> List[float]:

@@ -26,9 +26,16 @@ on the CPU through the patch extractor.  The vocabulary comes from the
 infos, language_eval is off (no ground truth) and ``image_root``
 defaults to the folder (``--dump_images``, ``--dump_path``).
 
-Not ported (``NotImplementedError``, naming the ROADMAP item):
-``--dump_attention``, ``--report_flops`` (XLA cost analysis has no
-counterpart yet).
+``--dump_attention 1`` (JAX tools/eval.py:213-240): one teacher-forced
+pass of the split's first batch (its labels and phrase plan; dummy ones
+for a raw folder's batch) with the attention capture on
+(``capture_attention``: every attention on the plain path), every map
+[B, H, Lq, Lk] saved to ``vis/attn.npz`` under JAX's keys, and the
+reference-style 10 x 10 mean accumulator printed.
+
+``--report_flops 1`` (JAX tools/eval.py:242-252): ``eval_utils.
+report_flops`` on the same batch, one ``flops[program]`` line a program
+(encode and the branch's decode), also written to the eval_results json.
 """
 
 from __future__ import annotations
@@ -37,6 +44,9 @@ import argparse
 import json
 import os
 import sys
+
+import numpy as np
+import torch
 
 from ..config import (Config, add_eval_options, default_config, finalize,
                       load_yaml_with_base, restore_saved_opt)
@@ -130,6 +140,55 @@ def build_eval_opt(args, infos) -> Config:
     return opt
 
 
+def _forward_args(ex, opt, device):
+    """The teacher-forced forward's inputs of loader batch ``ex`` on
+    ``device``: its labels and phrase plan, or for a raw folder's batch
+    (no labels) the dummy ones of JAX tools/eval.py:195-204."""
+    from ..train.steps import _flat, to_device
+    tb = to_device(ex, device)
+    f = _flat(tb)
+    if f.get("labels") is None:
+        B = tb["att_feats"].shape[0]
+        L2 = int(opt.get("max_length", 20) or 20) + 2
+        z = torch.zeros((B, L2), dtype=torch.long, device=device)
+        f = {"labels": z.clone(), "phrase_length": z.clone(),
+             "phrase_syn": z.clone(),
+             "phrase_num": torch.full((B,), 2, dtype=torch.long,
+                                      device=device)}
+        f["labels"][:, 0] = 1
+        f["phrase_length"][:, :2] = torch.tensor([1, 2])
+        f["phrase_syn"][:, 1] = 5
+    return tb["att_feats"], tb["att_masks"], f
+
+
+@torch.no_grad()
+def dump_attention(model, ex, opt, device) -> dict:
+    """One teacher-forced pass of ``ex`` with the attention capture on:
+    ``vis/attn.npz`` holds every map under JAX's keys (float32), and the
+    10 x 10 mean accumulator is printed.  Returns the maps."""
+    att, am, f = _forward_args(ex, opt, device)
+    with model.capture_attention() as store:
+        model(att, am, f["labels"], f.get("phrase_num"),
+              f.get("phrase_length"), f.get("phrase_syn"), glat_p=None)
+
+    def order(key):             # tree_flatten_with_path's order
+        parts = key.split("/")
+        return parts[:-1], int(parts[-1][1:-1])
+
+    flat = {k: store[k].float().cpu().numpy() for k in sorted(store,
+                                                                key=order)}
+    os.makedirs("vis", exist_ok=True)
+    np.savez("vis/attn.npz", **flat)
+    acc = np.zeros((10, 10))
+    for v in flat.values():                     # [B, H, Q, K] maps
+        m = v.mean(axis=(0, 1))
+        q, k = min(10, m.shape[0]), min(10, m.shape[1])
+        acc[:q, :k] += m[:q, :k]
+    print("attention 10x10 accumulator (saved full maps to vis/attn.npz)")
+    print(np.array_str(acc, precision=3, suppress_small=True))
+    return flat
+
+
 def main(argv=None):
     args = parse_eval_opt(argv)
     with open(args.infos_path, "rb") as f:
@@ -155,12 +214,6 @@ def main(argv=None):
             return stats
         print("no cached predictions; running full eval")
 
-    if opt.get("dump_attention"):
-        eval_utils.not_ported("--dump_attention (attention maps of a "
-                              "teacher-forced pass)", 12)
-    if opt.get("report_flops"):
-        eval_utils.not_ported("--report_flops (XLA cost analysis of the "
-                              "decode programs has no counterpart yet)", 12)
     device = resolve_device(opt.get("device") or None)
     if opt.get("image_folder"):
         # a folder of raw images (reference tools/eval.py:109-118): the
@@ -185,6 +238,22 @@ def main(argv=None):
     load_jax_checkpoint(args.model, model)
     model.eval()
 
+    flops = None
+    if opt.get("dump_attention") or opt.get("report_flops"):
+        # the split's first batch, as the JAX CLI draws it for its template
+        ex = loader.get_batch(opt.split)
+        loader.reset_iterator(opt.split)
+        if opt.get("dump_attention"):
+            dump_attention(model, ex, opt, device)
+        if opt.get("report_flops"):
+            flops = eval_utils.report_flops(
+                model, ex, eval_kwargs, inference_mode=opt.inference_mode,
+                ix_to_word=getattr(loader, "ix_to_word", {}))
+            for name, c in flops.items():
+                print(f"flops[{name}]: {c['flops'] / 1e9:.3f} GFLOP/batch "
+                      f"({c['per_image_gflops']:.3f} GFLOP/image), "
+                      f"bytes {c['bytes_accessed'] / 1e6:.1f} MB")
+
     result = eval_utils.eval_split(model, loader, eval_kwargs,
                                    inference_mode=opt.inference_mode)
     print(f"decode_time {result['decode_time']:.3f}s "
@@ -208,7 +277,8 @@ def main(argv=None):
         json.dump({"predictions": result["predictions"],
                    "lang_stats": result["lang_stats"],
                    "decode_time": result["decode_time"],
-                   "images_per_s": result["images_per_s"]}, f)
+                   "images_per_s": result["images_per_s"],
+                   **({"flops": flops} if flops else {})}, f)
     return result
 
 

@@ -38,10 +38,36 @@ the RL stage keys off) are the JAX package's; on a resume the saved
 position wins.  The original PyTorch reference trains first on batch 1;
 the port follows the JAX package, the reference it is held against.
 
-Not ported (``NotImplementedError`` at parse time, naming the ROADMAP
-item, section 1): the mesh and multihost (item 11) and
-``--profile_steps`` (item 4's leftover).  NNAIC (``--cfg
-configs/nnaic.yml``) and PB_pad (``--cfg configs/pb.yml``: the batches
+The mesh (JAX tools/train.py:55-160): one rank a device in a
+``torch.distributed`` group (``parallel/mesh.py``), each rank a process.
+Without ``--multihost`` the CLI starts its ranks itself: ``--mesh_shape``
+(an int or ``{'data': N}``), else the gcd of the visible GPUs and
+``batch_size``; on the CPU, which has no device count, ``--mesh_shape``
+(one rank, no group, without it).  With
+``--multihost`` process p of ``--dist_num_processes`` P runs ranks p*k ..
+p*k + k - 1 of a P*k-rank group brought up over ``tcp://``
+``--dist_coordinator`` (k the process's GPUs, or on the CPU
+``--mesh_shape`` / P); launch one command a process, the same flags but
+``--dist_process_id``.  The group is NCCL on the card, gloo on the CPU.
+Every rank assembles the identical seeded global batch and the step
+(``train/steps.py``) takes its rows: the losses equal the single-device
+step's on the global batch.  Dropout and GLAT draw from a generator
+seeded by ``seed + rank``, so the same world size in another process
+layout gives the same bits.  Only rank 0 validates, writes checkpoints,
+``metrics.jsonl`` and histories; the validation score and each batch's
+epoch wrap (which moves the schedules and the RL switch) are rank 0's,
+broadcast, so no rank takes a branch alone; each process prints from
+its first rank.  The RL stage samples each rank's images,
+gathers the sampled ids for the host scorer (every rank scores the same
+global samples) and updates from the rank's rows of the scores.
+
+``--profile_steps N``: a ``torch.profiler`` trace (CUDA activity on the
+card) of steps [iteration, iteration + N), counted from the resumed
+iteration, written to ``<checkpoint_path>/profile/`` by rank 0, and
+stopped (and written) on an early exit or a crash too (JAX
+tools/train.py:238-250).
+
+NNAIC (``--cfg configs/nnaic.yml``) and PB_pad (``--cfg configs/pb.yml``: the batches
 carry the packed layouts, the validation decodes ``decode/pb.py``) train
 and validate as the other train modes do.  PB_pad has no RL sampler, as
 in the JAX package: its RL epochs sample no branch.
@@ -50,6 +76,7 @@ in the JAX package: its RL epochs sample no branch.
 from __future__ import annotations
 
 import json
+import math
 import os
 import time
 import traceback
@@ -64,6 +91,8 @@ from ..data.dataset import CaptionData
 from ..device import resolve_device
 from ..eval.eval_utils import eval_split
 from ..models import setup as models_setup
+from ..parallel.mesh import (gather_rows, init_group, launch, make_mesh,
+                             replicate_state, shard_batch)
 from ..rewards import init_scorer
 from ..train import optim as optim_mod
 from ..train import steps as steps_mod
@@ -87,11 +116,89 @@ def val_modes(train_mode: str):
     return ["SAIC", "NAIC"]
 
 
-def train(opt):
+def rank_plan(opt):
+    """(local ranks, first rank, world size, init_method) of this process,
+    or None for one rank without a group (JAX tools/train.py:87-126)."""
     device = resolve_device(opt.get("device") or None)
+    n_gpu = torch.cuda.device_count() if device.type == "cuda" else None
+    ms = opt.get("mesh_shape")
+    want = int(ms.get("data", 0) if isinstance(ms, dict) else ms) \
+        if ms else None
+    if opt.get("multihost"):
+        P, p = int(opt.dist_num_processes or 0), int(opt.dist_process_id)
+        if not opt.get("dist_coordinator") or P < 1 or not 0 <= p < P:
+            raise ValueError("--multihost needs --dist_coordinator "
+                             "host:port, --dist_num_processes P and "
+                             "--dist_process_id in [0, P)")
+        if n_gpu is not None:
+            k = n_gpu
+        elif want and want % P == 0:
+            k = want // P
+        else:
+            raise ValueError(f"--multihost on the CPU needs --mesh_shape, "
+                             f"a multiple of the {P} processes (the global "
+                             f"rank count), got {ms!r}")
+        world = P * k
+        if opt.batch_size % world:
+            raise ValueError(f"--multihost requires batch_size "
+                             f"({opt.batch_size}) divisible by the global "
+                             f"device count ({world})")
+        return k, p * k, world, f"tcp://{opt.dist_coordinator}"
+    if want is not None:
+        if want < 1 or (n_gpu is not None and want > n_gpu):
+            raise ValueError(f"mesh_shape wants {want} devices, have "
+                             f"{n_gpu}")
+        if opt.batch_size % want:
+            raise ValueError(f"mesh_shape {want} does not divide batch_size "
+                             f"{opt.batch_size}")
+        n = want
+    else:
+        n = math.gcd(n_gpu, max(opt.batch_size, 1)) if n_gpu else 1
+        if 1 < n < n_gpu:
+            print(f"batch_size {opt.batch_size} not divisible by {n_gpu} "
+                  f"devices; using {n}")
+    return None if n <= 1 else (n, 0, n, None)
+
+
+def train(opt):
+    """Train as ``opt`` says: in this process alone, or as the ranks of
+    ``rank_plan`` (the first here, the others spawned).  Returns this
+    process's (model, optimizer, infos)."""
+    plan = rank_plan(opt)
+    if plan is None:
+        return _train(opt)
+    n_local, first, world, init_method = plan
+    return launch(_train_rank, n_local, opt, first, n_local,
+                  torch.get_num_threads(), first_rank=first, world=world,
+                  init_method=init_method)
+
+
+def _train_rank(rank, world, init_method, opt, first_rank, n_local,
+                threads):
+    """One rank of a mesh run: its device (a process's k-th rank takes
+    its k-th GPU; CPU ranks share the process's threads), the group, the
+    1-D 'data' mesh."""
+    device = resolve_device(opt.get("device") or None)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank - first_rank)
+    else:
+        torch.set_num_threads(max(1, threads // n_local))
+    init_group(rank, world, init_method, device)
+    mesh = make_mesh(world, device=device)
+    if rank == first_rank:
+        print(f"data-parallel mesh over {world} devices", flush=True)
+    return _train(opt, mesh, verbose=rank == first_rank)
+
+
+def _train(opt, mesh=None, verbose=True):
+    rank = 0 if mesh is None else torch.distributed.get_rank()
+    lead = rank == 0
+    say = print if verbose else (lambda *a, **k: None)
+    device = (mesh.device if mesh is not None
+              else resolve_device(opt.get("device") or None))
     np.random.seed(opt.seed)
-    # the dropout / glancing stream, on the model's device
-    gen = torch.Generator(device=device).manual_seed(int(opt.seed))
+    # the dropout / glancing stream, on the model's device, one a rank
+    gen = torch.Generator(device=device).manual_seed(int(opt.seed) + rank)
 
     loader = CaptionData(opt)
     opt.vocab_size = loader.vocab_size
@@ -114,11 +221,13 @@ def train(opt):
     model = fill_random(models_setup(opt, loader.vocab_size, device),
                         opt.seed)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model: {model.train_mode}, params: {n_params / 1e6:.1f}M, "
-          f"device: {device}")
+    say(f"model: {model.train_mode}, params: {n_params / 1e6:.1f}M, "
+        f"device: {device}")
     if opt.get("init_from"):
         encoder_only_init(model, load_params(opt.init_from))
-        print(f"warm-started encoder from {opt.init_from}")
+        say(f"warm-started encoder from {opt.init_from}")
+    if mesh is not None:
+        replicate_state(model, mesh)
 
     layout = flax_layout(model)
     optimizer = optim_mod.Optimizer(optim_mod.build_optimizer(opt, layout),
@@ -141,7 +250,7 @@ def train(opt):
     xe_step = steps_mod.make_xe_step(
         model, optimizer, label_smoothing=opt.label_smoothing,
         debug_checks=bool(opt.get("debug_checks", False)),
-        grad_accum=int(opt.get("grad_accum", 1) or 1))
+        grad_accum=int(opt.get("grad_accum", 1) or 1), mesh=mesh)
     rl_sample = rl_step = None
     rl_step_kind = None          # "scst" | "struc"; rebuilt on change
     warned_sc_ignored = False
@@ -152,10 +261,20 @@ def train(opt):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    def lead_value(x: float) -> float:
+        """Rank 0's ``x`` on every rank (a decision no rank may take
+        alone); ``x`` itself without a mesh."""
+        if mesh is None:
+            return x
+        t = torch.tensor([x], dtype=torch.float64, device=device)
+        torch.distributed.broadcast(t, src=0)
+        return float(t)
+
     def save(append=""):
-        save_checkpoint(opt, to_jax_tree(model), infos, append=append,
-                        optimizer=optimizer.state_tree(),
-                        histories=dict(histories))
+        if lead:
+            save_checkpoint(opt, to_jax_tree(model), infos, append=append,
+                            optimizer=optimizer.state_tree(),
+                            histories=dict(histories))
 
     def update_infos():
         infos.update(iter=iteration, epoch=epoch,
@@ -166,13 +285,21 @@ def train(opt):
 
     def rl_batch(data):
         """One RL step on a loader batch: sample on the card, score on the
-        host, update."""
+        host, update (under a mesh: the rank's images, the global samples
+        scored, the rank's rows of the scores)."""
         tb = steps_mod.to_device(data, device)
+        if mesh is not None:
+            tb = shard_batch(tb, mesh)
         att, am = tb["att_feats"], tb["att_masks"]
         samples = rl_sample(att, am, gen)
+        everyone = samples if mesh is None else {
+            k: {"seq": gather_rows(v["seq"], mesh)}
+            for k, v in samples.items()}
         classic = sc_flag and not struc_flag
-        scores = steps_mod.rl_host_scores(samples, data["gts"], opt,
+        scores = steps_mod.rl_host_scores(everyone, data["gts"], opt,
                                           classic_scst=classic)
+        if mesh is not None:
+            scores = shard_batch(scores, mesh)
         scores = {k: torch.as_tensor(v, device=device)
                   for k, v in scores.items()}
         if classic:
@@ -183,6 +310,28 @@ def train(opt):
             # loss_wrapper.py:169/220-222)
             gt = {k: tb[k] for k in steps_mod.LABEL_KEYS if k in tb}
         return rl_step(att, am, samples, scores, gt=gt, rng=gen)
+
+    # the profiler over steps [iteration, iteration + profile_steps)
+    profile_steps = int(opt.get("profile_steps", 0) or 0)
+    prof = None
+    profile_stop_at = iteration + profile_steps
+
+    def stop_profile():
+        nonlocal prof
+        prof.stop()
+        out = os.path.join(opt.checkpoint_path, "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            out, f"trace_{rank}_iter{iteration}.json"))
+        prof = None
+        say("profiler trace written", flush=True)
+
+    if profile_steps and lead:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
 
     epoch_done = True
     sc_flag = struc_flag = drop_worst_flag = False
@@ -208,7 +357,7 @@ def train(opt):
                     # branch; every phrase train_mode ignores the flag and
                     # keeps XE (loss_wrapper.py:40-82 against :83+)
                     if not warned_sc_ignored:
-                        print(f"WARNING: self_critical_after set but "
+                        say(f"WARNING: self_critical_after set but "
                               f"train_mode={model.train_mode} has no classic "
                               f"SCST path (the reference implements sc_flag "
                               f"only for AIC); continuing with XE: use "
@@ -229,7 +378,7 @@ def train(opt):
                     if rl_step_kind != needed:
                         make = (steps_mod.make_rl_step if needed == "struc"
                                 else steps_mod.make_scst_step)
-                        rl_step = make(model, optimizer, opt)
+                        rl_step = make(model, optimizer, opt, mesh=mesh)
                         rl_step_kind = needed
                 epoch_done = False
             if (opt.use_warmup and iteration < opt.noamopt_warmup
@@ -254,7 +403,9 @@ def train(opt):
             step_time = time.time() - t_step
 
             iteration += 1
-            if data["bounds"]["wrapped"]:
+            if prof is not None and iteration >= profile_stop_at:
+                stop_profile()
+            if lead_value(float(data["bounds"]["wrapped"])):
                 epoch += 1
                 epoch_done = True
 
@@ -262,9 +413,10 @@ def train(opt):
                 rec = {"iter": iteration, "epoch": epoch,
                        "read_s": read_time, "step_s": step_time}
                 rec.update({k: float(v) for k, v in metrics.items()})
-                log_metrics(metrics_log, rec)
+                if lead:
+                    log_metrics(metrics_log, rec)
                 histories["loss_history"][iteration] = rec["loss"]
-                print(f"iter {iteration} (epoch {epoch}) loss "
+                say(f"iter {iteration} (epoch {epoch}) loss "
                       f"{rec['loss']:.4f} step {step_time:.3f}s read "
                       f"{read_time:.3f}s", flush=True)
 
@@ -279,25 +431,30 @@ def train(opt):
                                "verbose": False,
                                "use_cuda_fill": opt.get("use_cuda_fill",
                                                         "auto")}
-                results = {}
-                for im in val_modes(opt.train_mode):
-                    results[im or opt.train_mode] = eval_split(
-                        model, loader, eval_kwargs, inference_mode=im)
-                primary = list(results.values())[-1]
-                if opt.language_eval and primary["lang_stats"]:
-                    current_score = primary["lang_stats"]["CIDEr"]
-                else:
-                    current_score = -primary["loss"]
+                # rank 0 validates; its score, broadcast, decides on
+                # every rank (the best model, the plateau rate)
+                results, current_score = {}, 0.0
+                if lead:
+                    for im in val_modes(opt.train_mode):
+                        results[im or opt.train_mode] = eval_split(
+                            model, loader, eval_kwargs, inference_mode=im)
+                    primary = list(results.values())[-1]
+                    if opt.language_eval and primary["lang_stats"]:
+                        current_score = primary["lang_stats"]["CIDEr"]
+                    else:
+                        current_score = -primary["loss"]
+                current_score = lead_value(current_score)
                 if opt.reduce_on_plateau:
                     optimizer.set_lr(opt.learning_rate
                                      * plateau.update(current_score))
                 for name, r in results.items():
-                    print(f"val[{name}]: loss {r['loss']:.4f} images/s "
-                          f"{r['images_per_s']:.2f} lang {r['lang_stats']}",
-                          flush=True)
-                histories["val_result_history"][iteration] = {
-                    k: (r["lang_stats"], r["images_per_s"])
-                    for k, r in results.items()}
+                    say(f"val[{name}]: loss {r['loss']:.4f} images/s "
+                        f"{r['images_per_s']:.2f} lang {r['lang_stats']}",
+                        flush=True)
+                if results:
+                    histories["val_result_history"][iteration] = {
+                        k: (r["lang_stats"], r["images_per_s"])
+                        for k, r in results.items()}
                 # decide the new best before the periodic save (the
                 # reference updates best_val_score first, train.py:343-357)
                 is_best = (best_val_score is None
@@ -310,19 +467,22 @@ def train(opt):
                     save(str(iteration))
                 if is_best:
                     save("best")
-                    print(f"new best val score {best_val_score:.4f}",
-                          flush=True)
+                    say(f"new best val score {best_val_score:.4f}",
+                        flush=True)
     except (RuntimeError, KeyboardInterrupt):
         # crash-save (train.py:365-370)
-        print("Save ckpt on exception ...")
+        say("Save ckpt on exception ...")
         update_infos()
         try:
             save()
-            print("Save ckpt done.")
+            say("Save ckpt done.")
         except RuntimeError as e:
-            print(f"crash-save failed: {e}")
-        print(traceback.format_exc())
+            say(f"crash-save failed: {e}")
+        say(traceback.format_exc())
         raise
+    finally:
+        if prof is not None:   # an early exit or a crash before the stop
+            stop_profile()
 
     update_infos()
     save()

@@ -74,8 +74,20 @@ class Clip(Transform):
         return torch._foreach_clamp_max(u, self.v), state
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum((t * t).sum() for t in tensors))
+def global_norm(tensors, params=()) -> torch.Tensor:
+    """The norm of all ``tensors``; where ``params`` (aligned with them)
+    holds tensor-parallel slices (``tp_group`` set by
+    ``parallel.shard_params``), their squares are summed over the slices'
+    group first, so the norm is the whole model's."""
+    groups = [getattr(p, "tp_group", None) for p in params]
+    if not any(g is not None for g in groups):
+        return torch.sqrt(sum((t * t).sum() for t in tensors))
+    whole = sum((t * t).sum() for t, g in zip(tensors, groups) if g is None)
+    sliced = sum((t * t).sum() for t, g in zip(tensors, groups)
+                 if g is not None)
+    torch.distributed.all_reduce(sliced, group=next(
+        g for g in groups if g is not None))
+    return torch.sqrt(whole + sliced)
 
 
 class ClipByGlobalNorm(Transform):
@@ -86,7 +98,7 @@ class ClipByGlobalNorm(Transform):
         self.v = v
 
     def update(self, updates, state, params):
-        g_norm = global_norm(updates)
+        g_norm = global_norm(updates, params)
         keep = g_norm < self.v
         return [torch.where(keep, t, (t / g_norm) * self.v)
                 for t in updates], state

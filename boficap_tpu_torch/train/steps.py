@@ -33,6 +33,18 @@ rewards.py:86-117):
      on already final inputs (an LSTM captioner's re-score is its full
      forward over the sampled rows, as in the JAX package), then the loss
      (``rl_loss_fn``, ``scst_loss_fn``) and one update.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): every rank is handed
+the identical global batch and takes its rows of it (``shard_batch``; the
+XE step shards each microbatch of ``grad_accum`` alike, so the
+microbatches are the single-device step's).  Its loss runs inside
+``losses.sharded`` over the 'data' axis, so each token mean divides by
+the global count and drop-worst ranks the whole batch; the ranks' losses,
+metrics and gradients then sum (one all-reduce each) to the single-device
+values on the global batch, before the optimizer's clip and update, which
+every rank applies alike.  ``glat_mismatch`` is the ranks' mean.  The RL
+steps take the rank's own images, samples and scores (an image's
+``sample_n`` rows stay on one rank, so its baseline is local).
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ from ..decode import ar as ar_mod
 from ..decode import bound_fill as bf
 from ..models.boficap import BoFiCap
 from ..models.layers import causal_mask
+from ..parallel.mesh import all_reduce_sum, shard_batch
 from ..rewards import (get_scores, get_self_cider_scores,
                        get_self_critical_reward)
 from ..rewards.self_critical import _gts_dict, _native_ids, pack_refs
@@ -230,8 +243,30 @@ def xe_loss_fn(model, batch: Dict[str, torch.Tensor],
     return loss, metrics
 
 
+def _data_group(mesh):
+    return None if mesh is None else mesh.group("data")
+
+
+def _sum_over_data(mesh, metrics: Dict[str, torch.Tensor], grads):
+    """The ranks' metrics and gradients summed over the 'data' axis
+    (``glat_mismatch`` averaged); as they are without a mesh."""
+    group = _data_group(mesh)
+    if group is None:
+        return metrics, grads
+    keys = list(metrics)
+    dev = grads[0].device
+    vals = all_reduce_sum([torch.as_tensor(metrics[k], device=dev)
+                           for k in keys], group)
+    metrics = dict(zip(keys, vals))
+    if "glat_mismatch" in metrics:
+        metrics["glat_mismatch"] = (metrics["glat_mismatch"]
+                                    / mesh.size("data"))
+    return metrics, all_reduce_sum(grads, group)
+
+
 def make_xe_step(model, optimizer, label_smoothing: float = 0.0,
-                 debug_checks: bool = False, grad_accum: int = 1):
+                 debug_checks: bool = False, grad_accum: int = 1,
+                 mesh=None):
     """``step(batch, rng, glat_p=None, drop_worst=0.0, ss_prob=0.0) ->
     metrics``: gradients of ``xe_loss_fn`` by autograd, one
     ``optimizer.step``, then the model's packed kernel weights dropped.
@@ -242,12 +277,15 @@ def make_xe_step(model, optimizer, label_smoothing: float = 0.0,
     loss is normalised by its own token count, as the JAX package does
     (ROADMAP section 3: at unequal counts this reweights the captions).
     ``debug_checks`` adds the counts of non-finite gradient values and
-    losses to the metrics."""
+    losses to the metrics.  ``mesh``: data parallelism (the module
+    docstring); the batch handed in is the global one."""
     params = optimizer.params
 
     def grads_of(batch, rng, glat_p, drop_worst, ss_prob):
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
         # autograd records the forward: every attention on the plain path
-        with model.plain_attention():
+        with model.plain_attention(), Lm.sharded(_data_group(mesh)):
             loss, metrics = xe_loss_fn(model, batch, rng, glat_p,
                                        drop_worst, label_smoothing, ss_prob)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -285,6 +323,7 @@ def make_xe_step(model, optimizer, label_smoothing: float = 0.0,
         else:
             _, metrics, grads = grads_of(batch, rng, glat_p, drop_worst,
                                          ss_prob)
+        metrics, grads = _sum_over_data(mesh, metrics, grads)
         if debug_checks:
             metrics["nonfinite_grads"] = sum(
                 (~torch.isfinite(g)).sum() for g in grads)
@@ -503,12 +542,12 @@ def rl_loss_fn(model, att_feats, att_masks, samples, scores, cfg,
             self_cider_reward_weight=st["sc_w"])
         total = total + (1.0 - w) * lm + w * d["loss"]
         metrics[f"{key}_struc_loss"] = d["loss"]
-        reward_sum = reward_sum + d["reward"].mean()
+        reward_sum = reward_sum + Lm.batch_mean(d["reward"])
     if st["rl_kl"] and "sa" in samples and "na" in samples:
         sa_mask = (samples["sa"]["seq"] > 0).float()
         lp_sa = lps["sa_logprob"].detach()
         kl = (torch.exp(lp_sa) * (lp_sa - lps["na_logprob"])).sum(-1)
-        kl = (kl * sa_mask).sum() / (sa_mask.sum() + 1e-6)
+        kl = (kl * sa_mask).sum() / (Lm.global_count(sa_mask.sum()) + 1e-6)
         total = total + kl
         metrics["rl_kl"] = kl
     metrics["reward"] = reward_sum
@@ -523,44 +562,52 @@ def scst_loss_fn(model, att_feats, att_masks, samples, rewards,
                      {"sample": samples["sample"]}, sample_n)
     loss = Lm.reward_criterion(lps["a_logprob"], samples["sample"]["seq"],
                                rewards)
-    return loss, {"reward": rewards[:, 0].mean()}
+    return loss, {"reward": Lm.batch_mean(rewards[:, 0])}
 
 
-def _update(model, optimizer, loss, metrics) -> Dict[str, torch.Tensor]:
-    """Gradients of ``loss`` by autograd, one update, the packs dropped."""
+def _update(model, optimizer, loss, metrics,
+            mesh=None) -> Dict[str, torch.Tensor]:
+    """Gradients of ``loss`` by autograd (summed over the mesh's 'data'
+    axis), one update, the packs dropped."""
     params = optimizer.params
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    optimizer.step([torch.zeros_like(p) if g is None else g
-                    for p, g in zip(params, grads)])
-    model.invalidate_packed()
-    metrics = {k: v.detach() if torch.is_tensor(v) else v
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    metrics = {k: torch.as_tensor(v, device=loss.device).detach()
                for k, v in metrics.items()}
     metrics["loss"] = loss.detach()
+    metrics, grads = _sum_over_data(mesh, metrics, grads)
+    optimizer.step(grads)
+    model.invalidate_packed()
     return metrics
 
 
-def make_rl_step(model, optimizer, cfg):
+def make_rl_step(model, optimizer, cfg, mesh=None):
     """``step(att_feats, att_masks, samples, scores, gt=None, rng=None) ->
     metrics``: ``rl_loss_fn``'s gradients, one update, the packs dropped
-    (so the next sampler packs the new weights)."""
+    (so the next sampler packs the new weights).  ``mesh``: every input
+    is the rank's own (its images, their samples and scores)."""
 
     def step(att_feats, att_masks, samples, scores, gt=None, rng=None):
-        loss, metrics = rl_loss_fn(model, att_feats, att_masks, samples,
-                                   scores, cfg, gt=gt, rng=rng)
-        return _update(model, optimizer, loss, metrics)
+        with Lm.sharded(_data_group(mesh)):
+            loss, metrics = rl_loss_fn(model, att_feats, att_masks, samples,
+                                       scores, cfg, gt=gt, rng=rng)
+        return _update(model, optimizer, loss, metrics, mesh)
 
     return step
 
 
-def make_scst_step(model, optimizer, cfg):
+def make_scst_step(model, optimizer, cfg, mesh=None):
     """``step(att_feats, att_masks, samples, rewards) -> metrics``: the
-    classic SCST update (``scst_loss_fn``), the packs dropped after it."""
+    classic SCST update (``scst_loss_fn``), the packs dropped after it;
+    ``mesh`` as ``make_rl_step``'s."""
     sample_n = int(cfg.get("train_sample_n", 5))
 
     def step(att_feats, att_masks, samples, rewards):
-        loss, metrics = scst_loss_fn(model, att_feats, att_masks, samples,
-                                     rewards, sample_n)
-        return _update(model, optimizer, loss, metrics)
+        with Lm.sharded(_data_group(mesh)):
+            loss, metrics = scst_loss_fn(model, att_feats, att_masks,
+                                         samples, rewards, sample_n)
+        return _update(model, optimizer, loss, metrics, mesh)
 
     return step
 

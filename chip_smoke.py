@@ -241,6 +241,30 @@ Phases, each printing one JSON line:
               Each model's decode ms at both dtypes (AoANet with #9 off and
               on), XE step ms and peak memory, AoANet's busy share.
 
+ 20. mesh     the mesh (parallel/mesh.py), on graft_entry's tiny UIC at
+              float32 with dropout off and plain SGD: one XE step in a
+              one-rank NCCL group, bitwise the step without a mesh; a
+              two-rank gloo group whose ranks share the card (gloo copies
+              CUDA tensors through the host, so nothing here measures
+              several GPUs): the step with the batch over 'data', and with
+              the weights over 'model' (tp 2), with and without
+              drop-worst, against the single-process step (loss within
+              1e-4 relative, parameters within rtol 2e-4 / atol 2e-5, the
+              CPU tests' tolerances), and the NA decode at B = 64 with the
+              weights over 'model', token for token the single-device
+              decode; then CaptionServer(mesh=[card, card],
+              route='fused') at bf16 on uic_sd (two replicas sharing one
+              copy of the weights, each bucket split between them): every
+              answer equal to the server without a mesh, #4, #5 and #3
+              launched (their counts in the kernels line).
+ 21. diagnostics  the eval CLI in process with --dump_attention 1
+              --report_flops 1 (NAIC, 10 images) on a float32 checkpoint
+              at uic_sd's widths, on the card and with --device cpu: the
+              maps' keys, every map within 1e-5, the printed accumulator
+              and the FLOP counts equal; the training CLI with
+              --profile_steps 2 on the card: a trace under profile/ with
+              CUDA kernel events.
+
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed phase raises: the script exits
 non-zero and prints no result.  Without CUDA it exits non-zero at once.
@@ -5521,6 +5545,317 @@ def profile_decode(fn):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 20: the mesh (one rank a device; NCCL alone, gloo ranks sharing the
+# card, the server's replicas)
+# ---------------------------------------------------------------------------
+
+MESH_B = 8                    # images of the mesh phase's batches
+# the CPU tests' tolerances (tests/test_torch_port_mesh.py, JAX
+# test_dp_tp_step_matches_single_device's)
+MESH_LOSS_REL, MESH_RTOL, MESH_ATOL = 1e-4, 2e-4, 2e-5
+
+
+def mesh_opt():
+    """graft_entry's tiny UIC (d 64, 2 + 2 layers, 4 heads) at float32,
+    dropout off, plain SGD at rate 1 after the value clip (an update is
+    the clipped gradient), over the synthetic corpus."""
+    from boficap_tpu_torch.config import make_config
+    return make_config(train_mode="UIC", input_json="synthetic",
+                       input_att_dir="synthetic", batch_size=MESH_B,
+                       max_boxes=R, N_enc=2, N_dec=2, N_len=1, d_model=64,
+                       d_ff=128, num_att_heads=4, dtype="float32",
+                       dropout=0.0, drop_prob_lm=0.0, noamopt=False,
+                       optim="sgd", learning_rate=1.0, data_prefetch=0,
+                       id="smokemesh")
+
+
+def mesh_model(opt, device):
+    """The seeded model of ``opt`` (its plans nudged as build's are) and
+    the first train batch of the synthetic corpus."""
+    from boficap_tpu_torch.convert import fill_random
+    from boficap_tpu_torch.data.dataset import CaptionData
+    from boficap_tpu_torch.models.boficap import build_model
+    loader = CaptionData(opt)
+    model = fill_random(build_model(opt, loader.vocab_size, device), SEED)
+    with torch.no_grad():
+        model.len_head2.bias += torch.tensor(
+            [-1.0] + [1.5] * 3 + [0.0] * 16, device=device)
+        model.syn_head2.bias += torch.tensor(
+            [0.0] * 4 + [2.0] * 3 + [0.0] * 3, device=device)
+    return model, loader.get_batch("train")
+
+
+def mesh_step(device, mesh=None, drop_worst: float = 0.0):
+    """One XE step of mesh_opt's model on its batch (the batch over the
+    mesh's 'data' axis, the weights over 'model'); (metrics, the whole
+    parameters on the CPU)."""
+    from boficap_tpu_torch.convert import flax_layout
+    from boficap_tpu_torch.parallel import gather_params, shard_params
+    from boficap_tpu_torch.train import optim, steps
+    opt = mesh_opt()
+    model, batch = mesh_model(opt, device)
+    if mesh is not None:
+        shard_params(model, mesh)
+    layout = flax_layout(model)
+    o = optim.Optimizer(optim.build_optimizer(opt, layout), model, layout)
+    m = steps.make_xe_step(model, o, mesh=mesh)(
+        steps.to_device(batch, device), None, None, drop_worst)
+    params = (gather_params(model) if mesh is not None else
+              {k: v.detach() for k, v in model.named_parameters()})
+    return ({k: float(v) for k, v in m.items()},
+            {k: v.cpu() for k, v in params.items()})
+
+
+@torch.no_grad()
+def mesh_decode(device, mesh=None):
+    """The plain NA decode of mesh_model's model at B = 64 (the weights
+    over the mesh's 'model' axis); seq on the CPU."""
+    from boficap_tpu_torch.decode.bound_fill import na_decode
+    from boficap_tpu_torch.parallel import shard_params
+    model, _ = mesh_model(mesh_opt(), device)
+    if mesh is not None:
+        shard_params(model, mesh)
+    att, am = features(B, seed=31)
+    att, am = att.to(device), am.to(device)
+    return na_decode(model, model.encode(att, am), am.bool())["seq"].cpu()
+
+
+def mesh_rank(rank, world, init_method, backend, shapes):
+    """One rank of the mesh phase's group on the card: for each (data,
+    model) shape, the step (without and with drop-worst), and the NA
+    decode where 'model' has every rank; rank 0 returns them."""
+    sys.path.insert(0, HERE)
+    from boficap_tpu_torch.parallel import init_group, make_mesh
+    dev = torch.device(DEV, 0)
+    init_group(rank, world, init_method, dev, backend=backend, timeout_s=300)
+    out = {}
+    for shape in shapes:
+        mesh = make_mesh(axis_names=("data", "model"), shape=shape,
+                         device=dev)
+        out[shape] = {"step": mesh_step(dev, mesh),
+                      "step_drop_worst": mesh_step(dev, mesh, 0.5)}
+        if shape[1] == world:
+            out[shape]["decode"] = mesh_decode(dev, mesh)
+    return out if rank == 0 else None
+
+
+def same_step(what: str, got, want) -> dict:
+    """A mesh step against the single-process one, by the CPU tests'
+    tolerances; the largest parameter difference and move."""
+    (mg, pg), (mw, pw) = got, want
+    for k in mw:
+        if abs(mg[k] - mw[k]) > MESH_LOSS_REL * max(1.0, abs(mw[k])):
+            fail(f"mesh {what}: {k} {mg[k]} against {mw[k]}")
+    worst = 0.0
+    for k, w in pw.items():
+        if not torch.allclose(pg[k], w, rtol=MESH_RTOL, atol=MESH_ATOL):
+            fail(f"mesh {what}: parameter {k} differs by "
+                 f"{float((pg[k] - w).abs().max())}")
+        worst = max(worst, float((pg[k] - w).abs().max()))
+    return {"loss": mg["loss"], "loss_single": mw["loss"],
+            "loss_rel_err": abs(mg["loss"] - mw["loss"]) / abs(mw["loss"]),
+            "params_max_abs_diff": worst,
+            "bitwise": all(torch.equal(pg[k], w) for k, w in pw.items())}
+
+
+@torch.no_grad()
+def serve_answers(model, mesh):
+    """serve_requests through CaptionServer(route='fused', mesh=mesh):
+    each request's seq, the launch counts of the requests, the batches and
+    the buckets."""
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    from boficap_tpu_torch.serve import CaptionServer
+    att, am, n_single, n_burst, short = serve_requests()
+    n = att.shape[0]
+    ix_to_word = {str(i): f"w{i}" for i in range(4, VOCAB + 4)}
+    srv = CaptionServer(model, ix_to_word, mode="NAIC", max_batch=B,
+                        max_wait_ms=5.0, max_regions=R, route="fused",
+                        device=DEV, mesh=mesh)
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()                       # the main path starts
+        t0 = time.perf_counter()
+        outs = [srv.submit(att[i].numpy(), am[i].numpy()).wait(timeout=300)
+                for i in range(n_single)]
+        futs = [srv.submit(att[i].numpy(), am[i].numpy())
+                for i in range(n_single, n_single + n_burst)]
+        futs += [srv.submit(att[i, :k].numpy())
+                 for i, k in zip(range(n_single + n_burst, n), short)]
+        outs += [f.wait(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        counts = launch_counts()                    # ... and ends
+        shared = all(r is srv.replicas[0] for r in srv.replicas)
+    finally:
+        srv.close()
+    return (torch.stack([torch.as_tensor(o["seq"]) for o in outs]), counts,
+            batch_sizes(outs), list(srv.buckets), shared, n / wall)
+
+
+def check_mesh(model16, smi: str) -> tuple:
+    """Phase mesh: one float32 XE step in a one-rank NCCL group against
+    the step without a mesh; a two-rank gloo group sharing the card (gloo
+    copies through the host: no multi-GPU number comes of it): the step
+    over 'data' (with and without drop-worst) against the single-process
+    step by the CPU tests' tolerances, and the NA decode with the weights
+    over 'model' (tp 2) token for token against the single-device decode;
+    then CaptionServer(mesh=[card, card], route='fused') at bf16, every
+    answer equal to the server without a mesh, #4, #5 and #3 launched,
+    and both servers' requests/s on the same requests in this phase.
+    Returns (result, the mesh server's launch counts)."""
+    from boficap_tpu_torch.parallel.mesh import launch
+    t0 = time.perf_counter()
+    dev = torch.device(DEV, 0)
+    single = {"step": mesh_step(dev), "step_drop_worst": mesh_step(dev, None,
+                                                                   0.5)}
+    want_seq = mesh_decode(dev)
+    out = {"single_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    nccl = launch(mesh_rank, 1, "nccl", [(1, 1)])[(1, 1)]
+    out["nccl_1_rank"] = {k: same_step(f"nccl {k}", nccl[k], single[k])
+                          for k in single}
+    if not out["nccl_1_rank"]["step"]["bitwise"]:
+        fail("mesh: the one-rank NCCL step is not the no-mesh step bitwise")
+    out["nccl_1_rank"]["decode_identical"] = bool(torch.equal(
+        nccl["decode"], want_seq))
+    if not out["nccl_1_rank"]["decode_identical"]:
+        fail("mesh: the one-rank NCCL decode differs")
+    out["nccl_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gloo = launch(mesh_rank, 2, "gloo", [(2, 1), (1, 2)])
+    out["gloo_2_ranks_dp"] = {k: same_step(f"gloo dp {k}", gloo[(2, 1)][k],
+                                           single[k]) for k in single}
+    out["gloo_2_ranks_tp"] = {k: same_step(f"gloo tp {k}", gloo[(1, 2)][k],
+                                           single[k]) for k in single}
+    tp_seq = gloo[(1, 2)]["decode"]
+    if not torch.equal(tp_seq, want_seq):
+        fail(f"mesh: the tp 2 NA decode differs from the single-device "
+             f"decode in {int((tp_seq != want_seq).any(-1).sum())} samples")
+    out["gloo_2_ranks_tp"]["decode"] = {
+        "samples": int(tp_seq.shape[0]), "identical": True,
+        "words": int((tp_seq > 0).sum())}
+    out["gloo_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, _, want_batches, _, _, want_rate = serve_answers(model16, None)
+    got, counts, batches, buckets, shared, rate = serve_answers(
+        model16, [DEV, DEV])
+    if not torch.equal(got, want):
+        fail(f"mesh: {int((got != want).any(-1).sum())} answers of the "
+             f"two-replica server differ from the server without a mesh")
+    missing = [k for k in NA_KERNELS if counts[k] == 0]
+    if missing or not shared or any(b % 2 for b in buckets):
+        fail(f"mesh server: {missing} not launched, replicas shared "
+             f"{shared}, buckets {buckets}")
+    out["serve"] = {"replicas": 2, "device": smi, "dtype": "bfloat16",
+                    "requests": int(got.shape[0]), "answers_equal": True,
+                    "launches": counts, "batch_sizes": batches,
+                    "no_mesh_batch_sizes": want_batches, "buckets": buckets,
+                    "weights_shared": shared, "requests_per_s": rate,
+                    "no_mesh_requests_per_s": want_rate}
+    out["serve_s"] = time.perf_counter() - t0
+    return out, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the diagnostics (--dump_attention, --report_flops,
+# --profile_steps)
+# ---------------------------------------------------------------------------
+
+def quiet(fn, *args):
+    """fn(*args) with its standard output kept: (value, the output)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        value = fn(*args)
+    return value, buf.getvalue()
+
+
+def check_diagnostics(tmp: str) -> dict:
+    """Phase diagnostics: the eval CLI with --dump_attention 1
+    --report_flops 1 (NAIC, 10 test images) on a float32 checkpoint at
+    uic_sd's widths over the CLI's synthetic corpus, in process on the
+    card and with --device cpu: the same npz keys, every map within 1e-5,
+    the same printed accumulator, and the card's FLOP counts equal to the
+    CPU's (the work is fixed by the shapes); then the training CLI with
+    --profile_steps 2 on the card: a trace under profile/ holding CUDA
+    kernel events."""
+    import numpy as np
+    from boficap_tpu_torch.data.dataset import CaptionData
+    from boficap_tpu_torch.tools import eval as teval
+    from boficap_tpu_torch.tools import train as ttrain
+    opt = eval_opt("uic_sd.yml", id="smokediag", dtype="float32")
+    loader = CaptionData(opt)
+    write_checkpoint(build("float32", vocab=loader.vocab_size), opt, loader,
+                     tmp)
+    runs, here = {}, os.getcwd()
+    for dev in ("cuda", "cpu"):
+        cwd = os.path.join(tmp, f"diag_{dev}")
+        os.makedirs(cwd)
+        os.chdir(cwd)
+        try:
+            t0 = time.perf_counter()
+            _, printed = quiet(teval.main, [
+                "--model", os.path.join(tmp, "model.ckpt"),
+                "--infos_path", os.path.join(tmp, "infos_smokediag.pkl"),
+                "--inference_mode", "NAIC", "--num_images", "10",
+                "--language_eval", "0", "--device", dev,
+                "--dump_attention", "1", "--report_flops", "1"])
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(here)
+        with open(os.path.join(cwd, "eval_results",
+                               "smokediag_test.json")) as f:
+            flops = json.load(f)["flops"]
+        lines = printed.splitlines()
+        i = lines.index("attention 10x10 accumulator (saved full maps to "
+                        "vis/attn.npz)")
+        runs[dev] = {"maps": dict(np.load(os.path.join(cwd, "vis",
+                                                       "attn.npz"))),
+                     "acc": lines[i + 1:i + 11], "flops": flops,
+                     "wall_s": wall}
+    card, cpu = runs["cuda"], runs["cpu"]
+    if list(card["maps"]) != list(cpu["maps"]):
+        fail("diagnostics: the attention maps' keys differ card vs CPU")
+    worst = max(float(np.abs(card["maps"][k] - cpu["maps"][k]).max())
+                for k in cpu["maps"])
+    if worst > 1e-5:
+        fail(f"diagnostics: attention maps differ by {worst} card vs CPU")
+    if card["acc"] != cpu["acc"]:
+        fail("diagnostics: the printed accumulators differ")
+    if {k: v["flops"] for k, v in card["flops"].items()} != {
+            k: v["flops"] for k, v in cpu["flops"].items()}:
+        fail(f"diagnostics: report_flops {card['flops']} on the card, "
+             f"{cpu['flops']} on the CPU")
+    out = {"dump_attention": {
+        "maps": len(cpu["maps"]), "max_abs_err": worst,
+        "example_key": next(iter(cpu["maps"])),
+        "example_shape": list(next(iter(cpu["maps"].values())).shape),
+        "card_s": card["wall_s"], "cpu_s": cpu["wall_s"]},
+        "report_flops": {"card": card["flops"], "cpu": cpu["flops"],
+                         "flops_equal": True}}
+    ck = os.path.join(tmp, "prof")
+    t0 = time.perf_counter()
+    _, printed = quiet(ttrain.main, [
+        "--cfg", os.path.join(HERE, "configs", "synthetic_smoke.yml"),
+        "--id", "smokeprof", "--checkpoint_path", ck, "--profile_steps", "2",
+        "--language_eval", "0", "--save_checkpoint_every", "100",
+        "--losses_log_every", "1", "--max_epochs", "1"])
+    wall = time.perf_counter() - t0
+    traces = sorted(os.listdir(os.path.join(ck, "profile")))
+    if "profiler trace written" not in printed or len(traces) != 1:
+        fail(f"diagnostics: --profile_steps wrote {traces}")
+    with open(os.path.join(ck, "profile", traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        fail("diagnostics: the profile holds no CUDA kernel event")
+    out["profile_steps"] = {"trace": traces[0], "events": len(events),
+                            "cuda_kernel_events": len(kernels),
+                            "train_s": wall}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5559,7 +5894,7 @@ def main():
 
 
 def run_phases(smi: str):
-    """Phases 2-19; returns the {"kernels": [...]} list."""
+    """Phases 2-21; returns the {"kernels": [...]} list."""
     # the same random weights at both compute dtypes: float32 for the
     # decode comparisons, the default (bfloat16) for the main paths
     model = build("float32")
@@ -5649,6 +5984,15 @@ def run_phases(smi: str):
     emit({"phase": "times", "card": smi, "long_bias_shift": 0.0, **times})
     lstm, lstm_launches = check_lstm(smi)
     emit({"phase": "lstm", **lstm})
+    t0 = time.perf_counter()
+    meshed, mesh_launches = check_mesh(model16, smi)
+    emit({"phase": "mesh", "card": smi, "seconds": time.perf_counter() - t0,
+          **meshed})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="boficap_diag_") as tmp:
+        diag = check_diagnostics(tmp)
+    emit({"phase": "diagnostics", "card": smi,
+          "seconds": time.perf_counter() - t0, **diag})
     errs["float32"]["attention_core"] = att_errs["float32"]["ar_cross"]
     errs["bfloat16"]["attention_core"] = att_errs["bfloat16"]["ar_cross"]
 
@@ -5688,7 +6032,8 @@ def run_phases(smi: str):
             "pb_launches": pb_launches.get(name, 0),
             "lstm_launches": lstm_launches.get(name, 0),
             "prepro_launches": prepro_launches.get(name, 0),
-            "raw_launches": raw_launches.get(name, 0)})
+            "raw_launches": raw_launches.get(name, 0),
+            "mesh_serve_launches": mesh_launches.get(name, 0)})
         if name in GRID_KERNELS:
             # past the row path's 128 keys: the 196-region memory of a
             # 14 x 14 image grid (phase raw's check, phase times' numbers)

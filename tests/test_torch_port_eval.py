@@ -2,8 +2,7 @@
 ``config.py``'s eval options) against the JAX package's, on the CPU:
 branch selection, option precedence, ``eval_split`` on shared weights for
 every branch (NNAIC, PB_pad, diverse beam search and ``sample_n``
-captions with the multi-sample metrics among them), what raises because it
-is not ported, the eval CLI against the JAX CLI on one checkpoint the JAX package
+captions with the multi-sample metrics among them), the eval CLI against the JAX CLI on one checkpoint the JAX package
 wrote, and an NNAIC checkpoint of the port's training CLI read by the JAX
 package.
 
@@ -499,17 +498,6 @@ def test_only_lang_eval_scores_cached_samples(jax_checkpoint, tmp_path,
     want = jax_language_eval(preds, gts)
     want.update(multi_sample_eval(n_preds, gts))
     assert stats == want and "div2" in stats
-
-
-@pytest.mark.parametrize("flag,match", [("--dump_attention", "item 12"),
-                                        ("--report_flops", "item 12")])
-def test_eval_cli_not_ported_flags_raise(jax_checkpoint, tmp_path,
-                                        monkeypatch, flag, match):
-    model, infos = jax_checkpoint
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
-        teval.main(["--model", model, "--infos_path", infos, "--device",
-                    "cpu", flag, "1"])
 
 
 @pytest.mark.slow
