@@ -24,24 +24,26 @@
 // copied into it, so the narrow SA round updates its cache in place with no
 // launch of its own, and every key was read before any is overwritten.
 //
-// Three paths behind launch_attention, chosen by attention_path(Lq, Lk,
+// Four paths behind launch_attention, chosen by attention_path(Lq, Lk,
 // dtype), with the same arithmetic contract:
 //
-//  row   Lq <= LQ_ROW, both dtypes (the decode steps: one query row).  One
-//        warp a (sample, head), ROW_WARPS warps a block, no shared memory,
-//        no block barrier.  K and V are read straight from device memory
-//        in 16-byte chunks, G lanes a key row (a bf16 Dh = 64 row is 8
-//        lanes, 4 keys an instruction); every K and V chunk of up to
-//        ROW_KEYS keys, the query row and its mask are asked for at once,
-//        so a call waits on memory once at the callers' key counts.  A
-//        score is a G-lane shuffle sum; the whole score row stays in
-//        registers (KEY_MAX / 32 a lane), so the softmax is exact in two
-//        passes (max, then exp and sum); p is rounded to T after
-//        normalisation, the context summed over the keys in registers and
-//        written as T.  (On the card the tile path matched it at one bf16
-//        query row and beat it from two, so LQ_ROW is 1; a forced row path
-//        takes any Lq, one row after another over the same registers.)
-//  tile  Lq > LQ_ROW at bf16 (the layer and stack attentions).  One block a
+//  row   Lq <= LQ_ROW, Lk <= row_key_max, both dtypes (the decode steps:
+//        one query row).  One warp a (sample, head), ROW_WARPS warps a
+//        block, no shared memory, no block barrier.  K and V are read
+//        straight from device memory in 16-byte chunks, G lanes a key row
+//        (a bf16 Dh = 64 row is 8 lanes, 4 keys an instruction); every K
+//        and V chunk of up to ROW_KEYS keys, the query row and its mask are
+//        asked for at once, so a call waits on memory once at the callers'
+//        key counts up to ROW_KEYS.  A score is a G-lane shuffle sum; the
+//        whole score row stays in registers (SREG a lane: KEY_MAX / 32 up
+//        to KEY_MAX keys, ROW_KEY_MAX / 32 past it at bf16), so the
+//        softmax is exact in two passes (max, then exp and sum); p is
+//        rounded to T after normalisation, the context summed over the
+//        keys in registers and written as T.  (On the card the tile path matched it
+//        at one bf16 query row and beat it from two, so LQ_ROW is 1; a
+//        forced row path takes any Lq, one row after another over the same
+//        registers.)
+//  tile  otherwise at bf16 (the layer and stack attentions).  One block a
 //        (sample, head): Q, K and V staged as bf16 by 16-byte cp.async into
 //        rows padded by 16 bytes (ldmatrix without bank conflicts), K and V
 //        of both sources into one tile, the mask bits read meanwhile.  One
@@ -54,34 +56,46 @@
 //        minimum.  The quotients are a reciprocal and an fma correction,
 //        p / sum correctly rounded in the normal range: IEEE divisions
 //        were a large share of the block's time on the card (PERF.md).
-//  ffma  Lq > LQ_ROW at float32: the first port's block, one fmaf chain over
-//        d a score and one over the keys a context element, K and V staged
-//        as float32 (the float32 outputs of the layer kernels stay bitwise
-//        those of that block).
+//  ffma  otherwise at float32 up to KEY_MAX keys: the first port's block,
+//        one fmaf chain over d a score and one over the keys a context
+//        element, K and V staged as float32 (the float32 outputs of the
+//        layer kernels stay bitwise those of that block).  Forced, it takes
+//        any Lk that fits.
+//  ffma_long  float32 past KEY_MAX keys (attention_ffma_long_kernel): the
+//        ffma block's arithmetic, in its order, tiled for occupancy.  One
+//        block a (sample, head, FL_ROWS query rows); K, then V, stream
+//        through a two-chunk ring of FL_KEYS keys by cp.async; the tile's
+//        score rows stay in shared memory from S = Q K^T to P V; both
+//        products are register-tiled, 4 query rows by FL_KEYS / 32 keys
+//        (or DC head columns) a thread.  Its outputs are bitwise the ffma
+//        block's.
 //
 // Padded key columns (up to the n8 / k16 tile, or the lanes past Lk) get
 // -inf, not -1e9, so they add exactly 0 to the softmax.  Nothing depends on
 // B: rows are bitwise batch-independent.  Up to KEY_MAX keys no online
 // rescaling: a row's scores are normalised, rounded, then multiplied by V,
 // as the TPU kernel does (pallas_attention.py:49-52).  Past KEY_MAX keys
-// (one key source and no KvDst: the attention core, the encoder layers'
-// self-attention over the regions and every cross-attention over the
-// memory; a 14 x 14 image grid is 196 regions) the row path has no room
-// and the query takes the tile or ffma path at any Lq.  The ffma block
-// keeps its score rows in shared memory and so takes any Lk as it is.  The
-// tile path goes over the keys in chunks of KEY_MAX twice
-// (attention_tile_long_kernel): a running max and sum a query row first,
-// then p normalised, rounded to bf16 and multiplied by V, in the short
-// path's order.  Every path needs Dh <= DH_MAX and
+// the keys come from one source with no KvDst (the attention core, the
+// encoder layers' self-attention over the regions and every
+// cross-attention over the memory; a 14 x 14 image grid is 196 regions):
+// one query row at bf16 takes the row path up to ROW_KEY_MAX keys; the
+// rest take the ffma_long block (float32) or the tile path, which goes
+// over the keys in chunks of KEY_MAX twice (attention_tile_long_kernel,
+// one warp a query tile, up to TILE_LONG_WARPS a block): a running max and
+// sum a query row first, then p normalised, rounded to bf16 and multiplied by V, in the
+// short path's order.  Every path needs Dh <= DH_MAX and
 // at most SMEM_MAX bytes of shared memory a block (the wrappers raise
 // above them).  16-byte loads need 16-byte aligned bases,
 // strides and head width (the attention-core wrapper requires them); the
 // layer kernels, which take any float32 width, read element by element in
-// the same lane layout where they are not.
+// the same lane layout where they are not (ffma_long copies 4-byte
+// elements and needs no alignment).
 //
-// Bound on the H100: bytes.  At BoFiCap's sizes (L <= 36, Dh = 64) the
-// score and context work is ~4 * L * L * Dh flops per (sample, head), a few
-// flops per byte of Q/K/V read; every path reads each slice once.
+// Bound on the H100: bytes at BoFiCap's region counts (L <= 36, Dh = 64:
+// ~4 * L * L * Dh flops per (sample, head), a few flops per byte of Q/K/V
+// read; every path reads each slice once).  Operations at 196-211 keys in
+// float32 (67 TFLOP/s of FFMA): ffma_long keeps 32 warps an SM busy on
+// register-tiled products instead of the ffma block's 4 on serial chains.
 #pragma once
 
 #include "common.cuh"
@@ -92,22 +106,39 @@ constexpr int ATT_WARPS = 4;       // ffma path: warps a block
 constexpr int ROW_WARPS = 4;       // row path: (sample, head) warps a block
 constexpr int ROW_KEYS = 40;       // row path: keys one batch of loads holds,
 constexpr int ROW_BATCH = 20;      // at most this many K (and V) chunks a lane
+constexpr int ROW_KEYS_WIDE = 36;  // ... past KEY_MAX keys (bf16 only)
 constexpr int TILE_WARPS = 4;      // tile path: at most, one a 16 query rows
+constexpr int TILE_LONG_WARPS = 16;  // ... past KEY_MAX keys, past TILE_WARPS
 constexpr int LQ_ROW = 1;          // row path up to this many query rows
 constexpr int KEY_MAX = 128;       // keys a score row holds in registers
+constexpr int ROW_KEY_MAX = 256;   // ... on the row path at bf16, one source
+constexpr int FL_WARPS = 8;        // ffma_long: warps a block,
+constexpr int FL_ROWS = 32;        // query rows a block (/ FL_WARPS a warp)
+constexpr int FL_KEYS = 32;        // keys a K or V chunk (32 a lane)
 constexpr int DH_MAX = 128;        // head width
 constexpr int SMEM_MAX = 232448;   // shared memory a block may use (227 KB)
 constexpr float MASK_FILL = -1e9f;
 
-enum AttentionPath { kPathRow = 0, kPathTile = 1, kPathFfma = 2 };
+enum AttentionPath {
+  kPathRow = 0, kPathTile = 1, kPathFfma = 2, kPathFfmaLong = 3
+};
+
+// keys the row path takes at dtype (BFC_DTYPE_*): the wide score rows at
+// bf16 only (at float32 ffma_long is the faster of the two past KEY_MAX:
+// PERF.md); ops/decoder_layer.py row_key_max mirrors it
+inline int row_key_max(int dtype) {
+  return dtype == BFC_DTYPE_BF16 ? ROW_KEY_MAX : KEY_MAX;
+}
 
 // the path of an Lq x Lk attention at dtype (BFC_DTYPE_*), -1 without
-// keys: the row path up to LQ_ROW query rows and KEY_MAX keys, else tile
-// (bf16) or ffma (float32); ops/attention.py attention_path mirrors it
+// keys: the row path up to LQ_ROW query rows and row_key_max keys, else
+// tile (bf16), or ffma up to KEY_MAX keys and ffma_long past them
+// (float32); ops/attention.py attention_path mirrors it
 inline int attention_path(int Lq, int Lk, int dtype) {
   if (Lk < 1) return -1;
-  if (Lq <= LQ_ROW && Lk <= KEY_MAX) return kPathRow;
-  return dtype == BFC_DTYPE_BF16 ? kPathTile : kPathFfma;
+  if (Lq <= LQ_ROW && Lk <= row_key_max(dtype)) return kPathRow;
+  if (dtype == BFC_DTYPE_BF16) return kPathTile;
+  return Lk > KEY_MAX ? kPathFfmaLong : kPathFfma;
 }
 
 // keys and values of one source: row (b, j) at (b * rows + j) * ld
@@ -292,8 +323,14 @@ __device__ __forceinline__ void copy_fresh(HeadView<const T> kc,
 // iterations: NB chunks of K and NB of V a lane, asked for together before
 // any is used.  At the callers' key counts (<= ROW_KEYS) one batch holds
 // every key: a call then waits on memory once, with the first query row
-// and its mask, and every further query row reuses the registers.
-template <typename T, Scale S, int G, bool CH>
+// and its mask, and every further query row reuses the registers.  SREG:
+// score registers a lane, Lk <= 32 SREG: KEY_MAX / 32, or ROW_KEY_MAX / 32
+// at bf16 (wide rows: one query row over a 14 x 14 grid), in batches of
+// ROW_KEYS_WIDE keys, the first V batch asked for after the softmax: so
+// the wide kernel holds no K and V batch at once, and at Dh = 64 it fits
+// its registers with no spill (40 keys a batch, or the V batch ahead,
+// spilled; PERF.md).
+template <typename T, Scale S, int G, int SREG, bool CH>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
     attention_row_kernel(HeadView<const T> q, HeadView<const T> ka,
                          HeadView<const T> va, int rows_a, HeadView<const T> kc,
@@ -303,8 +340,10 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
                          int Lq, int Dh, KvDst<T> dst, bool vec) {
   constexpr int N = 16 / sizeof(T);
   constexpr int KPI = 32 / G;
-  constexpr int NB = ROW_KEYS / KPI < ROW_BATCH ? ROW_KEYS / KPI : ROW_BATCH;
-  constexpr int SREG = KEY_MAX / 32;
+  constexpr bool WIDE = SREG > KEY_MAX / 32;
+  static_assert(!WIDE || sizeof(T) == 2, "wide score rows at bf16 only");
+  constexpr int BK = WIDE ? ROW_KEYS_WIDE : ROW_KEYS;
+  constexpr int NB = BK / KPI < ROW_BATCH ? BK / KPI : ROW_BATCH;
   const int w = blockIdx.x * ROW_WARPS + threadIdx.x / 32;
   grid_wait<CH>();   // q, k, v: a predecessor's outputs (common.cuh)
   if (w >= BH) return;
@@ -351,7 +390,7 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
 
   uint4 kr[NB], vr[NB];
   load(ka, kc, 0, kr);
-  load(va, vc, 0, vr);
+  if constexpr (!WIDE) load(va, vc, 0, vr);
   uint4 qraw = load_q(0);
   uint32_t mb = load_mask(0, 0);
   float qf[N], sc[SREG], acc[N];
@@ -428,7 +467,7 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
 
 #pragma unroll
     for (int e = 0; e < N; ++e) acc[e] = 0.f;
-    if (multi && i > 0) load(va, vc, 0, vr);
+    if (WIDE || (multi && i > 0)) load(va, vc, 0, vr);
     context(0);
     for (int t0 = NB; t0 < its; t0 += NB) {
       load(va, vc, t0, vr);
@@ -714,9 +753,17 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
 // the float32 context summed over the chunks with no rescale and no division
 // at the end.  DP: the context's 16-column tiles a row holds (DhP / 16 <=
 // DP).  CH: a link of a launch chain, as attention_tile_kernel (#5's
-// cross-attention).
-template <Scale S, int DP, bool CH>
-__global__ void __launch_bounds__(TILE_WARPS * 32)
+// cross-attention).  One block a (sample, head, group of W query tiles),
+// one warp a query tile: the block stages its group's Q rows and all of K
+// and V.  W = TILE_LONG_WARPS (16) past TILE_WARPS tiles, so 211 x 211
+// runs one block of 14 warps a (sample, head), 2 blocks an SM, where the
+// first design walked the 14 tiles on 4 warps (on the H100 at B = 64:
+// 0.194 against 0.302 ms; groups of 4 tiles, 0.304; of 8, 0.313).  Up to
+// TILE_WARPS tiles W = TILE_WARPS: 4 warps a block keep the first
+// design's 168 registers, where 16 cap them at 128 and spill.  A row's
+// arithmetic is the first design's, bit for bit.
+template <Scale S, int DP, int W, bool CH>
+__global__ void __launch_bounds__(W * 32)
     attention_tile_long_kernel(HeadView<const __nv_bfloat16> q,
                                HeadView<const __nv_bfloat16> k,
                                HeadView<const __nv_bfloat16> v, int Lk,
@@ -729,16 +776,18 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
   extern __shared__ uint4 smem_tile[];
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   grid_wait<CH>();   // q, k, v: a predecessor's outputs (common.cuh)
-  const int LqP = round16(Lq), LkP = round16(Lk), DhP = round16(Dh);
+  const int LkP = round16(Lk), DhP = round16(Dh);
   const int ld = DhP + 8, ntiles = LkP / 16;
-  T* Qs = reinterpret_cast<T*>(smem_tile);    // [LqP][ld]
-  T* Ks = Qs + (size_t)LqP * ld;              // [LkP][ld]
+  const int qt0 = blockIdx.y * W;             // the group's first tile
+  const int nq = min(round16(Lq) - qt0 * 16, W * 16);
+  T* Qs = reinterpret_cast<T*>(smem_tile);    // [nq][ld]: the group's rows
+  T* Ks = Qs + (size_t)nq * ld;               // [LkP][ld]
   T* Vs = Ks + (size_t)LkP * ld;              // [LkP][ld]
 
   const int nch = DhP / 8;
-  for (int e = threadIdx.x; e < LqP * nch; e += blockDim.x) {
-    const int r = e / nch;
-    stage_chunk(Qs, ld, r, (e % nch) * 8, q, b, h, r, r < Lq, Dh, vec);
+  for (int e = threadIdx.x; e < nq * nch; e += blockDim.x) {
+    const int r = e / nch, i = qt0 * 16 + r;
+    stage_chunk(Qs, ld, r, (e % nch) * 8, q, b, h, i, i < Lq, Dh, vec);
   }
   for (int e = threadIdx.x; e < LkP * nch; e += blockDim.x) {
     const int r = e / nch, d = (e % nch) * 8;
@@ -783,7 +832,8 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
       acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
     for (int ks = 0; ks < DhP / 16; ++ks) {
       uint32_t a[4];
-      ldsm_x4(a, Qs + (size_t)(qt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+      ldsm_x4(a, Qs + (size_t)((qt - qt0) * 16 + (lane & 7) +
+                               ((lane >> 3) & 1) * 8) * ld +
                      ks * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int np = 0; np < KT; ++np) {
@@ -814,7 +864,7 @@ __global__ void __launch_bounds__(TILE_WARPS * 32)
       }
     }
   };
-  for (int qt = warp; qt < LqP / 16; qt += nwarps) {
+  for (int qt = qt0 + warp; qt < qt0 + nq / 16; qt += nwarps) {
     const int i0 = qt * 16 + g, i1 = i0 + 8;
     float acc[2 * KT][4];
 
@@ -1014,6 +1064,289 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
   }
 }
 
+// ---- ffma_long path (float32 past KEY_MAX keys) ----------------------------
+
+__device__ __forceinline__ void cp_async4(void* s, const void* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(s)),
+               "l"(g)
+               : "memory");
+}
+
+__host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
+
+// n (1, 2 or a multiple of 4) consecutive floats of shared memory at p,
+// min(4n, 16)-byte aligned
+template <int n>
+__device__ __forceinline__ void load_rows(const float* p, float (&x)[n]) {
+  if constexpr (n % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < n; i += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(p + i);
+      x[i] = u.x; x[i + 1] = u.y; x[i + 2] = u.z; x[i + 3] = u.w;
+    }
+  } else if constexpr (n == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    x[0] = u.x; x[1] = u.y;
+  } else {
+    x[0] = p[0];
+  }
+}
+
+// The ffma block's arithmetic past KEY_MAX keys, tiled for occupancy (one
+// key source, no KvDst).  One block of FL_WARPS warps a (sample, head,
+// FL_ROWS query rows); warp w owns rows RW w .. RW w + RW - 1 of the tile
+// through all three steps, so only the K/V ring needs block barriers.
+//  - Q^T staged once by cp.async, [Dh][FL_ROWS + 4] (a warp's RW rows of
+//    one d are one vector load, the same for every lane); the row scores
+//    [FL_ROWS][Lk rounded to 4] stay in shared memory from S = Q K^T to
+//    P V; the mask rows as bits, [FL_ROWS][Lk / 32 words] (one ballot a 32
+//    keys), read from device memory while the first chunk flies.
+//  - K chunks, then V chunks, of FL_KEYS keys stream through a ring of
+//    two [FL_KEYS][Dh + 1] buffers (odd stride: lanes on distinct key rows
+//    hit distinct banks) by 4-byte cp.async (any alignment, any head
+//    width); chunk t + 1 is asked for right after the barrier that makes
+//    chunk t visible, so it flies while the block computes on t, and that
+//    one barrier a chunk also frees the buffer it lands in.
+//  - S: lane l holds RW rows x keys j0 + l + 32 u (u < FL_KEYS / 32); each
+//    score one fmaf chain over d ascending from 0, as the ffma block forms
+//    it.
+//  - softmax: each of the warp's rows as the ffma block does one, the rows
+//    side by side: lane l over keys j = l (mod 32) ascending: the scale,
+//    the -1e9 fill, the max, e = exp(s - max) and the lane's sum, the xor
+//    butterfly 16 .. 1, p = e / sum.
+//  - P V: lane l holds RW rows x head columns l + 32 c (c < DC); each
+//    context element one fmaf chain over j ascending from 0, carried over
+//    the chunks.
+// So every output is bitwise the ffma block's (its float32 contract);
+// the block is 53,888 bytes at 211 keys and Dh = 64 and 64 registers a
+// thread: 4 blocks (32 warps) an SM, against the ffma block's one of 4
+// warps.  Bound: operations (FFMA) at 196-211 keys, bytes below; on the
+// H100 it runs at a fifth of the FFMA bound at 211 x 211 (PERF.md: 32 or
+// 64 keys a chunk and 32 or 64 rows a block time alike there).
+template <Scale S, int DC, bool CH>
+__global__ void __launch_bounds__(FL_WARPS * 32)
+    attention_ffma_long_kernel(HeadView<const float> q,
+                               HeadView<const float> k,
+                               HeadView<const float> v, int Lk,
+                               const uint8_t* __restrict__ mask,
+                               long long mask_sb, long long mask_sq,
+                               HeadView<float> out, int H, int Lq, int Dh) {
+  constexpr int RW = FL_ROWS / FL_WARPS;
+  constexpr int KL = FL_KEYS / 32;     // keys a lane holds in S
+  constexpr int QLD = FL_ROWS + 4;
+  extern __shared__ float4 smem_long[];
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = blockIdx.y * FL_ROWS;
+  const int rows = min(FL_ROWS, Lq - q0);
+  grid_wait<CH>();   // q, k, v: a predecessor's outputs (common.cuh)
+  const int sld = round4(Lk), kld = Dh + 1, nw = (Lk + 31) / 32;
+  float* Qt = reinterpret_cast<float*>(smem_long);   // [Dh][QLD]
+  float* Ss = Qt + (size_t)Dh * QLD;                  // [FL_ROWS][sld]
+  float* ring = Ss + (size_t)FL_ROWS * sld;           // 2 x [FL_KEYS][kld]
+  uint32_t* Mb = reinterpret_cast<uint32_t*>(ring + (size_t)2 * FL_KEYS * kld);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nc = (Lk + FL_KEYS - 1) / FL_KEYS;
+  // item t: K chunk t (t < nc), else V chunk t - nc, into buffer t & 1
+  // (a warp a row, a lane a column: no division in the address)
+  auto issue = [=](int t) {
+    const bool isk = t < nc;
+    const int j0 = (isk ? t : t - nc) * FL_KEYS;
+    const int jn = min(FL_KEYS, Lk - j0);
+    float* buf = ring + (size_t)(t & 1) * FL_KEYS * kld;
+    for (int j = warp; j < jn; j += FL_WARPS) {
+      const float* src = isk ? &k.at(b, h, j0 + j, 0) : &v.at(b, h, j0 + j, 0);
+      for (int d = lane; d < Dh; d += 32) cp_async4(buf + j * kld + d, src + d);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  for (int i = warp; i < FL_ROWS; i += FL_WARPS) {
+    const float* src = &q.at(b, h, q0 + min(i, rows - 1), 0);
+    for (int d = lane; d < Dh; d += 32) {
+      if (i < rows) cp_async4(Qt + d * QLD + i, src + d);
+      else Qt[d * QLD + i] = 0.f;
+    }
+  }
+  issue(0);                            // Q^T lands with the first chunk
+
+  const int r0 = warp * RW;            // the warp's first row of the tile
+  const bool live = r0 < rows;
+  if (live) {
+    // bit l of word w of row r: key 32 w + l visible to query row r (rows
+    // past Lq: none), 8 words of each row asked for before any is used
+    for (int w0 = 0; w0 < nw; w0 += 8) {
+      uint8_t m[RW][8];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const uint8_t* mrow =
+            mask + (size_t)b * mask_sb + (size_t)(q0 + r0 + r) * mask_sq;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = (w0 + u) * 32 + lane;
+          m[r][u] = r0 + r < rows && j < Lk ? mrow[j] : 0;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const uint32_t bits = __ballot_sync(FULL, m[r][u] != 0);
+          if (lane == 0 && w0 + u < nw) Mb[(r0 + r) * nw + w0 + u] = bits;
+        }
+    }
+  }
+  const float factor = score_factor<S>(Dh);
+  int dcol[DC];                        // this lane's head columns (clamped)
+#pragma unroll
+  for (int c = 0; c < DC; ++c) dcol[c] = min(lane + 32 * c, Dh - 1);
+  float acc[RW][DC];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
+  // P V of keys jj .. jj + 3 (prow: row r0's scores from the chunk's
+  // first key; buf: the chunk's V)
+  auto pv4 = [&](const float* prow, const float* buf, int jj) {
+    float4 p[RW];
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+      p[r] = *reinterpret_cast<const float4*>(prow + (size_t)r * sld + jj);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float* vrow = buf + (jj + u) * kld;
+      float vv[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) vv[c] = vrow[dcol[c]];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float pu = u == 0 ? p[r].x : u == 1 ? p[r].y
+                         : u == 2 ? p[r].z : p[r].w;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(pu, vv[c], acc[r][c]);
+      }
+    }
+  };
+
+  for (int t = 0; t < 2 * nc; ++t) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();       // chunk t visible; buffer (t + 1) & 1 free
+    if (t + 1 < 2 * nc) issue(t + 1);
+    const float* buf = ring + (size_t)(t & 1) * FL_KEYS * kld;
+    if (!live) continue;
+    if (t < nc) {
+      // S of keys j0 + lane + 32 u
+      const int j0 = t * FL_KEYS;
+      float sc[RW][KL];
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int u = 0; u < KL; ++u) sc[r][u] = 0.f;
+      const float* krow = buf + lane * kld;
+#pragma unroll 4
+      for (int d = 0; d < Dh; ++d) {
+        float qv[RW], kv[KL];
+        load_rows<RW>(Qt + d * QLD + r0, qv);
+#pragma unroll
+        for (int u = 0; u < KL; ++u) kv[u] = krow[32 * u * kld + d];
+#pragma unroll
+        for (int r = 0; r < RW; ++r)
+#pragma unroll
+          for (int u = 0; u < KL; ++u) sc[r][u] = fmaf(qv[r], kv[u], sc[r][u]);
+      }
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        float* srow = Ss + (size_t)(r0 + r) * sld + j0;
+#pragma unroll
+        for (int u = 0; u < KL; ++u)
+          if (j0 + lane + 32 * u < Lk) srow[lane + 32 * u] = sc[r][u];
+      }
+      continue;
+    }
+    const int c0 = t - nc;
+    if (c0 == 0) {
+      // the ffma block's softmax, the warp's RW rows side by side (rows
+      // past Lq see no key and stay finite: they are not written)
+      float mx[RW], sum[RW];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        mx[r] = -INFINITY;
+        sum[r] = 0.f;
+      }
+      for (int w = 0; w < nw; ++w) {
+        const int j = w * 32 + lane;
+        if (j >= Lk) break;
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          float* P = Ss + (size_t)(r0 + r) * sld;
+          float s = scale_score<S>(P[j], factor);
+          if (!(Mb[(r0 + r) * nw + w] >> lane & 1u)) s = MASK_FILL;
+          P[j] = s;
+          mx[r] = fmaxf(mx[r], s);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], off));
+      for (int j = lane; j < Lk; j += 32) {
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          float* P = Ss + (size_t)(r0 + r) * sld;
+          const float e = expf(P[j] - mx[r]);
+          P[j] = e;
+          sum[r] += e;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sum[r] += __shfl_xor_sync(FULL, sum[r], off);
+      for (int j = lane; j < Lk; j += 32) {
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          float* P = Ss + (size_t)(r0 + r) * sld;
+          P[j] = P[j] / sum[r];
+        }
+      }
+      __syncwarp();
+    }
+    // P V over keys j0 .. j0 + jn - 1, ascending
+    const int j0 = c0 * FL_KEYS, jn = min(FL_KEYS, Lk - j0);
+    const float* prow = Ss + (size_t)r0 * sld + j0;
+    int jj = 0;
+    if (jn == FL_KEYS) {
+#pragma unroll 4
+      for (; jj < FL_KEYS; jj += 4) pv4(prow, buf, jj);
+    } else {
+      for (; jj + 4 <= jn; jj += 4) pv4(prow, buf, jj);
+    }
+    for (; jj < jn; ++jj) {
+      const float* vrow = buf + jj * kld;
+      float vv[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) vv[c] = vrow[dcol[c]];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float pu = prow[(size_t)r * sld + jj];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(pu, vv[c], acc[r][c]);
+      }
+    }
+  }
+  grid_launch_dependents<CH>();
+
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    if (r0 + r >= rows) break;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int d = lane + 32 * c;
+      if (d < Dh) out.at(b, h, q0 + r0 + r, d) = acc[r][c];
+    }
+  }
+}
+
 template <typename V>
 bool aligned16(const V& v, long long esize) {
   return reinterpret_cast<uintptr_t>(v.p) % 16 == 0 && (v.sb * esize) % 16 == 0 &&
@@ -1031,9 +1364,18 @@ constexpr int dtype_code() {
 // shared memory of one (sample, head) block on ``path``
 inline size_t attention_smem(int path, int Lq, int Lk, int Dh) {
   if (path == kPathRow) return 0;
-  if (path == kPathTile)
-    return 2 * (size_t)(att::round16(Lq) + 2 * att::round16(Lk)) *
-           (att::round16(Dh) + 8);
+  if (path == kPathTile) {
+    // past KEY_MAX keys a block stages one group of query tiles
+    const int lq16 = att::round16(Lq);
+    const int lq = Lk > KEY_MAX && lq16 > TILE_LONG_WARPS * 16
+                       ? TILE_LONG_WARPS * 16 : lq16;
+    return 2 * (size_t)(lq + 2 * att::round16(Lk)) * (att::round16(Dh) + 8);
+  }
+  if (path == kPathFfmaLong)
+    return sizeof(float) * ((size_t)Dh * (FL_ROWS + 4) +
+                            (size_t)FL_ROWS * att::round4(Lk) +
+                            (size_t)2 * FL_KEYS * (Dh + 1) +
+                            (size_t)FL_ROWS * ((Lk + 31) / 32));
   return sizeof(float) * ((size_t)Lk * (Dh + 1) + (size_t)Lk * Dh +
                           (size_t)Lq * Dh + (size_t)ATT_WARPS * Lk);
 }
@@ -1057,11 +1399,13 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 }
 
 // path < 0: attention_path's; a path given must be one the dtype has
-// (row at both, tile at bf16, ffma at float32); CH: launched as a link of a
-// launch chain (common.cuh launch_kernel).  More than KEY_MAX keys only
-// from one source with no KvDst, off the row path (the tile path's chunked
-// kernel takes one source; ops/decoder_layer.py check_attention_shape
-// mirrors this and attention_smem)
+// (row at both, tile at bf16, ffma and ffma_long at float32); CH: launched
+// as a link of a launch chain (common.cuh launch_kernel).  More than
+// KEY_MAX keys only from one source with no KvDst (the row path's wide
+// score rows, the tile path's chunked kernel and ffma_long take one
+// source; ffma_long takes one at any Lk), the row path at most row_key_max
+// (ops/decoder_layer.py check_attention_shape mirrors this and
+// attention_smem)
 template <typename T, Scale S, bool CH = false>
 cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
                              HeadView<const T> va, int rows_a,
@@ -1077,10 +1421,13 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
   if (auto_path < 0 || Dh < 1 || Dh > DH_MAX) return cudaErrorInvalidValue;
   if (path < 0) path = auto_path;
   const bool bf16 = code == BFC_DTYPE_BF16;
-  if (path > kPathFfma || (path == kPathTile && !bf16) ||
-      (path == kPathFfma && bf16))
+  const bool one_source = rows_c == 0 && dst.k == nullptr;
+  if (path > kPathFfmaLong || (path == kPathTile && !bf16) ||
+      ((path == kPathFfma || path == kPathFfmaLong) && bf16))
     return cudaErrorInvalidValue;
-  if (Lk > KEY_MAX && (path == kPathRow || rows_c > 0 || dst.k != nullptr))
+  if ((Lk > KEY_MAX || path == kPathFfmaLong) && !one_source)
+    return cudaErrorInvalidValue;
+  if (path == kPathRow && Lk > row_key_max(code))
     return cudaErrorInvalidValue;
   const long long es = sizeof(T);
   const bool vec =
@@ -1096,17 +1443,23 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
   if (path == kPathRow) {
     const int BH = B * H;
     const int grid = (BH + ROW_WARPS - 1) / ROW_WARPS;
-#define BFC_ROW(G)                                                            \
-  return launch_kernel<CH>(att::attention_row_kernel<T, S, G, CH>, grid,      \
-                           ROW_WARPS * 32, 0, stream, q, ka, va, rows_a, kc,  \
-                           vc, rows_c, mask, mask_sb, mask_sq, out, BH, H,    \
-                           Lq, Dh, dst, vec)
+#define BFC_ROW(G, SREG)                                                      \
+  return launch_kernel<CH>(att::attention_row_kernel<T, S, G, SREG, CH>,      \
+                           grid, ROW_WARPS * 32, 0, stream, q, ka, va,        \
+                           rows_a, kc, vc, rows_c, mask, mask_sb, mask_sq,    \
+                           out, BH, H, Lq, Dh, dst, vec)
+#define BFC_ROW_KEYS(G)                                                       \
+  if constexpr (sizeof(T) == 2) {                                             \
+    if (Lk > KEY_MAX) BFC_ROW(G, ROW_KEY_MAX / 32);                           \
+  }                                                                           \
+  BFC_ROW(G, KEY_MAX / 32)
     switch (row_lanes(Dh, static_cast<int>(es))) {
-      case 8: BFC_ROW(8);
-      case 16: BFC_ROW(16);
-      case 32: BFC_ROW(32);
+      case 8: BFC_ROW_KEYS(8);
+      case 16: BFC_ROW_KEYS(16);
+      case 32: BFC_ROW_KEYS(32);
       default: return cudaErrorInvalidValue;
     }
+#undef BFC_ROW_KEYS
 #undef BFC_ROW
   }
   if constexpr (sizeof(T) == 2) {
@@ -1114,15 +1467,23 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
       const int tiles = att::round16(Lq) / 16;
       const int threads = 32 * (tiles < TILE_WARPS ? tiles : TILE_WARPS);
       if (Lk > KEY_MAX) {
-#define BFC_TILE_LONG(DP)                                                     \
+        const bool wide = tiles > TILE_WARPS;
+        const int w = wide ? TILE_LONG_WARPS : TILE_WARPS;
+        const dim3 grid(B * H, (tiles + w - 1) / w);
+        const int lw = tiles < w ? tiles : w;
+#define BFC_TILE_LONG(DP, W)                                                  \
   {                                                                           \
-    BFC_TRY(allow_smem(att::attention_tile_long_kernel<S, DP, CH>, smem));    \
-    return launch_kernel<CH>(att::attention_tile_long_kernel<S, DP, CH>,      \
-                             B * H, threads, smem, stream, q, ka, va, Lk,     \
+    BFC_TRY(allow_smem(att::attention_tile_long_kernel<S, DP, W, CH>, smem)); \
+    return launch_kernel<CH>(att::attention_tile_long_kernel<S, DP, W, CH>,   \
+                             grid, 32 * lw, smem, stream, q, ka, va, Lk,      \
                              mask, mask_sb, mask_sq, out, H, Lq, Dh, vec);    \
   }
-        if (att::round16(Dh) <= 64) BFC_TILE_LONG(4);
-        BFC_TILE_LONG(8);
+        if (att::round16(Dh) <= 64) {
+          if (wide) BFC_TILE_LONG(4, TILE_LONG_WARPS);
+          BFC_TILE_LONG(4, TILE_WARPS);
+        }
+        if (wide) BFC_TILE_LONG(8, TILE_LONG_WARPS);
+        BFC_TILE_LONG(8, TILE_WARPS);
 #undef BFC_TILE_LONG
       }
 #define BFC_TILE(KT)                                                          \
@@ -1145,6 +1506,21 @@ cudaError_t launch_attention(HeadView<const T> q, HeadView<const T> ka,
         default: return cudaErrorInvalidValue;
       }
 #undef BFC_TILE
+    }
+  }
+  if constexpr (sizeof(T) == 4) {
+    if (path == kPathFfmaLong) {
+      const dim3 grid(B * H, (Lq + FL_ROWS - 1) / FL_ROWS);
+#define BFC_FFMA_LONG(DC)                                                     \
+  {                                                                           \
+    BFC_TRY(allow_smem(att::attention_ffma_long_kernel<S, DC, CH>, smem));    \
+    return launch_kernel<CH>(att::attention_ffma_long_kernel<S, DC, CH>,      \
+                             grid, FL_WARPS * 32, smem, stream, q, ka, va,    \
+                             Lk, mask, mask_sb, mask_sq, out, H, Lq, Dh);     \
+  }
+      if (Dh <= 64) BFC_FFMA_LONG(2);
+      BFC_FFMA_LONG(4);
+#undef BFC_FFMA_LONG
     }
   }
   BFC_TRY(allow_smem(att::attention_ffma_kernel<T, S, CH>, smem));

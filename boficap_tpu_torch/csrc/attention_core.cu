@@ -20,9 +20,11 @@
 //
 // The decode steps that call it have one query row: attention.cuh's row
 // path, one warp a (sample, head) reading K and V from device memory with
-// 16-byte loads, no shared memory, no block barrier.  Wider queries (a
-// plain encode or NA fill under use_pallas) take the tile path at bf16
-// (mma.sync tensor cores) and the FFMA block at float32.
+// 16-byte loads, no shared memory, no block barrier, up to 256 keys (AIC's
+// step over a 14 x 14 grid reads 196).  Wider queries (a plain encode or
+// NA fill under use_pallas, PB_pad's packed decoder) take the tile path at
+// bf16 (mma.sync tensor cores) and at float32 the FFMA block, or past 128
+// keys its tiled form (ffma_long, bitwise the same outputs).
 //
 // Bound on the H100: bytes.  At the AR step's cross-attention (B = 64,
 // H = 8, Lq = 1, Lk = 36, Dh = 64) the call reads 4.85 MB in bf16 (9.70 MB

@@ -26,20 +26,24 @@ finite -1e9 fill (a fully masked row comes out uniform over its Lk keys),
 softmax in float32, the probabilities cast to v's dtype, the context summed
 in float32 and cast to v's dtype.
 
-The kernel (csrc/attention.cuh) takes one of three paths, chosen by
+The kernel (csrc/attention.cuh) takes one of four paths, chosen by
 ``attention_path(Lq, Lk, dtype)`` as the C library chooses it: ``row`` for
-Lq <= LQ_ROW and Lk <= KEY_MAX (the decode steps: one warp a (sample,
+Lq <= LQ_ROW and Lk <= ``row_key_max(dtype)`` (the decode steps, at bf16
+AIC's over a 14 x 14 grid's 196 regions among them: one warp a (sample,
 head), K and V read with 16-byte loads, the score row in registers),
-``tile`` at bf16 otherwise (mma.sync tensor cores), ``ffma`` at float32
-otherwise.  The tile path holds KEY_MAX keys' scores in registers and goes
-over more in chunks of KEY_MAX twice, for each row's max and sum and then
-for p, normalised before it is rounded (PB_pad's packed width reaches 211
-keys); the ffma block keeps its score rows in shared
-memory.  Every path stages in at most the card's 227 KB of shared memory
-a block (``shared_bytes``) and takes heads of at most DH_MAX; every q, k
-and v view's base and strides, and the head width, must be 16-byte
-aligned: ``check_operands`` raises ``ValueError`` otherwise, before any
-launch.
+``tile`` at bf16 otherwise (mma.sync tensor cores), and at float32
+otherwise ``ffma`` up to KEY_MAX keys and ``ffma_long`` past them.  The
+tile path holds KEY_MAX keys' scores in registers and goes over more in
+chunks of KEY_MAX twice, for each row's max and sum and then for p,
+normalised before it is rounded (PB_pad's packed width reaches 211 keys),
+one warp a 16-row query tile and up to 16 of them a block; ``ffma_long``
+is the ffma block's arithmetic, bitwise, on a block a (sample, head, 32
+query rows) with K and V streamed through shared memory in chunks and the
+score rows kept there.  Every path stages in at most the
+card's 227 KB of shared memory a block (``shared_bytes``) and takes heads
+of at most DH_MAX; every q, k and v view's base and strides, and the head
+width, must be 16-byte aligned: ``check_operands`` raises ``ValueError``
+otherwise, before any launch.
 """
 
 from __future__ import annotations
@@ -54,8 +58,9 @@ import torch
 # the attention block's constants, path choice and staging size live
 # beside the layer kernels that share the block; re-exported here
 from .decoder_layer import (_DTYPE_CODE, _I, _LL, _P, DH_MAX, KEY_MAX,
-                            LQ_ROW, PATHS, SMEM_LIMIT, _kernels, _route,
-                            attention_path, shared_bytes)
+                            LQ_ROW, PATHS, ROW_KEY_MAX, SMEM_LIMIT,
+                            _kernels, _route, attention_path, row_key_max,
+                            shared_bytes)
 
 MASK_FILL = -1e9
 
@@ -108,8 +113,8 @@ def check_operands(qh, kh, vh, mask, path: Optional[str] = None) -> None:
     dense, no keys, a head wider than DH_MAX, a q, k or v view whose base,
     strides or head width is not 16-byte aligned (its 16-byte loads), a
     ``path`` forced that the dtype lacks or the row path past the key
-    bound (KEY_MAX: its score row sits in registers), or more shared memory
-    than a block has on the path taken."""
+    bound (``row_key_max``: its score row sits in registers), or more
+    shared memory than a block has on the path taken."""
     if qh.dim() != 4 or kh.dim() != 4 or vh.dim() != 4 or mask.dim() != 3:
         raise ValueError(f"attention_core takes q/k/v of rank 4 and a mask "
                          f"of rank 3, got {qh.dim()}, {kh.dim()}, "
@@ -136,13 +141,14 @@ def check_operands(qh, kh, vh, mask, path: Optional[str] = None) -> None:
                              f"(stride {t.stride(-1)})")
     if Lk == 0 or Dh == 0:
         raise ValueError(f"attention_core needs keys: Lk {Lk}, Dh {Dh}")
-    if path is not None and path not in ("row", "tile" if qh.dtype ==
-                                         torch.bfloat16 else "ffma"):
+    if path is not None and path not in (
+            ("row", "tile") if qh.dtype == torch.bfloat16 else
+            ("row", "ffma", "ffma_long")):
         raise ValueError(f"no {path!r} path at {qh.dtype}")
-    if path == "row" and Lk > KEY_MAX:
+    if path == "row" and Lk > row_key_max(qh.dtype):
         raise ValueError(f"attention_core: {Lk} keys on the row path, over "
-                         f"the key bound {KEY_MAX} (its score row sits in "
-                         f"registers)")
+                         f"the key bound {row_key_max(qh.dtype)} at "
+                         f"{qh.dtype} (its score row sits in registers)")
     if Dh > DH_MAX:
         raise ValueError(f"attention_core: head width {Dh} over {DH_MAX}")
     if Dh * qh.element_size() % 16:
@@ -168,7 +174,8 @@ def attention_core(qh, kh, vh, mask, path: Optional[str] = None):
     output projection.  On CUDA: one launch of csrc/attention_core.cu, whose
     output is a [B,H,Lq,Dh] view of [B,Lq,H,Dh] storage, on
     ``attention_path``'s path; ``path`` ('row', or 'tile' at bf16, 'ffma'
-    at float32) forces one, to time it."""
+    or 'ffma_long' at float32) forces one, to time it or to hold one
+    against another."""
     if not _route(qh, kh, vh):
         return attention_core_plain(qh, kh, vh, mask)
     check_operands(qh, kh, vh, mask, path)

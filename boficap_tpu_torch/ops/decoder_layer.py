@@ -31,9 +31,10 @@ the unbiased variance and eps added to the std; scores / sqrt(Dh), masked
 with the finite -1e9, softmax in float32, probabilities cast to the compute
 dtype (at every key count: past KEY_MAX keys the bf16 attention block goes
 over chunks of KEY_MAX keys twice, for the row's max and sum and then for
-p, normalised before it is rounded); every product sums in float32, casts
-to the compute
-dtype, then adds its bias in that dtype, then ReLU or the residual.  Norm
+p, normalised before it is rounded; the float32 block's outputs are
+bitwise the same on its ffma and ffma_long paths); every product sums in
+float32, casts to the compute dtype, then adds its bias in that dtype,
+then ReLU or the residual.  Norm
 scales and biases stay float32, as the flax modules hold them.
 
 Bounds on the H100 at the serving batch (B = 64, D = 512, d_ff = 2048,
@@ -60,17 +61,24 @@ import torch
 
 MASK_FILL = -1e9
 NORM_EPS = 1e-6
-# the attention block (csrc/attention.cuh) of every kernel: a score row of
-# at most KEY_MAX keys sits in registers (the row path), past it the tile
-# path goes over chunks of KEY_MAX keys in two passes and the ffma
-# block keeps its score rows in shared memory; heads of at most DH_MAX, at
-# most SMEM_LIMIT bytes of shared memory a block (the H100's 227 KB)
+# the attention block (csrc/attention.cuh) of every kernel: one query
+# row's scores sit in registers (the row path: KEY_MAX keys, or
+# ROW_KEY_MAX from one source at bf16); past KEY_MAX keys the tile path
+# goes over chunks of KEY_MAX keys in two passes, one warp a query tile and
+# up to TILE_LONG_WARPS a block, and float32 takes the ffma_long block
+# (FL_ROWS query rows a block, K and V through a ring of two FL_KEYS-key
+# chunks, the score rows in shared memory); heads of at most DH_MAX, at most
+# SMEM_LIMIT bytes of shared memory a block (the H100's 227 KB)
 KEY_MAX = 128
+ROW_KEY_MAX = 256
 DH_MAX = 128
 SMEM_LIMIT = 232448
 ATT_WARPS = 4                       # csrc/attention.cuh: ffma path warps
+TILE_LONG_WARPS = 16                # ... tile path past KEY_MAX: tiles a block
+FL_ROWS = 32                        # ... ffma_long: query rows a block
+FL_KEYS = 32                        # ... ffma_long: keys a K / V chunk
 LQ_ROW = 1                          # csrc/attention.cuh: row path up to here
-PATHS = ("row", "tile", "ffma")     # csrc/attention.cuh AttentionPath
+PATHS = ("row", "tile", "ffma", "ffma_long")   # ... AttentionPath
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -472,16 +480,26 @@ def check_product_shape(dtype, widths: Dict[str, int],
                              f"tensor-core product reads it with TMA")
 
 
+def row_key_max(dtype) -> int:
+    """Keys the row path takes at ``dtype`` (csrc/attention.cuh
+    ``row_key_max``): ROW_KEY_MAX at bf16 (its wide score rows), KEY_MAX at
+    float32 (past it ffma_long is the faster path)."""
+    return ROW_KEY_MAX if dtype == torch.bfloat16 else KEY_MAX
+
+
 def attention_path(Lq: int, Lk: int, dtype) -> Optional[str]:
     """The path of the attention block for an Lq x Lk attention at ``dtype``
     (the C library's ``bfc_attention_path``): 'row' up to LQ_ROW query
-    rows and KEY_MAX keys, else 'tile' at bf16 and 'ffma' at float32; None
-    without keys."""
+    rows and ``row_key_max`` keys, else 'tile' at bf16, and at float32
+    'ffma' up to KEY_MAX keys and 'ffma_long' past them; None without
+    keys."""
     if Lk < 1:
         return None
-    if Lq <= LQ_ROW and Lk <= KEY_MAX:
+    if Lq <= LQ_ROW and Lk <= row_key_max(dtype):
         return "row"
-    return "tile" if dtype == torch.bfloat16 else "ffma"
+    if dtype == torch.bfloat16:
+        return "tile"
+    return "ffma_long" if Lk > KEY_MAX else "ffma"
 
 
 def _round16(n: int) -> int:
@@ -490,17 +508,27 @@ def _round16(n: int) -> int:
 
 def shared_bytes(Lq: int, Lk: int, Dh: int, dtype,
                  path: Optional[str] = None) -> int:
-    """Shared memory of one (sample, head) block on ``path`` (None: the one
+    """Shared memory of one block on ``path`` (None: the one
     ``attention_path`` gives; csrc/attention.cuh ``attention_smem``): none
-    on the row path; the tile path's bf16 Q [16-row tiles][Dh + pad] and
-    K, V [16-key tiles][Dh + pad], rows padded to a multiple of 16 columns
-    plus 8; the ffma path's float32 K [Lk, Dh+1], V [Lk, Dh], Q [Lq, Dh]
-    and a probability row a warp."""
+    on the row path; the tile path's bf16 Q [16-row tiles][Dh + pad] (past
+    KEY_MAX keys one group of TILE_LONG_WARPS tiles) and K, V [16-key
+    tiles][Dh + pad], rows padded to a multiple of 16 columns plus 8; the
+    ffma path's float32 K [Lk, Dh+1], V [Lk, Dh], Q [Lq, Dh] and a
+    probability row a warp; the ffma_long block's float32 Q^T [Dh,
+    FL_ROWS + 4], score rows [FL_ROWS, Lk to a multiple of 4], K/V ring
+    [2, FL_KEYS, Dh + 1] and mask bits [FL_ROWS, Lk / 32 words] (its query
+    tile, not Lq, sets it)."""
     path = path or attention_path(Lq, Lk, dtype)
     if path == "row":
         return 0
     if path == "tile":
-        return 2 * (_round16(Lq) + 2 * _round16(Lk)) * (_round16(Dh) + 8)
+        lq = _round16(Lq)
+        if Lk > KEY_MAX:
+            lq = min(lq, TILE_LONG_WARPS * 16)
+        return 2 * (lq + 2 * _round16(Lk)) * (_round16(Dh) + 8)
+    if path == "ffma_long":
+        return 4 * (Dh * (FL_ROWS + 4) + FL_ROWS * ((Lk + 3) // 4 * 4)
+                    + 2 * FL_KEYS * (Dh + 1) + FL_ROWS * ((Lk + 31) // 32))
     return 4 * (Lk * (Dh + 1) + Lk * Dh + Lq * Dh + ATT_WARPS * Lk)
 
 
@@ -511,9 +539,9 @@ def check_attention_shape(attentions: Dict[str, Tuple[int, int, bool]],
     (query rows, keys, whether the keys are a cache and fresh rows copied
     out, as the window layers' self-attention)) at head width ``Dh`` and
     ``dtype``: heads of at most DH_MAX; past KEY_MAX keys only one key
-    source with no copy (the tile path's chunked kernel takes one); and at
-    most SMEM_LIMIT bytes of shared memory a block on the path taken
-    (``shared_bytes``)."""
+    source with no copy (the bf16 wide row path, the tile path's chunked
+    kernel and ffma_long take one); and at most SMEM_LIMIT bytes of shared
+    memory a block on the path taken (``shared_bytes``)."""
     if Dh > DH_MAX:
         raise ValueError(f"head width {Dh}: the attention block takes heads "
                          f"of at most {DH_MAX}")

@@ -48,7 +48,8 @@ Phases, each printing one JSON line:
               rank-3 mask, float32 and bfloat16, with fully masked rows and
               padded regions: the path attention_path gives (the decode
               steps' cases must take the row path) and every other path of
-              the dtype, forced.
+              the dtype, forced (row and tile at bf16; row, ffma and
+              ffma_long at float32).
   9. ar_decode  configs/transformer.yml at full width, float32, B = 64:
               ar_sample and ar_beam_search (K = 3) with use_pallas on (#9
               on every step's cross-attention) against off (the plain
@@ -163,8 +164,10 @@ Phases, each printing one JSON line:
               predictor and the packed decoder with #9 against plain on
               the same layout; each decode's ms (kernels and plain) on a
               line of its own with the card.  #9 alone at Lq = Lk = 129,
-              211, 256 and at 211 x 36, both dtypes, against its twin
-              (the row path forced raises), with ms, bound and SDPA.  One
+              211, 256 and at 211 x 36, both dtypes, against its twin,
+              with its path, ms, bound, plain and SDPA ms, and each other
+              path of the dtype forced where it fits (at float32 the ffma
+              block beside ffma_long).  One
               float32 PB XE step card vs CPU on a 10 x 5 batch and 10 bf16
               steps whose loss falls; eval_split through model.ckpt at the
               lossless width on the kernels against plain; the model as a
@@ -212,7 +215,13 @@ Phases, each printing one JSON line:
               refnorm at 512 and 2304 rows against its byte bound; host µs
               of a layer, a stack and a window-stack call at bf16 and
               float32; #1, #2, #4-#8 and #9 over 196 regions (ms, bound,
-              plain, SDPA + matmul), the trunk's ms an image and the raw
+              plain, SDPA + matmul; #9's path and its other paths forced),
+              #1's, #2's, #5's and #8's float32 device time over 196
+              regions split as above (every attention past 128 keys on
+              ffma_long), the attention block alone past 128 keys (211 x
+              211, 196 x 196, 20 x 196, 8 x 196, 1 x 196: path, ms,
+              bound, plain, SDPA, each other path forced where it fits),
+              the trunk's ms an image and the raw
               eval's images/s, kernels against plain; the head gate: #3
               against the plain head (model.generate, argmax, token
               log-prob, entropy) at B * L = 20-1280 rows, bf16 and
@@ -1200,18 +1209,42 @@ def attention_cases(dtype, seed: int = 21, regions: int = R):
 ROW_CASES = ("ar_cross", "bound_self", "beam_cross")
 
 
+def dtype_paths(dtype):
+    """The attention block's paths at ``dtype`` (ops.attention.PATHS)."""
+    return (("row", "tile") if dtype == torch.bfloat16 else
+            ("row", "ffma", "ffma_long"))
+
+
+def other_paths_ms(q, k, v, m, dtype) -> dict:
+    """#9's device ms on each path of the dtype but attention_path's,
+    forced, where the wrapper takes it (the row path past its key bound and
+    a block past the shared memory are refused before any launch)."""
+    from boficap_tpu_torch.ops import attention as at
+    path = at.attention_path(q.shape[2], k.shape[2], dtype)
+    out = {}
+    for p in dtype_paths(dtype):
+        if p == path:
+            continue
+        try:
+            at.check_operands(q, k, v, m, p)
+        except ValueError:
+            continue
+        out[p] = device_ms(lambda p=p: at.attention_core(q, k, v, m, path=p))
+    return out
+
+
 def check_attention():
     """#9 against its plain twin on every case, float32 and bfloat16: the
     path attention_path gives (the decode steps' cases: the row path), and
-    each other path the dtype has (row and tile at bf16, row and ffma at
-    float32), forced, each within TOL."""
+    each other path the dtype has (row and tile at bf16, row, ffma and
+    ffma_long at float32), forced, each within TOL."""
     from boficap_tpu_torch.ops import attention as at
     res = {}
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
         tol = TOL[dtype_name]
         res[dtype_name] = {}
-        paths = ("row", "tile" if dtype == torch.bfloat16 else "ffma")
+        paths = dtype_paths(dtype)
         for name, (q, k, v, m) in attention_cases(dtype).items():
             path = at.attention_path(q.shape[2], k.shape[2], dtype)
             if name in ROW_CASES and path != "row":
@@ -3513,13 +3546,17 @@ def check_pb_decode(model, dtype_name: str, att, am, W: int) -> dict:
 
 @torch.no_grad()
 def check_pb_attention() -> dict:
-    """#9 alone past the row path's key bound, B = 64, H = 8, Dh = 64:
-    the path attention_path gives (tile at bf16: two passes over
-    chunks of 128 keys; ffma at float32) and that path forced, against the
-    plain twin within TOL (at bf16 past 128 keys also in all but at most
+    """#9 alone past 128 keys, B = 64, H = 8, Dh = 64: the path
+    attention_path gives (tile at bf16: two passes over chunks of 128 keys;
+    ffma_long at float32) and that path forced, against the plain twin
+    within TOL (at bf16 past 128 keys also in all but at most
     CORE_LONG_SHARE of the elements), a fully masked sample and row among the
-    operands; the row path forced raises ValueError.  Device ms of the
-    kernel, the plain twin and SDPA (the yardstick), and the byte bound."""
+    operands; the row path forced past its key bound (at.row_key_max)
+    raises ValueError.
+    Device ms of the kernel, of each other path of the dtype forced where
+    it fits (``by_path_ms``: at float32 the ffma block, the path these
+    shapes took before ffma_long), the plain twin and SDPA (the
+    yardstick), and the bound."""
     from boficap_tpu_torch.ops import attention as at
     g = torch.Generator().manual_seed(41)
     H, Dh = 8, D // 8
@@ -3552,7 +3589,7 @@ def check_pb_attention() -> dict:
                     "rel_err": e, "max_abs_err": (got.float() - want.float())
                     .abs().max().item(),
                     **core_long_check(got, want, Lq, Lk, dtype)}
-            if Lk > at.KEY_MAX:
+            if Lk > at.row_key_max(dtype):
                 try:
                     at.attention_core(q, k, v, m, path="row")
                     fail(f"attention_core {Lq}x{Lk}: the row path took "
@@ -3565,6 +3602,7 @@ def check_pb_attention() -> dict:
                 "tolerance_rel": TOL[dtype_name],
                 "shared_bytes": at.shared_bytes(Lq, Lk, Dh, dtype),
                 "ms": device_ms(lambda: at.attention_core(q, k, v, m)),
+                "by_path_ms": other_paths_ms(q, k, v, m, dtype),
                 "plain_ms": device_ms(lambda: at.attention_core_plain(
                     q, k, v, m)),
                 "library_ms": device_ms(lambda: library_attention(q, k, v,
@@ -4218,7 +4256,8 @@ def check_grid_kernels(model, short=None) -> dict:
     (check_window_kernels) over GRID regions at B = 64, float32 and
     bfloat16, padded regions and a fully masked sample among them, #5
     called STACK_REPEATS times bitwise equal; #9 at the AR step's
-    cross-attention over GRID keys (tile at bf16, ffma at float32).  Each
+    cross-attention over GRID keys (the row path's wide score rows at
+    bf16, ffma_long at float32).  Each
     is held to TOL, the tolerance the same kernel meets at R regions,
     printed beside it with that reading (``short``: phase kernels' errors
     by dtype and kernel, #9's its ar_cross case)."""
@@ -4790,18 +4829,42 @@ def measure(model, model16):
     return res
 
 
+def grid_attentions(regions: int = GRID) -> dict:
+    """(Lq, Lk) of each attention of the GRID_KERNELS over ``regions``
+    regions, by kernel and role."""
+    narrow = {"self": (W_NARROW, L + W_NARROW), "cross": (W_NARROW, regions)}
+    decoder = {"self": (L, L), "cross": (L, regions)}
+    return {"attention_core": {"cross": (1, regions)},
+            "encoder_layer": {"self": (regions, regions)},
+            "encoder_stack": {"self": (regions, regions)},
+            "decoder_layer": decoder, "decoder_stack": decoder,
+            "window_layer": narrow, "window_stack": narrow,
+            "window_wide_stack": decoder}
+
+
 @torch.no_grad()
 def measure_grid(model) -> dict:
     """GRID_KERNELS over a 196-region memory at B = 64 (#9 at the AR
     step's cross-attention, 1 x 196), each beside its bound, its plain
-    twin and its library yardstick, float32 and bfloat16."""
+    twin and its library yardstick, float32 and bfloat16, with the path of
+    each of its attentions (``attention_paths``); #9 also on each other
+    path of the dtype, forced where it fits (``by_path_ms``)."""
+    from boficap_tpu_torch.ops import attention as at
     out = {}
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
         table = kernel_table(model, dtype, GRID)
-        out[dtype_name] = time_table(
+        out[dtype_name] = rows = time_table(
             {name: table[name] for name in GRID_KERNELS},
             bounds(dtype_name, 4 if dtype_name == "float32" else 2, GRID))
+        for name, roles in grid_attentions().items():
+            rows[name]["attention_paths"] = {
+                role: at.attention_path(Lq, Lk, dtype)
+                for role, (Lq, Lk) in roles.items()}
+        q, k, v, m = attention_cases(dtype, regions=GRID)["ar_cross"]
+        rows["attention_core"]["path"] = at.attention_path(1, GRID, dtype)
+        rows["attention_core"]["by_path_ms"] = other_paths_ms(q, k, v, m,
+                                                              dtype)
     return out
 
 
@@ -4864,6 +4927,12 @@ def attention_bound(q, k, v, m, dtype_name: str):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# the attention block past 128 keys: PB_pad's lossless packed width; a
+# 14 x 14 grid's encoder self-attention, decoder and narrow-round
+# cross-attention, and AIC's step over it
+LONG_ATTENTION = ((211, 211), (196, 196), (20, 196), (8, 196), (1, 196))
+
+
 @torch.no_grad()
 def measure_attention_paths():
     """The attention block alone (through attention_core) at each caller's
@@ -4871,9 +4940,12 @@ def measure_attention_paths():
     kernels' attentions (the encoder's 36 x 36; the decoder's and the wide
     window round's 20 x 20 and 20 x 36; the narrow round's 8 x 28, its
     cache and window read as one source, and 8 x 36), each with the path it
-    takes, ms, byte bound and share, and SDPA as the yardstick.  Then the
-    row path's edge: Lq = 1, 2, 4 and 8 over 36 keys on each path the dtype
-    has, forced (LQ_ROW is the largest Lq at which the row path wins)."""
+    takes, ms, byte bound and share, and SDPA as the yardstick; and past 128
+    keys (LONG_ATTENTION) the same with the plain twin's ms and each other
+    path of the dtype forced where it fits.  Then the row path's edge: Lq =
+    1, 2, 4 and 8 over 36 keys on the row path and the tile (bf16) or ffma
+    (float32) block, forced (LQ_ROW is the largest Lq at which the row path
+    wins)."""
     from boficap_tpu_torch.ops import attention as at
     g = torch.Generator().manual_seed(23)
     H, Dh = 8, D // 8
@@ -4903,6 +4975,19 @@ def measure_attention_paths():
                 "path": at.attention_path(q.shape[2], k.shape[2], dtype),
                 "ms": ms, "bound_ms": bound, "bound_by": by,
                 "share_of_bound": bound / ms,
+                "sdpa_ms": device_ms(lambda: library_attention(q, k, v, m))}
+        for Lq, Lk in LONG_ATTENTION:
+            q, k, v, m = operands(dtype, Lq, Lk)
+            bound, by = attention_bound(q, k, v, m, dtype_name)
+            ms = device_ms(lambda: at.attention_core(q, k, v, m))
+            res[f"long_{Lq}x{Lk}"] = {
+                "lq_lk_b": [Lq, Lk, B],
+                "path": at.attention_path(Lq, Lk, dtype),
+                "ms": ms, "bound_ms": bound, "bound_by": by,
+                "share_of_bound": bound / ms,
+                "by_path_ms": other_paths_ms(q, k, v, m, dtype),
+                "plain_ms": device_ms(
+                    lambda: at.attention_core_plain(q, k, v, m)),
                 "sdpa_ms": device_ms(lambda: library_attention(q, k, v, m))}
         paths = ("row", "tile" if dtype == torch.bfloat16 else "ffma")
         sweep = res["lq_row_sweep"] = {}
@@ -4994,39 +5079,44 @@ def profile_split(fn, parts, reps: int = 10, tries: int = 5):
 
 
 @torch.no_grad()
-def layer_split(model, dtype, reps: int = 10):
+def layer_split(model, dtype, reps: int = 10, regions: int = R):
     """Where the device time of a layer, stack or round goes, by building
     block a call: the tensor-core products, the FFMA products, attention by
-    path (tile: 'attention'; ffma; row), refnorm, and other (the wrappers'
-    final norm in torch), with launches a call, held to ``want`` by kind.
-    bf16: #1, #2 (a layer), #5 (the NA decoder stack, ``decoder_launches``)
-    and #6, #7 (a round of six layers), every product on the tensor cores,
-    every attention on the tile path.  float32: #8 (one window layer) and
-    #5, every product on FFMA, every attention on the ffma path.  Each
-    entry also has device_ms (``device_ms``: the call alone) and gap_ms,
-    device_ms less the sum of its kernels' own times: the dead time between
-    dependent launches (less any overlap of chained ones)."""
+    kernel (tile: 'attention', and past 128 keys 'attention_tile_long';
+    ffma, ffma_long; row), refnorm, and other (the wrappers' final norm in
+    torch), with launches a call, held to ``want`` by kind, each attention
+    on the path attention_path gives it over ``regions`` regions.  bf16:
+    #1, #2 (a layer), #5 (the NA decoder stack, ``decoder_launches``) and
+    #6, #7 (a round of six layers), every product on the tensor cores.
+    float32: #1, #2, #8 (one window layer) and #5, every product on FFMA.
+    Each entry also has device_ms (``device_ms``: the call alone) and
+    gap_ms, device_ms less the sum of its kernels' own times: the dead time
+    between dependent launches (less any overlap of chained ones)."""
+    from boficap_tpu_torch.ops import attention as at
     from boficap_tpu_torch.ops import decoder_layer as dl
     from boficap_tpu_torch.ops import stack as st
     H = model.num_heads
-    xn, kc, vc, k2, v2, ws, tgn, srn = window_inputs(dtype, W_NARROW, 14)
+    xn, kc, vc, k2, v2, ws, tgn, srn = window_inputs(dtype, W_NARROW, 14,
+                                                      regions=regions)
     pack = st.pack_window_weights(model._decoder("SA"), dtype)
     dec = st.pack_decoder_stack(model._decoder("NA"), dtype)
-    x_enc, src, x_dec, mem, tgt, _ = layer_inputs(dtype, 4)
-    calls = {"decoder_stack": lambda: st.fused_decoder_stack_forward(
-        x_dec, mem, tgt, src, dec.stack, dec.final_norm, H)}
+    enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
+    dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
+    x_enc, src, x_dec, mem, tgt, _ = layer_inputs(dtype, 4, regions)
+    calls = {
+        "encoder_layer": lambda: dl.fused_encoder_layer(x_enc, src, enc_w,
+                                                        H),
+        "decoder_layer": lambda: dl.fused_decoder_layer(
+            x_dec, mem, tgt, src, dec_w, H),
+        "decoder_stack": lambda: st.fused_decoder_stack_forward(
+            x_dec, mem, tgt, src, dec.stack, dec.final_norm, H)}
     if dtype == torch.float32:
         calls["window_layer"] = lambda: dl.fused_window_decoder_layer(
             xn, kc[0], vc[0], k2[0], v2[0], tgn, srn, pack.layers[0], H)
     else:
-        enc_w = dl.pack_encoder_layer(model.encoder.layer0, dtype)
-        dec_w = dl.pack_layer_weights(model.decoder0.layer0, dtype)
-        xw, _, _, _, _, _, tgw, srw = window_inputs(dtype, L, 15, wide=True)
+        xw, _, _, _, _, _, tgw, srw = window_inputs(dtype, L, 15, wide=True,
+                                                    regions=regions)
         calls.update({
-            "encoder_layer": lambda: dl.fused_encoder_layer(
-                x_enc, src, enc_w, H),
-            "decoder_layer": lambda: dl.fused_decoder_layer(
-                x_dec, mem, tgt, src, dec_w, H),
             "window_stack": lambda: st.fused_window_decoder_stack(
                 xn, ws, kc, vc, k2, v2, tgn, srn, pack.stack,
                 pack.final_norm, H),
@@ -5034,34 +5124,49 @@ def layer_split(model, dtype, reps: int = 10):
                 xw, k2, v2, tgw, srw, pack.stack, pack.final_norm, H)})
     parts = {"products": "gemm_tc_kernel", "ffma_products": "ffma_gemm_kernel",
              "attention": "attention_tile_kernel",
+             "attention_tile_long": "attention_tile_long_kernel",
              "attention_ffma": "attention_ffma_kernel",
+             "attention_ffma_long": "attention_ffma_long_kernel",
              "attention_row": "attention_row_kernel",
              "refnorm": "refnorm_kernel"}
-    bf16 = dtype == torch.bfloat16
-    prod, att = (("products", "attention") if bf16
-                 else ("ffma_products", "attention_ffma"))
+    prod = "products" if dtype == torch.bfloat16 else "ffma_products"
 
-    def by_kind(k):
-        return {prod: k["products"], att: k["attention"],
-                "refnorm": k["refnorm"]}
+    def attention_part(Lq, Lk):
+        path = at.attention_path(Lq, Lk, dtype)
+        if path == "tile":
+            return "attention" if Lk <= at.KEY_MAX else "attention_tile_long"
+        return f"attention_{path}"
 
-    window = {prod: 6, att: 2, "refnorm": 3}
+    def kinds(products, refnorm, roles, layers=1):
+        """Launches by kind: ``layers`` attentions of each role."""
+        want = {prod: products, "refnorm": refnorm}
+        for Lq, Lk in roles.values():
+            part = attention_part(Lq, Lk)
+            want[part] = want.get(part, 0) + layers
+        return want
+
     # the port's launches a call by kind: an encoder layer 7, a window
     # layer 11, a decoder layer and stack as decoder_launches says
-    want = {"encoder_layer": {prod: 4, att: 1, "refnorm": 2},
-            "decoder_layer": by_kind(dl.decoder_launches()),
-            "decoder_stack": by_kind(dl.decoder_launches(NL)),
-            "window_layer": window,
-            "window_stack": {k: NL * v for k, v in window.items()},
-            "window_wide_stack": {k: NL * v for k, v in window.items()}}
+    roles = grid_attentions(regions)
+    layer, stack = dl.decoder_launches(), dl.decoder_launches(NL)
+    want = {"encoder_layer": kinds(4, 2, roles["encoder_layer"]),
+            "decoder_layer": kinds(layer["products"], layer["refnorm"],
+                                   roles["decoder_layer"]),
+            "decoder_stack": kinds(stack["products"], stack["refnorm"],
+                                   roles["decoder_stack"], NL),
+            "window_layer": kinds(6, 3, roles["window_layer"]),
+            "window_stack": kinds(6 * NL, 3 * NL, roles["window_stack"], NL),
+            "window_wide_stack": kinds(6 * NL, 3 * NL,
+                                       roles["window_wide_stack"], NL)}
     out = {}
     for name, fn in calls.items():
         out[name] = split = profile_split(fn, parts, reps)
         launches = split["launches"]
         got = {k: launches[k] for k in parts if launches[k]}
-        if got != want[name]:
-            fail(f"layer_split {name} {dtype}: {launches} (want "
-                 f"{want[name]} launches of the port's kernels)")
+        if got != {k: v for k, v in want[name].items() if v}:
+            fail(f"layer_split {name} {dtype} over {regions} regions: "
+                 f"{launches} (want {want[name]} launches of the port's "
+                 f"kernels)")
         split["want"] = want[name]
         split["device_ms"] = device_ms(fn)
         split["gap_ms"] = split["device_ms"] - sum(
@@ -5967,6 +6072,8 @@ def run_phases(smi: str):
     times["products_float32"] = measure_products(torch.float32)
     times["layer_split_bf16"] = layer_split(model, torch.bfloat16)
     times["layer_split_float32"] = layer_split(model, torch.float32)
+    times["layer_split_float32_196"] = layer_split(model, torch.float32,
+                                                   regions=GRID)
     times["head_split"] = head_split(model)
     times["attention_paths"] = measure_attention_paths()
     times["refnorm"] = measure_refnorm()
@@ -6035,13 +6142,15 @@ def run_phases(smi: str):
             "raw_launches": raw_launches.get(name, 0),
             "mesh_serve_launches": mesh_launches.get(name, 0)})
         if name in GRID_KERNELS:
-            # past the row path's 128 keys: the 196-region memory of a
-            # 14 x 14 image grid (phase raw's check, phase times' numbers)
+            # past 128 keys: the 196-region memory of a 14 x 14 image grid
+            # (phase raw's check, phase times' numbers; #9's other paths)
+            grid = times["past_key_bound_196"]
             kernels[-1]["past_key_bound_196"] = {
                 dt: {"max_abs_err": raw["kernels"][dt][name]["max_abs_err"],
-                     **{key: times["past_key_bound_196"][dt][name][key]
+                     **{key: grid[dt][name][key]
                         for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")}}
+                                    "library_ms", "attention_paths",
+                                    "by_path_ms") if key in grid[dt][name]}}
                 for dt in ("float32", "bfloat16")}
         if name in ("encoder_layer", "decoder_layer"):
             # #1 and #2 at bf16 run at B > 128: the B = 256 NA decode
@@ -6051,8 +6160,8 @@ def run_phases(smi: str):
             # past the row path's 128 keys: PB_pad's packed widths
             kernels[-1]["pb_past_key_bound"] = {
                 case: {key: r[key] for key in (
-                    "path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms")}
+                    "path", "max_abs_err", "ms", "by_path_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")}
                 for case, r in pb_res["attention_past_key_bound"].items()}
     return kernels
 

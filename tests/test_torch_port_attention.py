@@ -146,19 +146,27 @@ def test_check_operands_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_check_operands_key_bound_and_alignment(dtype):
-    """The row path forced past the key bound (its score row sits in
-    registers), and a q, k or v view whose base, row stride or head width
-    is not 16-byte aligned, raise ValueError before any launch; the bound
-    itself on the row path, more keys on the path attention_path gives
-    (tile or ffma), and the aligned views attend hands over pass."""
+    """The row path forced past its key bound (row_key_max: ROW_KEY_MAX at
+    bf16, KEY_MAX at float32; its score row sits in registers), and a q, k
+    or v view whose base, row stride or head width is not 16-byte aligned,
+    raise ValueError before any launch; the bound itself on the row path
+    (and KEY_MAX + 1, a wide row at bf16), more keys on the path
+    attention_path gives (tile or ffma_long), and the aligned views attend
+    hands over pass."""
     B, H, Lq, Dh = 2, 2, 1, 32
+    bound = at.row_key_max(dtype)
+    assert bound == (at.ROW_KEY_MAX if dtype == torch.bfloat16 else
+                     at.KEY_MAX)
     q = torch.zeros(B, H, Lq, Dh, dtype=dtype)
-    edge = torch.zeros(B, H, at.KEY_MAX, Dh, dtype=dtype)
-    at.check_operands(q, edge, edge, torch.ones(B, Lq, at.KEY_MAX,
-                                                dtype=torch.bool), "row")
-    over = torch.zeros(B, H, at.KEY_MAX + 1, Dh, dtype=dtype)
-    m_over = torch.ones(B, Lq, at.KEY_MAX + 1, dtype=torch.bool)
+    for n in sorted({min(at.KEY_MAX + 1, bound), bound}):
+        edge = torch.zeros(B, H, n, Dh, dtype=dtype)
+        at.check_operands(q, edge, edge, torch.ones(B, Lq, n,
+                                                    dtype=torch.bool), "row")
+    over = torch.zeros(B, H, bound + 1, Dh, dtype=dtype)
+    m_over = torch.ones(B, Lq, bound + 1, dtype=torch.bool)
     at.check_operands(q, over, over, m_over)
+    assert at.attention_path(Lq, bound + 1, dtype) == (
+        "tile" if dtype == torch.bfloat16 else "ffma_long")
     with pytest.raises(ValueError, match="key bound"):
         at.check_operands(q, over, over, m_over, "row")
     Lk = 5
@@ -184,7 +192,9 @@ def test_check_operands_key_bound_and_alignment(dtype):
 
 # (Lq, Lk) of every caller of the attention block at the serving shapes:
 # the attention core's cases (chip_smoke.attention_cases) and the layer
-# kernels' attentions, with the path each takes (LQ_ROW = 1)
+# kernels' attentions, with the path each takes (LQ_ROW = 1; one bf16
+# query row on the row path up to ROW_KEY_MAX keys, float32 past KEY_MAX
+# keys on ffma_long)
 CALLERS = {
     "ar_cross": (1, 36, "row", "row"),
     "bound_self": (1, 22, "row", "row"),
@@ -197,14 +207,22 @@ CALLERS = {
     "narrow_cross": (8, 36, "ffma", "tile"),
     "wide_self": (20, 20, "ffma", "tile"),
     "wide_cross": (20, 36, "ffma", "tile"),
-    "past_the_key_bound": (1, 129, "ffma", "tile"),
+    "past_the_key_bound": (1, 129, "ffma_long", "row"),
+    "past_the_row_bound": (1, 257, "ffma_long", "tile"),
     # PB_pad: the predictor's self-attention over L + 2 slots, the packed
     # decoder's self-attention at the default and the lossless width, and
     # its cross-attention
     "pb_predictor": (22, 22, "ffma", "tile"),
     "pb_self_default": (44, 44, "ffma", "tile"),
-    "pb_self_lossless": (211, 211, "ffma", "tile"),
+    "pb_self_lossless": (211, 211, "ffma_long", "tile"),
     "pb_cross_lossless": (211, 36, "ffma", "tile"),
+    # a 14 x 14 image grid (196 regions): AIC's AR step (grid_cross), the
+    # encoder's self-attention, the decoder's and the wide round's
+    # cross-attention, the narrow round's
+    "grid_cross": (1, 196, "ffma_long", "row"),
+    "grid_encoder_self": (196, 196, "ffma_long", "tile"),
+    "grid_decoder_cross": (20, 196, "ffma_long", "tile"),
+    "grid_narrow_cross": (8, 196, "ffma_long", "tile"),
     "no_keys": (3, 0, None, None),
 }
 
@@ -227,22 +245,63 @@ def test_attention_path_for_every_caller(caller, dtype):
     (8, 128, 128, torch.bfloat16, 2 * (16 + 2 * 128) * 136),
     (20, 20, 64, torch.float32,                        # ffma, float32 rows
      4 * (20 * 65 + 20 * 64 + 20 * 64 + 4 * 20)),
-    (3, 500, 64, torch.float32,                        # past the key bound
-     4 * (500 * 65 + 500 * 64 + 3 * 64 + 4 * 500)),
+    # past the key bound at float32: ffma_long's Q^T [Dh][32 + 4], score
+    # rows [32][Lk to 4], K/V ring [2][32][Dh + 1] and mask bits [32][Lk /
+    # 32 words], whatever Lq
+    (3, 500, 64, torch.float32,
+     4 * (64 * 36 + 32 * 500 + 2 * 32 * 65 + 32 * 16)),
     # PB_pad's lossless packed width, and 256 keys: past 48 KB on both
-    # paths (the kernels opt in to the larger carve-out)
-    (211, 211, 64, torch.float32, 166268),
-    (211, 211, 64, torch.bfloat16, 96768),
-    (256, 256, 64, torch.float32, 201728),
-    (256, 256, 64, torch.bfloat16, 110592),
-    (1, 129, 64, torch.bfloat16, 2 * (16 + 2 * 144) * 72),  # no row path
+    # paths (the kernels opt in to the larger carve-out); bf16 past the key
+    # bound stages the query rows of one group of up to 16 tiles
+    (211, 211, 64, torch.float32,
+     4 * (64 * 36 + 32 * 212 + 2 * 32 * 65 + 32 * 7)),
+    (211, 211, 64, torch.bfloat16, 2 * (224 + 2 * 224) * 72),
+    (256, 256, 64, torch.float32,
+     4 * (64 * 36 + 32 * 256 + 2 * 32 * 65 + 32 * 8)),
+    (256, 256, 64, torch.bfloat16, 2 * (256 + 2 * 256) * 72),
+    (300, 196, 64, torch.bfloat16, 2 * (256 + 2 * 208) * 72),
+    (20, 196, 64, torch.bfloat16, 2 * (32 + 2 * 208) * 72),
+    (1, 129, 64, torch.bfloat16, 0),         # one query row: the wide row
+    (1, 196, 64, torch.float32,              # ... at float32: ffma_long
+     4 * (64 * 36 + 32 * 196 + 2 * 32 * 65 + 32 * 7)),
+    (1, 257, 64, torch.bfloat16, 2 * (16 + 2 * 272) * 72),  # past it
 ])
 def test_shared_bytes_follow_the_staging(Lq, Lk, Dh, dtype, want):
     """A block's shared memory on each path: none on the row path; bf16 Q,
     K and V tiles of 16 rows, each row padded to a multiple of 16 columns
     plus 8 (ldmatrix without bank conflicts) on the tile path; the float32
-    staging of the ffma block."""
+    staging of the ffma block, and of the ffma_long block past KEY_MAX
+    keys."""
     assert at.shared_bytes(Lq, Lk, Dh, dtype) == want
+
+
+@pytest.mark.parametrize("Lq,Lk", [(1, 196), (211, 211), (196, 196),
+                                   (20, 196)])
+def test_attention_core_float32_past_key_bound_matches_jax(Lq, Lk):
+    """The attention core's twin at float32 past 128 keys, on the shapes of
+    the ffma_long block (AIC's step over a 14 x 14 grid, PB_pad's lossless
+    packed width, the encoder's self-attention and a cross-attention over
+    196 regions), against the JAX kernel in
+    interpret mode at Dh = 64, padded keys, a fully masked sample and a
+    fully masked row among them: within 1e-5."""
+    rs = np.random.RandomState(Lq + Lk)
+    B, H, Dh = 3, 2, 64
+    q, k, v = (rs.randn(B, H, n, Dh).astype(np.float32)
+               for n in (Lq, Lk, Lk))
+    mask = np.broadcast_to(
+        np.arange(Lk)[None, None, :] < np.array([Lk, 150, 0])[:, None, None],
+        (B, Lq, Lk)).copy()
+    mask[1, Lq - 1] = False
+    want = jax_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    jnp.asarray(mask), interpret=True)
+    got = at.attention_core(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), torch.from_numpy(mask))
+    assert at.attention_path(Lq, Lk, torch.float32) == "ffma_long"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    for b, i in ((2, 0), (1, Lq - 1)):
+        np.testing.assert_allclose(got[b, :, i].numpy(), v[b].mean(axis=1),
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("Lk", [1, 36, 128])

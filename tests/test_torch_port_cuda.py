@@ -23,11 +23,15 @@ method's draws from a CUDA generator follow their closed form.  The
 remaining decoders: NNAIC on the kernels gives the plain path's captions
 at float32, its length-0 rows (every key masked) included; diverse beam
 search with the attention core gives the plain attend's beams.  The
-attention core past 128 keys (129, 211 and 256) on the tile and ffma paths
-against its twin, and the PB_pad decode with the core against the plain
-path at a packed width of 211.  AoANet: its greedy decode with the core
-(#9 on the refiner's self-attentions and every step's decoder attention)
-against the plain path at float32, with the launch count.
+attention core past 128 keys (129, 211 and 256) on the tile and ffma_long
+paths and one bf16 query row on the row path up to 256 keys against its
+twin, ffma_long bitwise the ffma block, and the outputs past 128 keys (the
+core, #1 and #2 over 196 regions) bitwise those of the parent of that
+redesign (frozen digests of tests/_torch_port_long_digests.py); the PB_pad
+decode with the core against the plain path at a packed width of 211.  AoANet: its
+greedy decode with the core (#9 on the refiner's self-attentions and every
+step's decoder attention) against the plain path at float32, with the
+launch count.
 """
 
 import pytest
@@ -677,7 +681,8 @@ ATTENTION_SHAPES = [(1, 36), (1, 22), (2, 36), (3, 36), (8, 28), (20, 20),
 
 
 def _paths(dtype):
-    return ("row", "tile") if dtype == torch.bfloat16 else ("row", "ffma")
+    return (("row", "tile") if dtype == torch.bfloat16 else
+            ("row", "ffma", "ffma_long"))
 
 
 def _attention_operands(cuda, dtype, B, Lq, Lk, seed=5, H=8, Dh=64):
@@ -701,10 +706,10 @@ def _attention_operands(cuda, dtype, B, Lq, Lk, seed=5, H=8, Dh=64):
 @pytest.mark.parametrize("Lq,Lk", ATTENTION_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_paths_against_plain(cuda, dtype, Lq, Lk):
-    """Each path the dtype has (row and tile at bf16, row and ffma at
-    float32), forced through attention_core, against the plain twin at each
-    caller's shape; the path left to itself is attention_path's, and one
-    launch is counted a call."""
+    """Each path the dtype has (row and tile at bf16, row, ffma and
+    ffma_long at float32), forced through attention_core, against the plain
+    twin at each caller's shape; the path left to itself is
+    attention_path's, and one launch is counted a call."""
     from boficap_tpu_torch.ops import attention as at
     q, k, v, m = _attention_operands(cuda, dtype, 6, Lq, Lk)
     want = at.attention_core_plain(q, k, v, m)
@@ -714,7 +719,7 @@ def test_attention_paths_against_plain(cuda, dtype, Lq, Lk):
         torch.cuda.synchronize()
         assert torch.isfinite(got.float()).all()
         assert _rel(got, want) < TOL[dtype], path
-    assert at.attention_core.launches == 3
+    assert at.attention_core.launches == 1 + len(_paths(dtype))
     assert at.attention_path(Lq, Lk, dtype) in _paths(dtype)
 
 
@@ -780,7 +785,8 @@ def test_attention_path_choice_matches_c(cuda):
     lib = kernels().attention_core
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         for Lq in range(1, 41):
-            for Lk in (1, 8, 22, 28, 36, 127, 128, 129):
+            for Lk in (1, 8, 22, 28, 36, 127, 128, 129, 196, 211, 255, 256,
+                       257, 500):
                 c = lib.bfc_attention_path(Lq, Lk, code)
                 py = at.attention_path(Lq, Lk, dtype)
                 assert (None if c < 0 else at.PATHS[c]) == py, (Lq, Lk)
@@ -1185,29 +1191,143 @@ def test_diverse_beam_search_core_matches_plain(cuda):
 
 
 @pytest.mark.parametrize("Lq,Lk", [(129, 129), (211, 211), (256, 256),
-                                   (1, 211), (211, 36)])
+                                   (1, 211), (211, 36), (1, 257)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_past_key_bound_against_plain(cuda, dtype, Lq, Lk):
-    """The attention core past the row path's 128 keys (PB_pad's lossless
-    packed width is 211): the path attention_path gives (tile at bf16, with
-    two passes over chunks of 128 keys; ffma at float32), and that
-    path forced, against the plain twin, with a fully masked sample and
-    row; the row path forced raises ValueError before any launch."""
+    """The attention core past the 128 keys of the short paths (PB_pad's
+    lossless packed width is 211): the path attention_path gives (one query
+    row: the row path up to 256 keys at bf16; tile at bf16, with two passes
+    over chunks of 128 keys; ffma_long at float32), and that path forced,
+    against the plain twin, with a fully masked sample and row; the row
+    path forced past its key bound (256 keys at bf16, 128 at float32)
+    raises ValueError before any launch."""
     from boficap_tpu_torch.ops import attention as at
     q, k, v, m = _attention_operands(cuda, dtype, 6, Lq, Lk)
     want = at.attention_core_plain(q, k, v, m)
     path = at.attention_path(Lq, Lk, dtype)
-    assert path == ("tile" if dtype == torch.bfloat16 else "ffma")
+    if Lq == 1 and Lk <= at.row_key_max(dtype):
+        assert path == "row"
+    elif dtype == torch.bfloat16:
+        assert path == "tile"
+    else:
+        assert path == ("ffma_long" if Lk > at.KEY_MAX else "ffma")
     at.attention_core.launches = 0
     for forced in (None, path):
         got = at.attention_core(q, k, v, m, path=forced)
         torch.cuda.synchronize()
         assert torch.isfinite(got.float()).all()
         assert _rel(got, want) < TOL[dtype], forced
-    if Lk > at.KEY_MAX:
+    if Lk > at.row_key_max(dtype):
         with pytest.raises(ValueError, match="key bound"):
             at.attention_core(q, k, v, m, path="row")
     assert at.attention_core.launches == 2
+
+
+@pytest.mark.parametrize("Lq,Lk,Dh", [(211, 211, 64), (196, 196, 64),
+                                      (20, 196, 64), (8, 196, 64),
+                                      (1, 196, 64), (256, 256, 64),
+                                      (3, 500, 64),
+                                      (33, 150, 96), (40, 129, 40),
+                                      (5, 20, 64)])
+def test_ffma_long_bitwise_ffma_block(cuda, Lq, Lk, Dh):
+    """float32: the ffma_long block (its grid over query tiles, K and V
+    streamed in chunks, register-tiled products) is bitwise the ffma block,
+    forced, where the ffma block fits its staging (not at 3 x 500: there
+    the twin within TOL, the ffma block refused before any launch), with a
+    fully masked sample and a fully masked row, at B = 6 and 8 heads (one
+    query row over 196 keys: AIC's float32 step over a 14 x 14 grid); a
+    head of 96 (four columns a lane) and of 40, 33 query rows (a second
+    tile of one row) and a short key row forced onto ffma_long too."""
+    from boficap_tpu_torch.ops import attention as at
+    q, k, v, m = _attention_operands(cuda, torch.float32, 6, Lq, Lk, Dh=Dh)
+    if Lk > at.KEY_MAX:
+        assert at.attention_path(Lq, Lk, torch.float32) == "ffma_long"
+    got = at.attention_core(q, k, v, m, path="ffma_long")
+    want = at.attention_core_plain(q, k, v, m)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) < TOL[torch.float32]
+    if at.shared_bytes(Lq, Lk, Dh, torch.float32, "ffma") > at.SMEM_LIMIT:
+        with pytest.raises(ValueError, match="shared memory"):
+            at.attention_core(q, k, v, m, path="ffma")
+        return
+    old = at.attention_core(q, k, v, m, path="ffma")
+    torch.cuda.synchronize()
+    assert torch.equal(got, old)
+
+
+@pytest.mark.parametrize("Lk", [129, 196, 211, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_path_up_to_256_keys(cuda, dtype, Lk):
+    """One query row over 129-256 keys (AIC's step over a 14 x 14 grid is
+    196), a fully masked sample and row among the operands, within TOL of
+    the plain twin: at bf16 on the row path's wide score rows, the first 37
+    samples of a B = 64 call equal to a 37-sample call bitwise, and 20
+    calls back to back bitwise equal; at float32 on ffma_long (the faster
+    path there), the row path forced refused before any launch."""
+    from boficap_tpu_torch.ops import attention as at
+    q, k, v, m = _attention_operands(cuda, dtype, 64, 1, Lk)
+    bf16 = dtype == torch.bfloat16
+    assert at.attention_path(1, Lk, dtype) == ("row" if bf16 else
+                                               "ffma_long")
+    at.attention_core.launches = 0
+    got = at.attention_core(q, k, v, m)
+    want = at.attention_core_plain(q, k, v, m)
+    torch.cuda.synchronize()
+    assert at.attention_core.launches == 1
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) < TOL[dtype]
+    if not bf16:
+        with pytest.raises(ValueError, match="key bound"):
+            at.attention_core(q, k, v, m, path="row")
+        assert at.attention_core.launches == 1
+        return
+    part = at.attention_core(q[:37], k[:37], v[:37], m[:37])
+    again = [at.attention_core(q, k, v, m) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[:37], part)
+    for i, o in enumerate(again):
+        assert torch.equal(o, got), i
+
+
+# tests/_torch_port_long_digests.py output_digests(digest_cases('cuda')) on
+# the parent of the ffma_long block, the wide row path and the chunked tile
+# kernel's grid over query tiles (the ffma block at float32 and one block a
+# (sample, head) at bf16 past 128 keys), NVIDIA H100 80GB HBM3
+FROZEN_LONG_DIGESTS = {
+    "core_float32_b64_211x211": "741a6826d243d95b",
+    "core_float32_b64_196x196": "8a9185067f1fe3b6",
+    "core_float32_b64_20x196": "9457e2d7014b1118",
+    "core_float32_b64_8x196": "2e7bd9ed6beba64d",
+    "core_float32_b64_256x256": "875f61046bda0ce6",
+    "core_float32_b5_211x211": "a289ba7ae52d956f",
+    "encoder_layer_float32_196": "4d6cdbfe5e90f919",
+    "decoder_layer_float32_20x196": "cac8b20098c32cdf",
+    "core_bfloat16_b64_211x211": "7f7f5ca8fa801188",
+    "core_bfloat16_b64_196x196": "7daf32afe8a9fb07",
+    "core_bfloat16_b64_20x196": "f96db80606e7ccaf",
+    "core_bfloat16_b64_8x196": "d0589fd74e1af840",
+    "core_bfloat16_b64_256x256": "7ff19abf93438024",
+    "core_bfloat16_b64_3x500": "387a9815ef3c9fa1",
+    "core_bfloat16_b5_211x211": "ec101066675831ac",
+    "encoder_layer_bfloat16_196": "c1ae9a511569d479",
+    "decoder_layer_bfloat16_20x196": "0a92439ed49b3aac",
+}
+
+
+def test_attention_long_digests_match_parent(cuda):
+    """Past 128 keys every output the redesign must keep is bitwise the
+    parent's: the attention core at bf16 (the chunked tile kernel, now a
+    block a group of query tiles) and float32 (ffma_long, the ffma block's
+    arithmetic), at 211, 196, 256 and 500 keys and B = 64 and 5, and the
+    encoder and decoder layers over 196 regions at both dtypes, on seeded
+    operands, against the parent's hashes."""
+    from tests._torch_port_long_digests import digest_cases, output_digests
+    got = output_digests(digest_cases(cuda))
+    assert set(got) == set(FROZEN_LONG_DIGESTS)
+    differ = {k: (got[k], v) for k, v in FROZEN_LONG_DIGESTS.items()
+              if got[k] != v}
+    assert not differ, differ
 
 
 @pytest.mark.parametrize("width", [44, 211])

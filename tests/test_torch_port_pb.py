@@ -360,7 +360,8 @@ def test_attention_core_plain_matches_jax_past_key_bound(Lq, Lk):
     """Past the 128 keys the row path holds: the plain twin against the
     TPU kernel (interpret mode, any Lk), float32 within 1e-5; a fully
     masked row is uniform over its Lk keys; attention_path gives the tile
-    (bf16) or ffma (float32) path, also at one query row."""
+    (bf16) or ffma_long (float32) path past 128 keys, and the row path to
+    one query row up to 256 keys."""
     B, H, Dh = 2, 2, 16
     rs = np.random.RandomState(Lk)
     q, k, v = (rs.randn(B, H, n, Dh).astype(np.float32)
@@ -373,10 +374,11 @@ def test_attention_core_plain_matches_jax_past_key_bound(Lq, Lk):
                             torch.from_numpy(v), torch.from_numpy(mask))
     _close(got.numpy(), want)
     _close(got[0, :, 0].numpy(), v[0].mean(axis=1))
-    assert at.attention_path(Lq, Lk, torch.float32) == "ffma"
+    assert at.attention_path(Lq, Lk, torch.float32) == (
+        "ffma_long" if Lk > at.KEY_MAX else "ffma")
     assert at.attention_path(Lq, Lk, torch.bfloat16) == "tile"
     assert at.attention_path(1, Lk, torch.bfloat16) == (
-        "row" if Lk <= at.KEY_MAX else "tile")
+        "row" if Lk <= at.ROW_KEY_MAX else "tile")
 
 
 def test_pb_train_cli_checkpoint_reads_in_jax(tmp_path):
