@@ -19,7 +19,11 @@ Training: ``forward`` / ``decode_train``, the teacher-forced pass of every
 train_mode, with the one-pass teacher-forced bounding (``bound_teacher``)
 and glancing training (GLAT).  Dropout follows the layers' rule (``layers.dropout``): ``rng``, a
 ``torch.Generator`` on the model's device, or None for the deterministic
-pass that every decode takes.
+pass that every decode takes.  ``remat`` (the config's) rematerializes
+the encoder's layers and every decoder stack's in the backward pass
+(``layers.remat_call``), as the JAX package's ``nn.remat``; the length
+predictor's layer, the embeddings, the norms and the heads keep their
+activations, as there.
 """
 
 from __future__ import annotations
@@ -96,7 +100,7 @@ class BoFiCap(AttentionRouting, nn.Module):
                  train_mode: str = "UIC", decoder_input_mode: str = "add",
                  dtype=torch.float32, device=None, dropout_rate: float = 0.1,
                  drop_prob_lm: float = 0.5, self_dis: bool = False,
-                 norm_mode: str = "copy"):
+                 norm_mode: str = "copy", remat: bool = False):
         super().__init__()
         if decoder_input_mode not in ("add", "single", "gate"):
             raise ValueError(f"decoder_input_mode {decoder_input_mode!r}")
@@ -124,12 +128,18 @@ class BoFiCap(AttentionRouting, nn.Module):
         L2 = max_length + 2
 
         self.att_embed = Dense(att_feat_size, d_model, **dd)
-        self.encoder = Encoder(N_enc, d_model, d_ff, num_heads, **ddr)
+        # the encoder's and the decoder stacks' layers are rematerialized
+        # under remat; the length predictor's layers below are not (JAX
+        # boficap.py:112-131)
+        self.remat = bool(remat)
+        self.encoder = Encoder(N_enc, d_model, d_ff, num_heads, **ddr,
+                               remat=self.remat)
         n_stacks = max(decoder_roles(train_mode).values()) + 1
         self.n_stacks = n_stacks
         for i in range(n_stacks):
             self.add_module(f"decoder{i}",
-                            Decoder(N_dec, d_model, d_ff, num_heads, **ddr))
+                            Decoder(N_dec, d_model, d_ff, num_heads, **ddr,
+                                    remat=self.remat))
         # length/syntax predictor (reference LengthPredictor_UIC :333-383)
         self.n_lp = 0 if train_mode in NO_PREDICTOR else max(N_len, 1)
         # (the parameters are created in this order, which fixes the order
@@ -736,7 +746,8 @@ def build_model(cfg, vocab_size: int, device=None) -> BoFiCap:
     """BoFiCap from a config (reference models.setup), parameters zeroed:
     fill them with ``convert.init_params`` or a loader.  ``use_pallas``
     routes the eligible attentions through the attention-core kernel
-    (``BoFiCap.set_attention_core``)."""
+    (``BoFiCap.set_attention_core``); ``remat`` recomputes the encoder's
+    and the decoder stacks' layers in the backward pass."""
     from ..device import resolve_device
     model = BoFiCap(
         tgt_vocab=vocab_size + 4,
@@ -757,6 +768,7 @@ def build_model(cfg, vocab_size: int, device=None) -> BoFiCap:
         drop_prob_lm=cfg.get("drop_prob_lm", 0.5),
         self_dis=bool(cfg.get("self_dis", False)),
         norm_mode=cfg.get("norm_mode", "copy") or "copy",
+        remat=bool(cfg.get("remat", 0)),
     )
     model.set_attention_core(bool(cfg.get("use_pallas", False)))
     return model

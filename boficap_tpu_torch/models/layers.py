@@ -27,6 +27,10 @@ probabilities [B, H, Lq, Lk], before dropout, under the key that JAX's
 ``tree_flatten_with_path`` gives the sown value: the module's flax path
 and the sow index, ``['decoder0']/['layer0']/['self_attn']/['attn']/[1]``.
 
+``Encoder(remat=True)`` and ``Decoder(remat=True)`` (the config's
+``remat``) recompute each layer in the backward pass instead of keeping
+its activations (``remat_call``), as the JAX package's ``nn.remat`` does.
+
 ``Dense.tp`` is None but on a tensor-parallel slice of the layer
 (``parallel/mesh.py::shard_params``): then the slice's forward runs with
 the collectives of ``parallel/tensor_parallel.py``.
@@ -57,6 +61,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_core
 
@@ -338,6 +343,53 @@ class PreNormResidual(nn.Module):
         return self.norm(x)
 
 
+@contextlib.contextmanager
+def _replayed_routing(mods, cores):
+    """Inside the block each attention of ``mods`` takes the route it took
+    in the forward (``cores``: whether that was the attention core); the
+    settings of the moment come back after it."""
+    was = [m.use_core for m in mods]
+    for m, core in zip(mods, cores):
+        m.use_core = core
+    try:
+        yield
+    finally:
+        for m, core in zip(mods, was):
+            m.use_core = core
+
+
+def remat_call(layer, *args, rng=None, **kwargs):
+    """``layer(*args, rng=rng, **kwargs)`` rematerialized (JAX
+    ``nn.remat``): ``torch.utils.checkpoint``, non-reentrant, keeps none
+    of the layer's activations and runs the layer again in the backward
+    pass, where they are needed.
+
+    The recompute must see what the forward saw.  The dropout masks:
+    checkpoint restores only the global RNGs, not ``rng``, so the layer
+    runs on a generator of its own set to ``rng``'s state before the
+    layer, in the forward and again in the recompute, and ``rng`` then
+    takes the state the forward left it in: the masks, and ``rng``'s state
+    after the step, are those of the plain call.  The attention routes:
+    the backward runs outside the caller's ``plain_attention`` block, so
+    the recompute takes each attention's route of the forward."""
+    mods = [m for m in layer.modules() if isinstance(m, MultiHeadAttention)]
+    # a capturing attention takes the plain branch whatever use_core says
+    cores = [m.use_core and m.capture is None for m in mods]
+    start = None if rng is None else rng.get_state()
+    replay = None if rng is None else torch.Generator(device=rng.device)
+
+    def run(*a):
+        if replay is not None:
+            replay.set_state(start)
+        return layer(*a, rng=replay, **kwargs)
+
+    out = checkpoint(run, *args, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), _replayed_routing(mods, cores)))
+    if rng is not None:
+        rng.set_state(replay.get_state())
+    return out
+
+
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ff: int, num_heads: int,
                  dtype=torch.float32, device=None, dropout_rate: float = 0.1):
@@ -355,13 +407,23 @@ class EncoderLayer(nn.Module):
 
 class Encoder(nn.Module):
     """N self-attention layers + final norm over region features
-    (reference :1325-1336)."""
+    (reference :1325-1336).
+
+    ``remat``: each layer is rematerialized in the backward pass
+    (``remat_call``): its activations are recomputed instead of stored,
+    so each layer's forward runs twice a step, for O(layers) less training
+    memory.
+    Parameters, flax layout and numerics are unchanged (the gradients
+    bitwise, dropout included), and so is every pass without autograd:
+    remat acts only where ``torch.is_grad_enabled()``.  The final norm is
+    not rematerialized."""
 
     def __init__(self, num_layers: int, d_model: int, d_ff: int,
                  num_heads: int, dtype=torch.float32, device=None,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, remat: bool = False):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         for i in range(num_layers):
             self.add_module(f"layer{i}", EncoderLayer(
                 d_model, d_ff, num_heads, dtype, device, dropout_rate))
@@ -372,8 +434,10 @@ class Encoder(nn.Module):
         return [getattr(self, f"layer{i}") for i in range(self.num_layers)]
 
     def forward(self, x, mask, rng=None):
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers():
-            x = layer(x, mask, rng)
+            x = (remat_call(layer, x, mask, rng=rng) if remat
+                 else layer(x, mask, rng))
         return self.RefLayerNorm_0(x)
 
 
@@ -464,13 +528,16 @@ class DecoderLayer(nn.Module):
 
 
 class Decoder(nn.Module):
-    """N DecoderLayers + final norm (reference :1379-1396)."""
+    """N DecoderLayers + final norm (reference :1379-1396).  ``remat``:
+    see ``Encoder``; it reaches ``forward`` only: the cached inference
+    step (``init_cache``, ``step``) runs the layers as they are."""
 
     def __init__(self, num_layers: int, d_model: int, d_ff: int,
                  num_heads: int, dtype=torch.float32, device=None,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, remat: bool = False):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         for i in range(num_layers):
             self.add_module(f"layer{i}", DecoderLayer(
                 d_model, d_ff, num_heads, dtype, device, dropout_rate))
@@ -481,9 +548,14 @@ class Decoder(nn.Module):
 
     def forward(self, x, memory, src_mask, tgt_mask, rng=None,
                 grouped: bool = False):
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers():
-            x = layer(x, memory, src_mask, tgt_mask, rng=rng,
-                      grouped=grouped)
+            if remat:
+                x = remat_call(layer, x, memory, src_mask, tgt_mask,
+                               rng=rng, grouped=grouped)
+            else:
+                x = layer(x, memory, src_mask, tgt_mask, rng=rng,
+                          grouped=grouped)
         return self.norm(x)
 
     def init_cache(self, memory, max_len: int):

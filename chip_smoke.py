@@ -87,10 +87,21 @@ Phases, each printing one JSON line:
               the device-busy share of a profiled step; no kernel launched
               by a step; the trained model's packs rebuilt, and eval_split
               (NAIC, SAIC) on its kernels against the plain path by the
-              bf16 margin rule, with the eval loss and the launch counts;
-              then the training CLI in a subprocess (a validation and a
-              checkpoint, a --start_from resume) and the eval CLI on its
-              model_best.ckpt.
+              bf16 margin rule, with the eval loss and the launch counts,
+              and the float32 model after its 13 steps the same by the
+              float32 rule (each differing sample with its margin);
+              remat: one step with remat 1 against three with remat 0
+              at both dtypes, dropout 0.1, one seed (the loss and each
+              gradient leaf bitwise where the repeats are, else within
+              their spread; the generator's state after it equal), then
+              the bf16 step's ms (median of 10 after 3 warm-up) and peak
+              memory over what is resident with remat 0 and 1 at 10 x 5
+              and 64 x 5 captions, with remat 1 at 256 x 5 and remat 0
+              there where the line through the smaller batches' peaks
+              stays under the free memory (remat 1's peak below remat
+              0's at 64 x 5); then the training CLI in a subprocess (a
+              validation and a checkpoint, a --start_from resume) and
+              the eval CLI on its model_best.ckpt.
  13. rl       the RL stage (configs/uic_sd_nscl.yml: 10 images x 5 samples,
               new_self_critical, a constant Adam rate of 5e-6) on phase
               train's trained bf16 model: the sampler's kernel launches
@@ -1810,11 +1821,23 @@ def eval_pair(model, loader, mode: str, dtype_name: str, kw: dict,
                if kw.get("verbose_loss") else {})}
 
 
+def differing_samples(got, want, margin) -> list:
+    """Each sample whose seq differs from the plain path's: its first
+    differing position and the plain path's top-2 margin there."""
+    diff = got["seq"] != want["seq"]
+    first = diff.int().argmax(-1)
+    return [{"sample": r, "position": int(first[r]),
+             "margin": float(margin[r, first[r]])}
+            for r in diff.any(-1).nonzero()[:, 0].tolist()]
+
+
 def na_eval_agree(model, bf16: bool):
     def agree(got, want, memory, src):
         if not bf16:
-            return na_agree(got, want, plain_margins(model, memory, src),
-                            "eval NAIC float32")
+            margin = plain_margins(model, memory, src)
+            return {**na_agree(got, want, margin, "eval NAIC float32"),
+                    "differing_samples": differing_samples(got, want,
+                                                           margin)}
         res = na_agree(got, want, plain_margins(model, memory, src),
                        "eval NAIC bf16", BF16_MARGIN_NOISE, None,
                        plain_plan_margins(model, memory, src))
@@ -1837,7 +1860,9 @@ def sa_eval_agree(model, bf16: bool):
             fail(f"eval SAIC bf16: {excused} words differ in {shared} "
                  f"positions of a shared context")
         return {"excused_samples": excused,
-                "shared_context_positions": shared}
+                "shared_context_positions": shared,
+                **({} if bf16 else {"differing_samples": differing_samples(
+                    got, want, margin)})}
     return agree
 
 
@@ -2261,6 +2286,10 @@ def check_train(tmp: str) -> tuple:
 
     from boficap_tpu_torch.train import steps
     tb = steps.to_device(batch, DEV)
+    kw = {"split": "test", "num_images": -1, "language_eval": 1,
+          "verbose_loss": 1}
+    eval_loader_ = train_batch(eval_opt("uic_sd.yml", id="smoketrain",
+                                        batch_size=B))[0]
     for dtype_name in ("float32", "bfloat16"):
         model = step = None
         torch.cuda.empty_cache()
@@ -2283,6 +2312,10 @@ def check_train(tmp: str) -> tuple:
         if not all(math.isfinite(x) for x in losses):
             fail(f"train {dtype_name}: a loss is not finite: {losses}")
         res[f"steps_{dtype_name}"] = r
+        if dtype_name == "float32":
+            # the float32 trained model on its kernels, by the float32 rule
+            vals, _ = trained_eval(model.eval(), "float32", eval_loader_, kw)
+            res.update({f"val_{mode}_float32": v for mode, v in vals.items()})
     print(f"train: {json.dumps(res)}", file=sys.stderr, flush=True)
     losses = res["steps_bfloat16"]["losses"][:TRAIN_STEPS]
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
@@ -2297,29 +2330,167 @@ def check_train(tmp: str) -> tuple:
         fail("train: the kernel packs were not rebuilt after the steps")
     res["packs_rebuilt"] = {"new_object": pack1 is not pack0,
                             "digest_before": digest0, "digest_after": digest1}
-    kw = {"split": "test", "num_images": -1, "language_eval": 1,
-          "verbose_loss": 1}
-    eval_loader_ = train_batch(eval_opt("uic_sd.yml", id="smoketrain",
-                                        batch_size=B))[0]
-    launches = {}
-    for mode in EVAL_MODES:
-        agree = (na_eval_agree if mode == "NAIC" else sa_eval_agree)(
-            model, True)
-        # the trained model plans phrases of at most 5 words (the corpus'),
-        # within the narrow window: no SA round is wide, so #7 may not run
-        kernels = [k for k in EVAL_KERNELS[mode, "bfloat16"]
-                   if k != "window_wide_stack"]
-        r = eval_pair(model, eval_loader_, mode, "bfloat16", kw, kernels,
-                      agree)
-        res[f"val_{mode}"] = r
-        if abs(r["loss"] - r["plain_loss"]) > 1e-6 * abs(r["plain_loss"]):
-            fail(f"train: eval loss {r['loss']} on the kernel route, "
-                 f"{r['plain_loss']} on the plain one")
-        for k, v in r["launches"].items():
-            launches[k] = launches.get(k, 0) + v
+    vals, launches = trained_eval(model, "bfloat16", eval_loader_, kw)
+    res.update({f"val_{mode}": v for mode, v in vals.items()})
+    res["remat"] = check_remat(tb)
     res["cli"] = train_cli(tmp)
     res["phase_s"] = time.perf_counter() - t_phase
     return res, launches, model, batch
+
+
+def trained_eval(model, dtype_name: str, loader, kw) -> tuple:
+    """eval_split NAIC and SAIC of a trained model on its kernels against
+    the plain path, by ``dtype_name``'s margin rule (float32: the tight
+    one, each differing sample reported with its margin), the eval losses
+    within 1e-6; returns (result by mode, the launch counts summed)."""
+    bf16 = dtype_name == "bfloat16"
+    out, launches = {}, {}
+    for mode in EVAL_MODES:
+        agree = (na_eval_agree if mode == "NAIC" else sa_eval_agree)(
+            model, bf16)
+        # the trained model plans phrases of at most 5 words (the corpus'),
+        # within the narrow window: no SA round is wide, so #7 may not run
+        kernels = [k for k in EVAL_KERNELS[mode, dtype_name]
+                   if k != "window_wide_stack"]
+        r = eval_pair(model, loader, mode, dtype_name, kw, kernels, agree)
+        out[mode] = r
+        if abs(r["loss"] - r["plain_loss"]) > 1e-6 * abs(r["plain_loss"]):
+            fail(f"train {dtype_name}: eval loss {r['loss']} on the kernel "
+                 f"route, {r['plain_loss']} on the plain one")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return out, launches
+
+
+# the remat part of phase train: uic_sd's XE step with remat 0 and 1
+REMAT_REPEATS = 3             # remat 0 runs, for the spread of the atomics
+REMAT_IMAGES = (10, 64)       # batches (x 5 captions) timed at both settings
+REMAT_BIG = 256               # ... and with remat 1 alone
+
+
+def remat_grads(model, tb) -> tuple:
+    """One XE step's loss and gradients (as the training step takes them:
+    every attention plain) from a generator seeded SEED; returns (the
+    loss and the gradient leaves, the generator's state after the
+    backward)."""
+    from boficap_tpu_torch.train import steps
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = list(model.parameters())
+    with model.plain_attention():
+        loss, _ = steps.xe_loss_fn(model, tb, gen)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return ([loss.detach()] + [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(params, grads)],
+            gen.get_state())
+
+
+def remat_equal(dtype_name: str, tb) -> dict:
+    """remat 1 against REMAT_REPEATS runs of remat 0, dropout 0.1, the
+    same weights and generator seed: the loss and each gradient leaf
+    bitwise equal where the repeats are bitwise equal among themselves,
+    else no farther from the nearest repeat than the repeats' spread (the
+    largest distance between two of them: atomics in the embedding
+    backward); the generator's state after the backward equal."""
+    from boficap_tpu_torch.convert import init_params
+    runs = []
+    for remat in [0] * REMAT_REPEATS + [1]:
+        opt = train_opt(dropout=0.1, dtype=dtype_name, remat=remat)
+        model = init_params(opt, VOCAB, seed=SEED, device=DEV)
+        if model.encoder.remat != bool(remat):
+            fail(f"remat {dtype_name}: the model's remat is not {remat}")
+        names = ["loss"] + [n for n, _ in model.named_parameters()]
+        runs.append(remat_grads(model, tb))
+        del model
+    reps, (got, state) = runs[:-1], runs[-1]
+    if any(not torch.equal(state, s) for _, s in reps):
+        fail(f"remat {dtype_name}: the generator's state after the step "
+             f"differs from remat 0's")
+    bitwise, spread_leaves = 0, {}
+    for i, name in enumerate(names):
+        leaves = [r[i] for r, _ in reps]
+        spread = max((a - b).abs().max().item()
+                     for a, b in itertools.combinations(leaves, 2))
+        err = min((got[i] - a).abs().max().item() for a in leaves)
+        if err > spread:
+            fail(f"remat {dtype_name}: {name} is {err} from the nearest "
+                 f"remat 0 run, whose spread is {spread}")
+        if spread == 0:
+            bitwise += 1
+        else:
+            spread_leaves[name] = {"err": err, "spread": spread}
+    if "loss" in spread_leaves:
+        fail(f"remat {dtype_name}: the remat 0 losses differ among "
+             f"themselves: {spread_leaves['loss']}")
+    return {"loss": got[0].item(), "loss_bitwise": True,
+            "generator_state_equal": True, "leaves": len(names),
+            "bitwise_leaves": bitwise,
+            "leaves_within_repeat_spread": spread_leaves}
+
+
+def remat_step(images: int, remat: int) -> dict:
+    """The bf16 XE step of uic_sd (dropout 0.1) on ``images`` x 5
+    captions with ``remat``: ms, the median of 10 after 3 warm-ups, and
+    the peak memory of the steps over what was resident before them."""
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    from boficap_tpu_torch.train import steps
+    opt = train_opt(dropout=0.1, batch_size=images, remat=remat)
+    tb = steps.to_device(train_batch(opt)[1], DEV)
+    if tb["att_feats"].shape[0] != images:
+        fail(f"remat: a batch of {tb['att_feats'].shape[0]} images, not "
+             f"{images}")
+    model, step = trainer(opt)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, ms = timed_steps(step, tb, gen, 10)
+    peak = torch.cuda.max_memory_allocated()
+    if any(launch_counts().values()):
+        fail(f"remat: the training step launched kernels: {launch_counts()}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"remat {images} x 5, remat {remat}: losses {losses}")
+    return {"step_ms_median": sorted(ms)[len(ms) // 2], "step_ms": ms,
+            "peak_memory_bytes": peak, "resident_bytes": resident,
+            "step_peak_bytes": peak - resident}
+
+
+def check_remat(tb) -> dict:
+    """The remat part of phase train: ``remat_equal`` at both dtypes on
+    the 10 x 5 batch ``tb``; then the bf16 step's ms and peak memory with
+    remat 0 and 1 at REMAT_IMAGES x 5 and with remat 1 at REMAT_BIG x 5,
+    and with remat 0 there too where the line through the two smaller
+    batches' peaks stays under the card's free memory.  remat 1's peak
+    must lie below remat 0's at the larger of REMAT_IMAGES."""
+    t0 = time.perf_counter()
+    res = {f"equal_{dt}": remat_equal(dt, tb)
+           for dt in ("float32", "bfloat16")}
+    steps_ = {}
+    for images in REMAT_IMAGES:
+        for remat in (0, 1):
+            torch.cuda.empty_cache()
+            steps_[f"{images}x5_remat{remat}"] = remat_step(images, remat)
+    torch.cuda.empty_cache()
+    steps_[f"{REMAT_BIG}x5_remat1"] = remat_step(REMAT_BIG, 1)
+    lo, hi = (steps_[f"{n}x5_remat0"]["step_peak_bytes"]
+              for n in REMAT_IMAGES)
+    projected = hi + (hi - lo) * (REMAT_BIG - REMAT_IMAGES[1]) / (
+        REMAT_IMAGES[1] - REMAT_IMAGES[0])
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    res["remat0_big_projection"] = {"step_peak_bytes": projected,
+                                    "free_bytes": free,
+                                    "runs": projected < free}
+    if projected < free:
+        steps_[f"{REMAT_BIG}x5_remat0"] = remat_step(REMAT_BIG, 0)
+    res["steps_bfloat16"] = steps_
+    n = REMAT_IMAGES[1]
+    a, b = (steps_[f"{n}x5_remat{r}"]["step_peak_bytes"] for r in (0, 1))
+    if not b < a:
+        fail(f"remat: the {n} x 5 step's peak with remat 1 ({b} B) is not "
+             f"below remat 0's ({a} B)")
+    res["part_s"] = time.perf_counter() - t0
+    return res
 
 
 # ---------------------------------------------------------------------------

@@ -59,16 +59,18 @@ def whole_params(model):
     return {k: v.numpy() for k, v in gather_params(model).items()}
 
 
-def step_worker(rank, world, init, shape, cases):
+def step_worker(rank, world, init, shape, cases, fields=None):
     """Every case (mode, batch_size, drop_worst, grad_clip_mode,
-    grad_accum) through one step on a ``shape`` = (data, model) mesh; rank
-    0 returns each case's metrics and whole parameters."""
+    grad_accum) through one step on a ``shape`` = (data, model) mesh, with
+    the config ``fields`` (e.g. remat) set; rank 0 returns each case's
+    metrics and whole parameters."""
     torch.set_num_threads(1)
     init_group(rank, world, init, "cpu", timeout_s=120)
     mesh = make_mesh(axis_names=("data", "model"), shape=shape)
     out = []
     for mode, bs, drop, clip, accum in cases:
-        cfg = config(mode, bs, grad_clip_mode=clip, grad_accum=accum)
+        cfg = config(mode, bs, grad_clip_mode=clip, grad_accum=accum,
+                     **(fields or {}))
         model, batch = model_and_batch(cfg)
         shard_params(model, mesh)
         metrics = step_once(model, cfg, batch, mesh, drop)
@@ -76,10 +78,11 @@ def step_worker(rank, world, init, shape, cases):
     return out if rank == 0 else None
 
 
-def single_steps(cases):
+def single_steps(cases, fields=None):
     out = []
     for mode, bs, drop, clip, accum in cases:
-        cfg = config(mode, bs, grad_clip_mode=clip, grad_accum=accum)
+        cfg = config(mode, bs, grad_clip_mode=clip, grad_accum=accum,
+                     **(fields or {}))
         model, batch = model_and_batch(cfg)
         out.append((step_once(model, cfg, batch, None, drop),
                     {k: v.detach().numpy()

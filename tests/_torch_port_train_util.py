@@ -54,11 +54,11 @@ def jax_batch(b):
             if b.get(k) is not None}
 
 
-def jax_grad_fn(jm, smoothing=0.0):
+def jax_grad_fn(jm, smoothing=0.0, drop_worst=0.0):
     def f(params, batch, glat):
         def lf(p):
             return jsteps.xe_loss_fn(jm, p, batch, jax.random.PRNGKey(0),
-                                     glat, 0.0, deterministic=False,
+                                     glat, drop_worst, deterministic=False,
                                      label_smoothing=smoothing)
         return jax.value_and_grad(lf, has_aux=True)(params)
     return jax.jit(f)

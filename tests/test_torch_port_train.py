@@ -1,11 +1,12 @@
 """The port's XE training stage against the JAX package on the CPU, on
 shared weights at float32 with dropout off: the loss, its terms and every
 gradient of one step for UIC (self_dis), SAIC, NAIC, AIC (label smoothing)
-and UIC_s; dropout at rate 1 (flax's exact zeros pin every site),
-the keep share at 0.1, a seeded step repeated bitwise; GLAT at rates
-where its reveal is deterministic, ``ss_sa_forward`` at ss_prob 0;
-``phrase_ops`` and every loss.  Updates, checkpoints, the CLI and the eval
-loss: ``tests/test_torch_port_train_ckpt.py``."""
+and UIC_s, and with drop-worst at 0.5 in every mode; dropout at rate 1
+(flax's exact zeros pin every site), the keep share at 0.1, a seeded step
+repeated bitwise; GLAT at rates where its reveal is deterministic,
+``ss_sa_forward`` at ss_prob 0; ``phrase_ops`` and every loss.  Updates,
+checkpoints, the CLI and the eval loss:
+``tests/test_torch_port_train_ckpt.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +22,7 @@ from boficap_tpu_torch.data import phrase_ops as tpo
 from boficap_tpu_torch.models.layers import dropout
 from boficap_tpu_torch.train import steps as tsteps
 from tests._torch_port_train_util import (REL, SMOOTHING, built_cache, close,
-                                          jax_batch, same_grads,
+                                          jax_batch, jax_grad_fn, same_grads,
                                           train_loader)
 from tests._torch_port_util import L, VOCAB, make_pair
 from tests.oracles import random_phrase_row
@@ -52,6 +53,28 @@ def test_xe_step_matches_jax(built, mode):
     for k, v in s["metrics"].items():
         close(metrics[k], v)
     same_grads(tm, grads, s["grads"])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_drop_worst_step_matches_jax(built, mode):
+    """drop_worst_rate 0.5 inside ``xe_loss_fn``: the per-caption losses
+    ranked and the worst half dropped, in both packages; the loss and
+    every gradient leaf."""
+    s = built(mode)
+    smoothing = SMOOTHING.get(mode, 0.0)
+    (jloss, _), jgrads = jax_grad_fn(s["jm"], smoothing, drop_worst=0.5)(
+        s["params"], s["jb"], None)
+    tm = s["tm"]
+    tb = tsteps.to_device(s["batch"], "cpu")
+    loss, _ = tsteps.xe_loss_fn(tm, tb, torch.Generator(), None, 0.5,
+                                smoothing)
+    grads = torch.autograd.grad(loss, list(tm.parameters()),
+                                allow_unused=True)
+    close(loss.detach(), jloss)
+    # the dropped half moves the loss off the full batch's
+    assert float(loss.detach()) != float(s["loss"])
+    same_grads(tm, [torch.zeros_like(p) if g is None else g
+                    for p, g in zip(tm.parameters(), grads)], jgrads)
 
 
 def test_dropout_rate_one_matches_jax():
