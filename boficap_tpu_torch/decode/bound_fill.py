@@ -561,6 +561,19 @@ def uic_s_ar_decode(model, memory, src_mask, *, sample_method: str = "greedy",
             "phrase_syn": plan["phrase_syn"][:, :L]}
 
 
+def _ss_coins(step: int, B: int, ss_prob: float, rng: torch.Generator,
+              device):
+    """``ss_sa_loop``'s two draws at phrase step ``step``, from ``rng`` in
+    this order: each sample's coin for the model's plan over the gt plan
+    (``ss_prob``), then its fair coin for the bos-only input.  Returns
+    (use_model, bos_input), bool [B] each.  A module-level function so that
+    a check can give the loop fixed coins (the JAX package's loop draws
+    from ``jax.random``, which no torch generator reproduces)."""
+    use_model = torch.rand(B, generator=rng, device=device) < ss_prob
+    bos_input = torch.rand(B, generator=rng, device=device) < 0.5
+    return use_model, bos_input
+
+
 @torch.no_grad()
 def ss_sa_loop(model, memory, src_mask, labels, phrase_length, phrase_syn,
                ss_prob: float, rng: torch.Generator,
@@ -570,10 +583,10 @@ def ss_sa_loop(model, memory, src_mask, labels, phrase_length, phrase_syn,
     TransformerModel.py:1988-2121), the no-grad sampling phase of the
     JAX package's ``ss_sa_loop``.
 
-    Each phrase step, each sample flips a coin (``ss_prob``, from ``rng``)
-    for the model's plan over the gt plan; a second fair coin picks
-    copy-from-sampled-words or bos-only decoder input for the model
-    branch; the gt branch copies the gt labels with the gt plan.  Words
+    Each phrase step, each sample flips a coin (``ss_prob``, from ``rng``
+    by ``_ss_coins``) for the model's plan over the gt plan; a second fair
+    coin picks copy-from-sampled-words or bos-only decoder input for the
+    model branch; the gt branch copies the gt labels with the gt plan.  Words
     always come from the SA decoder through ``sample_next_word``.  Returns
     the assembled decoder inputs and the plan, from which the training
     step re-scores every step's log-probs in one differentiable pass.  The
@@ -619,8 +632,7 @@ def ss_sa_loop(model, memory, src_mask, labels, phrase_length, phrase_syn,
         cap = (L2 - 1) - phrase_last
         pred_len = torch.minimum(len_N, cap)
         clamp = (len_N + phrase_last) >= (L2 - 1)
-        use_model = torch.rand(B, generator=rng, device=dev) < ss_prob
-        bos_input = torch.rand(B, generator=rng, device=dev) < 0.5
+        use_model, bos_input = _ss_coins(i, B, ss_prob, rng, dev)
         # the gt branch clamps the gt length too (reference :2076)
         len_eff = torch.where(use_model, pred_len,
                               torch.minimum(gt_len_i, cap))

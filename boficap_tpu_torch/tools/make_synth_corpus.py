@@ -40,6 +40,7 @@ import os
 
 import numpy as np
 
+from ..constants import EOS
 from ..data.dataset import LabelStore
 
 SLOTS = 6
@@ -57,18 +58,27 @@ def caption_for(slot_words):
     return [w + 4 for w in slot_words], pat
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="data_synth")
-    ap.add_argument("--n_images", type=int, default=400)
-    ap.add_argument("--caps_per_img", type=int, default=5)
-    ap.add_argument("--L", type=int, default=20)
-    ap.add_argument("--noise", type=float, default=0.1)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+class ArrayFeatures:
+    """Region features by image id, over an array (a feature reader for
+    ``CaptionData``, in place of the att directory)."""
 
-    rng = np.random.RandomState(args.seed)
-    n, cpi, L = args.n_images, args.caps_per_img, args.L
+    def __init__(self, att):
+        self.att = att
+
+    def get(self, key: str) -> np.ndarray:
+        return self.att[int(key)]
+
+
+def build(n: int, cpi: int = 5, L: int = 20, noise: float = 0.1,
+          seed: int = 0, short: int = 0, eos: bool = False):
+    """The corpus in memory, drawn from ``seed`` in the order ``main``
+    writes it.  ``short``: an image whose last slot word is among the first
+    ``short`` of its slot's words drops it (a 5-word caption, its last
+    phrase one word shorter); ``eos``: each label row holds EOS after its
+    last word.  Returns ((labels, label_start_ix, label_end_ix,
+    phrase_num, phrase_length, phrase_syn), images, region features
+    [n, SLOTS + N_DISTRACT, FEAT_DIM])."""
+    rng = np.random.RandomState(seed)
 
     # fixed word codebook (shared across images; row-normalized)
     codes = rng.randn(VOCAB, FEAT_DIM).astype(np.float32)
@@ -79,10 +89,8 @@ def main(argv=None):
     pn = np.zeros(n_caps, np.int32)
     pls = np.zeros((n_caps, L), np.int32)
     syns = np.zeros((n_caps, L), np.int32)
+    att = np.zeros((n, SLOTS + N_DISTRACT, FEAT_DIM), np.float32)
     images = []
-
-    feat_dir = os.path.join(args.out, "att")
-    os.makedirs(feat_dir, exist_ok=True)
 
     n_tr = int(n * 0.8)
     n_va = int(n * 0.1)
@@ -90,20 +98,24 @@ def main(argv=None):
         slot_words = [rng.randint(WORDS_PER_SLOT) + s * WORDS_PER_SLOT
                       for s in range(SLOTS)]
         word_ids, pat = caption_for(slot_words)
-        for c in range(cpi):
-            row = ix * cpi + c
-            labels[row, :SLOTS] = word_ids
-            pn[row] = len(pat)
-            pls[row, :len(pat)] = pat
-            syns[row, :len(pat)] = [SYNS[k % 3] for k in range(len(pat))]
+        pat = list(pat)
+        if slot_words[-1] % WORDS_PER_SLOT < short:
+            word_ids = word_ids[:-1]
+            pat[-1] -= 1
+        rows = slice(ix * cpi, (ix + 1) * cpi)
+        labels[rows, :len(word_ids)] = word_ids
+        if eos:
+            labels[rows, len(word_ids)] = EOS
+        pn[rows] = len(pat)
+        pls[rows, :len(pat)] = pat
+        syns[rows, :len(pat)] = [SYNS[k % 3] for k in range(len(pat))]
 
         feats = np.concatenate([
-            codes[slot_words] + args.noise * rng.randn(SLOTS, FEAT_DIM),
+            codes[slot_words] + noise * rng.randn(SLOTS, FEAT_DIM),
             rng.randn(N_DISTRACT, FEAT_DIM) / np.sqrt(FEAT_DIM),
         ]).astype(np.float32)
         perm = rng.permutation(SLOTS + N_DISTRACT)    # region order is a set
-        np.savez_compressed(os.path.join(feat_dir, f"{ix}.npz"),
-                            feat=feats[perm])
+        att[ix] = feats[perm]
 
         split = ("train" if ix < n_tr
                  else "val" if ix < n_tr + n_va else "test")
@@ -111,8 +123,30 @@ def main(argv=None):
 
     start = np.arange(n) * cpi + 1                    # 1-based, ref format
     end = start + cpi - 1
+    return (labels, start, end, pn, pls, syns), images, att
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="data_synth")
+    ap.add_argument("--n_images", type=int, default=400)
+    ap.add_argument("--caps_per_img", type=int, default=5)
+    ap.add_argument("--L", type=int, default=20)
+    ap.add_argument("--noise", type=float, default=0.1)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    n, cpi = args.n_images, args.caps_per_img
+    arrays, images, att = build(n, cpi, args.L, args.noise, args.seed)
+    labels = arrays[0]
+
+    feat_dir = os.path.join(args.out, "att")
+    os.makedirs(feat_dir, exist_ok=True)
+    for ix in range(n):
+        np.savez_compressed(os.path.join(feat_dir, f"{ix}.npz"), feat=att[ix])
+
     ix_to_word = {str(i + 4): f"w{i}" for i in range(VOCAB)}
-    store = LabelStore(images, ix_to_word, labels, start, end, pn, pls, syns)
+    store = LabelStore(images, ix_to_word, *arrays)
     store.save(args.out)
 
     # karpathy-format raw json so prepro_ngrams (SCST stage) runs
@@ -128,7 +162,7 @@ def main(argv=None):
                     "sentences": sents})
     with open(os.path.join(args.out, "raw.json"), "w") as f:
         json.dump({"images": raw}, f)
-    print(f"wrote {n} images / {n_caps} captions to {args.out}")
+    print(f"wrote {n} images / {n * cpi} captions to {args.out}")
 
 
 if __name__ == "__main__":

@@ -89,7 +89,22 @@ Phases, each printing one JSON line:
               (NAIC, SAIC) on its kernels against the plain path by the
               bf16 margin rule, with the eval loss and the launch counts,
               and the float32 model after its 13 steps the same by the
-              float32 rule (each differing sample with its margin);
+              float32 rule (each differing sample with its margin), and
+              its XE step at ss_prob 0.5 on the card against the CPU (the
+              coins drawn once on the host and given to both loops through
+              bound_fill._ss_coins; the loops' outputs equal, some phrase
+              from the model's plan; loss and leaves as the step at 0, a
+              leaf beyond GRAD_TOL held to a float64 CPU step that
+              re-scores the CPU loop's outputs, as phase rl's step), and
+              the same step on the seeded weights with the stop shift;
+              AR on trained weights (uic_sd has no AR decoder): an AIC
+              model (configs/transformer.yml at full width, float32,
+              dropout off, 150 Adam steps on a learnable corpus of 640
+              images whose caption rows end with EOS, 5 or 6 words) and a
+              bf16 copy of it, eval_split AIC greedy and beam 3 with #9 on
+              against off by each dtype's margin rule, the share of greedy
+              rows ended (EOS) before L (failing at 0), at bf16 the samples
+              beam search excuses and their gaps;
               remat: one step with remat 1 against three with remat 0
               at both dtypes, dropout 0.1, one seed (the loss and each
               gradient leaf bitwise where the repeats are, else within
@@ -108,7 +123,12 @@ Phases, each printing one JSON line:
               (#4, #5, #6, and #7 when a sampled SA phrase is wider than
               the window) and none in the step's autograd; the top1
               sampled NA and SA decodes on the kernels equal the greedy
-              kernel decodes at float32; the sampler's token log-probs
+              kernel decodes at float32; then the same model's plans
+              shaped (the length head's 10-word bias raised until about a
+              fifth of the images open with such a phrase, no stop shift):
+              the bf16 sampler launches #7 too, its log-probs within 0.05
+              of the re-score, top1 equals greedy at float32, and the
+              biases are put back; the sampler's token log-probs
               against rl_rescore's plain values (float32 within 1e-4, bf16
               within 0.05 nats, a limit between the sound reading and a
               control's, the same sampler with its stacks' outputs moved
@@ -292,6 +312,8 @@ non-zero and prints no result.  Without CUDA it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import itertools
 import json
 import math
@@ -300,6 +322,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import torch
 
@@ -387,7 +410,7 @@ PRODUCTS = (
 B_WIDE = 256                  # a batch past the whole-stack route (B > 128)
 K_BEAM = 3                    # beam width of the beam-search check
 LONG = 10                     # a phrase longer than the window: a wide round
-STOP_SHIFT = 6.0              # against random weights' early "stop" (shape_plans)
+STOP_SHIFT = 6.0              # against random weights' early "stop" (shift_stop)
 NL = 6                        # uic_sd encoder and decoder layers
 STACK_REPEATS = 20            # #5 calls back to back, held bitwise equal
 
@@ -475,36 +498,42 @@ def build(dtype=None, config: str = "uic_sd.yml", vocab=None):
 
 
 @torch.no_grad()
-def shape_plans(models, share: float = 0.2, feats=None, long: int = LONG):
-    """Random weights plan SA captions that mostly stop at once, and never
-    a phrase wider than the narrow window.  Shift the length head's "stop"
-    bias down and the syntax head's VP/NP/CP biases up by STOP_SHIFT, so
-    plans run to several phrases; then raise the bias of LONG-word phrases
-    until about ``share`` of the images open their SA plan with one (read
-    on the first model's first SA round): such a round is wider than the
-    window, so SA decodes run both the narrow and the wide kernels.  The
-    same shifts go to every model.  ``feats``: the (att, am) to read the
-    plans on (None: ``features(B, seed=9)``); ``long``: the phrase length
-    raised (LONG).  Returns its shift."""
-    from boficap_tpu_torch.constants import LEN, PAD
+def shift_stop(models) -> None:
+    """Random weights plan SA captions that mostly stop at once: shift the
+    length head's "stop" bias down and the syntax head's VP/NP/CP biases
+    up by STOP_SHIFT in every model, so plans run to several phrases."""
     for m in models:
         m.len_head2.bias[0] -= STOP_SHIFT
         m.syn_head2.bias[4:7] += STOP_SHIFT
         m.invalidate_packed()
+
+
+@torch.no_grad()
+def shape_plans(models, share: float = 0.8, feats=None, long: int = LONG):
+    """Plans never hold a phrase wider than the narrow window: raise the
+    bias of LONG-word phrases in every model until ``share`` of the images
+    take it as the argmax of their first SA round (read on the first
+    model: the raise passes that quantile of the argmax gap).  Such a
+    round is wider than the window, so SA decodes run both the narrow and
+    the wide kernels.  ``feats``: the (att, am) to read the plans on
+    (None: ``features(B, seed=9)``); ``long``: the phrase length raised
+    (LONG).  Returns its shift."""
+    from boficap_tpu_torch.constants import LEN, PAD
     model = models[0]
     att, am = feats if feats is not None else features(B, seed=9)
     att, am = att.to(DEV), am.to(DEV)
     mem = model.encode(att, am)
-    ids = torch.full((B, L + 2), PAD, dtype=torch.long, device=DEV)
+    n = att.shape[0]
+    ids = torch.full((n, L + 2), PAD, dtype=torch.long, device=DEV)
     ids[:, 0] = LEN
     len_lp, _ = model.bound_step_cached(
         model.bound_cache(mem, False), ids,
-        torch.ones(B, dtype=torch.long, device=DEV), am.bool(),
+        torch.ones(n, dtype=torch.long, device=DEV), am.bool(),
         use_syn=False)
     others = len_lp.clone()
     others[:, long] = -math.inf
     gap = others.max(-1).values - len_lp[:, long]
-    long_shift = torch.quantile(gap.float(), 1.0 - share).item() + 1e-3
+    long_shift = torch.quantile(gap.float(), share).item() + 1e-3
     for m in models:
         m.len_head2.bias[long] += long_shift
         m.invalidate_packed()
@@ -513,7 +542,7 @@ def shape_plans(models, share: float = 0.2, feats=None, long: int = LONG):
 
 @torch.no_grad()
 def unforce_long(models, long_shift: float) -> None:
-    """Take back shape_plans' raise of the LONG-word phrases (the stop
+    """Take back shape_plans' raise of the LONG-word phrases (shift_stop's
     shift stays), so timed SA decodes run the rounds an unforced plan
     gives."""
     for m in models:
@@ -1334,6 +1363,7 @@ def ar_agree(got, want, margin, what: str, noise: float = MARGIN_NOISE,
         fail(f"{what}: tok/entropy err {errs} > {lp_tol}")
     return {"excused_samples": int(loose.sum()),
             "tokens": int((want["seq"] > 3).sum()),
+            "rows": int(want["seq"].shape[0]),
             "ended_rows": int((want["seq"] == 2).any(-1).sum()),
             **{f"{k}_err": v for k, v in errs.items()}}
 
@@ -1888,17 +1918,31 @@ def beam_eval_agree(model, bf16: bool):
     it excuses: there most samples' selections have a gap below it (the
     done pool merges many ended beams of near-equal score), and a beam of
     such a sample may differ (49 of 64 samples at full uic_sd width on an
-    H100); the top beam's differences and score error are reported."""
+    H100, random weights); the top beam's differences and score error are
+    reported, and, at both dtypes, the excused samples' smallest gaps and
+    the done pools' ended beams (EOS before the last step) and the pools
+    holding ended beams of two lengths."""
     def agree(got, want, memory, src):
         _, mins = beam_margins(model, memory, src, K_BEAM)
+        diff = (got["seq"] != want["seq"]).flatten(1).any(-1)
+        noise = BF16_MARGIN_NOISE if bf16 else MARGIN_NOISE
+        gaps = sorted(mins[diff & (mins < noise)].tolist())
+        ends = torch.where((want["seq"] == 2).any(-1),
+                           (want["seq"] == 2).int().argmax(-1), L)
+        pools = {"excused_gaps": gaps,
+                 "ended_beams": int((ends < L - 1).sum()),
+                 "beams": int(ends.numel()),
+                 "two_length_pools": int((ends.min(-1).values
+                                          != ends.max(-1).values).sum())}
         if not bf16:
-            return beam_agree(got, want, mins, "eval AIC beam float32")
+            return {**beam_agree(got, want, mins, "eval AIC beam float32"),
+                    **pools}
         res = beam_agree(got, want, mins, "eval AIC beam bf16",
                          BF16_MARGIN_NOISE, None)
         top = (got["seq"][:, 0] != want["seq"][:, 0]).any(-1)
         return {**res, "top_beam_differs": int(top.sum()),
                 "top_score_err": (got["scores"][:, 0] - want["scores"][:, 0]
-                                  ).abs().max().item()}
+                                  ).abs().max().item(), **pools}
     return agree
 
 
@@ -2053,17 +2097,20 @@ def relu_inputs(model):
 
 def relu_hooks(model, record=None, align=None):
     """Forward hooks on ``relu_inputs(model)``: with ``record`` (a dict)
-    keep every ReLU input, by module and call; with ``align`` (such a dict)
-    make each ReLU input that falls on the other side of zero take the
-    recorded value, and count them.  Returns (handles, stats)."""
+    keep every ReLU input, by module, grad mode and call (the calls under
+    no_grad, a scheduled-sampling loop's, counted apart from the
+    differentiable pass's); with ``align`` (such a dict) make each ReLU
+    input that falls on the other side of zero take the recorded value,
+    and count them.  Returns (handles, stats)."""
     calls, stats = {}, {"flipped": 0, "max_gap": 0.0}
     if record is None and not align:
         return [], stats
 
     def hook(name):
         def fn(mod, inp, out):
-            key = (name, calls.setdefault(name, 0))
-            calls[name] += 1
+            mode = (name, torch.is_grad_enabled())
+            key = mode + (calls.setdefault(mode, 0),)
+            calls[mode] += 1
             if record is not None:
                 record[key] = out.detach().cpu()
                 return None
@@ -2084,18 +2131,34 @@ def relu_hooks(model, record=None, align=None):
              relu_inputs(model)], stats)
 
 
-def xe_grads(opt, batch, device, record=None, align=None):
+def to_float64(model) -> None:
+    """Make ``model`` compute in float64 (its parameters stay float32:
+    every product casts them): the witness of a float32 step."""
+    model.dtype = torch.float64
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+
+
+def xe_grads(opt, batch, device, record=None, align=None,
+             ss_prob: float = 0.0, state=None, float64: bool = False):
     """One XE step's loss and gradients of uic_sd from the seeded weights
-    on ``device``.  ``record`` (a dict) keeps every ReLU input, by module
-    and call; ``align`` (such a dict) makes each ReLU input that falls on
-    the other side of zero take the recorded value, and counts them."""
+    (or ``state``) on ``device``, at ``ss_prob``.  ``record`` (a dict)
+    keeps every ReLU input, by module and call; ``align`` (such a dict)
+    makes each ReLU input that falls on the other side of zero take the
+    recorded value, and counts them; ``float64`` computes in float64."""
     from boficap_tpu_torch.convert import init_params
     from boficap_tpu_torch.train import steps
     model = init_params(opt, VOCAB, seed=SEED, device=device)
+    if state is not None:
+        model.load_state_dict(state)
+    if float64:
+        to_float64(model)
     handles, stats = relu_hooks(model, record, align)
     try:
         loss, _ = steps.xe_loss_fn(model, steps.to_device(batch, device),
-                                   torch.Generator(device=device))
+                                   torch.Generator(device=device),
+                                   ss_prob=ss_prob)
         grads = torch.autograd.grad(loss, list(model.parameters()),
                                     allow_unused=True)
     finally:
@@ -2105,21 +2168,104 @@ def xe_grads(opt, batch, device, record=None, align=None):
             [None if g is None else g.detach().cpu() for g in grads], stats)
 
 
-def check_cross_device(batch, opt=None) -> dict:
+def check_cross_device(batch, opt=None, ss_prob: float = 0.0,
+                       state=None, witness: bool = False) -> dict:
     """float32, dropout off: one XE step of uic_sd (or of ``opt``'s model)
-    on the card against the CPU, the ReLU sides aligned (RELU_GAP)."""
+    on the card against the CPU, the ReLU sides aligned (RELU_GAP).  At
+    ``ss_prob`` > 0 (on the weights ``state``), the scheduled-sampling
+    coins are drawn once on the host and given to both devices
+    (fixed_coins): the card's loop outputs must equal the CPU's, and some
+    phrase must come from the model's plan.  With ``witness``, a gradient
+    leaf beyond GRAD_TOL (and a loss beyond 1e-5) is held to a float64
+    step on the CPU (compare_grads) that re-scores the CPU loop's outputs
+    with the CPU's ReLU sides."""
     opt = opt or train_opt(dtype="float32", dropout=0.0, drop_prob_lm=0.0)
-    relu = {}
-    t0 = time.perf_counter()
-    lc, names, gc, _ = xe_grads(opt, batch, "cpu", record=relu)
-    cpu_s = time.perf_counter() - t0
-    _, _, raw, _ = xe_grads(opt, batch, DEV)
-    lg, _, gg, stats = xe_grads(opt, batch, DEV, align=relu)
-    if abs(lg - lc) > 1e-5 * abs(lc):
-        fail(f"train: card loss {lg} != CPU loss {lc}")
-    return {"loss_card": lg, "loss_cpu": lc, "loss_rel_err": abs(lg - lc)
-            / abs(lc), **compare_grads("train", names, gg, gc, raw, relu,
-                                       stats), "cpu_step_s": cpu_s}
+    kw = dict(ss_prob=ss_prob, state=state)
+    relu, loops = {}, []
+    coins = contextlib.nullcontext
+    if ss_prob > 0:
+        rows = batch["labels"].shape[0] * batch["labels"].shape[1]
+        g = torch.Generator().manual_seed(SS_SEED)
+        use = torch.rand((L + 2, rows), generator=g) < ss_prob
+        bos = torch.rand((L + 2, rows), generator=g) < 0.5
+        coins = functools.partial(fixed_coins, use, bos, loops)
+    with coins():
+        t0 = time.perf_counter()
+        lc, names, gc, _ = xe_grads(opt, batch, "cpu", record=relu, **kw)
+        cpu_s = time.perf_counter() - t0
+        _, _, raw, _ = xe_grads(opt, batch, DEV, **kw)
+        lg, _, gg, stats = xe_grads(opt, batch, DEV, align=relu, **kw)
+    out = {}
+    if ss_prob > 0:
+        cpu_loop, card_loop = loops[0], loops[2]
+        differ = [k for k in cpu_loop
+                  if not torch.equal(cpu_loop[k], card_loop[k])]
+        if differ:
+            fail(f"train ss: the card's scheduled-sampling loop differs "
+                 f"from the CPU's at {differ}")
+        plan = cpu_loop["plan_len"]
+        took = use[:plan.shape[1]].T & (plan > 0)
+        gt = ~use[:plan.shape[1]].T & (plan > 0)
+        out = {"ss_prob": ss_prob, "rows": rows,
+               "model_phrases": int(took[:, 1:].sum()),
+               "gt_phrases": int(gt[:, 1:].sum())}
+        if not out["model_phrases"]:
+            fail("train ss: no phrase came from the model's plan")
+    out.update(loss_card=lg, loss_cpu=lc, loss_rel_err=abs(lg - lc) / abs(lc))
+    g64 = None
+    if witness:
+        t0 = time.perf_counter()
+        with coins() as fc:
+            if fc is not None:
+                fc.replay = loops[0]
+            l64, _, g64, s64 = xe_grads(opt, batch, "cpu", align=relu,
+                                        float64=True, **kw)
+        out.update(loss_float64=l64, witness_s=time.perf_counter() - t0,
+                   witness_relu_flipped=s64["flipped"],
+                   witness_relu_flip_max_gap=s64["max_gap"],
+                   loss_card_float64=abs(lg - l64) / abs(l64),
+                   loss_cpu_float64=abs(lc - l64) / abs(l64))
+    if abs(lg - lc) > 1e-5 * abs(lc) and (
+            g64 is None or abs(lg - l64) > WITNESS_K * abs(lc - l64)):
+        fail(f"train: card loss {lg} != CPU loss {lc} ({out})")
+    return {**out, **compare_grads("train", names, gg, gc, raw, relu, stats,
+                                   witness=g64),
+            "cpu_step_s": cpu_s}
+
+
+# scheduled sampling in the card-vs-CPU step: ss_prob, and the seed of the
+# coins drawn once on the host for both devices
+SS_PROB = 0.5
+SS_SEED = 7
+
+
+@contextlib.contextmanager
+def fixed_coins(use, bos, loops):
+    """ss_sa_loop's draws replaced by the tables ``use`` and ``bos`` [L +
+    2, rows] (bound_fill._ss_coins, row ``step``), on the loop's device,
+    and each loop's outputs appended to ``loops`` on the host.  Yields a
+    namespace whose ``replay``, once set to such outputs, stands in for
+    the loop: it is not run, and its outputs are ``replay``'s on the
+    loop's device."""
+    from boficap_tpu_torch.decode import bound_fill as bf
+    draw, loop = bf._ss_coins, bf.ss_sa_loop
+    ns = types.SimpleNamespace(replay=None)
+
+    def recording(*args, **kwargs):
+        if ns.replay is not None:
+            dev = args[3].device                   # labels
+            return {k: v.to(dev) for k, v in ns.replay.items()}
+        out = loop(*args, **kwargs)
+        loops.append({k: v.cpu() for k, v in out.items()})
+        return out
+
+    bf._ss_coins = lambda step, n, ss_prob, rng, device: (
+        use[step].to(device), bos[step].to(device))
+    bf.ss_sa_loop = recording
+    try:
+        yield ns
+    finally:
+        bf._ss_coins, bf.ss_sa_loop = draw, loop
 
 
 def compare_grads(what: str, names, got, want, raw, relu, stats,
@@ -2283,6 +2429,17 @@ def check_train(tmp: str) -> tuple:
     loader, batch = train_batch(opt16)
     res["batch"] = {k: list(batch[k].shape) for k in ("att_feats", "labels")}
     res["cross_device_float32"] = check_cross_device(batch)
+    # at ss_prob SS_PROB: on the seeded weights, build's nudged heads with
+    # the stop shift, so that the model's plans run on (without it nearly
+    # every plan stops at the first phrase); on the trained float32 model
+    # below, as trained, with the float64 witness
+    t_part = time.perf_counter()
+    seeded = build("float32")
+    shift_stop([seeded])
+    res["cross_device_float32_ss"] = check_cross_device(
+        batch, ss_prob=SS_PROB, state=seeded.state_dict())
+    res["cross_device_float32_ss"]["part_s"] = time.perf_counter() - t_part
+    del seeded
 
     from boficap_tpu_torch.train import steps
     tb = steps.to_device(batch, DEV)
@@ -2316,6 +2473,12 @@ def check_train(tmp: str) -> tuple:
             # the float32 trained model on its kernels, by the float32 rule
             vals, _ = trained_eval(model.eval(), "float32", eval_loader_, kw)
             res.update({f"val_{mode}_float32": v for mode, v in vals.items()})
+            t_part = time.perf_counter()
+            res["cross_device_float32_ss_trained"] = check_cross_device(
+                batch, ss_prob=SS_PROB, state=model.state_dict(),
+                witness=True)
+            res["cross_device_float32_ss_trained"]["part_s"] = (
+                time.perf_counter() - t_part)
     print(f"train: {json.dumps(res)}", file=sys.stderr, flush=True)
     losses = res["steps_bfloat16"]["losses"][:TRAIN_STEPS]
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
@@ -2332,6 +2495,9 @@ def check_train(tmp: str) -> tuple:
                             "digest_before": digest0, "digest_after": digest1}
     vals, launches = trained_eval(model, "bfloat16", eval_loader_, kw)
     res.update({f"val_{mode}": v for mode, v in vals.items()})
+    res["aic"], aic_launches = check_trained_aic(kw)
+    launches = {k: launches.get(k, 0) + aic_launches.get(k, 0)
+                for k in set(launches) | set(aic_launches)}
     res["remat"] = check_remat(tb)
     res["cli"] = train_cli(tmp)
     res["phase_s"] = time.perf_counter() - t_phase
@@ -2349,7 +2515,9 @@ def trained_eval(model, dtype_name: str, loader, kw) -> tuple:
         agree = (na_eval_agree if mode == "NAIC" else sa_eval_agree)(
             model, bf16)
         # the trained model plans phrases of at most 5 words (the corpus'),
-        # within the narrow window: no SA round is wide, so #7 may not run
+        # within the narrow window: no SA round here is wide, so #7 is not
+        # asked for; phase rl runs it on this model's plans, shaped so that
+        # some open with a LONG-word phrase (check_rl_wide)
         kernels = [k for k in EVAL_KERNELS[mode, dtype_name]
                    if k != "window_wide_stack"]
         r = eval_pair(model, loader, mode, dtype_name, kw, kernels, agree)
@@ -2360,6 +2528,124 @@ def trained_eval(model, dtype_name: str, loader, kw) -> tuple:
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
     return out, launches
+
+# the trained AR model of phase train: a UIC model (uic_sd) has no AR
+# decoder (DECODER_ROLES), so AIC greedy and beam search on trained weights
+# take configs/transformer.yml at full width, trained here on the learnable
+# corpus of tools/make_synth_corpus.py, each label row ending with EOS (the
+# collate pins EOS at the frame's last slot, so a model trained on rows
+# without it learns to emit PAD, which ends the caption's text but not the
+# decode's row: the loops end a row on EOS only)
+AR_IMAGES = 640               # 512 train, 64 val, 64 test: one batch of B
+AR_BATCH = 32                 # images a float32 XE step, one caption each
+AR_STEPS = 150                # its steps (Adam at TRAIN_LR, dropout off)
+AR_SHORT = 4                  # a last slot word below this: a 5-word caption
+
+
+def ar_corpus(seed: int):
+    """tools/make_synth_corpus.py's corpus in memory (build: its slot
+    words, phrase-free), AR_IMAGES images of one caption each over the
+    full vocabulary, the word after the caption EOS; an image whose last
+    slot word is among the first AR_SHORT of its slot drops it, so
+    captions run 5 or 6 words.  Returns (LabelStore, ArrayFeatures)."""
+    from boficap_tpu_torch.data.dataset import LabelStore
+    from boficap_tpu_torch.tools import make_synth_corpus as synth
+    (labels, start, end, *_), images, att = synth.build(
+        AR_IMAGES, cpi=1, L=L, seed=seed, short=AR_SHORT, eos=True)
+    ix_to_word = {str(i + 4): f"w{i}" for i in range(VOCAB)}
+    return (LabelStore(images, ix_to_word, labels, start, end),
+            synth.ArrayFeatures(att))
+
+
+def train_aic() -> tuple:
+    """configs/transformer.yml at full width, float32, dropout off, AR_STEPS
+    XE steps on ar_corpus's train split; returns (the trained model, a B =
+    64 eval loader over the corpus, the training's figures)."""
+    from boficap_tpu_torch.data.dataset import CaptionData
+    from boficap_tpu_torch.train import steps
+    opt = eval_opt("transformer.yml", id="smokear", noamopt=False,
+                   learning_rate=TRAIN_LR, learning_rate_decay_start=-1,
+                   dtype="float32", dropout=0.0, drop_prob_lm=0.0,
+                   batch_size=AR_BATCH, seq_per_img=1)
+    store, feats = ar_corpus(SEED)
+    loader = CaptionData(opt, labels=store, features=feats)
+    model, step = trainer(opt)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(AR_STEPS):
+        m = step(steps.to_device(loader.get_batch("train"), DEV), gen)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train aic: a loss is not finite: {losses}")
+    eval_loader_ = CaptionData(eval_opt("transformer.yml", id="smokear",
+                                        batch_size=B, seq_per_img=1),
+                               labels=store, features=feats)
+    return model.eval(), eval_loader_, {
+        "config": "transformer.yml", "images": AR_IMAGES,
+        "steps": AR_STEPS, "batch_images": AR_BATCH, "train_s": train_s,
+        "losses_first5": losses[:5], "losses_last5": losses[-5:]}
+
+
+def distinct_decodes(r: dict) -> list:
+    """eval_pair's per-decode entries of distinct batches: a one-batch
+    eval_split decodes its batch a second time, last, for its rate."""
+    return r["batches"][:math.ceil(r["images"] / B)]
+
+
+def trained_ar_eval(model, dtype_name: str, loader, kw) -> tuple:
+    """eval_split AIC greedy and beam K_BEAM of the trained AIC model with
+    #9 on (use_pallas) against off, by ``dtype_name``'s margin rule; the
+    share of greedy rows that end (EOS) before L, which must not be 0.
+    Returns (result, the launch counts summed)."""
+    bf16 = dtype_name == "bfloat16"
+    out, launches = {}, {}
+    for name, beam, agree in (("greedy", 1, ar_eval_agree(model, bf16)),
+                              ("beam3", K_BEAM, beam_eval_agree(model, bf16))):
+        r = eval_pair(model, loader, "AIC", dtype_name,
+                      {**kw, "beam_size": beam},
+                      EVAL_KERNELS["AIC", dtype_name], agree, core=True)
+        out[name] = r
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    greedy, beam = (distinct_decodes(out[k]) for k in ("greedy", "beam3"))
+    rows = sum(b["rows"] for b in greedy)
+    ended = sum(b["ended_rows"] for b in greedy)
+    out["ar_rows"], out["ar_rows_ended_share"] = rows, ended / rows
+    if not ended:
+        fail(f"train aic {dtype_name}: no AR row ended before L "
+             f"({rows} rows)")
+    excused = sorted(g for b in beam for g in b["excused_gaps"])
+    out["beam3_samples"] = sum(b["beams"] for b in beam) // K_BEAM
+    out["beam3_excused_samples"] = len(excused)
+    out["beam3_excused_gap_quantiles"] = (
+        [excused[int(q * (len(excused) - 1))] for q in (0, 0.25, 0.5, 0.75,
+                                                        1)]
+        if excused else [])
+    return out, launches
+
+
+def check_trained_aic(kw) -> tuple:
+    """The trained AIC model (train_aic) on its kernels against the plain
+    path, float32 and a bf16 copy of the same weights (trained_ar_eval);
+    returns (result, the launch counts summed)."""
+    from boficap_tpu_torch.convert import init_params
+    t_part = time.perf_counter()
+    model32, loader, res = train_aic()
+    model16 = init_params(eval_opt("transformer.yml"), VOCAB, seed=SEED,
+                          device=DEV).eval()
+    model16.load_state_dict(model32.state_dict())
+    launches = {}
+    for dtype_name, model in (("float32", model32), ("bfloat16", model16)):
+        r, counts = trained_ar_eval(model, dtype_name, loader, kw)
+        res[f"val_AIC_{dtype_name}"] = r
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    res["part_s"] = time.perf_counter() - t_part
+    return res, launches
 
 
 # the remat part of phase train: uic_sd's XE step with remat 0 and 1
@@ -2631,10 +2917,7 @@ def rl_grads(opt, state, samples, scores, device, record=None, align=None,
     model = init_params(opt, VOCAB, seed=SEED, device=device)
     model.load_state_dict(state)
     if float64:
-        model.dtype = torch.float64
-        for m in model.modules():
-            if hasattr(m, "compute_dtype"):
-                m.compute_dtype = torch.float64
+        to_float64(model)
     tb = {k: v.to(device) for k, v in samples["batch"].items()}
     sm = {k: {n: t.to(device) for n, t in d.items()}
           for k, d in samples["samples"].items()}
@@ -2693,6 +2976,57 @@ def check_rl_cross_device(opt32, state, samples, scores,
         fail(f"rl: card loss {lg} != CPU loss {lc} ({out})")
     return {**out, **compare_grads("rl", names, gg, gc, raw, relu, stats,
                                    witness=g64)}
+
+
+# check_rl_wide's shaping: the share of the trained model's images whose
+# float32 first SA round takes LONG words as its argmax (shape_plans: the
+# quantile of the argmax gap that the raise passes); the bf16 sampler draws
+# its lengths from the raised head, and more of its samples open with a
+# LONG-word phrase (printed: samples_opening_long)
+WIDE_SHARE = 0.2
+
+
+@torch.no_grad()
+def check_rl_wide(m16, sampler16, m32, tb, n) -> tuple:
+    """The trained model's plans shaped (shape_plans at WIDE_SHARE, read on
+    the float32 model; no stop shift: a trained model's plans run on): the
+    bf16 sampler launches the wide round's
+    kernel (#7) with RL_KERNELS, its log-probs lie within RESCORE_BF16 of
+    the re-score, and the float32 top1 decodes equal the greedy ones; then
+    the length heads' biases are put back as they were.  Returns (result,
+    the bf16 sampler's launch counts)."""
+    t_part = time.perf_counter()
+    att, am = tb["att_feats"], tb["att_masks"]
+    models = (m32, m16)
+    saved = [m.len_head2.bias.detach().clone() for m in models]
+    shift = shape_plans(models, share=WIDE_SHARE, feats=(att, am))
+    try:
+        samples, launches = counted(lambda: sampler16(
+            att, am, torch.Generator(device=DEV).manual_seed(SEED)))
+        pl = samples["sa"]["phrase_length"]
+        need = RL_KERNELS + ("window_wide_stack",)
+        if not (pl.max() > W_NARROW) or any(not launches[k] for k in need):
+            fail(f"rl wide: the shaped bf16 sampler planned no phrase wider "
+                 f"than {W_NARROW} or never launched {need}: {launches}")
+        gap = rescore_gap(m16, tb, samples, n)
+        for k, r in gap.items():
+            if r["max_abs_err"] > RESCORE_BF16:
+                fail(f"rl wide: bf16 {k} sampler log-probs "
+                     f"{r['max_abs_err']} off the re-score, above "
+                     f"{RESCORE_BF16}")
+        top1 = check_top1(m32, tb)
+    finally:
+        for m, b in zip(models, saved):
+            m.len_head2.bias.copy_(b)
+            m.invalidate_packed()
+    return {"long_bias_shift": shift, "long": LONG,
+            "long_argmax_share": WIDE_SHARE,
+            "samples_opening_long": int((pl[:, 0] == LONG).sum()),
+            "samples": int(pl.shape[0]),
+            "wide_phrases": int((pl > W_NARROW).sum()),
+            "launches": launches, "rescore_bf16": gap,
+            "top1_equals_greedy_float32": top1,
+            "part_s": time.perf_counter() - t_part}, launches
 
 
 @torch.no_grad()
@@ -2930,6 +3264,7 @@ def check_rl(model16, batch, tmp: str) -> tuple:
     # step on the card against the CPU
     m32, sampler32, step32 = rl_model(opt32, state)
     res["top1_equals_greedy_float32"] = check_top1(m32, tb)
+    res["wide"], wide_launches = check_rl_wide(m16, sampler16, m32, tb, n)
     s32 = sampler32(tb["att_feats"], tb["att_masks"],
                     torch.Generator(device=DEV).manual_seed(SEED))
     res["rescore_float32"] = rescore_gap(m32, tb, s32, n)
@@ -3027,7 +3362,8 @@ def check_rl(model16, batch, tmp: str) -> tuple:
     res["aic_scst"], aic_launches = check_aic_scst()
     res["cli"] = rl_cli(tmp)
     res["phase_s"] = time.perf_counter() - t_phase
-    return res, {k: v + aic_launches[k] for k, v in launches.items()}
+    return res, {k: v + aic_launches[k] + wide_launches[k]
+                 for k, v in launches.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -4511,6 +4847,7 @@ def raw_cli(folder: str, tmp: str, feats, aic16) -> tuple:
     import re
     from boficap_tpu_torch.data.raw import IMAGE_EXTS
     uic = build()
+    shift_stop([uic])
     long_shift = shape_plans([uic], feats=feats, long=RAW_LONG)
     ckpts = {}
     for key, config, model in (("uic_sd", "uic_sd.yml", uic),
@@ -6178,6 +6515,7 @@ def run_phases(smi: str):
     aic, aic16 = build("float32", "transformer.yml"), build(
         None, "transformer.yml")
     uic_s = build("float32", "uic_s_ori.yml")
+    shift_stop([model, model16])
     long_shift = shape_plans([model, model16])
     errs = check_kernels(model)
     werrs = check_window_kernels(model)
