@@ -6,9 +6,10 @@ own counted wrappers in ``COUNTED`` and this package gathers them."""
 
 from typing import Dict
 
-from . import attention, decoder_layer, stack
+from . import attention, decoder_layer, stack, window_parts
 
-COUNTED = {**decoder_layer.COUNTED, **stack.COUNTED, **attention.COUNTED}
+COUNTED = {**decoder_layer.COUNTED, **stack.COUNTED, **attention.COUNTED,
+           **window_parts.COUNTED}
 
 
 def reset_launch_counts() -> None:

@@ -37,8 +37,9 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # their argument struct (ops/decoder_layer.py, ops/stack.py and
 # ops/attention.py mirror it), the encoder and decoder stacks also the layer
 # count (the decoder stack's scratch too: it holds every layer's cross
-# K|V); bfc_gemm runs one product of the layer kernels alone, bfc_refnorm
-# one norm
+# K|V), the window layer's parts entry also its parts mask
+# (ops/window_parts.py); bfc_gemm runs one product of the layer kernels
+# alone, bfc_refnorm one norm
 SIGNATURES = {
     "attention_core": {
         "bfc_attention_core": ([_I, _I, _P, _P], _I),
@@ -76,6 +77,14 @@ SIGNATURES = {
         "bfc_window_layer": ([_I, _I, _P, _P], _I),
         "bfc_window_layer_scratch": ([_I, _I, _I, _I], _L),
         "bfc_window_layer_args_size": ([], _I),
+        "bfc_error_string": ([_I], ctypes.c_char_p),
+    },
+    "window_parts": {
+        "bfc_window_layer_parts": ([_I, _I, _P, _I, _P], _I),
+        "bfc_window_layer_hb": ([_I, _I, _P, _P], _I),
+        "bfc_window_parts_scratch": ([_I, _I, _I, _I], _L),
+        "bfc_window_hb_smem": ([_I, _I, _I], _L),
+        "bfc_window_parts_args_size": ([], _I),
         "bfc_error_string": ([_I], ctypes.c_char_p),
     },
     "window_stack": {

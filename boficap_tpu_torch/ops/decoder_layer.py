@@ -742,9 +742,13 @@ def fused_window_decoder_layer(x_win, k_cache, v_cache, k2, v2, tgt_mask,
 
 
 def window_layer_call(x_win, k_cache, v_cache, k2, v2, tgt_mask, src_mask, w,
-                      num_heads: int):
+                      num_heads: int, lib: str = "window_layer",
+                      entry: str = "window_layer", extra=()):
     """Check a window layer's operands (``fused_window_decoder_layer``'s)
-    and run csrc/window_layer.cu; returns (x, k_new, v_new)."""
+    and run ``entry`` of the library ``lib`` (csrc/window_layer.cu, or
+    csrc/window_parts.cu's entries, which take the same argument struct;
+    ``extra``: the arguments between it and the stream); returns (x,
+    k_new, v_new)."""
     B, W, D = x_win.shape
     L = k_cache.shape[1]
     R = k2.shape[1]
@@ -761,7 +765,8 @@ def window_layer_call(x_win, k_cache, v_cache, k2, v2, tgt_mask, src_mask, w,
     check_attention_shape({"self-attention": (W, L + W, True),
                            "cross-attention": (W, R, False)},
                           D // num_heads, dt)
-    n_scratch = _kernels().window_layer.bfc_window_layer_scratch(B, W, D, F)
+    n_scratch = getattr(getattr(_kernels(), lib), f"bfc_{lib}_scratch")(
+        B, W, D, F)
     scratch = torch.empty(n_scratch, dtype=dt, device=dev)
     out = torch.empty_like(x_win)
     k_new = torch.empty_like(x_win)
@@ -774,7 +779,7 @@ def window_layer_call(x_win, k_cache, v_cache, k2, v2, tgt_mask, src_mask, w,
         scratch=scratch.data_ptr(), out=out.data_ptr(),
         k_new=k_new.data_ptr(), v_new=v_new.data_ptr(),
         B=B, W=W, L=L, R=R, D=D, F=F, H=num_heads, **_pointers(w, _WIN_KEYS))
-    _launch_layer("window_layer", args, x_win)
+    _launch_layer(entry, args, x_win, lib, extra)
     return out, k_new, v_new
 
 

@@ -304,6 +304,22 @@ Phases, each printing one JSON line:
               and the FLOP counts equal; the training CLI with
               --profile_steps 2 on the card: a trace under profile/ with
               CUDA kernel events.
+ 22. kernel_parts  the kernel-parts tool's two kernels (the ports of
+              scripts/bench_kernel_parts.py): #10, the window layer with
+              parts switched off, in each of the tool's seven variants,
+              and #11, its head-block-diagonal variant (one softmax max a
+              row across heads), at W = 8 and 16, on window_inputs at B =
+              64 and full width, float32 and bfloat16, each against its
+              plain twin (TOL), #10 with every part bitwise #8; each
+              call's kernel launches by kind (torch.profiler) held to
+              ops.window_parts' table, with each kind's device ms, the
+              call's device ms and the gap between; then the tool's main path
+              (`python -m boficap_tpu_torch.tools.bench_kernel_parts`, in
+              process, at both dtypes: the variants' six-layer stacks, #11
+              against #8 at W = 8 and 16) with the launch counts zeroed
+              before and read after; #10's and #11's ms beside #8's,
+              their twins', #8's yardstick (eager torch.matmul + SDPA) and
+              #8's bound.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed phase raises: the script exits
@@ -6370,6 +6386,133 @@ def check_mesh(model16, smi: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 22: the kernel-parts tool's kernels (#10, #11)
+# ---------------------------------------------------------------------------
+
+PARTS_REPLACES = {
+    "window_layer_parts": "scripts/bench_kernel_parts.py:164",
+    "window_layer_hb": "scripts/bench_kernel_parts.py:460",
+}
+PARTS_SOURCE = "boficap_tpu_torch/csrc/window_parts.cu"
+
+
+@torch.no_grad()
+def check_kernel_parts(model) -> tuple:
+    """Phase kernel_parts: #10 in every variant and #11 at W = 8 and 16
+    against their twins at both dtypes, with each call's launches by kind;
+    then the tool's main path, the counts zeroed before it and read after.
+    Returns (the phase's dict, the tool run's launches, the kernels line's
+    rows)."""
+    from boficap_tpu_torch import ops
+    from boficap_tpu_torch.ops import decoder_layer as dl
+    from boficap_tpu_torch.ops import stack as st
+    from boficap_tpu_torch.ops import window_parts as wp
+    from boficap_tpu_torch.tools import bench_kernel_parts as tool
+    H = model.num_heads
+    out, rows = {}, {}
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        tol = TOL[dtype_name]
+        w0 = st.pack_window_weights(model._decoder("SA"), dtype).layers[0]
+        # profile_split's labels: the hb block before the layer's
+        # attention block, whose name its own holds
+        kinds = {"products": ("gemm_tc_kernel" if dtype == torch.bfloat16
+                              else "ffma_gemm_kernel"),
+                 "hb_attention": "hb_attention_kernel",
+                 "attention": "attention_", "refnorm": "refnorm_kernel",
+                 "copy": "parts_copy_kernel"}
+        res = {}
+
+        def held(name, call, plain, want_launches):
+            got, want = call(), plain()
+            torch.cuda.synchronize()
+            errs = [rel_err(g, w) for g, w in zip(got, want)]
+            if (not all(torch.isfinite(g.float()).all() for g in got)
+                    or max(errs) > tol):
+                fail(f"kernel_parts {name} {dtype_name}: rel err {errs} > "
+                     f"{tol}")
+            split = profile_split(call, kinds, reps=5)
+            launches = {k: v for k, v in split["launches"].items() if v}
+            if launches != {k: v for k, v in want_launches.items() if v}:
+                fail(f"kernel_parts {name} {dtype_name}: launches "
+                     f"{split['launches']}, want {want_launches}")
+            kernel_ms = {k: split[f"{k}_ms"] for k in (*kinds, "other")
+                         if split[f"{k}_ms"]}
+            dev = device_ms(call)
+            res[name] = {"rel_err": max(errs), "max_abs_err": max(
+                (g.float() - w.float()).abs().max().item()
+                for g, w in zip(got, want)), "launches": launches,
+                "kernel_ms": kernel_ms, "device_ms": dev,
+                "gap_ms": dev - sum(kernel_ms.values())}
+            return got
+
+        x, kc, vc, k2, v2, _, tgt, src = window_inputs(dtype, W_NARROW, 16)
+        args = (x, kc[0], vc[0], k2[0], v2[0], tgt, src, w0, H)
+        for name, parts in wp.VARIANTS:
+            got = held(name, lambda p=parts: wp.fused_window_layer_parts(
+                *args, p), lambda p=parts: wp.window_layer_parts_plain(
+                *args, p), wp.kernel_launches(parts))
+            if name == "full" and not all(
+                    torch.equal(g, w) for g, w in
+                    zip(got, dl.fused_window_decoder_layer(*args))):
+                fail(f"kernel_parts full {dtype_name}: not bitwise #8")
+        times = {"window_layer_parts": device_ms(
+            lambda: wp.fused_window_layer_parts(*args, wp.ALL_PARTS)),
+            "window_layer": device_ms(
+                lambda: dl.fused_window_decoder_layer(*args))}
+        hb = {}
+        for Wv in tool.HB_WINDOWS:
+            xh, kch, vch, k2h, v2h, _, tgh, srh = window_inputs(dtype, Wv,
+                                                               17 + Wv)
+            hargs = (xh, kch[0], vch[0], k2h[0], v2h[0], tgh, srh, w0, H)
+            held(f"hb_w{Wv}", lambda a=hargs: wp.fused_window_layer_hb(*a),
+                 lambda a=hargs: wp.window_layer_hb_plain(*a),
+                 wp.HB_LAUNCHES)
+            hb[Wv] = hargs
+        times["window_layer_hb"] = device_ms(
+            lambda: wp.fused_window_layer_hb(*hb[W_NARROW]))
+        times["window_layer_hb_w16"] = device_ms(
+            lambda: wp.fused_window_layer_hb(*hb[16]))
+        # the twins and #8's yardstick on the same operands (W = 8)
+        plain = {"window_layer_parts": device_ms(
+            lambda: wp.window_layer_parts_plain(*args, wp.ALL_PARTS)),
+            "window_layer_hb": device_ms(
+                lambda: wp.window_layer_hb_plain(*hb[W_NARROW]))}
+        lib = device_ms(lambda: library_window_layer(*args))
+        bnd = bounds(dtype_name, x.element_size())["window_layer"]
+        for name in PARTS_REPLACES:
+            worst = max((r for k, r in res.items()
+                         if (k.startswith("hb_") == (name ==
+                                                     "window_layer_hb"))),
+                        key=lambda r: r["max_abs_err"])
+            rows.setdefault(name, {})[dtype_name] = {
+                "ms": times[name], "plain_ms": plain[name],
+                "library_ms": lib, "bound_ms": bnd["bound_ms"],
+                "bound_by": bnd["bound_by"],
+                "max_abs_err": worst["max_abs_err"]}
+        out[dtype_name] = {"checks": res, "device_ms": times,
+                           "plain_ms": plain, "library_ms": lib,
+                           "bound": bnd}
+
+    # the main path: the tool's two mains at both dtypes, in process
+    ops.reset_launch_counts()
+    table = {dt: tool.main(["--dtype", dt, "--seed", str(SEED)])
+             for dt in ("bfloat16", "float32")}
+    launches = ops.launch_counts()
+    want = {"window_layer_parts": 2 * len(wp.VARIANTS) * NL
+            * tool.TIMED_CALLS,
+            "window_layer_hb": 2 * (1 + len(tool.HB_WINDOWS) * NL
+                                    * tool.TIMED_CALLS)}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"kernel_parts: the tool launched {name} "
+                 f"{launches[name]} times, not {n}")
+    out["tool"] = table
+    out["tool_launches"] = {k: v for k, v in launches.items() if v}
+    return out, launches, rows
+
+
+# ---------------------------------------------------------------------------
 # phase 21: the diagnostics (--dump_attention, --report_flops,
 # --profile_steps)
 # ---------------------------------------------------------------------------
@@ -6507,7 +6650,7 @@ def main():
 
 
 def run_phases(smi: str):
-    """Phases 2-21; returns the {"kernels": [...]} list."""
+    """Phases 2-22; returns the {"kernels": [...]} list."""
     # the same random weights at both compute dtypes: float32 for the
     # decode comparisons, the default (bfloat16) for the main paths
     model = build("float32")
@@ -6609,6 +6752,10 @@ def run_phases(smi: str):
         diag = check_diagnostics(tmp)
     emit({"phase": "diagnostics", "card": smi,
           "seconds": time.perf_counter() - t0, **diag})
+    t0 = time.perf_counter()
+    parts, parts_launches, parts_rows = check_kernel_parts(model)
+    emit({"phase": "kernel_parts", "card": smi, "tolerance_rel": TOL,
+          "seconds": time.perf_counter() - t0, **parts})
     errs["float32"]["attention_core"] = att_errs["float32"]["ar_cross"]
     errs["bfloat16"]["attention_core"] = att_errs["bfloat16"]["ar_cross"]
 
@@ -6672,6 +6819,17 @@ def run_phases(smi: str):
                     "path", "max_abs_err", "ms", "by_path_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms")}
                 for case, r in pb_res["attention_past_key_bound"].items()}
+    for name, replaces in PARTS_REPLACES.items():
+        t32, t16 = parts_rows[name]["float32"], parts_rows[name]["bfloat16"]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        kernels.append({
+            "name": name, "route": "cuda", "source": PARTS_SOURCE,
+            "replaces": replaces, "launches": parts_launches[name],
+            "path": "kernel_parts_tool",
+            "max_abs_err": t32["max_abs_err"],
+            **{key: t32[key] for key in keys}, "dtype": "float32",
+            "bf16": {key: t16[key] for key in keys},
+            "bf16_max_abs_err": t16["max_abs_err"]})
     return kernels
 
 

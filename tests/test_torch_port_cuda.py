@@ -31,7 +31,10 @@ redesign (frozen digests of tests/_torch_port_long_digests.py); the PB_pad
 decode with the core against the plain path at a packed width of 211.  AoANet: its
 greedy decode with the core (#9 on the refiner's self-attentions and every
 step's decoder attention) against the plain path at float32, with the
-launch count.
+launch count.  The kernel-parts tool's two kernels: the window layer with
+parts switched off (#10, each variant; all parts on bitwise #8) and with
+one softmax max across heads (#11, cross keys up to 196) against their
+twins.
 """
 
 import pytest
@@ -39,6 +42,7 @@ import torch
 
 from boficap_tpu_torch.models import layers as tl
 from boficap_tpu_torch.ops import decoder_layer as dl
+from boficap_tpu_torch.ops import window_parts as wp
 
 pytestmark = pytest.mark.cuda
 
@@ -358,6 +362,53 @@ def test_window_layer_kernel(cuda, dtype):
     for g, w in zip(got, want):
         assert torch.isfinite(g.float()).all()
         assert _rel(g, w) < TOL[dtype]
+
+
+@pytest.mark.parametrize("variant", [name for name, _ in wp.VARIANTS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_layer_parts_kernel(cuda, dtype, variant):
+    """#10, each of the kernel-parts tool's variants at ragged widths
+    against its twin; every part on is #8 bitwise."""
+    D, F, H, B, W, L, R = 96, 200, 3, 5, 3, 9, 7
+    layers, _, x, kc, vc, k2, v2, _, tgt, src, _ = _window_operands(
+        cuda, dtype, 1, B, W, L, R, D, F, H)
+    args = (x, kc[0], vc[0], k2[0], v2[0], tgt, src, layers[0], H)
+    parts = dict(wp.VARIANTS)[variant]
+    n = wp.fused_window_layer_parts.launches
+    got = wp.fused_window_layer_parts(*args, parts)
+    want = wp.window_layer_parts_plain(*args, parts)
+    torch.cuda.synchronize()
+    assert wp.fused_window_layer_parts.launches == n + 1
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        assert _rel(g, w) < TOL[dtype]
+    if variant == "full":
+        for g, w in zip(got, dl.fused_window_decoder_layer(*args)):
+            assert torch.equal(g, w)
+    if variant == "empty":
+        for g in got:
+            assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("W,R", [(3, 7), (8, 36), (16, 196)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_layer_hb_kernel(cuda, dtype, W, R):
+    """#11 against its twin, cross keys up to a 14 x 14 grid; the hb
+    block's shared memory as ops/window_parts.py computes it."""
+    from boficap_tpu_torch.ops import _build
+    D, F, H, B, L = 96, 200, 3, 5, 9
+    layers, _, x, kc, vc, k2, v2, _, tgt, src, _ = _window_operands(
+        cuda, dtype, 1, B, W, L, R, D, F, H)
+    args = (x, kc[0], vc[0], k2[0], v2[0], tgt, src, layers[0], H)
+    got = wp.fused_window_layer_hb(*args)
+    want = wp.window_layer_hb_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        assert _rel(g, w) < TOL[dtype]
+    for Lk in (L + W, R):
+        assert (_build.kernels().window_parts.bfc_window_hb_smem(Lk, D, H)
+                == wp.hb_shared_bytes(Lk, D, H))
 
 
 # window rounds: a few samples, and the serving batch's rows (B = 64,

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no file of ``boficap_tpu_torch/``, nor
-``chip_smoke.py`` or ``scripts/port_decode_ab.py``, imports jax, flax or
+``chip_smoke.py`` or the port's scripts (``scripts/port_decode_ab.py``,
+``attention_long_ab.py``, ``ffma_tile_sweep.py``), imports jax, flax or
 the JAX package; its C++ and CUDA sources (``native/``, ``csrc/``) include
 no header of the JAX package and no Python header."""
 
@@ -18,7 +19,9 @@ PREPRO_TOOLS = ("prepro_labels", "prepro_labels_stanford", "stanford_cut",
 
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "port_decode_ab.py")]
+           *(os.path.join(ROOT, "scripts", f"{name}.py")
+             for name in ("port_decode_ab", "attention_long_ab",
+                          "ffma_tile_sweep"))]
     for d, _, files in os.walk(os.path.join(ROOT, "boficap_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -175,7 +175,7 @@ def test_launch_counts_untouched_on_cpu():
         "encoder_layer": 0, "decoder_layer": 0, "greedy_head": 0,
         "window_layer": 0, "linear": 0, "refnorm": 0, "encoder_stack": 0,
         "decoder_stack": 0, "window_stack": 0, "window_wide_stack": 0,
-        "attention_core": 0}
+        "attention_core": 0, "window_layer_parts": 0, "window_layer_hb": 0}
 
 
 @pytest.mark.parametrize("width", [512, 77])
@@ -469,6 +469,7 @@ def test_signatures_mirror_c(lib, entry):
     ("decoder_layer", dl._DecoderLayerArgs),
     ("window_layer", dl._WindowLayerArgs),
     ("window_stack", st._WindowStackArgs),
+    ("window_parts", dl._WindowLayerArgs),
     ("attention_core", at._AttentionCoreArgs)])
 def test_args_struct_mirrors_c(entry, mirror):
     """The wrapper's ctypes struct lists the C entry's argument struct
