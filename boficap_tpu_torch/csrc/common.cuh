@@ -101,6 +101,66 @@ cudaError_t launch_kernel(void (*kernel)(Exp...), dim3 grid, dim3 block,
   }
 }
 
+// Thread-block clusters (Hopper).  cluster_along(n): the blocks of a
+// cluster along a grid dimension of n blocks, the largest of 8, 4, 2, 1
+// that divides n (8: the portable maximum).
+inline int cluster_along(int n) {
+  int c = 8;
+  while (n % c != 0) c /= 2;
+  return c;
+}
+
+// the cluster barrier, split: arrive releases this thread's writes (to
+// shared and device memory), wait acquires every thread's of the cluster.
+// Every thread of every block of the cluster arrives at each phase, warp
+// by warp (.aligned), and waits on it before it arrives again or exits: a
+// warp that arrived twice and left hung a cluster on the H100
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the float at p in the shared memory of the cluster's block ``rank``
+// (distributed shared memory: mapa, then ld.shared::cluster)
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
+// launch_kernel's launch in clusters of cluster_x blocks along x (gridDim.x
+// a multiple of it): the cluster dimension and, CH, programmatic stream
+// serialization in one cudaLaunchKernelEx
+template <bool CH, typename... Exp, typename... Act>
+cudaError_t launch_cluster(void (*kernel)(Exp...), dim3 grid, dim3 block,
+                           size_t smem, cudaStream_t s, int cluster_x,
+                           Act&&... args) {
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = CH ? 2 : 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<Act&&>(args)...);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
 }  // namespace bfc
 
 // C interface: each kernel source (csrc/*.cu) is its own shared library.

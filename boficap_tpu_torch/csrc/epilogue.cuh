@@ -19,6 +19,10 @@
 //              v = T(v + res), the rounding of the TPU kernels
 //              (boficap_tpu/ops/pallas_decoder_layer.py:102-121); groups
 //              of G columns move as one vector where ``vec`` allows.
+//   SplitEpi   LinearEpi's values (no residual, no ReLU) of a [M, 3D]
+//              product written as three [M, D] outputs by column third:
+//              the window-parts layer's q, k and v without the
+//              self-attention (csrc/window_parts.cu).
 //   HeadEpi    the greedy head's partials (greedy_head.cu): for block
 //              column tile (vocab chunk) blockIdx.x, per row the chunk's
 //              max logit, its first argmax, sum exp(l - max) and
@@ -162,6 +166,55 @@ struct LinearEpi {
         for (int e = 0; e < 2; ++e)
           y[e] = apply(acc[4 * j + 2 * h + e], b[e], x[e]);
         store_group<T, 2>(C + o, true, y);
+      }
+    }
+  }
+};
+
+// C[j] [M, D] = third j of the [M, 3D] output, each value LinearEpi's with
+// no residual and no ReLU: v = T(T(sum) + bias); bias [3D]
+template <typename T>
+struct SplitEpi {
+  const T* bias;
+  T* C[3];
+  int M, D;
+
+  __device__ __forceinline__ void put(float s, int r, int c) const {
+    const int j = c >= 2 * D ? 2 : c >= D ? 1 : 0;
+    const float y = round_to<T>(round_to<T>(s) + Cvt<T>::to_f(bias[c]));
+    C[j][(size_t)r * D + c - j * D] = Cvt<T>::from_f(y);
+  }
+
+  template <int NV, int G, int S, int LANES>
+  __device__ __forceinline__ void row(float (&v)[NV], int r, int c0) const {
+    if (r >= M) return;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = c0 + (i / G) * S + i % G;
+      if (c < 3 * D) put(v[i], r, c);
+    }
+  }
+
+  // the tensor-core product's D is a multiple of 8: a column pair never
+  // straddles two thirds, and each third's pairs are 4-byte aligned
+  template <int BN>
+  __device__ __forceinline__ void fragment(const float (&acc)[BN / 2], int r0,
+                                           int c0) const {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = c0 + 8 * j;
+      if (c >= 3 * D) continue;
+      const int part = c >= 2 * D ? 2 : c >= D ? 1 : 0;
+      float b[2], y[2];
+      load_group<T, 2>(bias + c, true, b);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        if (r >= M) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          y[e] = round_to<T>(round_to<T>(acc[4 * j + 2 * h + e]) + b[e]);
+        store_group<T, 2>(C[part] + (size_t)r * D + c - part * D, true, y);
       }
     }
   }

@@ -27,21 +27,22 @@ namespace bfc {
 constexpr int NORM_WARPS = 4;
 constexpr float NORM_EPS = 1e-6f;
 
-// PER: elements a lane holds in registers (the row in chunks of 32 * PER);
-// CHAIN: launched chained (common.cuh)
-template <typename T, int PER, bool CHAIN>
-__global__ void __launch_bounds__(NORM_WARPS * 32)
-    refnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                   const float* __restrict__ bias, T* __restrict__ y,
-                   int rows, int d) {
+// One row's norm by one warp (lane ``lane`` of it): row xr [d] ->
+// store(c, y) for each of the lane's columns c, y the float32 value before
+// its rounding to T.  PER: elements a lane holds in registers (the row in
+// chunks of 32 * PER).  PER changes no bit: a lane sums its elements c =
+// lane, lane + 32, ... in that order whatever the chunk, so the
+// window-parts layer's norm that writes two outputs (window_parts.cu
+// parts_refnorm_kernel) gives refnorm_kernel's values.  mid() runs
+// between the statistics and the stores (the chained kernel's
+// grid_launch_dependents).
+template <typename T, int PER, class Mid, class Store>
+__device__ __forceinline__ void refnorm_row(const T* __restrict__ xr,
+                                            const float* __restrict__ scale,
+                                            const float* __restrict__ bias,
+                                            int d, int lane, Mid mid,
+                                            Store store) {
   constexpr int CH = 32 * PER;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * NORM_WARPS + warp;
-  grid_wait<CHAIN>();   // x: a predecessor's output; y: read before
-  if (row >= rows) return;
-  const T* xr = x + (size_t)row * d;
-  T* yr = y + (size_t)row * d;
   const bool whole = d <= CH;   // the row stays in registers
   float v[PER];
   auto load = [&](int base) {
@@ -78,7 +79,7 @@ __global__ void __launch_bounds__(NORM_WARPS * 32)
   for (int off = 16; off > 0; off >>= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
   const float var = q / static_cast<float>(d > 1 ? d - 1 : 1);
   const float denom = sqrtf(var) + NORM_EPS;
-  grid_launch_dependents<CHAIN>();
+  mid();
 
   for (int base = 0; base < d; base += CH) {
     if (!whole) load(base);
@@ -87,10 +88,29 @@ __global__ void __launch_bounds__(NORM_WARPS * 32)
       const int c = base + lane + 32 * t;
       if (c < d) {
         const float u = (v[t] - mean) / denom;
-        yr[c] = Cvt<T>::from_f(fmaf(u, scale[c], bias[c]));
+        store(c, fmaf(u, scale[c], bias[c]));
       }
     }
   }
+}
+
+// PER: elements a lane holds in registers (the row in chunks of 32 * PER);
+// CHAIN: launched chained (common.cuh)
+template <typename T, int PER, bool CHAIN>
+__global__ void __launch_bounds__(NORM_WARPS * 32)
+    refnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                   const float* __restrict__ bias, T* __restrict__ y,
+                   int rows, int d) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * NORM_WARPS + warp;
+  grid_wait<CHAIN>();   // x: a predecessor's output; y: read before
+  if (row >= rows) return;
+  T* yr = y + (size_t)row * d;
+  refnorm_row<T, PER>(
+      x + (size_t)row * d, scale, bias, d, lane,
+      [] { grid_launch_dependents<CHAIN>(); },
+      [&](int c, float v) { yr[c] = Cvt<T>::from_f(v); });
 }
 
 // CH: launched as a link of a launch chain (common.cuh launch_kernel)

@@ -26,8 +26,10 @@
 //    3 or 4 shared-memory slots.  A slot holds A's [BM][64] tile (K-major)
 //    and BN / 64 tiles [64 k][64 n] of W (N-major: W stays in its packed
 //    [in, out] layout; wgmma reads a 16-bit B operand either way), all
-//    128-byte swizzled; each slot has a "full" mbarrier the copies complete
-//    on and an "empty" one the consumers release it on.
+//    128-byte swizzled (at BN = 32, the window-parts layer's D-wide tile,
+//    one [64 k][32 n] W tile with the 64-byte swizzle); each slot has a
+//    "full" mbarrier the copies complete on and an "empty" one the
+//    consumers release it on.
 //  - Compute: BM / 64 consumer warpgroups, each running wgmma m64nBNk16
 //    over its 64 rows with the float32 sums in registers; one k step's
 //    wgmma group stays in flight while the next is issued.
@@ -46,7 +48,7 @@
 //    cudaErrorInvalidValue; the Python wrappers check first and raise.
 //  - Tensor maps: cuTensorMapEncodeTiled, looked up at run time with
 //    cudaGetDriverEntryPoint (no -lcuda).  W's map is cached by (pointer,
-//    shape): weights live as long as their model.  A's is encoded per
+//    shape, box): weights live as long as their model.  A's is encoded per
 //    call.  Both pass as __grid_constant__ kernel parameters, and so does
 //    the epilogue: its methods take its address, which without the
 //    qualifier makes each thread copy it first (the bf16 products ran up
@@ -138,6 +140,15 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// the same with the 64-byte swizzle: W's [64 k][32 n] tile of the BN = 32
+// product (rows of 64 bytes, SBO 512 between 8-row k groups)
+__device__ __forceinline__ uint64_t sw64_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -180,6 +191,23 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// the same, m64n32k16
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t desc_a,
+                                          uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // the same, m64n128k16
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t desc_a,
                                            uint64_t desc_b, int scale_d) {
@@ -215,10 +243,36 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t desc_a,
 template <int BN>
 __device__ __forceinline__ void wgmma_bn(float (&d)[BN / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  if constexpr (BN == 64)
+  if constexpr (BN == 32)
+    wgmma_n32(d, da, db, scale_d);
+  else if constexpr (BN == 64)
     wgmma_n64(d, da, db, scale_d);
   else
     wgmma_n128(d, da, db, scale_d);
+}
+
+// W's k tile at k0 (columns n0 .. n0 + BN - 1) into dst: BN / 64 tiles
+// [64 k][64 n] with the 128-byte swizzle, or, BN = 32, one [64 k][32 n]
+// with the 64-byte swizzle (w_map's box width: w_box(BN))
+template <int BN>
+__device__ __forceinline__ void load_w(uint8_t* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int n0, int k0) {
+  if constexpr (BN == 32) {
+    tma_load_2d(dst, map, bar, n0, k0);
+  } else {
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      tma_load_2d(dst + j * ATOM_BYTES, map, bar, n0 + 64 * j, k0);
+  }
+}
+
+// the wgmma descriptor of k16 step kk of W's tile at b_s (load_w's layout)
+template <int BN>
+__device__ __forceinline__ uint64_t w_desc(const uint8_t* b_s, int kk) {
+  if constexpr (BN == 32)
+    return sw64_desc(b_s + kk * 16 * 64, 64 * BK * 2, 512);
+  else
+    return sw128_desc(b_s + kk * 16 * 128, ATOM_BYTES, 1024);
 }
 
 template <int NC, int BN>
@@ -268,10 +322,8 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
     if (tid == NC * 128) {
       auto load_w = [&](int kt) {
         uint8_t* slot = ring + (kt % STAGES) * STAGE_BYTES;
-#pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load_2d(slot + A_BYTES + j * ATOM_BYTES, &w_map,
-                      &full[kt % STAGES], n0 + 64 * j, kt * BK);
+        bfc::tc::load_w<BN>(slot + A_BYTES, &w_map, &full[kt % STAGES], n0,
+                            kt * BK);
       };
       const int pre = !CH ? 0 : KT < STAGES ? KT : STAGES;
       for (int kt = 0; kt < pre; ++kt) {
@@ -308,8 +360,7 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
     for (int kk = 0; kk < BK / 16; ++kk) {
       // A: 16 k are 32 bytes along the swizzled row; W: 16 k-rows of 128 B
       wgmma_bn<BN>(acc, sw128_desc(a_s + kk * 32, 16, 1024),
-                   sw128_desc(b_s + kk * 16 * 128, ATOM_BYTES, 1024),
-                   (kt > 0 || kk > 0) ? 1 : 0);
+                   w_desc<BN>(b_s, kk), (kt > 0 || kk > 0) ? 1 : 0);
     }
     wgmma_commit();
     fence_acc(acc);
@@ -358,41 +409,46 @@ inline bool aligned(const void* p, uintptr_t n) {
 }
 
 // the map of a row-major bf16 [rows, cols] matrix, read in boxes of
-// box_rows x 64 columns with the 128-byte swizzle, zeros outside
+// box_rows x box_cols columns (64, with the 128-byte swizzle; 32, BN = 32's
+// W tile, with the 64-byte swizzle), zeros outside
 inline cudaError_t make_map(CUtensorMap* m, const void* p, int rows, int cols,
-                            int box_rows) {
+                            int box_rows, int box_cols = BK) {
   const EncodeTiledFn enc = encode_fn();
   if (enc == nullptr) return cudaErrorNotSupported;
   if (!aligned(p, 16) || cols % 8 != 0) return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {BK, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                          const_cast<void*>(p), dims, strides, box, elem,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         box_cols == BK ? CU_TENSOR_MAP_SWIZZLE_128B
+                                        : CU_TENSOR_MAP_SWIZZLE_64B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// W's maps, by (pointer, shape).  A map depends on nothing else, so an
-// entry can never go stale: a freed weight's address reused at the same
-// shape gets the same map.  Round-robin replacement past CAP entries.
+// W's maps, by (pointer, shape, box width).  A map depends on nothing
+// else, so an entry can never go stale: a freed weight's address reused at
+// the same shape gets the same map.  Round-robin replacement past CAP
+// entries.
 class WeightMaps {
  public:
-  cudaError_t get(const void* p, int rows, int cols, CUtensorMap* out) {
+  cudaError_t get(const void* p, int rows, int cols, CUtensorMap* out,
+                  int box_cols = BK) {
     std::lock_guard<std::mutex> lock(mu_);
     for (int i = 0; i < n_; ++i) {
       const Entry& e = entries_[i];
-      if (e.p == p && e.rows == rows && e.cols == cols) {
+      if (e.p == p && e.rows == rows && e.cols == cols &&
+          e.box_cols == box_cols) {
         *out = e.map;
         return cudaSuccess;
       }
     }
-    Entry e{p, rows, cols, {}};
-    const cudaError_t err = make_map(&e.map, p, rows, cols, BK);
+    Entry e{p, rows, cols, box_cols, {}};
+    const cudaError_t err = make_map(&e.map, p, rows, cols, BK, box_cols);
     if (err != cudaSuccess) return err;
     entries_[n_ < CAP ? n_++ : next_++ % CAP] = e;
     *out = e.map;
@@ -403,7 +459,7 @@ class WeightMaps {
   static constexpr int CAP = 512;
   struct Entry {
     const void* p;
-    int rows, cols;
+    int rows, cols, box_cols;
     CUtensorMap map;
   };
   std::mutex mu_;
@@ -465,6 +521,37 @@ cudaError_t run(const bf16* A, const bf16* W, const Epi& epi, int M, int N,
                      : launch<2, 64, CH>(a_map, w_map, epi, M, N, K, stream);
   return bn == 128 ? launch<1, 128, CH>(a_map, w_map, epi, M, N, K, stream)
                    : launch<1, 64, CH>(a_map, w_map, epi, M, N, K, stream);
+}
+
+// W's TMA box width for BN: 64 (128-byte swizzle), or 32 at BN = 32
+inline int w_box(int bn) { return bn == 32 ? 32 : BK; }
+
+// The window-parts layer's tile (csrc/window_parts.cu;
+// ops/window_parts.py product_tile mirrors it): BM = 64, and BN from N
+// alone, the widest of 128, 64 and 32 that still cuts N into at least 16
+// column tiles, so a 512-row product (8 row tiles) runs at least 128
+// blocks on the 132 SMs; rows stay bitwise batch-independent, and an
+// output's bits do not depend on BN (#8's, PERF.md).  At N = 512 and K =
+// d_ff = 2048 (w2) BN = 32 reads A 16 times where BN = 64 read it 8, and
+// still ran faster than BN = 64 unsplit or split in K (PERF.md)
+inline int parts_tile_n(int N) {
+  return N >= 16 * 128 ? 128 : N >= 16 * 64 ? 64 : 32;
+}
+
+// A [M, K] @ W [K, N] on gemm_tc_kernel's 64 x BN tile (the window-parts
+// layer's products whose A a predecessor wrote), handed to epi
+template <int BN, bool CH, class Epi>
+cudaError_t run_parts(const bf16* A, const bf16* W, const Epi& epi, int M,
+                      int N, int K, cudaStream_t stream) {
+  if (N <= 0 || K <= 0 || N % 8 != 0 || K % 8 != 0 || !aligned(A, 16) ||
+      !aligned(W, 16))
+    return cudaErrorInvalidValue;
+  CUtensorMap a_map, w_map;
+  cudaError_t err = weight_maps().get(W, K, N, &w_map, w_box(BN));
+  if (err != cudaSuccess) return err;
+  err = make_map(&a_map, A, M, K, 64);
+  if (err != cudaSuccess) return err;
+  return launch<1, BN, CH>(a_map, w_map, epi, M, N, K, stream);
 }
 
 // C = epilogue(A @ W + bias) on the tensor cores; res (nullable) is [M, N].

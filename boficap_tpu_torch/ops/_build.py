@@ -83,7 +83,8 @@ SIGNATURES = {
         "bfc_window_layer_parts": ([_I, _I, _P, _I, _P], _I),
         "bfc_window_layer_hb": ([_I, _I, _P, _P], _I),
         "bfc_window_parts_scratch": ([_I, _I, _I, _I], _L),
-        "bfc_window_hb_smem": ([_I, _I, _I], _L),
+        "bfc_window_hb_smem": ([_I, _I, _I, _I], _L),
+        "bfc_window_parts_tile": ([_I, _I, _I, _IP, _IP], _I),
         "bfc_window_parts_args_size": ([], _I),
         "bfc_error_string": ([_I], ctypes.c_char_p),
     },

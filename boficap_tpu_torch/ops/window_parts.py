@@ -18,6 +18,12 @@ tensor it runs its plain twin (``*_plain``), which repeats the kernel's
 arithmetic and rounding; any other device raises.  Each counts its CUDA
 calls in ``.launches`` (``COUNTED``).
 
+Both entries run one launch plan: no copy launch while ``proj`` is on,
+the bf16 launches chained (the float32 ones plain), and every product on
+a tile that fills the card at 512 rows (``product_tile``,
+``layer_products``; at bf16 chosen by N alone).  A shape the kernels
+cannot stage raises ``ValueError`` before any launch.
+
 The TPU kernels batch G samples in one grid step with block-diagonal masks
 (``_block_diag_masks``): a key of another sample is filled with 2 * -1e9, a
 masked key of the row's own sample with -1e9.  A row's max is therefore at
@@ -30,13 +36,12 @@ W], src [B, R] or [B, W, R]), as #8 does.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
-from .decoder_layer import (MASK_FILL, SMEM_LIMIT, _route,
-                            attention_plain, linear_plain, refnorm_plain,
-                            window_layer_call)
+from .decoder_layer import (MASK_FILL, SMEM_LIMIT, _route, attention_plain,
+                            linear_plain, refnorm_plain, window_layer_call)
 
 # _abl_kernel's parts: proj (the q/k/v and out products), self (the
 # self-attention), cross (the cross-attention sublayer), ffn, norm (the
@@ -51,11 +56,16 @@ VARIANTS = (("full", ALL_PARTS),
             ("no_norm", ALL_PARTS - {"norm"}),
             ("proj_only", frozenset({"proj"})),
             ("empty", frozenset()))
-# csrc/hb_attention.cuh: query rows a block
-HB_ROWS = 4
-# the CUDA launches of one ``fused_window_layer_hb`` call by kind: #8's
-# eleven with both attentions on the hb block
+# csrc/hb_attention.cuh: query rows a block, blocks a cluster at most,
+# keys a staged chunk of K or V
+HB_ROWS = 16
+HB_CLUSTER = 8
+HB_KC = 64
+# the CUDA launches of one ``fused_window_layer_hb`` call by kind: #10's
+# full plan with both attentions on the hb block
 HB_LAUNCHES = {"refnorm": 3, "products": 6, "hb_attention": 2}
+# csrc/ffma_gemm.cuh: the SMs tile_for fills
+NUM_SMS = 132
 
 
 def check_parts(parts: Iterable[str]) -> frozenset:
@@ -76,30 +86,93 @@ def parts_mask(parts) -> int:
 
 def kernel_launches(parts) -> Dict[str, int]:
     """The CUDA launches of one ``fused_window_layer_parts`` call by kind
-    (mirrors csrc/window_parts.cu): a refnorm a sublayer that runs, with
-    ``norm``; the qkv and out products with ``proj``, then the
-    self-attention with ``self`` or else one copy (q and the fresh K/V out
-    of the qkv product); without ``proj`` one copy (n0 into k_new and
-    v_new, and x into out when no sublayer follows); two products and an
-    attention with ``cross``, two products with ``ffn``.  The full layer:
-    11."""
+    (mirrors csrc/window_parts.cu): the qkv and out products with
+    ``proj``, and the self-attention between them with ``self`` (without
+    it the qkv product's epilogue writes q and the fresh K/V); without
+    ``proj`` one launch writes n0 into k_new and v_new (and x into out when
+    no sublayer follows): a refnorm with ``norm``, else a copy; two
+    products and an attention with ``cross``, two products with ``ffn``;
+    with ``norm`` a refnorm before each sublayer's first product.  The
+    full layer: 11, as #8."""
     parts = check_parts(parts)
     proj, cross, ffn = ("proj" in parts, "cross" in parts, "ffn" in parts)
-    attention = int(proj and "self" in parts) + int(cross)
-    return {"refnorm": (1 + cross + ffn) if "norm" in parts else 0,
+    norm = "norm" in parts
+    return {"refnorm": int(norm) * (1 + cross + ffn),
             "products": 2 * (proj + cross + ffn),
-            "attention": attention,
-            "copy": int(not proj or "self" not in parts)}
+            "attention": int(proj and "self" in parts) + int(cross),
+            "copy": int(not proj and not norm)}
 
 
-def hb_shared_bytes(Lk: int, D: int, H: int) -> int:
-    """Shared memory of one hb attention block at Lk keys
-    (csrc/hb_attention.cuh ``hb_smem``): the block's HB_ROWS query rows,
-    their score rows over every head and one head's K or V, float32, its
-    rows' maxima, and its mask bytes."""
-    Dh = D // H
-    return (4 * (HB_ROWS * D + HB_ROWS * H * Lk + Lk * (Dh + 1) + HB_ROWS)
-            + HB_ROWS * Lk)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def hb_cluster(H: int) -> int:
+    """Blocks a cluster of the hb block (csrc/hb_attention.cuh
+    ``hb_cluster``): the largest of 8, 4, 2, 1 that divides H."""
+    c = HB_CLUSTER
+    while H % c:
+        c //= 2
+    return c
+
+
+def hb_shared_bytes(Lk: int, D: int, H: int, esize: int) -> int:
+    """Shared memory of one hb attention block at Lk keys, elements of
+    ``esize`` bytes (csrc/hb_attention.cuh ``hb_smem``): the block's
+    HB_ROWS query rows of its heads (float32; then the context sums), two
+    chunk buffers of min(Lk, HB_KC) keys' K or V of its heads (rows padded
+    to 16 bytes, plus 16), the score rows of every key, two maxima a row,
+    and the mask bytes."""
+    hpc, Dh = H // hb_cluster(H), D // H
+    pitch = _cdiv(hpc * Dh * esize, 16) * 16 + 16
+    return (4 * HB_ROWS * hpc * Dh + 2 * min(Lk, HB_KC) * pitch
+            + 4 * HB_ROWS * hpc * Lk + 4 * 2 * HB_ROWS
+            + _cdiv(HB_ROWS * Lk, 16) * 16)
+
+
+def tile_n(N: int) -> int:
+    """BN of a bf16 product of the layer (csrc/wgmma_gemm.cuh
+    ``parts_tile_n``): from N alone, the widest of 128, 64 and 32 that cuts
+    N into at least 16 column tiles."""
+    return 128 if N >= 16 * 128 else 64 if N >= 16 * 64 else 32
+
+
+def ffma_tile(M: int, N: int) -> Tuple[int, int]:
+    """(BM, BN) of a float32 product whose A a predecessor wrote
+    (csrc/ffma_gemm.cuh ``tile_for``): 128 x 128 where its blocks fill at
+    least 3/4 of the NUM_SMS-block waves they take, else 32 x 64."""
+    b = _cdiv(M, 128) * _cdiv(N, 128)
+    waves = _cdiv(b, NUM_SMS)
+    return (128, 128) if 4 * b >= 3 * waves * NUM_SMS else (32, 64)
+
+
+def product_tile(M: int, N: int, dtype) -> Tuple[int, int, int]:
+    """(BM, BN, blocks) of an M x N product of the layer
+    (csrc/window_parts.cu ``bfc_window_parts_tile``): at bf16 BM = 64 and
+    ``tile_n(N)``, at float32 ``ffma_tile`` (#8's)."""
+    bm, bn = (64, tile_n(N)) if dtype == torch.bfloat16 else ffma_tile(M, N)
+    return bm, bn, _cdiv(M, bm) * _cdiv(N, bn)
+
+
+def layer_products(B: int, W: int, D: int, F: int
+                   ) -> List[Tuple[str, int, int, int]]:
+    """The full layer's six products in launch order: (name, M, N, K)."""
+    M = B * W
+    return [("qkv", M, 3 * D, D), ("out", M, D, D), ("q2", M, D, D),
+            ("out2", M, D, D), ("w1", M, F, D), ("w2", M, D, F)]
+
+
+def check_staging(L: int, W: int, R: int, D: int, H: int, dtype) -> None:
+    """Raise ValueError where an hb attention block's staging (its
+    heads' K and V chunks, the score row of every key) would pass the
+    card's shared memory (csrc/window_parts.cu refuses it)."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    for name, Lk in (("self-attention", L + W), ("cross-attention", R)):
+        smem = hb_shared_bytes(Lk, D, H, esize)
+        if smem > SMEM_LIMIT:
+            raise ValueError(
+                f"{name}: {Lk} keys at width {D} need {smem} bytes of shared "
+                f"memory an hb block, over the {SMEM_LIMIT} the card gives")
 
 
 # ---------------------------------------------------------------------------
@@ -197,8 +270,7 @@ def fused_window_layer_parts(x_win, k_cache, v_cache, k2, v2, tgt_mask,
     unknown name raises ValueError), inference; operands and weights as
     ``fused_window_decoder_layer``'s.  Returns (out, k_new, v_new), each
     [B, W, D].  On CUDA: one call of csrc/window_parts.cu
-    (``kernel_launches(parts)``); with every part, #8's launches, bitwise
-    #8's outputs."""
+    (``kernel_launches(parts)``); with every part, #8's outputs, bitwise."""
     parts = check_parts(parts)
     if not _route(x_win, k_cache, v_cache, k2, v2, w):
         return window_layer_parts_plain(x_win, k_cache, v_cache, k2, v2,
@@ -218,19 +290,13 @@ def fused_window_layer_hb(x_win, k_cache, v_cache, k2, v2, tgt_mask,
     query row across every head (``window_layer_hb_plain``), inference;
     operands and weights as ``fused_window_decoder_layer``'s.  Returns
     (out, k_new, v_new).  On CUDA: one call of csrc/window_parts.cu
-    (``HB_LAUNCHES``); raises ValueError where an hb block's staging
-    (``hb_shared_bytes``) would pass the card's shared memory."""
+    (``HB_LAUNCHES``); raises ValueError where an hb block's staging (``hb_shared_bytes``) would pass
+    the card's shared memory."""
     if not _route(x_win, k_cache, v_cache, k2, v2, w):
         return window_layer_hb_plain(x_win, k_cache, v_cache, k2, v2,
                                      tgt_mask, src_mask, w, num_heads)
-    D = x_win.shape[-1]
-    for name, Lk in (("self-attention", k_cache.shape[1] + x_win.shape[1]),
-                     ("cross-attention", k2.shape[1])):
-        smem = hb_shared_bytes(Lk, D, num_heads)
-        if smem > SMEM_LIMIT:
-            raise ValueError(
-                f"{name}: {Lk} keys at width {D} need {smem} bytes of shared "
-                f"memory an hb block, over the {SMEM_LIMIT} the card gives")
+    check_staging(k_cache.shape[1], x_win.shape[1], k2.shape[1],
+                  x_win.shape[-1], num_heads, x_win.dtype)
     out = window_layer_call(x_win, k_cache, v_cache, k2, v2, tgt_mask,
                             src_mask, w, num_heads, lib="window_parts",
                             entry="window_layer_hb")

@@ -5011,26 +5011,39 @@ def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
     time to launch it (which exceeds a small kernel's, and a multi-op
     yardstick's).  One call at a time: a whole run of a stack's yardstick
     (~180 ops a call) would overflow the launch queue (~1024 entries) and
-    leave the host launching inside the timed window."""
+    leave the host launching inside the timed window.  Where the card
+    reached the first event before the host had enqueued the call (the
+    spin too short: a slow enqueue, a garbage collection), the reps run
+    again with a spin 4 times longer, up to twice; ``device_ms.retries``
+    counts those runs."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     host_s = time.perf_counter() - t0
-    events = []
-    for _ in range(reps):
+    for attempt in range(3):
+        events, outran = [], False
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            # cover twice the host's enqueue time at up to 2 GHz
+            torch.cuda._sleep(int(2 * host_s * 2e9) + 100_000)
+            start.record()
+            fn()
+            outran = outran or start.query()
+            stop.record()
+            events.append((start, stop))
         torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        # cover twice the host's enqueue time at up to 2 GHz
-        torch.cuda._sleep(int(2 * host_s * 2e9) + 100_000)
-        start.record()
-        fn()
-        stop.record()
-        events.append((start, stop))
-    torch.cuda.synchronize()
+        if not outran or attempt == 2:
+            break
+        device_ms.retries += 1
+        host_s *= 4
     return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+device_ms.retries = 0
 
 
 def sdpa(q, k, v, m, H):
@@ -5142,9 +5155,11 @@ def library_head(h, weight_vd, b):
     return ids, tok, ent, lp[..., 0]
 
 
-def bounds(dtype_name: str, esize: int, R: int = R):
+def bounds(dtype_name: str, esize: int, R: int = R,
+           w_narrow: int = W_NARROW):
     """Least time (ms) for each kernel's work at the serving shapes (over
-    ``R`` regions), and which of bytes or operations bounds it."""
+    ``R`` regions; the narrow window ``w_narrow`` wide), and which of bytes
+    or operations bounds it."""
     F, H, V = 4 * D, 8, VOCAB + 4
     Dh = D // H
     peak = PEAK_FLOPS[dtype_name]
@@ -5177,10 +5192,10 @@ def bounds(dtype_name: str, esize: int, R: int = R):
              + 4 * B * H * W * (n_cache + W) * Dh + 4 * B * H * W * R * Dh)
         return f, esize * (6 * D * D + 2 * D * F + 7 * D + F) + 3 * norm_b
 
-    mw, ml_ = B * W_NARROW, B * L
-    masks_n = B * W_NARROW * (L + W_NARROW) + B * R
+    mw, ml_ = B * w_narrow, B * L
+    masks_n = B * w_narrow * (L + w_narrow) + B * R
     # #8, narrow: x in; out, k_new, v_new out; cache and cross K/V read
-    wl_f, wl_w = window(W_NARROW, L)
+    wl_f, wl_w = window(w_narrow, L)
     wl_b = wl_w + esize * (4 * mw * D + 2 * B * L * D + 2 * B * R * D) + masks_n
     # #6: x in, h out, per layer the caches read and only the window's rows
     # written (the rest stay in place), the cross K/V read; w_start int32
@@ -6399,21 +6414,49 @@ PARTS_SOURCE = "boficap_tpu_torch/csrc/window_parts.cu"
 @torch.no_grad()
 def check_kernel_parts(model) -> tuple:
     """Phase kernel_parts: #10 in every variant and #11 at W = 8 and 16
-    against their twins at both dtypes, with each call's launches by kind;
-    then the tool's main path, the counts zeroed before it and read after.
-    Returns (the phase's dict, the tool run's launches, the kernels line's
-    rows)."""
+    against their twins at both dtypes, with each call's launches by kind
+    (no copy launch with ``proj`` on: ``ops.window_parts.kernel_launches``);
+    #10's full layer bitwise #8, and every variant's rows bitwise
+    batch-independent (samples 0-6 of the B = 64 call against a B = 7
+    call), at both dtypes; the tile plan's blocks (each of the six products
+    at least 120 at B = 64, W = 8) and the hb block's shared memory from
+    the library against their mirrors; then the tool's main path, the
+    counts zeroed before it and read after.  Returns (the
+    phase's dict, the tool run's launches, the kernels line's rows)."""
+    import ctypes
     from boficap_tpu_torch import ops
+    from boficap_tpu_torch.ops import _build
     from boficap_tpu_torch.ops import decoder_layer as dl
     from boficap_tpu_torch.ops import stack as st
     from boficap_tpu_torch.ops import window_parts as wp
     from boficap_tpu_torch.tools import bench_kernel_parts as tool
-    H = model.num_heads
+    H, FF = model.num_heads, 4 * D
     out, rows = {}, {}
+    lib = _build.kernels().window_parts
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
         tol = TOL[dtype_name]
         w0 = st.pack_window_weights(model._decoder("SA"), dtype).layers[0]
+        code = 0 if dtype == torch.float32 else 1
+        tiles = {}
+        for name, M, N, K in wp.layer_products(B, W_NARROW, D, FF):
+            bm, bn = ctypes.c_int(), ctypes.c_int()
+            blocks = lib.bfc_window_parts_tile(code, M, N, ctypes.byref(bm),
+                                               ctypes.byref(bn))
+            got = (bm.value, bn.value, blocks)
+            if got != wp.product_tile(M, N, dtype) or blocks < 120:
+                fail(f"kernel_parts {dtype_name} {name} product: tile "
+                     f"{got}, mirror {wp.product_tile(M, N, dtype)}"
+                     f" (at least 120 blocks)")
+            tiles[name] = dict(zip(("bm", "bn", "blocks"), got))
+        hb_smem = {}
+        for Lk in (L + W_NARROW, L + 16, R, GRID, 256):
+            c_smem = lib.bfc_window_hb_smem(Lk, D, H, code)
+            if c_smem != wp.hb_shared_bytes(Lk, D, H, 4 - 2 * code):
+                fail(f"kernel_parts {dtype_name}: hb smem at {Lk} keys "
+                     f"{c_smem}, mirror "
+                     f"{wp.hb_shared_bytes(Lk, D, H, 4 - 2 * code)}")
+            hb_smem[Lk] = c_smem
         # profile_split's labels: the hb block before the layer's
         # attention block, whose name its own holds
         kinds = {"products": ("gemm_tc_kernel" if dtype == torch.bfloat16
@@ -6456,6 +6499,11 @@ def check_kernel_parts(model) -> tuple:
                     torch.equal(g, w) for g, w in
                     zip(got, dl.fused_window_decoder_layer(*args))):
                 fail(f"kernel_parts full {dtype_name}: not bitwise #8")
+            small = wp.fused_window_layer_parts(
+                *(t[:7].contiguous() for t in args[:7]), w0, H, parts)
+            if not all(torch.equal(g[:7], w) for g, w in zip(got, small)):
+                fail(f"kernel_parts {name} {dtype_name}: samples 0-6 of "
+                     f"B = {B} not bitwise a B = 7 call")
         times = {"window_layer_parts": device_ms(
             lambda: wp.fused_window_layer_parts(*args, wp.ALL_PARTS)),
             "window_layer": device_ms(
@@ -6473,13 +6521,23 @@ def check_kernel_parts(model) -> tuple:
             lambda: wp.fused_window_layer_hb(*hb[W_NARROW]))
         times["window_layer_hb_w16"] = device_ms(
             lambda: wp.fused_window_layer_hb(*hb[16]))
+        times["window_layer_w16"] = device_ms(
+            lambda: dl.fused_window_decoder_layer(*hb[16]))
+        # the hb block a launch (two a call): its profiled kernel time, at
+        # bf16 with its wait for the chain's predecessor to drain
+        hb_block_ms = {f"w{Wv}": res[f"hb_w{Wv}"]["kernel_ms"].get(
+            "hb_attention", 0.0) / wp.HB_LAUNCHES["hb_attention"]
+            for Wv in tool.HB_WINDOWS}
         # the twins and #8's yardstick on the same operands (W = 8)
         plain = {"window_layer_parts": device_ms(
             lambda: wp.window_layer_parts_plain(*args, wp.ALL_PARTS)),
             "window_layer_hb": device_ms(
                 lambda: wp.window_layer_hb_plain(*hb[W_NARROW]))}
-        lib = device_ms(lambda: library_window_layer(*args))
+        lib_ms = device_ms(lambda: library_window_layer(*args))
+        lib_w16 = device_ms(lambda: library_window_layer(*hb[16]))
         bnd = bounds(dtype_name, x.element_size())["window_layer"]
+        bnd16 = bounds(dtype_name, x.element_size(),
+                       w_narrow=16)["window_layer"]
         for name in PARTS_REPLACES:
             worst = max((r for k, r in res.items()
                          if (k.startswith("hb_") == (name ==
@@ -6487,28 +6545,47 @@ def check_kernel_parts(model) -> tuple:
                         key=lambda r: r["max_abs_err"])
             rows.setdefault(name, {})[dtype_name] = {
                 "ms": times[name], "plain_ms": plain[name],
-                "library_ms": lib, "bound_ms": bnd["bound_ms"],
+                "library_ms": lib_ms, "bound_ms": bnd["bound_ms"],
                 "bound_by": bnd["bound_by"],
                 "max_abs_err": worst["max_abs_err"]}
+        rows["window_layer_hb"][dtype_name]["w16"] = {
+            "ms": times["window_layer_hb_w16"], "library_ms": lib_w16,
+            **bnd16}
+        ratio = {"parts_over_layer": times["window_layer_parts"]
+                 / times["window_layer"],
+                 "hb_over_parts": times["window_layer_hb"]
+                 / times["window_layer_parts"]}
         out[dtype_name] = {"checks": res, "device_ms": times,
-                           "plain_ms": plain, "library_ms": lib,
-                           "bound": bnd}
+                           "plain_ms": plain, "library_ms": lib_ms,
+                           "library_ms_w16": lib_w16, "bound": bnd,
+                           "bound_w16": bnd16, "hb_block_ms": hb_block_ms,
+                           "ratio": ratio, "tiles": tiles,
+                           "hb_smem": hb_smem}
 
     # the main path: the tool's two mains at both dtypes, in process
     ops.reset_launch_counts()
     table = {dt: tool.main(["--dtype", dt, "--seed", str(SEED)])
              for dt in ("bfloat16", "float32")}
     launches = ops.launch_counts()
-    want = {"window_layer_parts": 2 * len(wp.VARIANTS) * NL
-            * tool.TIMED_CALLS,
-            "window_layer_hb": 2 * (1 + len(tool.HB_WINDOWS) * NL
-                                    * tool.TIMED_CALLS)}
+
+    def calls(rows):   # a stack's layer calls: each timing's, its retries'
+        return sum((tool.TIMED_CALLS + r["retries"] * tool.REPS) * NL
+                   for r in rows)
+
+    want = {"window_layer_parts": sum(calls(t["parts"].values())
+                                      for t in table.values()),
+            "window_layer_hb": sum(
+                1 + calls(v for k, v in t["hb"].items()
+                          if k.startswith("hb_w")) for t in table.values())}
     for name, n in want.items():
         if launches[name] != n:
             fail(f"kernel_parts: the tool launched {name} "
                  f"{launches[name]} times, not {n}")
     out["tool"] = table
     out["tool_launches"] = {k: v for k, v in launches.items() if v}
+    # timings whose spin the host outran, run again (device_ms, timed_ms)
+    out["spin_retries"] = {"device_ms": device_ms.retries,
+                           "tool": tool.timed_ms.retries}
     return out, launches, rows
 
 

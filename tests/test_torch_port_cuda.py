@@ -34,7 +34,8 @@ step's decoder attention) against the plain path at float32, with the
 launch count.  The kernel-parts tool's two kernels: the window layer with
 parts switched off (#10, each variant; all parts on bitwise #8) and with
 one softmax max across heads (#11, cross keys up to 196) against their
-twins.
+twins, batch-independent bitwise at the tool's widths; #11's NaN rows where
+its twin has them.
 """
 
 import pytest
@@ -390,11 +391,36 @@ def test_window_layer_parts_kernel(cuda, dtype, variant):
             assert torch.equal(g, x)
 
 
-@pytest.mark.parametrize("W,R", [(3, 7), (8, 36), (16, 196)])
+@pytest.mark.parametrize("variant", ["full", "no_self", "no_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_layer_parts_batch_independent(cuda, dtype, variant):
+    """#10 at the tool's widths: samples 0-6 of a B = 64 call (512 rows,
+    every product on at least 120 blocks) are bitwise a B = 7 call's (the
+    tiles follow N alone), and the full layer is #8's bitwise."""
+    D, F, H, W, L, R = 512, 2048, 8, 8, 20, 36
+    layers, _, x, kc, vc, k2, v2, _, tgt, src, _ = _window_operands(
+        cuda, dtype, 1, 64, W, L, R, D, F, H)
+    parts = dict(wp.VARIANTS)[variant]
+    ops_ = (x, kc[0], vc[0], k2[0], v2[0], tgt, src)
+    big = wp.fused_window_layer_parts(*ops_, layers[0], H, parts)
+    small = wp.fused_window_layer_parts(*(t[:7].contiguous() for t in ops_),
+                                        layers[0], H, parts)
+    torch.cuda.synchronize()
+    for g, w in zip(big, small):
+        assert torch.equal(g[:7], w)
+    if variant == "full":
+        for g, w in zip(big, dl.fused_window_decoder_layer(*ops_, layers[0],
+                                                           H)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("W,R", [(3, 7), (8, 36), (8, 196), (16, 36),
+                                 (16, 196), (8, 700)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_window_layer_hb_kernel(cuda, dtype, W, R):
-    """#11 against its twin, cross keys up to a 14 x 14 grid; the hb
-    block's shared memory as ops/window_parts.py computes it."""
+    """#11 against its twin, cross keys up to a 14 x 14 grid and past it
+    (700: eleven chunks of K and V); the hb block's shared memory as
+    ops/window_parts.py computes it."""
     from boficap_tpu_torch.ops import _build
     D, F, H, B, L = 96, 200, 3, 5, 9
     layers, _, x, kc, vc, k2, v2, _, tgt, src, _ = _window_operands(
@@ -406,9 +432,45 @@ def test_window_layer_hb_kernel(cuda, dtype, W, R):
     for g, w in zip(got, want):
         assert torch.isfinite(g.float()).all()
         assert _rel(g, w) < TOL[dtype]
-    for Lk in (L + W, R):
-        assert (_build.kernels().window_parts.bfc_window_hb_smem(Lk, D, H)
-                == wp.hb_shared_bytes(Lk, D, H))
+    code = 0 if dtype == torch.float32 else 1
+    esize = x.element_size()
+    for Lk in (L + W, R, 256, 700):
+        for d, h in ((D, H), (512, 8)):
+            assert (_build.kernels().window_parts.bfc_window_hb_smem(
+                Lk, d, h, code) == wp.hb_shared_bytes(Lk, d, h, esize))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_layer_hb_nan_rows(cuda, dtype):
+    """#11 where head 0's cross-attention scores sit ~200 above every other
+    head's: the one max across heads underflows the other heads' sums to 0,
+    so their rows are NaN, in the kernel where the twin has them (W = 8 at
+    the tool's widths, so a cluster of 8 blocks holds a head each)."""
+    D, F, H, B, W, L, R = 512, 2048, 8, 6, 8, 20, 36
+    Dh = D // H
+    layers, _, x, kc, vc, k2, v2, _, tgt, src, _ = _window_operands(
+        cuda, dtype, 1, B, W, L, R, D, F, H)
+    w = dict(layers[0])
+    g = torch.Generator().manual_seed(3)
+    u = torch.randn(Dh, generator=g)
+    w["wq2"] = w["wq2"].clone()
+    w["bq2"] = w["bq2"].clone()
+    w["wq2"][:, :Dh] = 0
+    w["bq2"][:Dh] = u.to(cuda, dtype)
+    ub = u.to(dtype).float()
+    k2 = k2[0].clone()
+    k2[..., :Dh] = (200.0 * Dh ** 0.5 / (ub @ ub) * ub).to(cuda, dtype)
+    k2[3] = k2[3] * 0.01          # sample 3: no head far above the others
+    args = (x, kc[0], vc[0], k2, v2[0], tgt, src, w, H)
+    got = wp.fused_window_layer_hb(*args)
+    want = wp.window_layer_hb_plain(*args)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want[0].float())
+    assert nan.any() and not nan.all()
+    for gg, ww in zip(got, want):
+        assert torch.equal(torch.isnan(gg.float()), torch.isnan(ww.float()))
+        keep = ~torch.isnan(ww.float())
+        assert _rel(gg.float()[keep], ww.float()[keep]) < TOL[dtype]
 
 
 # window rounds: a few samples, and the serving batch's rows (B = 64,

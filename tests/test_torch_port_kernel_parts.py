@@ -200,13 +200,98 @@ def test_unknown_part_raises(setup):
 
 def test_kernel_launches_by_variant():
     """The launches csrc/window_parts.cu makes a call, by variant: 11 for
-    the full layer (as #8), a switch dropping its part's launches."""
+    the full layer (as #8: three norms, six products, two attentions), a
+    switch dropping its part's launches, no copy launch while ``proj`` is
+    on (the qkv product's epilogue writes q and the fresh K/V)."""
     totals = {name: sum(wp.kernel_launches(parts).values())
               for name, parts in wp.VARIANTS}
-    assert totals == {"full": 11, "no_self": 11, "no_cross": 7, "no_ffn": 8,
-                      "no_norm": 8, "proj_only": 3, "empty": 1}
+    assert totals == {"full": 11, "no_self": 10, "no_cross": 7, "no_ffn": 8,
+                      "no_norm": 8, "proj_only": 2, "empty": 1}
     assert wp.kernel_launches(wp.ALL_PARTS) == {
         "refnorm": 3, "products": 6, "attention": 2, "copy": 0}
-    assert sum(wp.HB_LAUNCHES.values()) == 11
+    for _, parts in wp.VARIANTS:
+        if "proj" in parts:
+            assert wp.kernel_launches(parts)["copy"] == 0
+    assert wp.kernel_launches(frozenset()) == {
+        "refnorm": 0, "products": 0, "attention": 0, "copy": 1}
+    # without proj one norm launch writes n0 into k_new and v_new
+    assert wp.kernel_launches({"norm", "cross"}) == {
+        "refnorm": 2, "products": 2, "attention": 1, "copy": 0}
+    assert wp.HB_LAUNCHES == {"refnorm": 3, "products": 6, "hb_attention": 2}
     assert wp.parts_mask(wp.ALL_PARTS) == 31
     assert [wp.parts_mask({p}) for p in wp.PARTS] == [1, 2, 4, 8, 16]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_product_tiles_fill_the_card(dtype):
+    """The tile plan's mirror (csrc/window_parts.cu
+    ``bfc_window_parts_tile``): at B = 64, W = 8 (512 rows) each of the
+    layer's six products runs at least 120 blocks on the 132 SMs; at bf16
+    the tile follows N alone (BM 64, BN 32 / 64 / 128 for D, 3D, d_ff), so
+    a B = 7 call takes the same tiles and rows stay bitwise
+    batch-independent."""
+    D, F = 512, 2048
+    big = wp.layer_products(64, 8, D, F)
+    small = wp.layer_products(7, 8, D, F)
+    assert [p[0] for p in big] == ["qkv", "out", "q2", "out2", "w1", "w2"]
+    for (name, M, N, K), (_, m7, n7, _) in zip(big, small):
+        bm, bn, blocks = wp.product_tile(M, N, dtype)
+        assert blocks >= 120, (name, blocks)
+        assert blocks == -(-M // bm) * -(-N // bn)
+        if dtype == torch.bfloat16:
+            assert bm == 64 and bn == {D: 32, 3 * D: 64, F: 128}[N]
+            assert wp.product_tile(m7, n7, dtype)[:2] == (bm, bn)
+        else:
+            assert (bm, bn) == wp.ffma_tile(M, N)
+    assert [wp.tile_n(n) for n in (96, 512, 1023, 1024, 1536, 2047, 2048)] \
+        == [32, 32, 32, 64, 64, 64, 128]
+
+
+def _parent_hb_bytes(Lk, D, H):
+    # the hb block this design replaced: every head's scores and one
+    # head's K or V, float32, at once
+    return 4 * (16 * D + 16 * H * Lk + Lk * (D // H + 1) + 16) + 16 * Lk
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+def test_hb_shared_memory_fits(esize):
+    """The hb block's staging (its heads' K and V in two chunks of 64 keys,
+    every key's score) fits the card's 227 KB up to 256 keys at D = 512
+    at both dtypes, grows with the keys, and takes at least as many keys
+    as the block it replaced at every width tried."""
+    assert wp.hb_cluster(8) == 8 and wp.hb_cluster(3) == 1
+    assert wp.hb_cluster(12) == 4 and wp.hb_cluster(6) == 2
+    sizes = [wp.hb_shared_bytes(Lk, 512, 8, esize) for Lk in range(1, 257)]
+    assert max(sizes) == sizes[-1] <= dl.SMEM_LIMIT
+    assert all(a < b for a, b in zip(sizes, sizes[1:]))
+    # one head a block: Q 16 x 64 float32, two chunks of K or V (64
+    # elements + 16 bytes a key), 16 score rows, 32 maxima, the mask bytes
+    row = 64 * esize + 16
+    assert wp.hb_shared_bytes(28, 512, 8, esize) == (
+        4 * 16 * 64 + 2 * 28 * row + 4 * 16 * 28 + 128 + 16 * 28)
+    assert wp.hb_shared_bytes(196, 512, 8, esize) == (
+        4 * 16 * 64 + 2 * 64 * row + 4 * 16 * 196 + 128 + 16 * 196)
+
+    def most_keys(fn):
+        return max(k for k in range(1, 4000) if fn(k) <= dl.SMEM_LIMIT)
+
+    for D, H in ((512, 8), (96, 3), (768, 12), (256, 4)):
+        assert most_keys(lambda k: wp.hb_shared_bytes(k, D, H, esize)) >= \
+            most_keys(lambda k: _parent_hb_bytes(k, D, H))
+
+
+def test_staging_limits_raise():
+    """A shape the hb block cannot stage raises ValueError before any
+    launch (float32: 3000 cross keys over 8 heads, 900 over 3: every
+    key's score row passes 227 KB); the window widths and key counts the
+    tool and the card tests use pass, and so do key counts past the
+    replaced block's limits (253 keys at D = 512, 665 at D = 96)."""
+    wp.check_staging(20, 8, 36, 512, 8, torch.bfloat16)
+    wp.check_staging(20, 16, 196, 512, 8, torch.float32)
+    wp.check_staging(9, 16, 196, 96, 3, torch.float32)
+    wp.check_staging(500, 8, 36, 512, 8, torch.float32)
+    wp.check_staging(9, 8, 700, 96, 3, torch.float32)
+    with pytest.raises(ValueError, match="hb block"):
+        wp.check_staging(20, 8, 900, 96, 3, torch.float32)
+    with pytest.raises(ValueError, match="self-attention"):
+        wp.check_staging(3000, 8, 36, 512, 8, torch.float32)
