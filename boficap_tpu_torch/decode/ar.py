@@ -39,6 +39,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..constants import BOS, EOS, PAD
 from .sampling import NEG_INF, sample_next_word
 
@@ -117,39 +118,40 @@ def ar_sample(model, memory, src_mask, *, sample_method: str = "greedy",
     pos_idx = torch.arange(L, device=dev)[None, :]
 
     for pos in range(n_steps):
-        logprob, cache = model.ar_step(it, pos, cache, src_mask)
-        if suppress_unk_idx is not None:
-            logprob[:, suppress_unk_idx] -= 1000.0
-        if bad is not None and pos > 0:
-            _forbid_stop(logprob, it, bad)
-        if decoding_constraint and pos > 0:
-            logprob = logprob.scatter_add(
-                1, it[:, None], torch.full((B, 1), NEG_INF, device=dev))
-        if penalty_seqs is not None:
-            counts = torch.zeros((B, V), device=dev).scatter_add_(
-                1, penalty_seqs[:, :, pos].long(),
-                torch.ones(penalty_seqs.shape[:2], device=dev))
-            logprob = logprob - diversity_lambda * counts
-        if block_trigrams and pos >= 3:
-            # count seq[p] for every past p >= 2 whose (seq[p-2], seq[p-1])
-            # equals the current pair (seq[pos-2], seq[pos-1])
-            prev2 = torch.stack([seq.roll(2, 1), seq.roll(1, 1)], -1)
-            cur2 = seq[:, pos - 2:pos]
-            match = ((prev2 == cur2[:, None, :]).all(-1) & (pos_idx >= 2)
-                     & (pos_idx < pos))
-            counts = torch.zeros((B, V), device=dev).scatter_add_(
-                1, seq, match.float())
-            logprob = logprob + counts * (-0.693) * 2.0
-        ids, _ = sample_next_word(logprob, sample_method, temperature,
-                                  generator)
-        ids = torch.where(unfinished, ids, PAD)
-        tok = torch.gather(logprob, 1, ids[:, None])[:, 0]
-        ent = -(torch.exp(logprob) * logprob).sum(-1)
-        seq[:, pos] = ids
-        tok_lp[:, pos] = torch.where(unfinished, tok, 0.0)
-        ent_lp[:, pos] = torch.where(unfinished, ent, 0.0)
-        unfinished = unfinished & (ids != EOS)
-        it = ids
+        with obs.span("bfc.ar.step"):
+            logprob, cache = model.ar_step(it, pos, cache, src_mask)
+            if suppress_unk_idx is not None:
+                logprob[:, suppress_unk_idx] -= 1000.0
+            if bad is not None and pos > 0:
+                _forbid_stop(logprob, it, bad)
+            if decoding_constraint and pos > 0:
+                logprob = logprob.scatter_add(
+                    1, it[:, None], torch.full((B, 1), NEG_INF, device=dev))
+            if penalty_seqs is not None:
+                counts = torch.zeros((B, V), device=dev).scatter_add_(
+                    1, penalty_seqs[:, :, pos].long(),
+                    torch.ones(penalty_seqs.shape[:2], device=dev))
+                logprob = logprob - diversity_lambda * counts
+            if block_trigrams and pos >= 3:
+                # count seq[p] for every past p >= 2 whose (seq[p-2], seq[p-1])
+                # equals the current pair (seq[pos-2], seq[pos-1])
+                prev2 = torch.stack([seq.roll(2, 1), seq.roll(1, 1)], -1)
+                cur2 = seq[:, pos - 2:pos]
+                match = ((prev2 == cur2[:, None, :]).all(-1) & (pos_idx >= 2)
+                         & (pos_idx < pos))
+                counts = torch.zeros((B, V), device=dev).scatter_add_(
+                    1, seq, match.float())
+                logprob = logprob + counts * (-0.693) * 2.0
+            ids, _ = sample_next_word(logprob, sample_method, temperature,
+                                      generator)
+            ids = torch.where(unfinished, ids, PAD)
+            tok = torch.gather(logprob, 1, ids[:, None])[:, 0]
+            ent = -(torch.exp(logprob) * logprob).sum(-1)
+            seq[:, pos] = ids
+            tok_lp[:, pos] = torch.where(unfinished, tok, 0.0)
+            ent_lp[:, pos] = torch.where(unfinished, ent, 0.0)
+            unfinished = unfinished & (ids != EOS)
+            it = ids
     return {"seq": seq, "tok_logprobs": tok_lp, "entropy": ent_lp}
 
 

@@ -47,6 +47,7 @@ from typing import Dict, Optional
 
 import torch
 
+from .. import obs
 from ..constants import BOS, LEN, PAD, SYN_LOWER, SYN_UPPER
 from ..models.boficap import BoFiCap
 from ..ops.decoder_layer import (fused_decoder_forward, fused_encoder_forward,
@@ -107,25 +108,28 @@ def _fused_parallel_fill(model, x, memory, src_mask, mask3, keep, *,
     """The fill's decoder stack on the kernel wrappers (``stacked`` as in
     ``fused_encode``), then the greedy head (ids, token logprob, entropy;
     rows where ``keep`` is False take seq = PAD and lp[:, PAD]).  Returns
-    ((seq, tok, ent), None) for greedy, else (None, logprob) for the caller
-    to sample."""
-    pack = model.packed_decoder(role)
-    if stacked is None:
-        stacked = use_stacked(model, x.shape[0])
-    if stacked:
-        h = fused_decoder_stack_forward(x, memory, mask3, src_mask,
-                                        pack.stack, pack.final_norm,
-                                        model.num_heads)
-    else:
-        h = fused_decoder_forward(x, memory, mask3, src_mask, pack.layers,
-                                  pack.final_norm, model.num_heads)
+    ((seq, tok, ent), None) for greedy, else (None, h), the decoder's
+    output, for the caller's generator and sampling."""
+    with obs.span("bfc.na.fill"):
+        pack = model.packed_decoder(role)
+        if stacked is None:
+            stacked = use_stacked(model, x.shape[0])
+        if stacked:
+            h = fused_decoder_stack_forward(x, memory, mask3, src_mask,
+                                            pack.stack, pack.final_norm,
+                                            model.num_heads)
+        else:
+            h = fused_decoder_forward(x, memory, mask3, src_mask,
+                                      pack.layers, pack.final_norm,
+                                      model.num_heads)
     if sample_method == "greedy":
-        ids, tok_a, ent, lp_pad = fused_greedy_head(h, *model.packed_head(),
-                                                    pad_id=PAD)
-        seq = torch.where(keep, ids, PAD)
-        tok = torch.where(keep, tok_a, lp_pad)
+        with obs.span("bfc.na.head"):
+            ids, tok_a, ent, lp_pad = fused_greedy_head(
+                h, *model.packed_head(), pad_id=PAD)
+            seq = torch.where(keep, ids, PAD)
+            tok = torch.where(keep, tok_a, lp_pad)
         return (seq, tok, ent), None
-    return None, model.generate(h)
+    return None, h
 
 
 def _bound_update(s: Dict[str, torch.Tensor], len_N, syn_N, L: int,
@@ -209,7 +213,8 @@ def na_decode(model, memory, src_mask, *, sample_method: str = "greedy",
     B = memory.shape[0]
     dev = memory.device
     n_steps = L if max_steps is None else min(max_steps, L)
-    s = bound_plan(model, memory, src_mask, n_steps, L)
+    with obs.span("bfc.na.bound"):
+        s = bound_plan(model, memory, src_mask, n_steps, L)
 
     total = s["last"] - 1                                         # [B]
     ar = torch.arange(L, device=dev)
@@ -222,20 +227,24 @@ def na_decode(model, memory, src_mask, *, sample_method: str = "greedy",
 
     if fused_fill:
         x = model.na_inputs(syn_seq)
-        head, logprob = _fused_parallel_fill(
+        head, h = _fused_parallel_fill(
             model, x, memory, src_mask, na_mask, keep, role="NA",
             sample_method=sample_method, stacked=stacked)
         if head is not None:
             seq, tok, ent = head
             return {"seq": seq, "tok_logprobs": tok, "entropy": ent, **plan}
     else:
-        h = model.decode_na(syn_seq, memory, src_mask, na_mask)
+        with obs.span("bfc.na.fill"):
+            h = model.decode_na(syn_seq, memory, src_mask, na_mask)
+    with obs.span("bfc.na.head"):
         logprob = model.generate(h)
-    ids, _ = sample_next_word(logprob, sample_method, temperature, generator)
-    seq = torch.where(keep, ids, PAD)
-    # no position mask: the reference's NAIC seqLogprobs is the raw parallel
-    # fill tensor, so entropy / token logprob include the tail rows
-    tok, ent = _tok_entropy(logprob, seq)
+        ids, _ = sample_next_word(logprob, sample_method, temperature,
+                                  generator)
+        seq = torch.where(keep, ids, PAD)
+        # no position mask: the reference's NAIC seqLogprobs is the raw
+        # parallel fill tensor, so entropy / token logprob include the tail
+        # rows
+        tok, ent = _tok_entropy(logprob, seq)
     return {"seq": seq, "tok_logprobs": tok, "entropy": ent, **plan}
 
 
@@ -264,13 +273,14 @@ def nnaic_decode(model, memory, src_mask, *, sample_method: str = "greedy",
     keep = torch.arange(L, device=memory.device)[None, :] < length[:, None]
     if fused_fill:
         x = model.posenc(model.word_embed(tgt))
-        head, logprob = _fused_parallel_fill(
+        head, h = _fused_parallel_fill(
             model, x, memory, src_mask, keep[:, None, :].expand(B, L, L),
             keep, role="A", sample_method=sample_method, stacked=stacked)
         if head is not None:
             seq, tok, ent = head
             return {"seq": seq, "tok_logprobs": tok, "entropy": ent,
                     "length": length}
+        logprob = model.generate(h)
     else:
         logprob = model.generate(model.decode_a(tgt, memory, src_mask,
                                                 keep[:, None, :]))

@@ -33,9 +33,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from .. import obs
 from ..constants import BOS, EOS, LEN, LENGTH_DIM, PAD, SYN_DIM
 from ..data import phrase_ops as po
 from .layers import (
+    ACT,
     AttentionRouting,
     Decoder,
     DecoderLayer,
@@ -45,6 +47,7 @@ from .layers import (
     PositionalEncoding,
     RefLayerNorm,
     TokenEmbed,
+    cast,
     causal_mask,
     dropout,
     prefix_mask,
@@ -247,7 +250,7 @@ class BoFiCap(AttentionRouting, nn.Module):
         """2048-d region features -> d_model (reference att_embed,
         TransformerModel.py:1642-1647: Linear + ReLU +
         Dropout(drop_prob_lm))."""
-        x = torch.relu(self.att_embed(att_feats.to(self.dtype)))
+        x = torch.relu(self.att_embed(cast(att_feats, self.dtype, ACT)))
         return dropout(x, self.drop_prob_lm, rng)
 
     def encode(self, att_feats, att_masks=None, rng=None):
@@ -457,11 +460,12 @@ class BoFiCap(AttentionRouting, nn.Module):
         """One KV-cached AR step: token ids ``it`` [B] at position ``pos``
         -> (logprob [B, V] float32, cache).  The cache's self-attention
         K/V are written in place at ``pos``."""
-        x = self.word_embed(it[:, None])
-        if syn_t is not None:
-            x = x + self.syn_embed(syn_t[:, None])
-        x = self.posenc(x, offset=pos)
-        h, cache = self._decoder("A").step(x, cache, pos, src_mask)
+        with obs.span("bfc.ar.layers"):
+            x = self.word_embed(it[:, None])
+            if syn_t is not None:
+                x = x + self.syn_embed(syn_t[:, None])
+            x = self.posenc(x, offset=pos)
+            h, cache = self._decoder("A").step(x, cache, pos, src_mask)
         return self.generate(h)[:, 0], cache
 
     @staticmethod

@@ -31,6 +31,10 @@ and the sow index, ``['decoder0']/['layer0']/['self_attn']/['attn']/[1]``.
 ``remat``) recompute each layer in the backward pass instead of keeping
 its activations (``remat_call``), as the JAX package's ``nn.remat`` does.
 
+Casts to another dtype go through ``cast``, which counts the bytes each
+writes (``obs``: ``cast_bytes.param`` for a parameter, ``cast_bytes.act``
+for an activation) while the program's counters record.
+
 ``Dense.tp`` is None but on a tensor-parallel slice of the layer
 (``parallel/mesh.py::shard_params``): then the slice's forward runs with
 the collectives of ``parallel/tensor_parallel.py``.
@@ -63,9 +67,23 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from ..ops.attention import attention_core
 
 MASK_FILL = -1e9
+# the counters of ``cast``: bytes written by casts of parameters and of
+# activations
+PARAM = "cast_bytes.param"
+ACT = "cast_bytes.act"
+
+
+def cast(x, dtype, counter: str):
+    """``x.to(dtype)``; where that makes a copy, its bytes are added to
+    ``counter`` (``PARAM`` or ``ACT``) while the counters record."""
+    y = x.to(dtype)
+    if y is not x and obs.recording():
+        obs.count(counter, y.numel() * y.element_size())
+    return y
 
 
 def dropout(x, rate: float, rng: Optional[torch.Generator]):
@@ -86,7 +104,7 @@ def widen(x):
     """``x`` in float32 for the reductions, or float64 where it already is
     (a model whose compute dtype is float64: the float64 witness that
     ``chip_smoke.py`` holds float32 gradients to)."""
-    return x if x.dtype == torch.float64 else x.float()
+    return x if x.dtype == torch.float64 else cast(x, torch.float32, ACT)
 
 
 class Dense(nn.Module):
@@ -109,8 +127,8 @@ class Dense(nn.Module):
         if self.tp is not None:
             return self.tp.forward(self, x)
         dt = self.compute_dtype
-        y = torch.matmul(x.to(dt), self.weight.to(dt).t())
-        return y if self.bias is None else y + self.bias.to(dt)
+        y = torch.matmul(cast(x, dt, ACT), cast(self.weight, dt, PARAM).t())
+        return y if self.bias is None else y + cast(self.bias, dt, PARAM)
 
 
 class Embed(nn.Module):
@@ -122,7 +140,7 @@ class Embed(nn.Module):
         self.compute_dtype = dtype
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight).to(self.compute_dtype)
+        return cast(F.embedding(ids, self.weight), self.compute_dtype, ACT)
 
 
 class MultiHeadAttention(nn.Module):
@@ -188,14 +206,14 @@ class MultiHeadAttention(nn.Module):
             # a Python scalar: a tensor made here would be a blocking
             # host-to-device copy, a stream sync on every call
             scores = torch.where(mask, scores, MASK_FILL)
-        probs = torch.softmax(scores, dim=-1).to(self.compute_dtype)
+        probs = cast(torch.softmax(scores, dim=-1), self.compute_dtype, ACT)
         if self.capture is not None:
             store, prefix = self.capture
             n = sum(k.startswith(prefix) for k in store)
             store[f"{prefix}/[{n}]"] = probs.detach()
         probs = dropout(probs, self.dropout_rate, rng)
         out = torch.einsum("bhqk,bkhd->bqhd", widen(probs), widen(vh))
-        out = out.to(self.compute_dtype).reshape(B, Lq, self.d_model)
+        out = cast(out, self.compute_dtype, ACT).reshape(B, Lq, self.d_model)
         return self.wo(out)
 
     def forward(self, q, k, v, mask=None, rng=None):
@@ -300,7 +318,7 @@ class RefLayerNorm(nn.Module):
         m2 = (xs * xs).mean(-1, keepdim=True)
         var = torch.clamp(m2 - m1 * m1, min=0.0) * (d / max(d - 1, 1))
         y = (xs - m1) / (torch.sqrt(var) + self.eps)
-        return (y * self.scale + self.bias).to(self.compute_dtype)
+        return cast(y * self.scale + self.bias, self.compute_dtype, ACT)
 
 
 class LayerNorm(nn.Module):
@@ -323,7 +341,7 @@ class LayerNorm(nn.Module):
         mu2 = (xf * xf).mean(-1, keepdim=True)
         var = torch.clamp(mu2 - mu * mu, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.scale
-        return ((xf - mu) * mul + self.bias).to(self.compute_dtype)
+        return cast((xf - mu) * mul + self.bias, self.compute_dtype, ACT)
 
 
 class PreNormResidual(nn.Module):

@@ -65,7 +65,11 @@ global samples) and updates from the rank's rows of the scores.
 card) of steps [iteration, iteration + N), counted from the resumed
 iteration, written to ``<checkpoint_path>/profile/`` by rank 0, and
 stopped (and written) on an early exit or a crash too (JAX
-tools/train.py:238-250).
+tools/train.py:238-250).  The trace carries the program's own spans
+(``obs``), which record while the profiler does: each XE step's
+``bfc.xe.upload``, ``bfc.xe.forward``, ``bfc.xe.backward`` and
+``bfc.xe.optimizer``, and a validation's decodes' ``bfc.na.*`` and
+``bfc.ar.*`` where one falls inside those steps.
 
 NNAIC (``--cfg configs/nnaic.yml``) and PB_pad (``--cfg configs/pb.yml``: the batches
 carry the packed layouts, the validation decodes ``decode/pb.py``) train

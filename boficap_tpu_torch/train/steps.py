@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import losses as Lm
+from .. import obs
 from ..constants import BOS, EOS, PAD
 from ..data import phrase_ops as po
 from ..decode import ar as ar_mod
@@ -285,12 +286,15 @@ def make_xe_step(model, optimizer, label_smoothing: float = 0.0,
         if mesh is not None:
             batch = shard_batch(batch, mesh)
         # autograd records the forward: every attention on the plain path
-        with model.plain_attention(), Lm.sharded(_data_group(mesh)):
-            loss, metrics = xe_loss_fn(model, batch, rng, glat_p,
-                                       drop_worst, label_smoothing, ss_prob)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+        with obs.span("bfc.xe.forward"), model.plain_attention():
+            with Lm.sharded(_data_group(mesh)):
+                loss, metrics = xe_loss_fn(model, batch, rng, glat_p,
+                                           drop_worst, label_smoothing,
+                                           ss_prob)
+        with obs.span("bfc.xe.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
         return loss, {k: v.detach() for k, v in metrics.items()}, grads
 
     def step(batch, rng, glat_p=None, drop_worst: float = 0.0,
@@ -329,8 +333,9 @@ def make_xe_step(model, optimizer, label_smoothing: float = 0.0,
                 (~torch.isfinite(g)).sum() for g in grads)
             metrics["nonfinite_loss"] = (
                 ~torch.isfinite(metrics["loss"])).int()
-        optimizer.step(grads)
-        model.invalidate_packed()
+        with obs.span("bfc.xe.optimizer"):
+            optimizer.step(grads)
+            model.invalidate_packed()
         return metrics
 
     return step
@@ -342,7 +347,9 @@ def run_xe_step(step_fn, batch: Dict[str, Any], rng, glat_p=-1.0,
     """A loader batch through ``step_fn``: its arrays onto ``device`` (the
     model's), glat off for a negative rate."""
     g = glat_p if (glat_p is not None and glat_p >= 0) else None
-    return step_fn(to_device(batch, device), rng, g, drop_worst, ss_prob)
+    with obs.span("bfc.xe.upload"):
+        batch = to_device(batch, device)
+    return step_fn(batch, rng, g, drop_worst, ss_prob)
 
 
 # ---------------------------------------------------------------------------

@@ -6159,6 +6159,21 @@ def breakdown(model, att, am, reps: int = 5):
             "host_enqueue_ms": host, "wall_ms": wall}
 
 
+def device_rows(rows):
+    """(device us, name, count) of the rows of ``key_averages()`` that are
+    the card's own work.  A ``record_function`` label (the program's
+    ``bfc.*`` spans among them) comes back as a CUDA row whose device time
+    is the label's whole extent: such rows are left out."""
+    out = []
+    for row in rows:
+        dev_us = getattr(row, "self_device_time_total",
+                         getattr(row, "self_cuda_time_total", 0.0))
+        if (dev_us and str(getattr(row, "device_type", "")).endswith("CUDA")
+                and not getattr(row, "is_user_annotation", False)):
+            out.append((dev_us, row.key, row.count))
+    return out
+
+
 def profile_decode(fn):
     """Device busy share and kernel count of one decode, from
     torch.profiler (sum of CUDA kernel time over wall time)."""
@@ -6171,15 +6186,11 @@ def profile_decode(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy_us, n_kernels, top = 0.0, 0, []
-    for row in prof.key_averages():
-        dev_us = getattr(row, "self_device_time_total",
-                         getattr(row, "self_cuda_time_total", 0.0))
-        if dev_us and str(getattr(row, "device_type", "")).endswith("CUDA"):
-            busy_us += dev_us
-            n_kernels += row.count
-            top.append((dev_us, row.key[:60], row.count))
-    top.sort(reverse=True)
+    rows = device_rows(prof.key_averages())
+    busy_us = sum(dev_us for dev_us, _, _ in rows)
+    n_kernels = sum(count for _, _, count in rows)
+    top = sorted(((dev_us, key[:60], count) for dev_us, key, count in rows),
+                 reverse=True)
     return {"wall_ms": wall, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / wall if wall else None,
             "cuda_kernels": n_kernels,

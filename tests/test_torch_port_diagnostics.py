@@ -171,7 +171,8 @@ def _train_losses(ckpt):
 
 def test_profile_steps_writes_a_trace(tmp_path, capsys):
     """--profile_steps 2 on the training CLI: a trace under
-    <checkpoint_path>/profile/ with the steps' ops in it, 'profiler trace
+    <checkpoint_path>/profile/ with the steps' ops and the program's XE
+    spans in it, each span as often as the others, 'profiler trace
     written' printed, and the losses equal to a run without it."""
     base = ["--cfg", os.path.join(ROOT, "configs", "synthetic_smoke.yml"),
             "--id", "prof", "--device", "cpu", "--batch_size", "4",
@@ -191,5 +192,9 @@ def test_profile_steps_writes_a_trace(tmp_path, capsys):
     with open(os.path.join(runs["2"], "profile", traces[0])) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::mm" in str(e.get("name")) for e in events)
+    spans = [sum(e.get("name") == name for e in events)
+             for name in ("bfc.xe.upload", "bfc.xe.forward",
+                          "bfc.xe.backward", "bfc.xe.optimizer")]
+    assert spans[0] >= 1 and len(set(spans)) == 1
     assert len(_train_losses(runs["0"])) >= 2
     assert _train_losses(runs["2"]) == _train_losses(runs["0"])
