@@ -5,11 +5,13 @@ captioning/models/AttModel.py:307-430 and CaptionModel.py:48-222).
   * The step is the model's ``ar_step``: BoFiCap's per-layer KV caches
     (written in place) with the cross-attention K/V projected once per
     sequence, or an LSTM captioner's carry (``models/lstm_caption.py``).
-    With the model's ``use_pallas`` set, every step's cross-attentions
-    (AoANet's decoder attention) take the attention-core kernel
-    (``ops/attention.py``), as in the JAX package.  A beam search reorders
-    the cache by the model's ``gather_ar_cache``; each beam group starts
-    from its own ``copy_ar_cache`` of one ``init_ar_cache``.
+    With the model's ``use_pallas`` set, every step's attentions take the
+    attention-core kernel (``ops/attention.py``): BoFiCap's
+    cross-attentions, as in the JAX package, and its self-attentions over
+    the cache rows written so far; AoANet's decoder attention.  A beam
+    search reorders the cache by the model's ``gather_ar_cache``; each
+    beam group starts from its own ``copy_ar_cache`` of one
+    ``init_ar_cache``.
   * ``ar_sample`` runs a fixed ``n_steps`` loop with per-sample
     ``unfinished`` masks and no host sync: a finished row writes PAD and
     zero log-prob / entropy, so the result equals the JAX package's

@@ -17,7 +17,8 @@ Numerics follow the JAX modules:
 every attention with a rank-2 or rank-3 mask through the attention-core
 kernel (``ops/attention.py``), as the JAX package's ``use_pallas`` routes
 them to its TPU kernel; here it is a per-module attribute, not a process
-global.
+global.  ``attend`` counts its calls by branch (``obs``:
+``attend_calls.core``, ``attend_calls.plain``) while the counters record.
 
 ``AttentionRouting.capture_attention`` is the JAX package's
 ``set_capture_attention`` (its layers.py:34-38): inside it every
@@ -75,6 +76,9 @@ MASK_FILL = -1e9
 # activations
 PARAM = "cast_bytes.param"
 ACT = "cast_bytes.act"
+# the counters of ``MultiHeadAttention.attend``: calls by branch
+CORE_CALLS = "attend_calls.core"
+PLAIN_CALLS = "attend_calls.plain"
 
 
 def cast(x, dtype, counter: str):
@@ -191,11 +195,13 @@ class MultiHeadAttention(nn.Module):
                              "attention: turn use_pallas off")
         if (self.use_core and self.capture is None and rng is None
                 and mask is not None and mask.dim() in (2, 3)):
+            obs.count(CORE_CALLS, 1)
             Lk = kh.shape[1]
             m3 = mask[:, None, :] if mask.dim() == 2 else mask
             out = attention_core(qh.transpose(1, 2), kh.transpose(1, 2),
                                  vh.transpose(1, 2), m3.expand(B, Lq, Lk))
             return self.wo(out.transpose(1, 2).reshape(B, Lq, self.d_model))
+        obs.count(PLAIN_CALLS, 1)
         scores = torch.einsum("bqhd,bkhd->bhqk", widen(qh),
                               widen(kh)) / math.sqrt(Dh)
         if mask is not None:
@@ -528,17 +534,26 @@ class DecoderLayer(nn.Module):
         """One causal decode step (deterministic): x_t [B, 1, d] at 0-based
         position ``pos``.  Returns (out_t [B, 1, d], cache).  Unlike the
         JAX package's immutable arrays, the cache's self-attention K/V are
-        written IN PLACE at ``pos`` and the same dict comes back.  ``vis``:
-        the rank-4 visibility mask of keys <= pos (``step_mask``, made once
-        a step for all layers); rank 4 keeps the self-attention on the plain
-        path, as in the JAX package, while the cross-attention's [B, R]
-        mask may take the attention core."""
+        written IN PLACE at ``pos`` and the same dict comes back.  ``vis``,
+        the self-attention's mask, is made once a step for all layers
+        (``Decoder.step``).  With the self-attention's ``use_core`` it is
+        an all-True [B, pos + 1], and the attention core reads the written
+        rows 0..pos alone (views of the cache, read in place); else it is
+        the rank-4 visibility mask of keys <= pos (``step_mask``) over every
+        row, on the plain path, as in the JAX package.  The
+        cross-attention's [B, R] mask may take the attention core either
+        way."""
         n = self.sub0.norm_only(x_t)
         kh, vh = self.self_attn.project_kv(n)
         ks, vs = cache["ks"], cache["vs"]
         ks[:, pos] = kh[:, 0]
         vs[:, pos] = vh[:, 0]
-        att = self.self_attn.attend(self.self_attn.project_q(n), ks, vs, vis)
+        q = self.self_attn.project_q(n)
+        if self.self_attn.use_core:
+            att = self.self_attn.attend(q, ks[:, :pos + 1], vs[:, :pos + 1],
+                                        vis)
+        else:
+            att = self.self_attn.attend(q, ks, vs, vis)
         x = x_t + att
         q1 = self.src_attn.project_q(self.sub1.norm_only(x))
         x = x + self.src_attn.attend(q1, cache["kc"], cache["vc"], src_mask)
@@ -577,12 +592,24 @@ class Decoder(nn.Module):
         return self.norm(x)
 
     def init_cache(self, memory, max_len: int):
-        return [layer.init_cache(memory, max_len) for layer in self.layers()]
+        """Every layer's cache (``DecoderLayer.init_cache``), each holding
+        ``keep``, one all-True [max_len] row made once a decode: the
+        attention core's mask of the written keys (``step``)."""
+        keep = torch.ones(max_len, dtype=torch.bool, device=memory.device)
+        return [{**layer.init_cache(memory, max_len), "keep": keep}
+                for layer in self.layers()]
 
     def step(self, x_t, caches, pos: int, src_mask):
         """One KV-cached step through every layer (caches updated in
-        place), then the final norm."""
-        vis = step_mask(caches[0]["ks"].shape[1], pos, x_t.device)
+        place), then the final norm.  The self-attention's mask, made once
+        for all layers by the routing ``set_attention_core`` gives them
+        alike: on the attention core, ``keep``'s first pos + 1 entries
+        expanded over B (batch stride 0, no copy); else ``step_mask``."""
+        if self.layer0.self_attn.use_core:
+            vis = caches[0]["keep"][None, :pos + 1].expand(x_t.shape[0],
+                                                           pos + 1)
+        else:
+            vis = step_mask(caches[0]["ks"].shape[1], pos, x_t.device)
         for layer, cache in zip(self.layers(), caches):
             x_t, _ = layer.step(x_t, cache, pos, src_mask, vis)
         return self.norm(x_t), caches

@@ -35,7 +35,10 @@ caller of the program puts around its calls.  The sites:
   device, the forward and loss, autograd, the clip and update;
 * counters ``cast_bytes.param`` and ``cast_bytes.act``
   (``models/layers.py::cast``): bytes written by each cast of a parameter,
-  or of an activation, to another dtype.
+  or of an activation, to another dtype;
+* counters ``attend_calls.core`` and ``attend_calls.plain``
+  (``models/layers.py::MultiHeadAttention.attend``): its calls that took
+  the attention core, and those that took the plain path.
 """
 
 from __future__ import annotations

@@ -8,8 +8,10 @@ the ~7 ops of the plain path (two einsums, the scale, the fill, the
 softmax, two casts).  ``MultiHeadAttention.attend`` routes to it where the
 JAX package routes to its TPU kernel: with the model's ``use_pallas`` set
 (``BoFiCap.set_attention_core``) and a mask of rank 2 or 3.  On the decode
-paths that is every cross-attention of the KV-cached AR step and both
-attentions of every bounding step, loops bound by the host.
+paths that is both attentions of the KV-cached AR step (the self-attention
+over the cache's rows written so far, views read in place; the
+cross-attention over the regions) and both attentions of every bounding
+step.
 
 The layout is the JAX package's: q [B, H, Lq, Dh], k / v [B, H, Lk, Dh],
 a bool mask [B, Lq, Lk] (True = attend), the output [B, H, Lq, Dh] in q's

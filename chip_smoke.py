@@ -42,9 +42,11 @@ Phases, each printing one JSON line:
               around this run; then route='auto' at both dtypes, as in
               phase serve.
   8. attention  the attention core (#9) against its plain version at the
-              shapes of the AR step's cross-attention, the bounding step
-              (a query broadcast over the batch), beam search (B*K = 192),
-              an encoder self-attention (rank-2 mask over 36 rows) and a
+              shapes of the AR step's cross-attention, its self-attention
+              (views of the first 1, 11 and 21 rows of a 21-row cache, a
+              mask of sample stride 0), the bounding step (a query
+              broadcast over the batch), beam search (B*K = 192), an
+              encoder self-attention (rank-2 mask over 36 rows) and a
               rank-3 mask, float32 and bfloat16, with fully masked rows and
               padded regions: the path attention_path gives (the decode
               steps' cases must take the row path) and every other path of
@@ -52,13 +54,13 @@ Phases, each printing one JSON line:
               ffma_long at float32).
   9. ar_decode  configs/transformer.yml at full width, float32, B = 64:
               ar_sample and ar_beam_search (K = 3) with use_pallas on (#9
-              on every step's cross-attention) against off (the plain
-              attend); uic_s_ar_decode on a configs/uic_s_ori.yml model and
-              the NA decode on uic_sd, both ways; then the AR decode at the
-              default bfloat16 against its plain path.
+              on every step's self- and cross-attention) against off (the
+              plain attend); uic_s_ar_decode on a configs/uic_s_ori.yml
+              model and the NA decode on uic_sd, both ways; then the AR
+              decode at the default bfloat16 against its plain path.
  10. aic_serve  the AR main path: CaptionServer(mode="AIC") at the default
               dtype with use_pallas on, the same requests (AIC has one
-              program, as in the JAX server); #9 launches 6 x steps x
+              program, as in the JAX server); #9 launches 2 x 6 x steps x
               batches, the encoder-stack kernel at least once.
  11. eval     the evaluation path at full uic_sd width: the bf16 model
               (random weights, plans nudged) written as the JAX package's
@@ -179,7 +181,7 @@ Phases, each printing one JSON line:
               G 2 with decoding_constraint's exact -inf: the row
               buffers' -inf entries equal, the rest within
               1e-3, unaug_p within 1e-5 relative) and ar_diverse_sample
-              (dgreedy, 3 groups), #9's launches (6 x 20 a group) and ms
+              (dgreedy, 3 groups), #9's launches (2 x 6 x 20 a group) and ms
               on and off; eval_split with sample_n 3 by bs, dbs and
               sample, the multi-sample metrics in lang_stats.
  16. pb       PB_pad (configs/pb.yml at full width, random weights from
@@ -242,7 +244,9 @@ Phases, each printing one JSON line:
               at bf16, six FFMA products at float32); #3's split into
               head_partial and head_combine at both dtypes; the attention
               block alone at each caller's shape (path, ms, byte bound,
-              SDPA) and on each path at 1, 2, 4 and 8 query rows; one
+              SDPA) and on each path at 1, 2, 4 and 8 query rows, and at
+              bf16 the AR step's self-attention at the AR cell's batch
+              (B = 16384, 1, 11 and 21 keys: ms, byte bound); one
               refnorm at 512 and 2304 rows against its byte bound; host µs
               of a layer, a stack and a window-stack call at bf16 and
               float32; #1, #2, #4-#8 and #9 over 196 regions (ms, bound,
@@ -1217,7 +1221,8 @@ def attention_cases(dtype, seed: int = 21, regions: int = R):
     """#9's operands as MultiHeadAttention.attend hands them over (views of
     [B, L, H, Dh] projections, masks expanded over the query rows), by
     case: (q, k, v, mask).  Padded regions, and a fully masked sample or
-    row in each case."""
+    row in each case but the AR step's self-attention (ar_self_cases),
+    where every key written is visible."""
     g = torch.Generator().manual_seed(seed)
     H = 8
     Dh = D // H
@@ -1257,12 +1262,43 @@ def attention_cases(dtype, seed: int = 21, regions: int = R):
         # a rank-3 mask (the plain NA fill under use_pallas)
         "rank3": (heads(B, L), heads(B, L), heads(B, L), r3.to(DEV)),
     }
-    return {name: (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), m)
-            for name, (q, k, v, m) in cases.items()}
+    return {**{name: (q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), m)
+               for name, (q, k, v, m) in cases.items()},
+            **ar_self_cases(dtype, B, g)}
+
+
+# the KV-cached AR step's self-attention: the keys 0..pos of an L + 1 row
+# cache at its first, middle and last step
+AR_SELF_KEYS = (1, L // 2 + 1, L + 1)
+# the batch of the benchmark's AR cell (transformer.ar_offline_b16384)
+AR_CELL_B = 16384
+
+
+def ar_self_cases(dtype, n: int, g) -> dict:
+    """#9's operands on the KV-cached AR step's self-attention as
+    Decoder.step and DecoderLayer.step hand them over, n samples, by key
+    count k of AR_SELF_KEYS (case ``ar_self_{k}``): one query row; K and V
+    the views [:, :k] of [n, L + 1, H, Dh] caches (the sample stride the
+    whole cache's), transposed; the mask keep[None, :k] of an all-True
+    [L + 1] row, expanded over the samples and the row (strides 0)."""
+    H, Dh = 8, D // 8
+
+    def heads(rows):
+        return torch.randn((n, rows, H, Dh), generator=g).to(
+            DEV, dtype).transpose(1, 2)
+
+    ks, vs = heads(L + 1), heads(L + 1)
+    keep = torch.ones(L + 1, dtype=torch.bool, device=DEV)
+    return {f"ar_self_{k}": (heads(1), ks[:, :, :k], vs[:, :, :k],
+                             keep[None, :k].expand(n, k)[:, None, :]
+                             .expand(n, 1, k))
+            for k in AR_SELF_KEYS}
 
 
 # the cases of a decode step (one query row): they take the row path
-ROW_CASES = ("ar_cross", "bound_self", "beam_cross")
+ROW_CASES = ("ar_cross", "bound_self", "beam_cross",
+             *(f"ar_self_{k}" for k in AR_SELF_KEYS))
 
 
 def dtype_paths(dtype):
@@ -1477,16 +1513,16 @@ def check_ar_decodes(aic, uic_s, uic_sd):
     want, margin = plain_ar(aic, ar_sample, mem, src)
     got, c = counted(lambda: with_core(aic, True,
                                        lambda: ar_sample(aic, mem, src)))
-    if c["attention_core"] != NLd * L:
+    if c["attention_core"] != 2 * NLd * L:
         fail(f"ar_sample: attention_core launched {c['attention_core']} "
-             f"times, not {NLd} layers x {L} steps")
+             f"times, not 2 x {NLd} layers x {L} steps")
     res["ar_sample"] = {**ar_agree(got, want, margin, "ar_sample"),
                         "attention_core_launches": c["attention_core"]}
 
     want, mins = beam_margins(aic, mem, src, K_BEAM)
     got, c = counted(lambda: with_core(aic, True, lambda: ar_beam_search(
         aic, mem, src, beam_size=K_BEAM)))
-    if c["attention_core"] != NLd * L:
+    if c["attention_core"] != 2 * NLd * L:
         fail(f"ar_beam_search: attention_core launched {c['attention_core']}")
     res["ar_beam_search"] = {"beam_size": K_BEAM,
                              **beam_agree(got, want, mins, "ar_beam_search"),
@@ -1496,10 +1532,10 @@ def check_ar_decodes(aic, uic_s, uic_sd):
     want, margin = plain_ar(uic_s, uic_s_ar_decode, mem, src)
     got, c = counted(lambda: with_core(uic_s, True, lambda: uic_s_ar_decode(
         uic_s, mem, src)))
-    if c["attention_core"] != 2 * L + uic_s.N_dec * L:
+    if c["attention_core"] != 2 * L + 2 * uic_s.N_dec * L:
         fail(f"uic_s_ar_decode: attention_core launched "
              f"{c['attention_core']}, not 2 x {L} bounding + "
-             f"{uic_s.N_dec} x {L} AR")
+             f"2 x {uic_s.N_dec} x {L} AR")
     res["uic_s_ar_decode"] = {
         **ar_agree(got, want, margin, "uic_s_ar_decode", plan=True),
         "planned_words": int(want["phrase_length"].sum()),
@@ -3725,8 +3761,9 @@ def old_beam_agree(got, want, mins, what: str) -> dict:
 @torch.no_grad()
 def check_diverse(aic, att, am) -> dict:
     """float32, B = 64: each diverse decode with use_pallas on (#9 on
-    every step's cross-attention) against off, on one encoder memory, by
-    the margin rule; #9's launches (N_dec x L a group) and each decode's
+    every step's self- and cross-attention) against off, on one encoder
+    memory, by the margin rule; #9's launches (2 x N_dec x L a group) and
+    each decode's
     ms with the core on and off (CUDA events, the mean of 3)."""
     from boficap_tpu_torch.decode import ar
     from boficap_tpu_torch.decode.bound_fill import fused_encode
@@ -3749,10 +3786,11 @@ def check_diverse(aic, att, am) -> dict:
         want, margin = (sampled_margins if sample else
                         lambda f: topk_margins(f, B))(decode)
         got, c = counted(lambda: with_core(aic, True, decode))
-        want_launches = aic.N_dec * L * G
+        want_launches = 2 * aic.N_dec * L * G
         if c["attention_core"] != want_launches:
             fail(f"{name}: attention_core launched {c['attention_core']} "
-                 f"times, not {aic.N_dec} layers x {L} steps x {G} groups")
+                 f"times, not 2 x {aic.N_dec} layers x {L} steps x {G} "
+                 f"groups")
         if sample:
             flat = {k: want[k].flatten(1) for k in want}
             r = ar_agree({k: got[k].flatten(1) for k in got}, flat, margin,
@@ -5484,7 +5522,8 @@ def measure_attention_paths():
     path of the dtype forced where it fits.  Then the row path's edge: Lq =
     1, 2, 4 and 8 over 36 keys on the row path and the tile (bf16) or ffma
     (float32) block, forced (LQ_ROW is the largest Lq at which the row path
-    wins)."""
+    wins).  At bf16 besides, the AR step's self-attention at the AR cell's
+    batch (ar_self_cases at AR_CELL_B): ms, byte bound and share."""
     from boficap_tpu_torch.ops import attention as at
     g = torch.Generator().manual_seed(23)
     H, Dh = 8, D // 8
@@ -5515,6 +5554,18 @@ def measure_attention_paths():
                 "ms": ms, "bound_ms": bound, "bound_by": by,
                 "share_of_bound": bound / ms,
                 "sdpa_ms": device_ms(lambda: library_attention(q, k, v, m))}
+        if dtype == torch.bfloat16:
+            # the AR cell's batch and dtype: its step's self-attention
+            for name, (q, k, v, m) in ar_self_cases(dtype, AR_CELL_B,
+                                                    g).items():
+                ms = device_ms(lambda: at.attention_core(q, k, v, m))
+                bound, by = attention_bound(q, k, v, m, dtype_name)
+                res[f"{name}_b{AR_CELL_B}"] = {
+                    "lq_lk_b": [1, k.shape[2], AR_CELL_B],
+                    "path": at.attention_path(1, k.shape[2], dtype),
+                    "ms": ms, "bound_ms": bound, "bound_by": by,
+                    "share_of_bound": bound / ms}
+            del q, k, v, m
         for Lq, Lk in LONG_ATTENTION:
             q, k, v, m = operands(dtype, Lq, Lk)
             bound, by = attention_bound(q, k, v, m, dtype_name)
@@ -5946,10 +5997,10 @@ def measure_ar(aic, aic16, model16):
 def ar_breakdown(model, att, am, reps: int = 3):
     """Where one bf16 AR decode's time goes with use_pallas on: CUDA events
     around the encode (encoder-stack kernel), the cache set-up (cross K/V
-    of every layer), the decoder steps (six layers each, #9 on the
-    cross-attention) and the head (generator + log-softmax); 'other' is the
-    rest of the device timeline (embedding, selection, bookkeeping, and
-    idle while the host enqueues).  Host enqueue time against wall time
+    of every layer), the decoder steps (six layers each, #9 on the self-
+    and cross-attention) and the head (generator + log-softmax); 'other'
+    is the rest of the device timeline (embedding, selection, bookkeeping,
+    and idle while the host enqueues).  Host enqueue time against wall time
     says whether the host bounds the decode."""
     from boficap_tpu_torch.decode.ar import ar_sample
     from boficap_tpu_torch.decode.bound_fill import fused_encode
@@ -6779,11 +6830,11 @@ def run_phases(smi: str):
     aic16.set_attention_core(True)          # the server's model: use_pallas
     aic_served = check_serve(aic16, "AIC", AIC_KERNELS)
     n_batches = len(aic_served["batch_sizes"])
-    want = aic16.N_dec * L * n_batches
+    want = 2 * aic16.N_dec * L * n_batches
     if aic_served["launches"]["attention_core"] != want:
         fail(f"aic_serve: attention_core launched "
              f"{aic_served['launches']['attention_core']} times, not "
-             f"{aic16.N_dec} layers x {L} steps x {n_batches} batches")
+             f"2 x {aic16.N_dec} layers x {L} steps x {n_batches} batches")
     aic16.set_attention_core(False)
     emit({"phase": "aic_serve", "card": smi, "use_pallas": True,
           "attention_core_expected": want, **aic_served})
@@ -6901,6 +6952,11 @@ def run_phases(smi: str):
             kernels[-1]["bf16"]["launches"] = bf16_dec[
                 "na_decode_b256_per_layer"]["launches"][name]
         if name == "attention_core":
+            # the AR step's self-attention over the cache rows written
+            kernels[-1]["ar_self_max_abs_err"] = {
+                dt: {case: att_errs[dt][case]["max_abs_err"]
+                     for case in att_errs[dt] if case.startswith("ar_self")}
+                for dt in ("float32", "bfloat16")}
             # past the row path's 128 keys: PB_pad's packed widths
             kernels[-1]["pb_past_key_bound"] = {
                 case: {key: r[key] for key in (

@@ -86,6 +86,35 @@ def test_attention_core_takes_views():
     at.check_operands(qv, kb.transpose(1, 2), vb.transpose(1, 2), mv)
 
 
+@pytest.mark.parametrize("n_keys", [1, 11, 21])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_core_takes_the_ar_step_cache(dtype, n_keys):
+    """What the KV-cached AR step hands the kernel for its self-attention
+    (Decoder.step, DecoderLayer.step): K and V the views [:, :n_keys] of
+    [B, 21, H, Dh] caches, transposed, and an all-True row expanded over
+    the batch (sample stride 0) and the query row.  Every path of the
+    dtype takes them, and they give the result of the contiguous operands
+    (float32: up to the order of its sums)."""
+    B, H, Dh, rows = 3, 8, 64, 21
+    g = torch.Generator().manual_seed(n_keys)
+    q = torch.randn(B, 1, H, Dh, generator=g).to(dtype).transpose(1, 2)
+    ks = torch.randn(B, rows, H, Dh, generator=g).to(dtype)
+    vs = torch.randn(B, rows, H, Dh, generator=g).to(dtype)
+    keep = torch.ones(rows, dtype=torch.bool)
+    mv = keep[None, :n_keys].expand(B, n_keys)[:, None, :].expand(
+        B, 1, n_keys)
+    k, v = ks[:, :n_keys].transpose(1, 2), vs[:, :n_keys].transpose(1, 2)
+    assert mv.stride(0) == 0 and k.stride(0) == rows * H * Dh
+    for path in (None, *(("row", "tile") if dtype == torch.bfloat16 else
+                         ("row", "ffma", "ffma_long"))):
+        at.check_operands(q, k, v, mv, path)
+    assert at.attention_path(1, n_keys, dtype) == "row"
+    got = at.attention_core(q, k, v, mv)
+    want = at.attention_core(q, k.contiguous(), v.contiguous(),
+                             mv.contiguous())
+    torch.testing.assert_close(got, want)
+
+
 @pytest.mark.parametrize("mask_rank", [2, 3, 4])
 def test_attend_routes_rank_2_and_3_masks(monkeypatch, mask_rank):
     """use_core sends a rank-2/3-masked attend through the attention core
@@ -199,6 +228,9 @@ CALLERS = {
     "ar_cross": (1, 36, "row", "row"),
     "bound_self": (1, 22, "row", "row"),
     "beam_cross": (1, 36, "row", "row"),
+    "ar_self_1": (1, 1, "row", "row"),
+    "ar_self_11": (1, 11, "row", "row"),
+    "ar_self_21": (1, 21, "row", "row"),
     "encoder_self": (36, 36, "ffma", "tile"),
     "rank3": (20, 20, "ffma", "tile"),
     "decoder_self": (20, 20, "ffma", "tile"),

@@ -1275,8 +1275,9 @@ def test_nnaic_decode_kernels_match_plain(cuda, stacked):
 
 def test_diverse_beam_search_core_matches_plain(cuda):
     """float32, beam 4 in 2 groups: the attention core (#9) on every step's
-    cross-attention against the plain attend, beams identical, scores and
-    token log-probs within 1e-4; #9 launched N_dec x L x G times."""
+    self- and cross-attention against the plain attend, beams identical,
+    scores and token log-probs within 1e-4; #9 launched 2 x N_dec x L x G
+    times."""
     from boficap_tpu_torch.decode import ar
     from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
     model = _small_model(cuda, "AIC")
@@ -1295,12 +1296,57 @@ def test_diverse_beam_search_core_matches_plain(cuda):
         reset_launch_counts()
         got = ar.ar_diverse_beam_search(model, mem, src, **kw)
         torch.cuda.synchronize()
-        assert launch_counts()["attention_core"] == 2 * 8 * 2
+        assert launch_counts()["attention_core"] == 2 * 2 * 8 * 2
     finally:
         model.set_attention_core(False)
     assert torch.equal(got["seq"], want["seq"])
     for k in ("scores", "tok_logprobs"):
         assert (got[k] - want[k]).abs().max().item() <= 1e-4, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ar_step_self_attention_core_matches_plain(cuda, dtype):
+    """Full width, B = 512, steps 0-19 of a 21-row cache: DecoderLayer.step
+    with the self-attention on #9 over the rows 0..pos, read in place,
+    against the plain rank-4 step from the same cache (the cross-attention
+    on #9 in both): the outputs within TOL, the cache writes bitwise; NaN
+    in the rows past pos leaves the core step's output finite and bitwise
+    the same; #9 launched twice a step."""
+    from boficap_tpu_torch.ops import launch_counts, reset_launch_counts
+    B, R, L, D = 512, 36, 20, 512
+    layer = _layer(tl.DecoderLayer, D, 2048, 8, dtype).to(cuda)
+    layer.src_attn.use_core = True
+    g = torch.Generator().manual_seed(11)
+    memory = torch.randn(B, R, D, generator=g).to(cuda, dtype)
+    n_live = torch.randint(1, R + 1, (B, 1), generator=g)
+    src = (torch.arange(R)[None, :] < n_live).to(cuda)
+    xs = torch.randn(L, B, 1, D, generator=g).to(cuda, dtype)
+    with torch.no_grad():
+        cache = layer.init_cache(memory, L + 1)
+        keep = torch.ones(L + 1, dtype=torch.bool, device=cuda)
+        for pos in range(L):
+            core_cache = {k: v.clone() for k, v in cache.items()}
+            poisoned = {k: v.clone() for k, v in cache.items()}
+            poisoned["ks"][:, pos + 1:] = float("nan")
+            poisoned["vs"][:, pos + 1:] = float("nan")
+            vis = keep[None, :pos + 1].expand(B, pos + 1)   # as Decoder.step
+            layer.self_attn.use_core = True
+            try:
+                reset_launch_counts()
+                got, _ = layer.step(xs[pos], core_cache, pos, src, vis)
+                torch.cuda.synchronize()
+                launches = launch_counts()["attention_core"]
+                got_nan, _ = layer.step(xs[pos], poisoned, pos, src, vis)
+            finally:
+                layer.self_attn.use_core = False
+            want, _ = layer.step(xs[pos], cache, pos, src,
+                                 tl.step_mask(L + 1, pos, cuda))
+            assert launches == 2, pos
+            assert _rel(got, want) <= TOL[dtype], pos
+            for k in ("ks", "vs"):
+                assert torch.equal(core_cache[k], cache[k]), (pos, k)
+            assert torch.isfinite(got_nan).all(), pos
+            assert torch.equal(got_nan, got), pos
 
 
 @pytest.mark.parametrize("Lq,Lk", [(129, 129), (211, 211), (256, 256),
